@@ -1,0 +1,136 @@
+"""K2: the streaming P2P kernel, its plain version and its wrapper.
+
+The same Laplace sum as K1 (`kernels.p2p`), over one unified tile table for
+every P2P width class (`engine.schedules.build_p2p_stream_tables`), with the
+gather done inside the kernel:
+
+  meta     (Ti, 4) int32 — [src_start, src_len, tgt_start, tgt_len] per tile;
+           tiles with tgt_len == 0 are dead padding and return zeros.
+  payload  (4, F) float32 — structure of arrays [x; y; z; q] over the flat
+           body axis, with at least max(smax, block_t) zero rows at the end
+           (`engine.p2p.stream_payload`).
+
+Tile i sums the (4, smax) source slab starting at src_start, with q masked
+to 0 past src_len, into every lane of the (4, block_t) target slab starting
+at tgt_start; lanes past tgt_len carry real sums that the caller drops
+through the table's `out_valid`.
+
+`p2p_stream` replaces the Pallas TPU kernel
+`repro.kernels.p2p_stream.p2p_stream` with the hand-written CUDA kernel
+`csrc/p2p_stream.cu` (sm_90a, bound through ctypes).  On this card it is
+bound by device-memory bytes, like K1, but reads the payload in place
+instead of materialising gathered operands; each block reads its own meta
+row, stages its source slab once in shared memory, and runs the tile body it
+shares with K1, so the two agree bit for bit on identical slabs (see the
+note in the source).  `p2p_stream_gathered` is the plain PyTorch version
+(the counterpart of `repro.core.engine.p2p.p2p_stream_gathered`): it gathers
+the same slabs and runs K1's plain version on them.
+
+`launches` counts kernel launches: the wrapper adds one where it launches
+the kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.build import library
+from repro_torch.kernels.p2p import p2p_ref
+
+__all__ = ["p2p_stream", "p2p_stream_gathered", "stream_slabs"]
+
+launches = 0
+
+_ELEMS_PER_CHUNK = 1 << 26      # (tiles x block_t x smax) pairs per step
+
+
+def stream_slabs(meta, payload, *, block_t: int, smax: int):
+    """The slabs tile by tile, as K1's operands: q (Ti, smax) masked past
+    src_len, x_src (Ti, smax, 3), x_tgt (Ti, block_t, 3)."""
+    lane_s = torch.arange(smax, device=meta.device)
+    lane_t = torch.arange(block_t, device=meta.device)
+    m = meta.long()
+    src = payload[:, m[:, 0:1] + lane_s[None, :]]          # (4, Ti, smax)
+    tgt = payload[:, m[:, 2:3] + lane_t[None, :]]          # (4, Ti, block_t)
+    q = torch.where(lane_s[None, :] < m[:, 1:2], src[3],
+                    torch.zeros((), dtype=payload.dtype,
+                                device=payload.device))
+    return (q.contiguous(), src[:3].permute(1, 2, 0).contiguous(),
+            tgt[:3].permute(1, 2, 0).contiguous())
+
+
+def p2p_stream_gathered(meta, payload, *, block_t: int, smax: int):
+    """Plain version: meta (Ti, 4) int32, payload (4, F) f32 ->
+    (Ti, block_t) f32.  Tiles go in chunks of at most 2^26 pairs."""
+    Ti = meta.shape[0]
+    out = torch.empty(Ti, block_t, dtype=payload.dtype, device=payload.device)
+    step = max(1, _ELEMS_PER_CHUNK // max(block_t * smax, 1))
+    for a in range(0, Ti, step):
+        m = meta[a:a + step]
+        q, xs, xt = stream_slabs(m, payload, block_t=block_t, smax=smax)
+        phi = p2p_ref(q, xs, xt)
+        out[a:a + step] = torch.where((m[:, 3] > 0)[:, None], phi,
+                                      torch.zeros((), dtype=phi.dtype,
+                                                  device=phi.device))
+    return out
+
+
+def _check(meta, payload, block_t, smax):
+    if meta.dim() != 2 or meta.shape[1] != 4 or meta.dtype != torch.int32:
+        raise ValueError(f"p2p_stream: meta must be (Ti, 4) int32, got "
+                         f"{tuple(meta.shape)} {meta.dtype}")
+    if payload.dim() != 2 or payload.shape[0] != 4 \
+            or payload.dtype != torch.float32:
+        raise ValueError(f"p2p_stream: payload must be (4, F) float32, got "
+                         f"{tuple(payload.shape)} {payload.dtype}")
+    if meta.device != payload.device:
+        raise ValueError(f"p2p_stream: meta on {meta.device}, payload on "
+                         f"{payload.device}")
+    if block_t < 1 or smax < 1:
+        raise ValueError(f"p2p_stream: block_t and smax must be positive, "
+                         f"got {block_t}, {smax}")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = library("p2p_stream.cu")
+    lib.repro_p2p_stream.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.repro_p2p_stream.restype = ctypes.c_int
+    lib.repro_p2p_stream_error_string.argtypes = [ctypes.c_int]
+    lib.repro_p2p_stream_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def p2p_stream(meta, payload, *, block_t: int, smax: int):
+    """meta (Ti, 4) int32, payload (4, F) float32 -> (Ti, block_t) float32.
+    CPU tensors run `p2p_stream_gathered`; CUDA tensors launch K2 on the
+    current stream (raising if the launch fails); any other device raises."""
+    global launches
+    _check(meta, payload, block_t, smax)
+    dev = payload.device
+    if dev.type == "cpu":
+        return p2p_stream_gathered(meta, payload, block_t=block_t, smax=smax)
+    if dev.type != "cuda":
+        raise ValueError(f"p2p_stream: unsupported device {dev}")
+    if not (meta.is_contiguous() and payload.is_contiguous()):
+        raise ValueError("p2p_stream: meta and payload must be contiguous")
+    Ti = meta.shape[0]
+    out = torch.empty(Ti, block_t, dtype=torch.float32, device=dev)
+    if Ti == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_p2p_stream(meta.data_ptr(), payload.data_ptr(),
+                                   out.data_ptr(), Ti, payload.shape[1],
+                                   block_t, smax, stream)
+    if err != 0:
+        raise RuntimeError("p2p_stream kernel launch failed: "
+                           + lib.repro_p2p_stream_error_string(err).decode())
+    launches += 1
+    return out
