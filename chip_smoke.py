@@ -4,31 +4,46 @@
     python3 chip_smoke.py            # N = 2^20 bodies, the default
     python3 chip_smoke.py --n 65536  # a smaller run of the same phases
 
-Drives the port's main path — `FMMSession.from_points(x, q, spec).evaluate()`
-on the card — on the repository's default workload: a sphere-surface
-(boundary) distribution from `make_distribution("sphere", N, seed=42)`,
-charges uniform in [-1, 1] from `default_rng(0)`, and
+Drives the port's main path on the card — `FMMSession.from_points(x, q,
+spec)` (planned with the device dual traversal and its MAC kernel K3),
+`.evaluate()` and `.step(new_x)` — on the repository's default workload: a
+sphere-surface (boundary) distribution from `make_distribution("sphere", N,
+seed=42)`, charges uniform in [-1, 1] from `default_rng(0)`, and
 `PartitionSpec(nparts=8, method="orb", theta=0.5, ncrit=64, p=4)`.
 
 Phases, in order; any failed check raises and ends the run non-zero:
 
-  1. the card's name and power limit; build both CUDA kernels from
+  1. the card's name and power limit; build the three CUDA kernels from
      `src/repro_torch/kernels/csrc` with nvcc (sm_90a, one process each);
-  2. plan the N-body geometry, then hold each kernel against its plain
-     PyTorch version on the card at the main path's shapes (K1 on every
-     P2P bucket, K2 on the stream table) and K1 against K2 bit for bit on
+  2. plan the N-body geometry with the device traversal (K3's launch count
+     set to 0 just before, read just after) and with the host traversal,
+     and compare every receiver's pair lists: a difference is allowed only
+     where it starts at a borderline pair (|float64 margin| <= 1e-4 (R_A +
+     R_B), or a float32 tie of the radii that decides which cell splits),
+     each printed; slacks agree at rtol 1e-4 / atol 1e-7 (the reference's
+     tests/test_traversal_device.py);
+  3. hold each kernel against its plain PyTorch version on the card at the
+     main path's shapes: K3 bit for bit on the largest frontier of that
+     planning and on every generation of one full traversal, K1 on every
+     P2P bucket, K2 on the stream table, and K1 against K2 bit for bit on
      identical slabs; time kernel and plain version with CUDA events;
-  3. at N = 20,000 the engine on the card against the engine on the CPU,
+  4. at N = 20,000 the engine on the card against the engine on the CPU,
      at rtol 1e-5 / atol 1e-4 plus 1e-6 of sum_j |q_j| / r_ij: both sum
      float32 terms in different orders (the card's atomics change order
      from run to run), so each potential's rounding scales with the sum of
      its absolute terms (~1e4 here), not with the potential, which cancels;
-  4. the main path at N, gathered (K1) then streaming (K2), with every
+     then a within-slack and a beyond-slack step of a card session and a
+     CPU session (planned with K3's plain version) at the same tolerance;
+  5. the main path at N, gathered (K1) then streaming (K2), with every
      launch count set to 0 just before and read just after; the two
      potentials agree, and both match a float64 direct sum on 4,096
      sampled targets (computed on the card);
-  5. one JSON line listing every ported kernel;
-  6. the last line: {"ok": true, "device": {...}}.
+  6. stepping at N: three within-slack steps (no rebuild, every partition
+     refreshed) and one beyond-slack step of one partition (only it
+     rebuilt, re-traversed through K3), each matching a float64 direct sum
+     at the stepped positions;
+  7. one JSON line listing every ported kernel;
+  8. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -42,6 +57,7 @@ import subprocess
 import sys
 import time
 from contextlib import contextmanager
+from dataclasses import replace as dc_replace
 from pathlib import Path
 
 import numpy as np
@@ -57,8 +73,15 @@ PEAK_BYTES = 3.35e12
 # (p2p_common.cuh): 3 subtractions, r^2 as 1 multiply + 2 fma (5), the
 # rsqrt (1), and the fma into the sum (2); an fma counts as 2.
 FLOPS_PER_PAIR = 11
+# K3 per scored lane: two centers and two radii read, one margin written
+# (36 bytes); 3 subtractions, 3 multiplies, 2 additions, the square root,
+# the theta multiply, the radius sum and the final subtraction (12 ops)
+MAC_BYTES_PER_LANE = 36
+MAC_OPS_PER_LANE = 12
 RTOL_KERNEL = 2e-5
 BITWISE_TILES = 1 << 20      # live tiles in the K1 == K2 bitwise check
+MOVER = 1                    # the partition the beyond-slack step shifts
+MOVER_SHIFT = np.array([0.15, -0.1, 0.2])
 
 
 @contextmanager
@@ -91,6 +114,45 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int = 50) -> float:
+    """Device time of one fn() in ms: `reps` calls enqueued behind a sleep
+    kernel, so the card runs them back to back and the host's time to
+    enqueue each call (the wrapper's checks, the ctypes call) is hidden.
+    For kernels of a few microseconds, where `cuda_ms` times the host."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)         # ~5 ms: longer than the enqueue
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+@contextmanager
+def wall_of(module, name: str, acc: dict):
+    """Sum the wall time of every call of module.name into acc[name] and
+    count the calls in acc[name + "#"]."""
+    real = getattr(module, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+            acc[name + "#"] = acc.get(name + "#", 0) + 1
+
+    setattr(module, name, timed)
+    try:
+        yield acc
+    finally:
+        setattr(module, name, real)
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple:
@@ -144,6 +206,169 @@ def profile_evaluate(torch, label: str, sess, top: int = 8) -> None:
         print(f"    {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
 
 
+class FrontierSpy:
+    """Stands in for K3's wrapper while a traversal runs: passes every call
+    through, keeps the inputs of the largest frontier generation scored,
+    and with `check=True` holds every generation's result against the
+    plain version bit for bit."""
+
+    def __init__(self, torch, kmac, check: bool = False):
+        self.torch, self.kmac, self.check = torch, kmac, check
+        self.real = kmac.mac_margins
+        self.largest = None
+        self.calls = self.mismatches = 0
+
+    def __call__(self, ca, ra, cb, rb, theta):
+        out = self.real(ca, ra, cb, rb, theta)
+        self.calls += 1
+        if self.largest is None or ra.shape[0] > self.largest[1].shape[0]:
+            self.largest = (ca, ra, cb, rb, theta)
+        if self.check and not self.torch.equal(
+                out, self.kmac.mac_margins_ref(ca, ra, cb, rb, theta)):
+            self.mismatches += 1
+        return out
+
+    def __enter__(self):
+        self.kmac.mac_margins = self
+        return self
+
+    def __exit__(self, *exc):
+        self.kmac.mac_margins = self.real
+
+
+def plan_arrays(inter) -> list:
+    """Every pair list of one InteractionPlan: M2L pairs, M2P source cells
+    and target gathers, and each P2P bucket's pairs as body gathers."""
+    out = [np.array([inter.n_m2l, inter.n_p2p, inter.n_m2p,
+                     len(inter.p2p_blocks)]),
+           inter.m2l_a[:inter.n_m2l], inter.m2l_b[:inter.n_m2l],
+           inter.m2p_b[:inter.n_m2p], inter.m2p_t_idx[:inter.n_m2p]]
+    for blk in inter.p2p_blocks:
+        out += [blk.t_idx[:blk.n], blk.s_idx[:blk.n]]
+    return out
+
+
+def same_plan(a, b) -> bool:
+    pa, pb = plan_arrays(a), plan_arrays(b)
+    return len(pa) == len(pb) and all(
+        u.shape == v.shape and np.array_equal(u, v) for u, v in zip(pa, pb))
+
+
+def root_flips(torch, kmac, tgt, src, theta: float) -> list:
+    """Walk the host traversal (float64) and score each generation's pairs
+    also as the device does (float32 tables, K3's plain version, which K3
+    equals bit for bit).  Returns the pairs where the two decide
+    differently: the MAC, or which cell splits.  Every difference between
+    the two traversals' pair lists starts at one of them."""
+    tc, tr = np.asarray(tgt.center), np.asarray(tgt.radius)
+    sc, sr = np.asarray(src.center), np.asarray(src.radius)
+    f32 = [torch.as_tensor(a.astype(np.float32)) for a in (tc, tr, sc, sr)]
+    t_leaf, s_leaf = np.asarray(tgt.is_leaf), np.asarray(src.is_leaf)
+    flips = []
+    A = np.zeros(1, np.int64)
+    B = np.zeros(1, np.int64)
+    while len(A):
+        n = len(A)
+        K = -(-n // kmac.MAC_BLOCK) * kmac.MAC_BLOCK
+        ia = torch.as_tensor(np.pad(A, (0, K - n)))
+        ib = torch.as_tensor(np.pad(B, (0, K - n)))
+        m32 = kmac.mac_margins_ref(f32[0][ia], f32[1][ia], f32[2][ib],
+                                   f32[3][ib], theta).numpy()[:n]
+        d = np.linalg.norm(tc[A] - sc[B], axis=1)
+        rsum = tr[A] + sr[B]
+        far = rsum < theta * d
+        for k in np.nonzero(far != (m32 > 0))[0]:
+            flips.append(("mac", int(A[k]), int(B[k]),
+                          float(theta * d[k] - rsum[k]), float(rsum[k])))
+        A, B = A[~far], B[~far]
+        both_leaf = t_leaf[A] & s_leaf[B]
+        A, B = A[~both_leaf], B[~both_leaf]
+        if not len(A):
+            break
+        split_t = (~t_leaf[A]) & (s_leaf[B] | (tr[A] >= sr[B]))
+        split_32 = (~t_leaf[A]) & (s_leaf[B] | (tr[A].astype(np.float32)
+                                                >= sr[B].astype(np.float32)))
+        for k in np.nonzero(split_t != split_32)[0]:
+            flips.append(("split", int(A[k]), int(B[k]),
+                          float(tr[A[k]] - sr[B[k]]),
+                          float(tr[A[k]] + sr[B[k]])))
+        At, Bt = A[split_t], B[split_t]
+        As, Bs = A[~split_t], B[~split_t]
+        nt = np.asarray(tgt.n_child)[At]
+        ns = np.asarray(src.n_child)[Bs]
+        rep_t = np.repeat(np.arange(len(At)), nt)
+        rep_s = np.repeat(np.arange(len(Bs)), ns)
+        child_t = (np.asarray(tgt.child_start)[At][rep_t]
+                   + np.arange(len(rep_t)) - np.repeat(np.cumsum(nt) - nt, nt))
+        child_s = (np.asarray(src.child_start)[Bs][rep_s]
+                   + np.arange(len(rep_s)) - np.repeat(np.cumsum(ns) - ns, ns))
+        A = np.concatenate([child_t, As[rep_s]])
+        B = np.concatenate([Bt[rep_t], child_s])
+    return flips
+
+
+def compare_geometries(torch, kmac, geo_d, geo_h) -> None:
+    """Device-planned against host-planned geometry (phase 2's check)."""
+    theta = geo_h.theta
+    total = differ = 0
+    bad = []
+    for j, (rd, rh) in enumerate(zip(geo_d.receivers, geo_h.receivers)):
+        if (rd is None) != (rh is None):
+            raise AssertionError(f"receiver {j}: present in one plan only")
+        if rd is None:
+            continue
+        pairs = [("local", rd.local, rh.local, rd.tree)]
+        if [u.sender for u in rd.remote] != [v.sender for v in rh.remote]:
+            raise AssertionError(f"receiver {j}: different senders")
+        pairs += [(f"from {u.sender}", u.inter, v.inter, v.graft)
+                  for u, v in zip(rd.remote, rh.remote)]
+        for label, pd, ph, src in pairs:
+            total += 1
+            if same_plan(pd, ph):
+                continue
+            differ += 1
+            flips = root_flips(torch, kmac, rh.tree, src, theta)
+            if not flips:
+                raise AssertionError(f"receiver {j} {label}: pair lists "
+                                     f"differ with no decision that does")
+            for kind, a, b, v, rsum in flips:
+                if kind == "mac":
+                    ok = abs(v) <= 1e-4 * rsum
+                    what = f"f64 margin {v:.3e}, R_A + R_B {rsum:.3e}"
+                else:
+                    ok = abs(v) <= 1e-6 * rsum
+                    what = (f"split tie: R_A - R_B {v:.3e} (f64), equal in "
+                            f"f32, R_A + R_B {rsum:.3e}")
+                print(f"  differing pair: receiver {j} {label}, cells "
+                      f"({a}, {b}), {kind}: {what}"
+                      f"{'' if ok else ' -- NOT borderline'}", flush=True)
+                if not ok:
+                    bad.append((j, label, a, b))
+    print(f"  pair lists: {total - differ} of {total} traversals identical "
+          f"to the host's, {differ} differ", flush=True)
+    if bad:
+        raise AssertionError(f"device and host plans differ beyond "
+                             f"borderline pairs: {bad}")
+    rel = np.abs(geo_d.slack - geo_h.slack) / np.maximum(geo_h.slack, 1e-300)
+    print(f"  slack: device {np.array2string(geo_d.slack, precision=4)}, "
+          f"host {np.array2string(geo_h.slack, precision=4)}, max rel diff "
+          f"{rel.max():.3e}", flush=True)
+    if not np.allclose(geo_d.slack, geo_h.slack, rtol=1e-4, atol=1e-7):
+        raise AssertionError("device and host slacks differ beyond rtol "
+                             "1e-4 / atol 1e-7")
+    np.testing.assert_array_equal(geo_d.bytes_matrix, geo_h.bytes_matrix)
+
+
+def rel_l2(dev, x, q, phi, direct_potential) -> float:
+    """rel-L2 error of phi on 4,096 sampled targets against a float64
+    direct sum at positions x (computed on the card)."""
+    n = len(x)
+    idx = np.random.default_rng(1).choice(n, size=min(4096, n),
+                                          replace=False)
+    d = direct_potential(x, q, x_tgt=x[idx], chunk=64, device=dev)
+    return float(np.linalg.norm(phi[idx] - d) / np.linalg.norm(d))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
@@ -156,11 +381,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.core.api import FMMSession, PartitionSpec
+    from repro_torch.core import api as tapi
+    from repro_torch.core import plan as tplan
+    from repro_torch.core.api import FMMSession, PartitionSpec, plan_geometry
     from repro_torch.core.distributions import make_distribution
     from repro_torch.core.engine.p2p import _gather_bucket, stream_payload
+    from repro_torch.core.engine.traversal import device_dual_traversal
     from repro_torch.core.fmm import direct_potential
     from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import mac as kmac
     from repro_torch.kernels import p2p as kp2p
     from repro_torch.kernels import p2p_stream as kstream
 
@@ -172,6 +401,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     # ------------------------------------------------------------- 1 -----
+    power = card.split(",")[-1].strip()
     with phase("build kernels (nvcc, sm_90a, one process per source)"):
         logs = kbuild.build()
         for src, log in logs.items():
@@ -184,15 +414,82 @@ def main() -> int:
     spec = PartitionSpec(nparts=8, method="orb", theta=0.5, ncrit=64, p=4)
     x = make_distribution("sphere", n, seed=42)
     q = np.random.default_rng(0).uniform(-1, 1, n)
-    t0 = time.perf_counter()
-    sess_g = FMMSession.from_points(x, q, spec, device=dev)
-    t_plan = time.perf_counter() - t0
-    print(f"planning (from_points, N={n}): {t_plan:.3f} s", flush=True)
+    launches = {}
+    with phase(f"device planning against host planning, N = {n}"):
+        kmac.launches = 0
+        trav = {}
+        with FrontierSpy(torch, kmac) as spy, \
+                wall_of(tapi, "device_dual_traversal", trav):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess_g = FMMSession.from_points(x, q, spec, device=dev)
+            torch.cuda.synchronize()
+            t_plan = time.perf_counter() - t0
+        launches["K3"] = kmac.launches
+        print(f"planning, device traversal with K3 (from_points, N={n}): "
+              f"{t_plan:.3f} s, of which {trav['device_dual_traversal#']} "
+              f"traversals {trav['device_dual_traversal']:.3f} s; K3 launches "
+              f"{launches['K3']} (frontier generations scored {spy.calls}, "
+              f"largest {spy.largest[1].shape[0]} lanes); card {card}",
+              flush=True)
+        if launches["K3"] <= 0:
+            raise AssertionError("K3 was not launched while planning")
+        with wall_of(tplan, "dual_traversal", trav):
+            t0 = time.perf_counter()
+            geo_h = plan_geometry(x, q, spec, device=dev,
+                                  traversal_backend="host")
+            t_host = time.perf_counter() - t0
+        print(f"planning, host traversal (plan_geometry, N={n}): "
+              f"{t_host:.3f} s, of which {trav['dual_traversal#']} "
+              f"traversals {trav['dual_traversal']:.3f} s; card {card}",
+              flush=True)
+        compare_geometries(torch, kmac, sess_g.geometry, geo_h)
+        del geo_h
     sess_s = FMMSession(sess_g.geometry, device=dev, p2p_stream=True)
 
+    # ------------------------------------------------------------- 3 -----
     results = {}
     with phase("kernels against their plain versions at the main path's "
                "shapes"):
+        ca, ra, cb, rb, theta = spy.largest
+        got = kmac.mac_margins(ca, ra, cb, rb, theta)
+        want = kmac.mac_margins_ref(ca, ra, cb, rb, theta)
+        K = ra.shape[0]
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 differs from its plain version on "
+                                 f"{int((got != want).sum())} of {K} lanes")
+        call_ms = cuda_ms(torch, lambda: kmac.mac_margins(ca, ra, cb, rb,
+                                                          theta), reps=21)
+        ms = device_ms(torch, lambda: kmac.mac_margins(ca, ra, cb, rb, theta))
+        pms = device_ms(torch, lambda: kmac.mac_margins_ref(ca, ra, cb, rb,
+                                                            theta))
+        bms, by = bound_ms(MAC_BYTES_PER_LANE * K, MAC_OPS_PER_LANE * K)
+        print(f"  K3 (largest frontier, {K} lanes): bitwise equal to the "
+              f"plain version; device time {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {bms:.6f} ms ({by}); one call from the host "
+              f"{call_ms:.4f} ms; power limit {power}", flush=True)
+        results["K3"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                             max_abs_err=float((got - want).abs().max()))
+        del got, want
+        geo = sess_g.geometry
+        t_big = max((t for t in geo.trees if t is not None),
+                    key=lambda t: t.n_cells)
+        with FrontierSpy(torch, kmac, check=True) as chk:
+            full = device_dual_traversal(t_big, t_big, geo.theta,
+                                         device=dev)
+        plain = device_dual_traversal(t_big, t_big, geo.theta,
+                                      use_kernel=False, device=dev)
+        same = all(np.array_equal(a, b) for a, b in zip(full[:3], plain[:3]))
+        print(f"  K3 on every generation of one full traversal ({chk.calls} "
+              f"generations, {t_big.n_cells} cells): {chk.mismatches} "
+              f"differ from the plain version; pair lists "
+              f"{'identical' if same else 'DIFFER'} with and without K3",
+              flush=True)
+        if chk.mismatches or not same or full[3] != plain[3]:
+            raise AssertionError("K3 and its plain version disagree over a "
+                                 "traversal")
+        del spy, chk, ca, ra, cb, rb
+
         eng = sess_g.engine
         k1 = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "pairs": 0,
               "max_abs_err": 0.0}
@@ -215,8 +512,7 @@ def main() -> int:
             bms, by = bound_ms(nbytes, FLOPS_PER_PAIR * pairs)
             print(f"  K1 bucket (rows {P}, T {T}, S {S}): {ms:.4f} ms, plain "
                   f"{pms:.4f} ms, live pairs {pairs}, bound {bms:.4f} ms "
-                  f"({by}), power limit {card.split(',')[-1].strip()}",
-                  flush=True)
+                  f"({by}), power limit {power}", flush=True)
             k1["ms"] += ms
             k1["plain_ms"] += pms
             k1["bytes"] += nbytes
@@ -256,8 +552,7 @@ def main() -> int:
         bms, by = bound_ms(nbytes, FLOPS_PER_PAIR * pairs)
         print(f"  K2 (tiles {meta.shape[0]}, live {int(live.sum())}): "
               f"{ms:.4f} ms, plain {pms:.4f} ms, live pairs {pairs}, bound "
-              f"{bms:.4f} ms ({by}), power limit "
-              f"{card.split(',')[-1].strip()}", flush=True)
+              f"{bms:.4f} ms ({by}), power limit {power}", flush=True)
         results["K2"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                              max_abs_err=err, pairs=pairs)
 
@@ -277,9 +572,8 @@ def main() -> int:
         del qs, xs, xt, a, b2, got, ml
         torch.cuda.empty_cache()
 
-    # ------------------------------------------------------------- 3 -----
+    # ------------------------------------------------------------- 4 -----
     with phase("card against CPU, N = 20000"):
-        from repro_torch.core.api import plan_geometry
         ns = 20000
         xs_ = make_distribution("sphere", ns, seed=42)
         qs_ = np.random.default_rng(0).uniform(-1, 1, ns)
@@ -304,7 +598,46 @@ def main() -> int:
             if bad:
                 raise AssertionError("card and CPU engines disagree")
 
-    # ------------------------------------------------------------- 4 -----
+        # stepped sessions: the card's planned through K3, the CPU's through
+        # its plain version (bit for bit the same margins, so the same plans)
+        card_s = FMMSession.from_points(xs_, qs_, spec, device=dev)
+        cpu_s = FMMSession.from_points(
+            xs_, qs_, dc_replace(spec, traversal_backend="device"),
+            device="cpu")
+        same = all(same_plan(u, v) for rc, rh in zip(
+            card_s.geometry.receivers, cpu_s.geometry.receivers)
+            for u, v in [(rc.local, rh.local)] + [
+                (a.inter, b.inter) for a, b in zip(rc.remote, rh.remote)])
+        if not same:
+            raise AssertionError("K3 and its plain version planned "
+                                 "different geometries")
+        card_s.evaluate()
+        cpu_s.evaluate()
+        eps = float(cpu_s.geometry.slack.min())
+        x1 = xs_ + np.random.default_rng(2).uniform(-eps / 4, eps / 4,
+                                                    xs_.shape)
+        x2 = x1.copy()
+        x2[cpu_s.geometry.owners[MOVER]] += MOVER_SHIFT
+        for label, xk, want in (("within-slack step", x1, ()),
+                                ("beyond-slack step", x2, (MOVER,))):
+            rc, rh = card_s.step(xk), cpu_s.step(xk)
+            if not (rc.rebuilt == rh.rebuilt == want
+                    and rc.refreshed == rh.refreshed):
+                raise AssertionError(f"{label}: card {rc} and CPU {rh}")
+            phi_c, phi_h = card_s.evaluate(), cpu_s.evaluate()
+            absum = direct_potential(xk, np.abs(qs_), device=dev)
+            diff = np.abs(phi_c - phi_h)
+            bad = int((diff > 1e-4 + 1e-5 * np.abs(phi_h)
+                       + 1e-6 * absum).sum())
+            print(f"  {label} (rebuilt {rc.rebuilt}, refreshed "
+                  f"{rc.refreshed}): max |card - cpu| {diff.max():.3e}, "
+                  f"over rtol 1e-5 + atol 1e-4 + 1e-6 sum|q|/r: {bad}",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"{label}: card and CPU disagree")
+        del card_s, cpu_s
+
+    # ------------------------------------------------------------- 5 -----
     with phase(f"main path, N = {n}"):
         kp2p.launches = 0
         kstream.launches = 0
@@ -323,7 +656,7 @@ def main() -> int:
             print(f"  {label}: evaluate cold {cold:.4f} s, warm median "
                   f"{statistics.median(warm):.4f} s "
                   f"(runs {', '.join(f'{w:.4f}' for w in warm)})", flush=True)
-        launches = {"K1": kp2p.launches, "K2": kstream.launches}
+        launches.update(K1=kp2p.launches, K2=kstream.launches)
         print(f"  launches on the main path: K1 {launches['K1']}, "
               f"K2 {launches['K2']}", flush=True)
         for k, v in launches.items():
@@ -342,6 +675,7 @@ def main() -> int:
                 tm[key] = time.perf_counter() - t0
                 return r
 
+            e._M = None       # the multipoles are cached per payload
             M = timed("upward", e.upward)
             far = timed("far_field", lambda: e.far_field(M))
             near = timed("p2p", e.near_field)
@@ -382,8 +716,67 @@ def main() -> int:
                   flush=True)
             if not rel < 3e-3:
                 raise AssertionError(f"{label}: rel-L2 {rel} >= 3e-3")
+        del sess_s, out, phi_g, phi_s
 
-    # ------------------------------------------------------------- 5 -----
+    # ------------------------------------------------------------- 6 -----
+    with phase(f"stepping, N = {n}"):
+        sess = sess_g
+        geo = sess.geometry
+        eps = float(geo.slack.min())
+        guard = sess.engine.drift_guard
+        print(f"  slack min {eps:.4e}, max {geo.slack.max():.4e}; float32 "
+              f"drift guard {guard:.4e}: the steps revalidate "
+              + ("on the device" if eps > guard else
+                 "on the host in float64 (slack below the guard band)"),
+              flush=True)
+        sess.evaluate()
+        rng = np.random.default_rng(2)
+
+        def timed_step(xk):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = sess.step(xk)
+            torch.cuda.synchronize()
+            t_step = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            phi = sess.evaluate()
+            return rep, phi, t_step, time.perf_counter() - t0
+
+        for k in range(3):
+            xk = x + rng.uniform(-eps / 4, eps / 4, x.shape)
+            rep, phi, t_step, t_eval = timed_step(xk)
+            print(f"  within-slack step {k + 1}: rebuilt {rep.rebuilt}, "
+                  f"refreshed {rep.refreshed}; step {t_step:.4f} s, "
+                  f"evaluate after it {t_eval:.4f} s; card {card}",
+                  flush=True)
+            if rep.rebuilt != () or len(rep.refreshed) != spec.nparts:
+                raise AssertionError(f"within-slack step {k + 1}: {rep}")
+        rel = rel_l2(dev, xk, q, phi, direct_potential)
+        print(f"  after the within-slack steps: rel-L2 vs direct sum "
+              f"{rel:.3e}", flush=True)
+        if not rel < 3e-3:
+            raise AssertionError(f"stepped rel-L2 {rel} >= 3e-3")
+
+        x_moved = xk.copy()
+        x_moved[sess.geometry.owners[MOVER]] += MOVER_SHIFT
+        kmac.launches = 0
+        rep, phi, t_step, t_eval = timed_step(x_moved)
+        k3_step = kmac.launches
+        print(f"  beyond-slack step: rebuilt {rep.rebuilt}, refreshed "
+              f"{rep.refreshed}, K3 launches {k3_step}; step {t_step:.4f} "
+              f"s, evaluate after it (engine rebuilt) {t_eval:.4f} s; card "
+              f"{card}", flush=True)
+        if rep.rebuilt != (MOVER,) or k3_step <= 0:
+            raise AssertionError(f"beyond-slack step: {rep}, K3 launches "
+                                 f"{k3_step}")
+        rel = rel_l2(dev, x_moved, q, phi, direct_potential)
+        print(f"  after the rebuild: rel-L2 vs direct sum {rel:.3e}",
+              flush=True)
+        if not (phi.shape == (n,) and np.isfinite(phi).all()
+                and rel < 3e-3):
+            raise AssertionError(f"rebuilt rel-L2 {rel} >= 3e-3")
+
+    # ------------------------------------------------------------- 7 -----
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]
@@ -392,6 +785,7 @@ def main() -> int:
     replaces = {
         "K1": ("csrc/p2p.cu", "src/repro/kernels/p2p.py:248"),
         "K2": ("csrc/p2p_stream.cu", "src/repro/kernels/p2p_stream.py:111"),
+        "K3": ("csrc/mac.cu", "src/repro/kernels/mac.py:53"),
     }
     kernels = []
     for name, (src, rep) in replaces.items():

@@ -9,13 +9,30 @@ The port of the parts of `repro.core.api` on the single-device main path:
      grafted subtree, the (P, P) bytes matrix and the MAC slack budget.  It
      is NumPy throughout except for the per-tree upward pass that fills the
      LET payload multipoles, which runs in PyTorch on `device`.
-  2. `FMMSession` — holds a `GeometryPlan` and evaluates it through the
-     batched `DeviceEngine` (repro_torch.core.engine).
+  2. `FMMSession` — holds a `GeometryPlan`, evaluates it through the
+     batched `DeviceEngine` (repro_torch.core.engine), and advances it in
+     time with `step(new_x[, new_q])`.
 
-Planning uses the host dual traversal only: `traversal_backend` accepts
-"host", "auto" or None; "device" raises NotImplementedError until the
-device traversal is ported.  Protocol schedules, stepping, multi-device
-exchange, observability and resilience are later slices.
+Planning traversal: `PartitionSpec.traversal_backend` None/"auto" plans
+with the device dual traversal and its MAC kernel K3
+(`engine.traversal.device_dual_traversal`) when the planning device is a
+CUDA device, and with the float64 NumPy traversal on the CPU; "host" and
+"device" force one.  The device route takes each pair's minimum M2L margin
+from the traversal itself.
+
+Stepping (MAC-slack revalidation, as in the reference): each partition's
+drift against the positions its structure was built from is tested against
+its slack budget, the minimum MAC / truncation margin of every plan and LET
+it takes part in, over 2*sqrt(3)*(1 + theta).  Unmoved bodies are a cache
+hit.  Drift within the slack keeps the structure and rebinds the payload:
+the engine restacks it on the device and recomputes the multipoles, and the
+host mirrors (multipoles, LET payloads, grafted views) are filled lazily by
+`sync_host_multipoles` (`GeometryPlan.Ms_stale`).  Drift beyond it rebuilds
+that partition and exactly the LETs and receiver plans that touch it,
+re-traversed on the resolved backend.
+
+Protocol schedules, multi-device exchange, observability and resilience are
+later slices.
 """
 from __future__ import annotations
 
@@ -25,21 +42,23 @@ from dataclasses import dataclass, field, replace as dc_replace
 import numpy as np
 
 from repro_torch.core.engine import DeviceEngine
+from repro_torch.core.engine.traversal import (device_dual_traversal,
+                                               resolve_traversal_backend)
 from repro_torch.core.fmm import upward_pass
 from repro_torch.core.hsdx import adjacency_from_boxes, graph_diameter
-from repro_torch.core.let import LETData, extract_lets, graft
+from repro_torch.core.let import LETData, extract_lets, graft, refresh_let
 from repro_torch.core.multipole import get_operators
 from repro_torch.core.partition.hot import hot_partition
 from repro_torch.core.partition.orb import orb_partition
 from repro_torch.core.plan import (InteractionPlan, TreeSchedules,
                                    build_interaction_plan,
                                    build_tree_schedules)
-from repro_torch.core.traversal import resolve_traversal_backend
-from repro_torch.core.tree import build_tree
+from repro_torch.core.tree import bucket_size, build_tree
 from repro_torch.device import resolve_device
 
 __all__ = ["PartitionSpec", "GeometryPlan", "RemoteBlock", "ReceiverPlan",
-           "plan_geometry", "FMMSession", "DEFAULT_SFC_BOX_INFLATION"]
+           "StepReport", "plan_geometry", "sync_host_multipoles",
+           "FMMSession", "DEFAULT_SFC_BOX_INFLATION"]
 
 # default eps-inflation of SFC partitions' tight boxes when deriving the
 # adjacency graph (fraction of the global span); ORB regions share split
@@ -54,8 +73,9 @@ _EMPTY_LO, _EMPTY_HI = np.inf, -np.inf      # empty-partition box sentinel
 class PartitionSpec:
     """Geometry parameters: everything `plan_geometry` needs.
 
-    `traversal_backend`: "host", "auto" or None (all the NumPy traversal);
-    "device" is not ported yet and raises."""
+    `traversal_backend`: "host" (NumPy, float64), "device" (the frontier
+    loop with K3 on the planning device), or None/"auto" ("device" on a
+    CUDA device, "host" on the CPU)."""
     nparts: int = 8
     method: str = "orb"          # "orb" | "hilbert" | "morton"
     theta: float = 0.5
@@ -87,11 +107,13 @@ class ReceiverPlan:
 
 @dataclass
 class GeometryPlan:
-    """Every protocol-independent artifact, built once per geometry."""
+    """Every protocol-independent artifact, built once per geometry.
+    `FMMSession.step` derives a successor that shares all untouched
+    components and bumps `version`."""
     spec: PartitionSpec
     n: int
-    x0: np.ndarray               # (N, 3) positions, original order
-    q0: np.ndarray               # (N,)   charges
+    x0: np.ndarray               # (N, 3) current positions, original order
+    q0: np.ndarray               # (N,)   current charges
     x_ref: np.ndarray            # (N, 3) positions the structure was built from
     part: np.ndarray
     owners: list                 # per-partition original body indices
@@ -108,6 +130,12 @@ class GeometryPlan:
     slack: np.ndarray            # (P,) per-partition MAC drift budget
     partition_stats: dict = field(default_factory=dict)
     version: int = 0
+    # Partitions whose host-side numeric mirrors (Ms, LET payloads, grafted
+    # views) are deferred: within-slack steps recompute multipoles on the
+    # device, and `sync_host_multipoles` fills the mirrors only when the
+    # host path needs them.  Structure, margins, slack and the bytes matrix
+    # are never stale.
+    Ms_stale: tuple = ()
 
     @property
     def nparts(self) -> int:
@@ -120,6 +148,18 @@ class GeometryPlan:
     @property
     def p(self) -> int:
         return self.spec.p
+
+
+@dataclass(frozen=True)
+class StepReport:
+    """What `FMMSession.step` did: which partitions kept their cached
+    structure, which were numerically refreshed, which were rebuilt."""
+    cache_hit: bool              # True iff nothing changed at all
+    rebuilt: tuple               # partitions whose drift exceeded their slack
+    refreshed: tuple             # structure kept; payload rebound
+    shift: tuple                 # per-partition max drift vs x_ref
+    slack: tuple                 # per-partition budget the shift was tested against
+    version: int                 # geometry version after the step
 
 
 # --------------------------------------------------------------- layer 1 ---
@@ -206,17 +246,52 @@ def _slack_budget(nparts: int, theta: float, receivers: list,
     return np.maximum(margin, 0.0) / (2.0 * math.sqrt(3.0) * (1.0 + theta))
 
 
-def _plan_pair(tgt, src, theta: float, with_m2p: bool):
-    """Traverse one (target, source) pair on the host and freeze its
-    interaction plan; returns (inter, min accepted M2L margin)."""
-    inter = build_interaction_plan(tgt, src, theta, with_m2p=with_m2p)
+def _geometry_pad_cells(trees) -> int | None:
+    """One padded-cell envelope for every traversal of a geometry, so all
+    (receiver, sender) pairs share one set of capacities (grafted LETs never
+    exceed their sender's cell count)."""
+    live = [t.n_cells for t in trees if t is not None]
+    if not live:
+        return None
+    return bucket_size(max(live))
+
+
+def _plan_pair(tgt, src, theta: float, with_m2p: bool, backend: str,
+               pad_cells: int | None = None, device=None):
+    """Traverse one (target, source) pair on the chosen backend and freeze
+    its interaction plan; returns (inter, min accepted M2L margin).  The
+    device route takes the traversal's own margin output; `_m2l_margin`
+    scores the host route."""
+    if backend == "device":
+        m2l, p2p, m2p, margin = device_dual_traversal(
+            tgt, src, theta, with_m2p=True, pad_cells=pad_cells,
+            device=device)
+        assert with_m2p or len(m2p) == 0, \
+            "truncated source cells require with_m2p=True"
+        inter = build_interaction_plan(
+            tgt, src, theta, with_m2p=with_m2p, m2l_pairs=m2l, p2p_pairs=p2p,
+            m2p_pairs=(m2p if with_m2p else None))
+        return inter, float(margin)
+    inter = build_interaction_plan(tgt, src, theta, with_m2p=with_m2p,
+                                   traversal_backend="host")
     return inter, _m2l_margin(inter, tgt, src, theta)
 
 
-def _remote_block(i: int, let: LETData, tree, theta: float) -> RemoteBlock:
+def _remote_block(i: int, let: LETData, tree, theta: float,
+                  backend: str = "host", pad_cells: int | None = None,
+                  device=None) -> RemoteBlock:
     g = graft(let)
-    inter, margin = _plan_pair(tree, g, theta, True)
+    inter, margin = _plan_pair(tree, g, theta, True, backend, pad_cells,
+                               device)
     return RemoteBlock(sender=i, graft=g, inter=inter, margin=margin)
+
+
+def _rebind_remote(rb: RemoteBlock, let: LETData) -> RemoteBlock:
+    """Rebind a drifted sender's refreshed LET payload onto the cached
+    interaction plan: new graft view, same inter/margin (structure and MAC
+    margins are drift-invariant within slack)."""
+    return RemoteBlock(sender=rb.sender, graft=graft(let), inter=rb.inter,
+                       margin=rb.margin)
 
 
 def plan_geometry(x, q, spec: PartitionSpec | None = None, *, device=None,
@@ -224,9 +299,11 @@ def plan_geometry(x, q, spec: PartitionSpec | None = None, *, device=None,
     """Partition, build local trees, extract every LET (one batched
     `extract_lets` call per sender), traverse every receiver pair.  Keyword
     overrides patch the spec: `plan_geometry(x, q, nparts=16)`.  The LET
-    payload multipoles are computed on `device` (None: the card)."""
+    payload multipoles are computed on `device` (None: the card), and the
+    device traversal runs there."""
     spec = dc_replace(spec or PartitionSpec(), **overrides)
-    resolve_traversal_backend(spec.traversal_backend)
+    dev = resolve_device(device)
+    backend = resolve_traversal_backend(spec.traversal_backend, dev)
     x = np.asarray(x, dtype=np.float64)
     q = np.asarray(q, dtype=np.float64)
     _validate_geometry_inputs(x, q, spec)
@@ -234,7 +311,7 @@ def plan_geometry(x, q, spec: PartitionSpec | None = None, *, device=None,
     P = spec.nparts
     part, boxes, adj_boxes = _partition(
         x, P, spec.method, sfc_box_inflation=spec.sfc_box_inflation)
-    ops = get_operators(spec.p, resolve_device(device))
+    ops = get_operators(spec.p, dev)
 
     # --- completely local trees (local bounding box, tight cells; §3) ------
     owners, trees, scheds, Ms = [], [], [], []
@@ -269,14 +346,17 @@ def plan_geometry(x, q, spec: PartitionSpec | None = None, *, device=None,
             B[i, j] = let.nbytes
 
     # --- receiver side: graft + traverse ONCE into frozen plans ------------
+    pad_cells = _geometry_pad_cells(trees)
     receivers: list = []
     for j in range(P):
         if trees[j] is None:
             receivers.append(None)
             continue
         t = trees[j]
-        local, local_margin = _plan_pair(t, t, spec.theta, False)
-        remote = [_remote_block(i, lets[(i, j)], t, spec.theta)
+        local, local_margin = _plan_pair(t, t, spec.theta, False, backend,
+                                         pad_cells, dev)
+        remote = [_remote_block(i, lets[(i, j)], t, spec.theta, backend,
+                                pad_cells, dev)
                   for i in range(P) if (i, j) in lets]
         receivers.append(ReceiverPlan(tree=t, sched=scheds[j], local=local,
                                       local_margin=local_margin,
@@ -295,9 +375,45 @@ def plan_geometry(x, q, spec: PartitionSpec | None = None, *, device=None,
     )
 
 
+# --------------------------------------------------------- host mirrors ---
+def sync_host_multipoles(geo, device=None) -> None:
+    """Fill the deferred host-side numeric mirrors of `geo.Ms_stale`
+    partitions: recompute their multipoles about the build-time expansion
+    centers (on `device`, None: the card), rebind every LET payload they
+    send, and re-graft the receiver views over the refreshed LETs.  In
+    place: a cache fill with exactly what an eager step would have produced,
+    not a semantic change; a no-op when nothing is stale."""
+    stale = set(geo.Ms_stale)
+    if not stale:
+        return
+    ops = get_operators(geo.spec.p, resolve_device(device))
+    for j in sorted(stale):
+        geo.Ms[j] = upward_pass(geo.trees[j], ops,
+                                sched=geo.scheds[j]).cpu().numpy()
+    for (i, j), let in list(geo.lets.items()):
+        if i in stale:
+            geo.lets[(i, j)] = refresh_let(let, geo.trees[i], geo.Ms[i])
+    for j, r in enumerate(geo.receivers):
+        if r is None:
+            continue
+        if j not in stale and not any(rb.sender in stale for rb in r.remote):
+            continue
+        remote = [_rebind_remote(rb, geo.lets[(rb.sender, j)])
+                  if rb.sender in stale else rb
+                  for rb in r.remote]
+        # the receiver's own tree too: the deferred step kept the old
+        # ReceiverPlan, whose tree holds the pre-step coordinates
+        geo.receivers[j] = ReceiverPlan(tree=geo.trees[j], sched=r.sched,
+                                        local=r.local,
+                                        local_margin=r.local_margin,
+                                        remote=remote)
+    geo.Ms_stale = ()
+
+
 # --------------------------------------------------------------- layer 3 ---
 class FMMSession:
-    """One geometry evaluated through the batched `DeviceEngine`.
+    """One geometry evaluated through the batched `DeviceEngine`, and
+    advanced in time by `step`.
 
     `device=None` runs on the card (raises without one); pass
     `device="cpu"` to run on the CPU, where the kernel wrappers use their
@@ -330,8 +446,9 @@ class FMMSession:
 
     @property
     def engine(self) -> DeviceEngine:
-        """The session's `DeviceEngine`, built on first access."""
-        if self._engine is None:
+        """The session's `DeviceEngine`, built on first access and again
+        after a step that rebuilt a partition."""
+        if self._engine is None or self._engine.geo is not self._geo:
             self._engine = DeviceEngine.from_geometry(
                 self._geo, device=self.device, p2p_stream=self.p2p_stream)
         return self._engine
@@ -342,3 +459,211 @@ class FMMSession:
         phi = self.engine.evaluate()
         phi.setflags(write=False)
         return phi
+
+    # ------------------------------------------------------------- step ---
+    def step(self, new_x, new_q=None) -> StepReport:
+        """Advance to new body positions (and charges), reusing every cached
+        structure the MAC slack margins still cover (module docstring).
+
+        Unmoved bodies are a cache hit: the geometry object, its version
+        and the engine are untouched.  Drift within a partition's slack
+        rebinds that partition's payload onto the cached structure; drift
+        beyond it rebuilds the partition and exactly the LETs and receiver
+        plans that touch it."""
+        geo = self._geo
+        P = geo.spec.nparts
+        new_x = np.array(new_x, dtype=np.float64)
+        if new_x.shape != (geo.n, 3):
+            raise ValueError(f"step: expected positions {(geo.n, 3)}, "
+                             f"got {new_x.shape}")
+        if not np.isfinite(new_x).all():
+            raise ValueError("new_x: positions contain non-finite values "
+                             "(NaN/Inf); refusing to poison the cached "
+                             "geometry")
+        q_unchanged = new_q is None
+        new_q = geo.q0 if new_q is None else np.array(new_q, dtype=np.float64)
+        if new_q.shape != (geo.n,):
+            raise ValueError(f"step: expected charges {(geo.n,)}, "
+                             f"got {new_q.shape}")
+        if not np.isfinite(new_q).all():
+            raise ValueError("new_q: charges contain non-finite values "
+                             "(NaN/Inf)")
+        q_unchanged = q_unchanged or np.array_equal(new_q, geo.q0)
+
+        # Batched device revalidation: a warm engine scores every
+        # partition's drift and changed flag in one pass from one new_x
+        # upload; the restacked payload becomes the next evaluation's.
+        eng = (self._engine if self._engine is not None
+               and self._engine.geo is geo else None)
+        use_dev = eng is not None and q_unchanged
+        if use_dev:
+            delta, stale = eng.step_drift(new_x)
+            if np.any(stale & (delta > geo.slack - eng.drift_guard)):
+                # a rebuild is coming, or a drift sits within the float32
+                # guard band of its slack: rebuild decisions and the
+                # conservative LET re-extraction boxes use exact float64
+                use_dev = False
+        if not use_dev:
+            if eng is not None:
+                eng.discard_pending()
+            delta = np.zeros(P)              # drift vs structure reference
+            stale = np.zeros(P, dtype=bool)  # numeric payload out of date
+            for j in range(P):
+                idx = geo.owners[j]
+                if len(idx) == 0:
+                    continue
+                delta[j] = math.sqrt(float(
+                    ((new_x[idx] - geo.x_ref[idx]) ** 2).sum(axis=1).max()))
+                stale[j] = (not np.array_equal(new_x[idx], geo.x0[idx])
+                            or not np.array_equal(new_q[idx], geo.q0[idx]))
+
+        rebuilt = tuple(int(j) for j in range(P)
+                        if stale[j] and delta[j] > geo.slack[j])
+        refreshed = tuple(int(j) for j in range(P)
+                          if stale[j] and j not in rebuilt)
+        report = StepReport(cache_hit=not (rebuilt or refreshed),
+                            rebuilt=rebuilt, refreshed=refreshed,
+                            shift=tuple(delta.tolist()),
+                            slack=tuple(geo.slack.tolist()),
+                            version=geo.version + bool(rebuilt or refreshed))
+        if report.cache_hit:
+            if eng is not None:
+                eng.discard_pending()
+            return report
+
+        # Within-slack refreshes stay on the device: the engine recomputes
+        # the multipoles from the restacked payload, and the host mirrors
+        # are deferred to sync_host_multipoles.
+        self._geo = self._advance(geo, new_x, new_q, delta, set(rebuilt),
+                                  set(refreshed), defer_numeric=not rebuilt,
+                                  device=self.device)
+        if rebuilt:                      # structure changed: tables stale
+            self._engine = None
+        elif self._engine is not None:
+            self._engine.refresh_payload(self._geo, use_pending=use_dev)
+        return report
+
+    @staticmethod
+    def _advance(geo: GeometryPlan, new_x, new_q, delta, rebuilt: set,
+                 refreshed: set, defer_numeric: bool = False,
+                 device=None) -> GeometryPlan:
+        spec = geo.spec
+        dev = resolve_device(device)
+        backend = resolve_traversal_backend(spec.traversal_backend, dev)
+        P = spec.nparts
+        ops = get_operators(spec.p, dev)
+        touched = rebuilt | refreshed
+        if rebuilt:
+            # LET re-extraction below reads refreshed senders' host
+            # multipoles: fill any deferred mirrors first
+            sync_host_multipoles(geo, dev)
+        trees, scheds, Ms = list(geo.trees), list(geo.scheds), list(geo.Ms)
+        boxes, adj_boxes = geo.boxes.copy(), geo.adj_boxes.copy()
+        lets, B = dict(geo.lets), geo.bytes_matrix.copy()
+        x_ref = geo.x_ref.copy()
+
+        # 1. rebuild invalidated partitions' local structure from scratch
+        for j in rebuilt:
+            idx = geo.owners[j]
+            t = build_tree(new_x[idx], new_q[idx], ncrit=spec.ncrit)
+            trees[j], scheds[j] = t, build_tree_schedules(t)
+            Ms[j] = upward_pass(t, ops, sched=scheds[j]).cpu().numpy()
+            boxes[j, 0] = new_x[idx].min(axis=0)
+            boxes[j, 1] = new_x[idx].max(axis=0)
+            # union-expand the adjacency box: Lemma-1 neighbour sets only
+            # grow, so cached reachability stays conservative
+            adj_boxes[j, 0] = np.minimum(adj_boxes[j, 0], boxes[j, 0])
+            adj_boxes[j, 1] = np.maximum(adj_boxes[j, 1], boxes[j, 1])
+            x_ref[idx] = new_x[idx]
+
+        # 2. drift within slack: same structure, rebound coordinates and
+        #    charges; the multipoles are recomputed about the build-time
+        #    centers, or left to the engine when deferred
+        for j in refreshed:
+            idx = geo.owners[j]
+            t = trees[j]
+            t = dc_replace(t, x=new_x[idx][t.perm], q=new_q[idx][t.perm])
+            trees[j] = t
+            if not defer_numeric:
+                Ms[j] = upward_pass(t, ops, sched=scheds[j]).cpu().numpy()
+
+        # 3. LETs: re-extract a pair iff either end was rebuilt; rebind the
+        #    payload iff only the sender drifted within slack
+        for i in range(P):
+            if trees[i] is None:
+                continue
+            targets = [j for j in range(P) if j != i and trees[j] is not None
+                       and (i in rebuilt or j in rebuilt)]
+            if targets:
+                tj = np.asarray(targets)
+                lo, hi = boxes[tj, 0].copy(), boxes[tj, 1].copy()
+                # a valid-but-drifted receiver can poke past its build-time
+                # tight box by at most its drift: extract conservatively
+                pad = np.array([delta[j] if j not in rebuilt else 0.0
+                                for j in targets])
+                lo -= pad[:, None]
+                hi += pad[:, None]
+                for j, let in zip(targets, extract_lets(trees[i], Ms[i],
+                                                        lo, hi, spec.theta)):
+                    lets[(i, j)] = let
+                    B[i, j] = let.nbytes
+            if i in refreshed and not defer_numeric:
+                # rebuilt senders were re-extracted above
+                for j in range(P):
+                    if j != i and (i, j) in lets and j not in rebuilt:
+                        lets[(i, j)] = refresh_let(lets[(i, j)], trees[i],
+                                                   Ms[i])
+
+        # 4. receiver plans: re-traverse a pair iff either end was rebuilt;
+        #    re-graft iff its LET payload was rebound (deferred with the
+        #    payload itself)
+        receivers = list(geo.receivers)
+        pad_cells = _geometry_pad_cells(trees) if rebuilt else None
+        for j in range(P) if not defer_numeric else ():
+            if trees[j] is None:
+                continue
+            r = receivers[j]
+            senders = [i for i in range(P) if (i, j) in lets]
+            if j not in touched and not any(i in touched for i in senders):
+                continue
+            old = {rb.sender: rb for rb in r.remote}
+            remote = []
+            for i in senders:
+                if i in rebuilt or j in rebuilt:
+                    remote.append(_remote_block(i, lets[(i, j)], trees[j],
+                                                spec.theta, backend,
+                                                pad_cells, dev))
+                elif i in touched:
+                    remote.append(_rebind_remote(old[i], lets[(i, j)]))
+                else:
+                    remote.append(old[i])
+            if j in rebuilt:
+                local, lm = _plan_pair(trees[j], trees[j], spec.theta, False,
+                                       backend, pad_cells, dev)
+            else:
+                local, lm = r.local, r.local_margin
+            receivers[j] = ReceiverPlan(tree=trees[j], sched=scheds[j],
+                                        local=local, local_margin=lm,
+                                        remote=remote)
+
+        if rebuilt:
+            adj = adjacency_from_boxes(adj_boxes)
+            deg = float(np.max([len(a) for a in adj]))
+            diam = graph_diameter(adj)
+            slack = _slack_budget(P, spec.theta, receivers, lets)
+        else:
+            deg, diam, slack = geo.adjacency_degree, geo.diameter, geo.slack
+
+        # deferred-mirror bookkeeping: a rebuild synced everything up front;
+        # otherwise carry the prior stale partitions (minus any recomputed)
+        prior = set() if rebuilt else set(geo.Ms_stale)
+        stale = tuple(sorted((prior | refreshed) if defer_numeric
+                             else (prior - refreshed)))
+        return GeometryPlan(
+            spec=spec, n=geo.n, x0=new_x, q0=new_q, x_ref=x_ref,
+            part=geo.part, owners=geo.owners, boxes=boxes,
+            adj_boxes=adj_boxes, trees=trees, scheds=scheds, Ms=Ms, lets=lets,
+            receivers=receivers, bytes_matrix=B, adjacency_degree=deg,
+            diameter=diam, slack=slack,
+            partition_stats=geo.partition_stats, version=geo.version + 1,
+            Ms_stale=stale)

@@ -17,6 +17,12 @@ then runs
 and accumulates every phase's float32 values into the potential in float64
 on the device with `index_add_`.  Only the final (N,) potential moves to the
 host.  Each phase is a public method, so a caller can time them one by one.
+
+Timesteps: the index tables do not depend on the payload, so a
+within-slack `FMMSession.step` revalidates with `step_drift` (one `new_x`
+upload, restacked on the device, every partition's drift in one pass) and
+rebinds with `refresh_payload`; the multipoles are cached per payload and
+recomputed by the next evaluation.
 """
 from __future__ import annotations
 
@@ -28,8 +34,11 @@ from repro_torch.core.engine.p2p import p2p_bucket_vals, p2p_stream_vals
 from repro_torch.core.engine.schedules import (EngineTables,
                                                build_engine_tables,
                                                build_p2p_stream_tables,
-                                               stack_bodies, to_device,
-                                               to_numpy)
+                                               stack_bodies,
+                                               stack_reference_bodies,
+                                               to_device, to_numpy)
+from repro_torch.core.engine.traversal import (partition_drift,
+                                               restack_payload)
 from repro_torch.core.engine.upward import batched_upward_kernel
 from repro_torch.core.multipole import get_operators
 from repro_torch.device import resolve_device
@@ -52,20 +61,30 @@ class DeviceEngine:
         instead of one K1 launch per width-class bucket.  Falls back to the
         gathered buckets when the stream-table contiguity invariant does not
         hold (`stream_fallbacks` counts it).
+    geometry : the `GeometryPlan` the tables were built from (`geo`); the
+        step methods need it, evaluation does not.
     """
 
     def __init__(self, tables: EngineTables, x_pad, q_pad, *, device=None,
-                 p2p_stream: bool = False):
+                 p2p_stream: bool = False, geometry=None):
         self.device = resolve_device(device)
         self.tables = tables.to(self.device)
-        self.x = torch.as_tensor(np.asarray(x_pad, np.float32),
-                                 device=self.device)
-        self.q = torch.as_tensor(np.asarray(q_pad, np.float32),
-                                 device=self.device)
+        self._set_payload(x_pad, q_pad)
         self.ops = get_operators(tables.p, self.device)
         self.p2p_stream = bool(p2p_stream)
         self.stream_fallbacks = 0
         self._stream = None
+        self.geo = geometry
+        self._M = None               # multipoles of the current payload
+        self._x_ref_pad = None       # stacked slack reference, built lazily
+        self._pending_x = None       # payload staged by step_drift
+        self.payload_refreshes = 0
+        # float32 guard band of drift-vs-slack decisions: step_drift measures
+        # in float32, so its absolute error is a few ulps of the coordinate
+        # scale; the session revalidates on the host in float64 within it
+        self.drift_guard = (None if geometry is None else float(
+            4 * np.finfo(np.float32).eps
+            * max(np.abs(geometry.x_ref).max(), 1.0)))
 
     @classmethod
     def from_geometry(cls, geometry, *, device=None,
@@ -73,7 +92,58 @@ class DeviceEngine:
         tables = build_engine_tables(geometry)
         x_pad, q_pad = stack_bodies(geometry.trees, tables.n_bodies_max)
         return cls(tables, x_pad, q_pad, device=device,
-                   p2p_stream=p2p_stream)
+                   p2p_stream=p2p_stream, geometry=geometry)
+
+    # ----------------------------------------------------------- payload --
+    def _set_payload(self, x_pad, q_pad) -> None:
+        self.x = torch.as_tensor(np.asarray(x_pad, np.float32),
+                                 device=self.device)
+        self.q = torch.as_tensor(np.asarray(q_pad, np.float32),
+                                 device=self.device)
+
+    def refresh_payload(self, geometry, *, use_pending: bool = False) -> None:
+        """Rebind to a same-structure geometry (a within-slack step): take
+        the new (x, q) payload and drop the cached multipoles; the index
+        tables stay on the device untouched.  With `use_pending=True` the
+        payload that the last `step_drift` restacked on the device becomes
+        the x payload directly (the session guarantees q is unchanged on
+        that path)."""
+        self.geo = geometry
+        if use_pending and self._pending_x is not None:
+            self.x = self._pending_x
+        else:
+            self._set_payload(*stack_bodies(geometry.trees,
+                                            self.tables.n_bodies_max))
+        self._pending_x = None
+        self._M = None
+        self.payload_refreshes += 1
+
+    def discard_pending(self) -> None:
+        self._pending_x = None
+
+    def step_drift(self, new_x) -> tuple:
+        """Batched MAC-slack revalidation: upload `new_x` once, restack it
+        into the (P, Nmax, 3) payload envelope on the device, and reduce
+        every partition's drift (against the slack reference `x_ref`) and
+        changed flag (against the current payload) in one pass.  The
+        restacked payload is staged for `refresh_payload(use_pending=True)`.
+
+        Returns (drift (P,) float64, changed (P,) bool) host arrays."""
+        if self.geo is None:
+            raise ValueError("step_drift needs the engine's geometry: build "
+                             "it with DeviceEngine.from_geometry")
+        t = self.tables
+        if self._x_ref_pad is None:
+            self._x_ref_pad = torch.as_tensor(
+                stack_reference_bodies(self.geo, t), device=self.device)
+        xd = torch.as_tensor(np.asarray(new_x, np.float32),
+                             device=self.device)
+        x_pad = restack_payload(xd, t.orig_idx, t.flat_idx, t.n_parts,
+                                t.n_bodies_max)
+        drift, changed = partition_drift(x_pad, self._x_ref_pad, self.x)
+        self._pending_x = x_pad
+        return (drift.cpu().numpy().astype(np.float64),
+                changed.cpu().numpy())
 
     # ---------------------------------------------------------- streaming --
     def stream_tables(self) -> dict | None:
@@ -102,10 +172,12 @@ class DeviceEngine:
 
     # ------------------------------------------------------------ phases --
     def upward(self) -> torch.Tensor:
-        """Multipoles (P, n_cells_max, nk) f32."""
-        t = self.tables
-        return batched_upward_kernel(self.ops, self.x, self.q, t.up.tables,
-                                     t.n_cells_max)
+        """Multipoles (P, n_cells_max, nk) f32, cached per payload."""
+        if self._M is None:
+            t = self.tables
+            self._M = batched_upward_kernel(self.ops, self.x, self.q,
+                                            t.up.tables, t.n_cells_max)
+        return self._M
 
     def far_field(self, M) -> tuple:
         """(idx, valid, vals): the L2P values of the far field."""

@@ -30,7 +30,7 @@ from repro_torch.core.plan import bucket_size
 
 __all__ = ["BatchedUpwardSchedule", "EngineTables", "build_batched_upward",
            "build_engine_tables", "build_p2p_stream_tables", "stack_bodies",
-           "to_device", "to_numpy"]
+           "stack_reference_bodies", "to_device", "to_numpy"]
 
 
 # ---------------------------------------------------------------- helpers --
@@ -195,6 +195,17 @@ def stack_bodies(trees, n_bodies_max: int):
         x_pad[p, :len(t.x)] = t.x
         q_pad[p, :len(t.q)] = t.q
     return x_pad, q_pad
+
+
+def stack_reference_bodies(geo, tables) -> np.ndarray:
+    """Stack the geometry's slack-reference positions `x_ref` into the
+    payload envelope `(P, Nmax, 3) f32` through the orig->flat gather tables
+    (NumPy or tensors).  Built once per engine (x_ref only changes on a
+    rebuild, which drops the engine): one leg of the batched step-drift
+    revalidation."""
+    ref = np.zeros((tables.n_parts * tables.n_bodies_max, 3), np.float32)
+    ref[to_numpy(tables.flat_idx)] = geo.x_ref[to_numpy(tables.orig_idx)]
+    return ref.reshape(tables.n_parts, tables.n_bodies_max, 3)
 
 
 def _let_bookkeeping(let):

@@ -31,7 +31,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from repro_torch.core.traversal import dual_traversal, resolve_traversal_backend
+from repro_torch.core.traversal import dual_traversal
 from repro_torch.core.tree import bucket_size
 
 __all__ = [
@@ -189,15 +189,25 @@ def build_interaction_plan(tgt_tree, src_tree, theta: float = 0.5,
                            with_m2p: bool = False,
                            m2l_pairs=None, p2p_pairs=None,
                            m2p_pairs=None,
-                           traversal_backend: str | None = None) -> InteractionPlan:
+                           traversal_backend: str | None = None,
+                           device=None) -> InteractionPlan:
     """Traverse (unless pair lists are supplied) and freeze the padded /
     bucketed interaction lists for one (target, source) tree pair.
 
-    `traversal_backend` is checked by `traversal.resolve_traversal_backend`:
-    the port runs the host traversal only."""
+    `traversal_backend` selects where the dual traversal runs: "host" (the
+    NumPy float64 reference), "device" (the frontier loop with the MAC
+    kernel K3 of repro_torch.core.engine.traversal, on `device`), or
+    None/"auto": "device" when `device` (None: the card) is a CUDA device,
+    "host" on the CPU."""
     if m2l_pairs is None or p2p_pairs is None:
-        resolve_traversal_backend(traversal_backend)
-        if with_m2p:
+        from repro_torch.core.engine.traversal import (
+            device_dual_traversal, resolve_traversal_backend)
+        if resolve_traversal_backend(traversal_backend, device) == "device":
+            m2l_pairs, p2p_pairs, m2p_d, _ = device_dual_traversal(
+                tgt_tree, src_tree, theta, with_m2p=with_m2p, device=device)
+            if with_m2p:
+                m2p_pairs = m2p_d
+        elif with_m2p:
             m2l_pairs, p2p_pairs, m2p_pairs = dual_traversal(
                 tgt_tree, src_tree, theta, with_m2p=True)
         else:
@@ -263,12 +273,13 @@ def build_tree_schedules(tree) -> TreeSchedules:
 def build_fmm_plan(tgt_tree, src_tree, theta: float = 0.5, p: int = 4,
                    with_m2p: bool = False,
                    m2l_pairs=None, p2p_pairs=None, m2p_pairs=None,
-                   traversal_backend: str | None = None) -> FMMPlan:
+                   traversal_backend: str | None = None,
+                   device=None) -> FMMPlan:
     """Build the full plan for evaluating src_tree -> tgt_tree."""
     interactions = build_interaction_plan(
         tgt_tree, src_tree, theta=theta, with_m2p=with_m2p,
         m2l_pairs=m2l_pairs, p2p_pairs=p2p_pairs, m2p_pairs=m2p_pairs,
-        traversal_backend=traversal_backend)
+        traversal_backend=traversal_backend, device=device)
     tgt_sched = build_tree_schedules(tgt_tree)
     if src_tree is tgt_tree:
         src_sched = tgt_sched

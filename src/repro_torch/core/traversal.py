@@ -12,8 +12,9 @@ child expansion via the `np.repeat`/`np.cumsum` segmented-arange idiom.  The
 only Python loop is over frontier generations (O(tree depth)).
 
 This is the f64 host traversal of the JAX reference
-(`repro.core.traversal`), unchanged; the port's planning runs it for every
-receiver pair.
+(`repro.core.traversal`), unchanged: the pinned reference of the device
+traversal (`repro_torch.core.engine.traversal`), and the planning traversal
+on the CPU or with `traversal_backend="host"`.
 """
 from __future__ import annotations
 
@@ -21,23 +22,7 @@ import numpy as np
 
 from repro_torch.core.tree import _segmented_arange
 
-__all__ = ["dual_traversal", "mac_ok", "resolve_traversal_backend"]
-
-
-def resolve_traversal_backend(backend: str | None) -> str:
-    """The port plans on the host: None, "auto" and "host" all mean the
-    NumPy traversal below.  The device traversal (the reference's
-    `repro.core.engine.traversal`, with its MAC kernel) is not ported yet
-    (ROADMAP.md, "Modules to port": stepping and device planning)."""
-    if backend in (None, "auto", "host"):
-        return "host"
-    if backend == "device":
-        raise NotImplementedError(
-            "traversal_backend='device' is not ported yet: the port plans "
-            "with the host traversal (see ROADMAP.md, stepping and device "
-            "planning)")
-    raise ValueError(f"traversal_backend must be 'host', 'device' or 'auto', "
-                     f"got {backend!r}")
+__all__ = ["dual_traversal", "mac_ok"]
 
 
 def mac_ok(ca, ra, cb, rb, theta: float) -> bool:

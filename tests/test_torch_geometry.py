@@ -128,11 +128,17 @@ def test_engine_and_stream_tables_equal(geometries):
 
 
 def test_device_traversal_is_not_ported():
+    """The name predates the device traversal's port: "device" now plans
+    (on the CPU with K3's plain version) to the host-planned geometry, and
+    an unknown backend still raises."""
     x, q = _problem(n=200)
-    with pytest.raises(NotImplementedError):
-        plan_geometry(x, q, PartitionSpec(nparts=2,
-                                          traversal_backend="device"),
-                      device="cpu")
+    dev = plan_geometry(x, q, PartitionSpec(nparts=2,
+                                            traversal_backend="device"),
+                        device="cpu")
+    host = plan_geometry(x, q, PartitionSpec(nparts=2), device="cpu")
+    np.testing.assert_array_equal(dev.bytes_matrix, host.bytes_matrix)
+    for rd, rh in zip(dev.receivers, host.receivers):
+        _assert_plans_equal(rd.local, rh.local)
     with pytest.raises(ValueError):
         plan_geometry(x, q, PartitionSpec(nparts=2,
                                           traversal_backend="gpu"),

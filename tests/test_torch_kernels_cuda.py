@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1 (csrc/p2p.cu) and K2 (csrc/p2p_stream.cu)
-against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels K1 (csrc/p2p.cu), K2 (csrc/p2p_stream.cu) and
+K3 (csrc/mac.cu) against their plain PyTorch versions, on the card, and the
+paths that run them: the engine, the device traversal and a step.
 
 A CUDA kernel has no CPU mode: every test here takes the `cuda_device`
 fixture, which skips it where no card is present.  The file imports no JAX,
@@ -9,7 +10,8 @@ so it also runs on a machine that has only PyTorch:
 
 Tolerance rtol/atol 2e-5 against the plain versions (float32 sums in
 another order, `rsqrtf` against `torch.rsqrt`); K1 and K2 are bitwise equal
-on identical slabs because they share one tile body.
+on identical slabs because they share one tile body.  K3 equals its plain
+version bit for bit: both round the same float32 steps in the same order.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from repro_torch.core.distributions import make_distribution
 from repro_torch.core.engine import build_engine_tables, stack_bodies
 from repro_torch.core.engine.p2p import stream_payload
 from repro_torch.core.engine.schedules import build_p2p_stream_tables
+from repro_torch.kernels import mac as kmac
 from repro_torch.kernels import p2p as kp2p
 from repro_torch.kernels import p2p_stream as kstream
 
@@ -118,3 +121,64 @@ def test_engine_on_card_launches_kernels_and_matches_cpu(cuda_device):
         cpu = FMMSession(geo, device="cpu", p2p_stream=stream).evaluate()
         tol = 1e-4 + 1e-5 * np.abs(cpu) + 1e-6 * phi_abs
         assert np.all(np.abs(card - cpu) <= tol)
+
+
+@pytest.mark.parametrize("K", [128, 4096, 1 << 20])
+def test_k3_matches_plain_bitwise_on_card(cuda_device, K):
+    rng = np.random.default_rng(K)
+    ca, cb = (torch.as_tensor(rng.uniform(-1, 1, (K, 3)).astype(np.float32),
+                              device=cuda_device) for _ in "ab")
+    ra, rb = (torch.as_tensor(rng.uniform(0, .3, K).astype(np.float32),
+                              device=cuda_device) for _ in "ab")
+    before = kmac.launches
+    got = kmac.mac_margins(ca, ra, cb, rb, 0.37)
+    torch.cuda.synchronize()
+    assert kmac.launches == before + 1
+    assert torch.equal(got, kmac.mac_margins_ref(ca, ra, cb, rb, 0.37))
+    with pytest.raises(ValueError, match="multiple"):
+        kmac.mac_margins(ca[:100], ra[:100], cb[:100], rb[:100], 0.37)
+
+
+def test_device_traversal_on_card_matches_host(cuda_device):
+    """A robust tree (the reference's golden sphere case): the traversal
+    through K3 on the card emits the host traversal's lists in order."""
+    from repro_torch.core.engine.traversal import device_dual_traversal
+    from repro_torch.core.traversal import dual_traversal
+    from repro_torch.core.tree import build_tree
+    x = make_distribution("sphere", 1200, seed=3)
+    q = np.random.default_rng(4).uniform(-1, 1, 1200)
+    t = build_tree(x, q, ncrit=48)
+    before = kmac.launches
+    m2l, p2p, m2p, margin = device_dual_traversal(t, t, 0.5,
+                                                  device=cuda_device)
+    assert kmac.launches > before
+    m2l_h, p2p_h = dual_traversal(t, t, 0.5)
+    np.testing.assert_array_equal(m2l, m2l_h)
+    np.testing.assert_array_equal(p2p, p2p_h)
+    assert len(m2p) == 0
+    plain = device_dual_traversal(t, t, 0.5, use_kernel=False, device="cpu")
+    assert margin == plain[3]
+
+
+def test_step_on_card_matches_cpu(cuda_device):
+    """A within-slack step of a device-planned session on the card against
+    the same step on the CPU (planned with K3's plain version, so both hold
+    the same plans), at the engine test's card-against-CPU tolerance."""
+    from repro_torch.core.api import FMMSession
+    from repro_torch.core.fmm import direct_potential
+    x = make_distribution("sphere", 3000, seed=42)
+    q = np.random.default_rng(0).uniform(-1, 1, 3000)
+    spec = PartitionSpec(nparts=4, traversal_backend="device")
+    card = FMMSession.from_points(x, q, spec, device=cuda_device)
+    cpu = FMMSession.from_points(x, q, spec, device="cpu")
+    card.evaluate()
+    cpu.evaluate()
+    eps = float(cpu.geometry.slack.min())
+    x1 = x + np.random.default_rng(2).uniform(-eps / 4, eps / 4, x.shape)
+    rc, rh = card.step(x1), cpu.step(x1)
+    assert rc.rebuilt == rh.rebuilt == () and rc.refreshed == rh.refreshed
+    assert len(rc.refreshed) == 4
+    phi_c, phi_h = card.evaluate(), cpu.evaluate()
+    absum = direct_potential(x1, np.abs(q), device="cpu")
+    tol = 1e-4 + 1e-5 * np.abs(phi_h) + 1e-6 * absum
+    assert np.all(np.abs(phi_c - phi_h) <= tol)
