@@ -4,16 +4,20 @@
     python3 chip_smoke.py            # N = 2^20 bodies, the default
     python3 chip_smoke.py --n 65536  # a smaller run of the same phases
 
-Drives the port's main path on the card — `FMMSession.from_points(x, q,
-spec)` (planned with the device dual traversal and its MAC kernel K3),
-`.evaluate()` and `.step(new_x)` — on the repository's default workload: a
-sphere-surface (boundary) distribution from `make_distribution("sphere", N,
-seed=42)`, charges uniform in [-1, 1] from `default_rng(0)`, and
-`PartitionSpec(nparts=8, method="orb", theta=0.5, ncrit=64, p=4)`.
+Drives the port's two paths on the card.  The FMM path —
+`FMMSession.from_points(x, q, spec)` (planned with the device dual traversal
+and its MAC kernel K3), `.evaluate()` and `.step(new_x)` — on the
+repository's default workload: a sphere-surface (boundary) distribution
+from `make_distribution("sphere", N, seed=42)`, charges uniform in [-1, 1]
+from `default_rng(0)`, and `PartitionSpec(nparts=8, method="orb",
+theta=0.5, ncrit=64, p=4)`.  The LM serving path — `ServeEngine` over
+`build_model(cfg)` — for qwen3-0.6b (self-attention through K4) and
+rwkv6-1.6b (the WKV recurrence through K5) at full width and depth, with
+random bfloat16 weights from a seeded generator.
 
 Phases, in order; any failed check raises and ends the run non-zero:
 
-  1. the card's name and power limit; build the three CUDA kernels from
+  1. the card's name and power limit; build the five CUDA kernels from
      `src/repro_torch/kernels/csrc` with nvcc (sm_90a, one process each);
   2. plan the N-body geometry with the device traversal (K3's launch count
      set to 0 just before, read just after) and with the host traversal,
@@ -42,8 +46,25 @@ Phases, in order; any failed check raises and ends the run non-zero:
      refreshed) and one beyond-slack step of one partition (only it
      rebuilt, re-traversed through K3), each matching a float64 direct sum
      at the stepped positions;
-  7. one JSON line listing every ported kernel;
-  8. the last line: {"ok": true, "device": {...}}.
+  7. K4 and K5 against their plain versions on the card: K4 at qwen3-0.6b's
+     prefill shape (B 1, H 16, Hkv 8, S 4096, D 128, bfloat16, causal), at
+     (1, 2, 1, 200, 64) float32 and with a window of 64; K5 at rwkv6-1.6b's
+     (BH 4 x 32, S 1024, D 64, bfloat16 r/k/v, float32 w in (0.8, 1), zero
+     and random initial state) and at C = 1; each timed with CUDA events
+     beside its plain version, K4 also beside
+     `F.scaled_dot_product_attention` on the same inputs (a yardstick the
+     port never calls);
+  8. serving, for each of qwen3-0.6b and rwkv6-1.6b: `ServeEngine(B=4,
+     S_max=128)` answers 8 requests (prompts of 4-15 tokens from
+     default_rng(0), 8 new tokens each) and then prefills one 4,096-token
+     prompt, with the model's kernel count set to 0 just before and read
+     just after; tokens/s, prefill and decode-step times, a profile of one
+     decode step and of the long prefill; one request served alone, whose
+     every greedy token is the argmax of a full forward over the sequence
+     so far, up to 5e-2 of the largest logit (decode reads the cache, the
+     forward recomputes it, and bfloat16 rounds the two differently);
+  9. one JSON line listing every ported kernel;
+ 10. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -79,6 +100,13 @@ FLOPS_PER_PAIR = 11
 MAC_BYTES_PER_LANE = 36
 MAC_OPS_PER_LANE = 12
 RTOL_KERNEL = 2e-5
+# Published bf16 dense tensor-core peak of one H100 SXM (data sheet, 700 W)
+PEAK_BF16_FLOPS = 989e12
+# K5 per (token, head, i, j): k*v, u*kv + S, r*(...) accumulated, w*S + kv
+# (an fma counts as 2)
+WKV_OPS_PER_ENTRY = 7
+# LM serving: requests, slots, new tokens, cache length, the long prompt
+LM_REQUESTS, LM_SLOTS, LM_NEW, LM_SMAX, LM_LONG = 8, 4, 8, 128, 4096
 BITWISE_TILES = 1 << 20      # live tiles in the K1 == K2 bitwise check
 MOVER = 1                    # the partition the beyond-slack step shifts
 MOVER_SHIFT = np.array([0.15, -0.1, 0.2])
@@ -176,10 +204,10 @@ def check_close(name, got, want, absum):
     return max_err
 
 
-def profile_evaluate(torch, label: str, sess, top: int = 8) -> None:
-    """One warm evaluate under torch.profiler: the device-busy share (time
-    of the device's own events over wall time) and the kernels that take
-    the most device time.  Only device-side events are summed: a CPU op's
+def profile_run(torch, label: str, fn, top: int = 8) -> None:
+    """One warm fn() under torch.profiler: the device-busy share (time of
+    the device's own events over wall time) and the kernels that take the
+    most device time.  Only device-side events are summed: a CPU op's
     device time repeats that of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -187,7 +215,7 @@ def profile_evaluate(torch, label: str, sess, top: int = 8) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.evaluate()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(e.key, e.self_device_time_total, e.count)
@@ -369,6 +397,205 @@ def rel_l2(dev, x, q, phi, direct_potential) -> float:
     return float(np.linalg.norm(phi[idx] - d) / np.linalg.norm(d))
 
 
+def check_tol(torch, name, got, want, rtol, atol) -> float:
+    """|got - want| <= atol + rtol |want| elementwise, in float32; prints and
+    returns the max abs error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bad = int((err > atol + rtol * want.abs()).sum())
+    max_err = float(err.max())
+    print(f"  {name}: max_abs_err {max_err:.3e}, max |plain| "
+          f"{float(want.abs().max()):.3e}, over rtol {rtol} / atol {atol}: "
+          f"{bad}", flush=True)
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: {bad} values outside tolerance")
+    return max_err
+
+
+def lm_kernel_checks(torch, kattn, krwkv, dev, power) -> dict:
+    """Phase 7: K4 and K5 against their plain versions, timed."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def normal(shape, dtype, scale=1.0):
+        a = (rng.normal(size=shape) * scale).astype(np.float32)
+        return torch.as_tensor(a, device=dev).to(dtype)
+
+    out = {}
+    # K4 at qwen3-0.6b's prefill shape; the reference's bf16 tolerance
+    B, H, Hkv, S, D = 1, 16, 8, LM_LONG, 128
+    q, k, v = (normal((B, h, S, D), bf16) for h in (H, Hkv, Hkv))
+    got = kattn.flash_attention(q, k, v, causal=True)
+    err = check_tol(torch, f"K4 ({B}, {H}, {Hkv}, {S}, {D}) bf16 causal", got,
+                    kattn.attention_ref(q, k, v, causal=True), 5e-2, 5e-2)
+    for shape, window in (((1, 2, 1, 200, 64), None),
+                          ((1, 2, 2, 256, 64), 64)):
+        b, h, hk, s_, d = shape
+        q2, k2, v2 = (normal((b, n, s_, d), f32) for n in (h, hk, hk))
+        check_tol(torch, f"K4 {shape} f32 causal window {window}",
+                  kattn.flash_attention(q2, k2, v2, window=window),
+                  kattn.attention_ref(q2, k2, v2, window=window), 2e-4, 2e-4)
+    ms = cuda_ms(torch, lambda: kattn.flash_attention(q, k, v))
+    pms = cuda_ms(torch, lambda: kattn.attention_ref(q, k, v), reps=3)
+    lms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    pairs = S * (S + 1) // 2                    # causal (query, key) pairs
+    ops = 4.0 * D * pairs * B * H               # QK^T and PV, fma = 2
+    nbytes = 2.0 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16_FLOPS * 1e3
+    bms, by = (tb, "bytes") if tb >= to else (to, "operations")
+    print(f"  K4 at qwen3-0.6b prefill: {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"scaled_dot_product_attention {lms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}, {ops / 1e9:.2f} GFLOP at the bf16 tensor-core peak); "
+          f"{ops / ms / 1e9:.2f} TFLOP/s; power limit {power}", flush=True)
+    out["K4"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                     max_abs_err=err, library_ms=lms)
+    del q, k, v, got
+
+    # K5 at rwkv6-1.6b's prefill shape and at decode (C = 1)
+    BH, C, D = 4 * 32, 1024, 64
+    r, k, v = (normal((BH, C, D), bf16, 0.5) for _ in range(3))
+    w = torch.as_tensor(rng.uniform(0.8, 1.0, (BH, C, D)).astype(np.float32),
+                        device=dev)
+    u = normal((BH, D), f32, 0.1)
+    err = 0.0
+    for label, s0 in (("zero", torch.zeros(BH, D, D, device=dev)),
+                      ("random", normal((BH, D, D), f32, 0.1))):
+        y, s1 = krwkv.wkv_chunk(r, k, v, w, u, s0)
+        y_p, s_p = krwkv.wkv_ref(r, k, v, w, u, s0)
+        err = max(err, check_tol(torch, f"K5 y ({BH}, {C}, {D}) bf16, "
+                                 f"{label} s0", y, y_p, 1e-2, 1e-4),
+                  check_tol(torch, f"K5 state, {label} s0", s1, s_p, 1e-4,
+                            1e-4))
+        y1, s11 = krwkv.wkv_chunk(r[:, :1], k[:, :1], v[:, :1], w[:, :1], u,
+                                  s0)
+        y1p, s1p = krwkv.wkv_ref(r[:, :1], k[:, :1], v[:, :1], w[:, :1], u,
+                                 s0)
+        check_tol(torch, f"K5 y at C = 1, {label} s0", y1, y1p, 1e-2, 1e-4)
+        check_tol(torch, f"K5 state at C = 1, {label} s0", s11, s1p, 1e-4,
+                  1e-4)
+    ms = cuda_ms(torch, lambda: krwkv.wkv_chunk(r, k, v, w, u, s0))
+    pms = cuda_ms(torch, lambda: krwkv.wkv_ref(r, k, v, w, u, s0), reps=3)
+    dms = device_ms(torch, lambda: krwkv.wkv_chunk(
+        r[:, :1], k[:, :1], v[:, :1], w[:, :1], u, s0))
+    ops = float(WKV_OPS_PER_ENTRY) * BH * C * D * D
+    nbytes = BH * C * D * (3 * 2 + 4 + 2) + 2 * 4.0 * BH * D * D
+    bms, by = bound_ms(nbytes, ops)
+    print(f"  K5 at rwkv6-1.6b prefill ({BH}, {C}, {D}): {ms:.4f} ms, plain "
+          f"{pms:.4f} ms, bound {bms:.4f} ms ({by}); at C = 1 (decode) "
+          f"{dms:.4f} ms device time; power limit {power}", flush=True)
+    out["K5"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                     max_abs_err=err, library_ms=None)
+    return out
+
+
+def timed_sync(torch, fn):
+    """(result, seconds) of fn() between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def greedy_check(torch, model, prompt, out, tol_frac=5e-2) -> int:
+    """Every token the engine emitted is the argmax of a full forward over
+    the sequence so far, up to tol_frac of the largest logit.  Returns how
+    many are the exact argmax."""
+    seq, exact = list(prompt), 0
+    for t in out:
+        h = model(torch.as_tensor([seq], device=model.device))
+        lg = model.logits(h[:, -1:])[0, -1].float()
+        short, tol = float(lg.max() - lg[t]), tol_frac * float(lg.abs().max())
+        exact += int(lg.argmax()) == t
+        if short > tol:
+            raise AssertionError(f"greedy token {t} at length {len(seq)} is "
+                                 f"{short:.4f} below the forward's argmax "
+                                 f"{int(lg.argmax())} (tolerance {tol:.4f})")
+        seq.append(t)
+    return exact
+
+
+def serve_lm(torch, arch: str, counter, dev, card) -> dict:
+    """Phase 8 for one architecture: the serving path at full width."""
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config(arch)
+    model, t_init = timed_sync(torch, lambda: build_model(cfg, seed=0,
+                                                          device=dev))
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_par} parameters ({param_count(cfg)} by param_count), "
+          f"{sum(p.numel() * p.element_size() for p in model.parameters())} "
+          f"bytes; random init {t_init:.3f} s", flush=True)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
+        1, cfg.vocab, int(rng.integers(4, 16)))], max_new=LM_NEW)
+        for i in range(LM_REQUESTS)]
+    # warm-up: build the kernels' libraries, cuBLAS handles, the allocator
+    model.prefill(torch.as_tensor([reqs[0].prompt], device=dev), LM_SMAX)
+
+    engine = ServeEngine(model, B=LM_SLOTS, S_max=LM_SMAX)
+    for r in reqs:
+        engine.submit(r)
+    counter.launches = 0
+    done, t_serve = timed_sync(torch, lambda: engine.run(max_steps=LM_SMAX))
+    toks = sum(len(r.out) for r in done)
+    long = torch.as_tensor(np.random.default_rng(1).integers(
+        1, cfg.vocab, (1, LM_LONG)), device=dev)
+    (cache, lg_long), t_long = timed_sync(torch, lambda: model.prefill(
+        long, LM_LONG))
+    launches = counter.launches
+    if len(done) != LM_REQUESTS or any(len(r.out) != LM_NEW for r in done):
+        raise AssertionError(f"{arch}: served {[len(r.out) for r in done]}")
+    if not torch.isfinite(lg_long).all() or lg_long.shape != (
+            1, 1, model.weights.embed.shape[0]):
+        raise AssertionError(f"{arch}: bad logits of the long prefill")
+    if launches <= 0:
+        raise AssertionError(f"{arch}: its kernel was not launched")
+    del cache, lg_long
+    print(f"  {arch}: served {len(done)} requests, {toks} tokens in "
+          f"{t_serve:.4f} s ({toks / t_serve:.2f} tok/s through {LM_SLOTS} "
+          f"slots), prefill of {LM_LONG} tokens {t_long:.4f} s; kernel "
+          f"launches {launches}; card {card}", flush=True)
+
+    batch = torch.as_tensor(np.random.default_rng(2).integers(
+        1, cfg.vocab, (LM_SLOTS, 15)), device=dev)
+    t_pre = []
+    for _ in range(3):
+        (cache, lg), t = timed_sync(torch, lambda: model.prefill(batch,
+                                                                 LM_SMAX))
+        t_pre.append(t)
+    nxt = lg[:, -1].argmax(-1)[:, None]
+    t_dec = []
+    for i in range(5):
+        (lg, cache), t = timed_sync(torch, lambda: model.decode_step(
+            cache, nxt, 15 + i))
+        t_dec.append(t)
+    print(f"  {arch}: prefill ({LM_SLOTS} x 15 tokens) median "
+          f"{statistics.median(t_pre) * 1e3:.3f} ms, decode step ({LM_SLOTS} "
+          f"slots) median {statistics.median(t_dec) * 1e3:.3f} ms "
+          f"(runs {', '.join(f'{t * 1e3:.3f}' for t in t_dec)})", flush=True)
+    profile_run(torch, f"{arch} decode step", lambda: model.decode_step(
+        cache, nxt, 20))
+    del cache
+    profile_run(torch, f"{arch} prefill of {LM_LONG} tokens",
+                lambda: model.prefill(long, LM_LONG))
+
+    solo = ServeEngine(model, B=1, S_max=LM_SMAX)
+    solo.submit(Request(rid=0, prompt=list(reqs[0].prompt), max_new=LM_NEW))
+    out = solo.run(max_steps=LM_SMAX)[0].out
+    exact = greedy_check(torch, model, reqs[0].prompt, out)
+    print(f"  {arch}: greedy continuation {out}: every token the forward's "
+          f"argmax within 5e-2 of the largest logit, {exact} of {len(out)} "
+          f"exactly", flush=True)
+    del model, engine, solo
+    torch.cuda.empty_cache()
+    return dict(launches=launches, tok_s=toks / t_serve)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
@@ -388,10 +615,12 @@ def main() -> int:
     from repro_torch.core.engine.p2p import _gather_bucket, stream_payload
     from repro_torch.core.engine.traversal import device_dual_traversal
     from repro_torch.core.fmm import direct_potential
+    from repro_torch.kernels import attention as kattn
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import mac as kmac
     from repro_torch.kernels import p2p as kp2p
     from repro_torch.kernels import p2p_stream as kstream
+    from repro_torch.kernels import rwkv as krwkv
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -687,7 +916,7 @@ def main() -> int:
                   flush=True)
 
         for label, sess in (("gathered", sess_g), ("stream", sess_s)):
-            profile_evaluate(torch, label, sess)
+            profile_run(torch, label, sess.evaluate)
 
         phi_g, phi_s = out["gathered"], out["stream"]
         for label, phi in out.items():
@@ -777,6 +1006,18 @@ def main() -> int:
             raise AssertionError(f"rebuilt rel-L2 {rel} >= 3e-3")
 
     # ------------------------------------------------------------- 7 -----
+    with phase("LM kernels K4 and K5 against their plain versions"):
+        results.update(lm_kernel_checks(torch, kattn, krwkv, dev, power))
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- 8 -----
+    for arch, counter, name in (("qwen3-0.6b", kattn, "K4"),
+                                ("rwkv6-1.6b", krwkv, "K5")):
+        with phase(f"serving {arch}"):
+            launches[name] = serve_lm(torch, arch, counter, dev,
+                                      card)["launches"]
+
+    # ------------------------------------------------------------- 9 -----
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]
@@ -786,6 +1027,8 @@ def main() -> int:
         "K1": ("csrc/p2p.cu", "src/repro/kernels/p2p.py:248"),
         "K2": ("csrc/p2p_stream.cu", "src/repro/kernels/p2p_stream.py:111"),
         "K3": ("csrc/mac.cu", "src/repro/kernels/mac.py:53"),
+        "K4": ("csrc/attention.cu", "src/repro/kernels/attention.py:73"),
+        "K5": ("csrc/wkv.cu", "src/repro/kernels/rwkv.py:48"),
     }
     kernels = []
     for name, (src, rep) in replaces.items():
@@ -796,7 +1039,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "library_ms": r.get("library_ms")})
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

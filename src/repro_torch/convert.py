@@ -1,4 +1,4 @@
-"""Carry engine state across from stacked NumPy tables.
+"""Carry engine state and model weights across from NumPy.
 
 The FMM has no trained weights: an evaluation's state is the geometry's
 stacked engine tables plus the (x, q) payload.  `engine_tables_from_numpy`
@@ -18,16 +18,27 @@ Keys of `arrays`:
     m2p/<name>   b, mask, centers, t_idx, t_valid
     p2p/<i>/<name>  t_idx, t_valid, s_idx, s_valid, mask for bucket i = 0, 1, ...
     l2p_t_idx, orig_idx, flat_idx
+
+`lm_params_from_numpy(cfg, tree)` turns a language model's parameter tree,
+as the reference package's `Model.init` lays it out and converted leaf by
+leaf to NumPy, into the port's weight tree for `build_model(cfg, params=)`:
+the `(n_superblocks, ...)` leaves under `blocks` are unstacked into one tree
+per layer, bfloat16 goes through float32 (exact), and the weights keep the
+reference's `x @ W` orientation, W shaped (d_in, d_out).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.engine.schedules import (BatchedUpwardSchedule,
                                                EngineTables)
+from repro_torch.device import resolve_device
+from repro_torch.models.params import ParamDef, map_tree
+from repro_torch.models.transformer import model_defs
 
-__all__ = ["engine_tables_from_numpy", "UP_KEYS", "M2L_KEYS", "M2P_KEYS",
-           "BUCKET_KEYS"]
+__all__ = ["engine_tables_from_numpy", "lm_params_from_numpy", "UP_KEYS",
+           "M2L_KEYS", "M2P_KEYS", "BUCKET_KEYS"]
 
 UP_KEYS = ("leaves", "leaf_mask", "leaf_centers", "leaf_idx", "leaf_valid",
            "up_ids", "up_parents", "up_mask", "up_d",
@@ -79,3 +90,53 @@ def engine_tables_from_numpy(arrays: dict, device) -> EngineTables:
         orig_idx=_arr(arrays, "orig_idx"),
         flat_idx=_arr(arrays, "flat_idx"))
     return tables.to(device)
+
+
+def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
+    """The reference's parameter tree of `cfg` (nested dicts of NumPy
+    arrays, block leaves stacked on a leading superblock axis) -> the port's
+    weight tree on `device` (default: the card).  Every leaf keeps its type
+    (bfloat16 or float32); a missing, extra or misshapen leaf raises."""
+    dev = resolve_device(device)
+    n = cfg.n_layers
+    blocks = tree["blocks"]
+    flat = dict(tree, blocks=[map_tree(lambda a, i=i: np.asarray(a)[i], blocks)
+                              for i in range(n)])
+    for a in _leaves(blocks):
+        if np.shape(a)[0] != n:
+            raise ValueError(f"lm_params_from_numpy: block leaf of shape "
+                             f"{np.shape(a)} is not stacked over {n} layers")
+
+    def one(d: ParamDef, a, path: str) -> torch.Tensor:
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(d.shape):
+            raise ValueError(f"{path}: shape {a.shape}, expected {d.shape}")
+        bf16 = a.dtype.name == "bfloat16"
+        t = torch.from_numpy(a.astype(np.float32) if bf16 else np.array(a))
+        return t.to(dev, torch.bfloat16 if bf16 else t.dtype)
+
+    return _zip(one, model_defs(cfg), flat)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _zip(fn, defs, tree, path="params"):
+    """fn(def, leaf, path) over two trees of the same keys."""
+    if isinstance(defs, ParamDef):
+        return fn(defs, tree, path)
+    if isinstance(defs, list):
+        if len(defs) != len(tree):
+            raise ValueError(f"{path}: {len(tree)} entries, expected "
+                             f"{len(defs)}")
+        return [_zip(fn, d, t, f"{path}[{i}]")
+                for i, (d, t) in enumerate(zip(defs, tree))]
+    if set(defs) != set(tree):
+        raise ValueError(f"{path}: keys {sorted(tree)}, expected "
+                         f"{sorted(defs)}")
+    return {k: _zip(fn, defs[k], tree[k], f"{path}/{k}") for k in defs}

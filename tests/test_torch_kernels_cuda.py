@@ -1,6 +1,7 @@
-"""The port's CUDA kernels K1 (csrc/p2p.cu), K2 (csrc/p2p_stream.cu) and
-K3 (csrc/mac.cu) against their plain PyTorch versions, on the card, and the
-paths that run them: the engine, the device traversal and a step.
+"""The port's CUDA kernels K1 (csrc/p2p.cu), K2 (csrc/p2p_stream.cu), K3
+(csrc/mac.cu), K4 (csrc/attention.cu) and K5 (csrc/wkv.cu) against their
+plain PyTorch versions, on the card, and the paths that run them: the
+engine, the device traversal, a step, and the language models.
 
 A CUDA kernel has no CPU mode: every test here takes the `cuda_device`
 fixture, which skips it where no card is present.  The file imports no JAX,
@@ -12,6 +13,11 @@ Tolerance rtol/atol 2e-5 against the plain versions (float32 sums in
 another order, `rsqrtf` against `torch.rsqrt`); K1 and K2 are bitwise equal
 on identical slabs because they share one tile body.  K3 equals its plain
 version bit for bit: both round the same float32 steps in the same order.
+K4 at the reference's own tolerances (tests/test_kernels.py): rtol/atol
+2e-4 in float32, 5e-2 in bfloat16, where the kernel rounds q * scale and the
+plain version the scores to bfloat16.  K5 at rtol/atol 1e-4 in float32; in
+bfloat16 both round one float32 sum (taken in another order) to the output
+type, so they may land on neighbouring values: rtol 1e-2 / atol 1e-4.
 """
 import numpy as np
 import pytest
@@ -22,9 +28,11 @@ from repro_torch.core.distributions import make_distribution
 from repro_torch.core.engine import build_engine_tables, stack_bodies
 from repro_torch.core.engine.p2p import stream_payload
 from repro_torch.core.engine.schedules import build_p2p_stream_tables
+from repro_torch.kernels import attention as kattn
 from repro_torch.kernels import mac as kmac
 from repro_torch.kernels import p2p as kp2p
 from repro_torch.kernels import p2p_stream as kstream
+from repro_torch.kernels import rwkv as krwkv
 
 RTOL = ATOL = 2e-5
 
@@ -182,3 +190,130 @@ def test_step_on_card_matches_cpu(cuda_device):
     absum = direct_potential(x1, np.abs(q), device="cpu")
     tol = 1e-4 + 1e-5 * np.abs(phi_h) + 1e-6 * absum
     assert np.all(np.abs(phi_c - phi_h) <= tol)
+
+
+def _normal(rng, shape, dtype, device, scale=1.0):
+    a = (rng.normal(size=shape) * scale).astype(np.float32)
+    return torch.as_tensor(a, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,dtype,window,causal", [
+    (1, 4, 4, 128, 64, torch.float32, None, True),
+    (2, 4, 2, 256, 64, torch.float32, None, True),
+    (1, 8, 2, 128, 128, torch.float32, None, True),
+    (1, 2, 1, 200, 64, torch.float32, None, True),
+    (1, 2, 2, 256, 64, torch.float32, 64, True),
+    (1, 2, 2, 256, 64, torch.float32, 128, True),
+    (2, 4, 1, 100, 32, torch.float32, None, False),
+    (1, 2, 2, 128, 64, torch.bfloat16, None, True),
+    (1, 16, 8, 1024, 128, torch.bfloat16, None, True),
+    (1, 4, 2, 333, 128, torch.bfloat16, 64, True),
+])
+def test_k4_matches_plain_on_card(cuda_device, B, H, Hkv, S, D, dtype,
+                                  window, causal):
+    rng = np.random.default_rng(S + D + H)
+    q = _normal(rng, (B, H, S, D), dtype, cuda_device)
+    k = _normal(rng, (B, Hkv, S, D), dtype, cuda_device)
+    v = _normal(rng, (B, Hkv, S, D), dtype, cuda_device)
+    before = kattn.launches
+    got = kattn.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kattn.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = kattn.attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_k4_rejects_what_it_does_not_take_on_card(cuda_device):
+    q = torch.zeros(1, 2, 64, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        kattn.flash_attention(q.transpose(2, 3), q.transpose(2, 3), q)
+    q48 = torch.zeros(1, 2, 64, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        kattn.flash_attention(q48, q48, q48)
+    with pytest.raises(TypeError):
+        kattn.flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("BH,C,D,dtype,random_state", [
+    (2, 128, 64, torch.float32, False),
+    (4, 64, 32, torch.float32, True),
+    (1, 256, 128, torch.float32, True),
+    (3, 37, 64, torch.float32, True),
+    (6, 1, 64, torch.float32, True),
+    (8, 200, 64, torch.bfloat16, True),
+    (8, 1, 64, torch.bfloat16, True),
+])
+def test_k5_matches_plain_on_card(cuda_device, BH, C, D, dtype, random_state):
+    rng = np.random.default_rng(BH * C + D)
+    r, k, v = (_normal(rng, (BH, C, D), dtype, cuda_device, 0.5)
+               for _ in "rkv")
+    w = torch.as_tensor(rng.uniform(0.8, 1.0, (BH, C, D)).astype(np.float32),
+                        device=cuda_device)
+    u = _normal(rng, (BH, D), torch.float32, cuda_device, 0.1)
+    s0 = (_normal(rng, (BH, D, D), torch.float32, cuda_device, 0.1)
+          if random_state else torch.zeros(BH, D, D, device=cuda_device))
+    before = krwkv.launches
+    y, s1 = krwkv.wkv_chunk(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert krwkv.launches == before + 1
+    assert y.dtype == dtype and s1.dtype == torch.float32
+    y_want, s_want = krwkv.wkv_ref(r, k, v, w, u, s0)
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-4)
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=tol[0],
+                               atol=tol[1])
+    torch.testing.assert_close(s1, s_want, rtol=1e-4, atol=1e-4)
+
+
+def test_k5_chunk_invariance_on_card(cuda_device):
+    rng = np.random.default_rng(3)
+    r, k, v = (_normal(rng, (2, 128, 32), torch.float32, cuda_device, 0.3)
+               for _ in "rkv")
+    w = torch.as_tensor(rng.uniform(0.9, 0.999, (2, 128, 32)).astype(
+        np.float32), device=cuda_device)
+    u = _normal(rng, (2, 32), torch.float32, cuda_device, 0.1)
+    s0 = _normal(rng, (2, 32, 32), torch.float32, cuda_device, 0.1)
+    y32, s32 = krwkv.rwkv6_wkv(r, k, v, w, u, s0, chunk=32)
+    y128, s128 = krwkv.rwkv6_wkv(r, k, v, w, u, s0, chunk=128)
+    assert torch.equal(y32, y128) and torch.equal(s32, s128)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+def test_lm_on_card_matches_cpu_and_serves(cuda_device, arch):
+    """The smoke model in float32 on the card (through K4 / K5) against the
+    same weights on the CPU (through the plain versions), at rtol/atol 1e-4
+    of the logits; then the engine serves one request on the card, and each
+    token it emits is the argmax of a full forward over the sequence so
+    far, up to 1e-3 of the logits: decode reads keys and values from the
+    bfloat16 cache, the forward does not."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.params import map_tree
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    params = build_model(cfg, seed=0, device="cpu").params
+    card = build_model(cfg, map_tree(lambda t: t.float().to(cuda_device),
+                                     params))
+    cpu = build_model(cfg, map_tree(lambda t: t.float(), params))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(1, 200, (2, 64)))
+    counter = kattn if cfg.family == "dense" else krwkv
+    before = counter.launches
+    lg_card = card.logits(card(toks.to(cuda_device)))
+    torch.cuda.synchronize()
+    assert counter.launches == before + cfg.n_layers
+    torch.testing.assert_close(lg_card.cpu(), cpu.logits(cpu(toks)),
+                               rtol=1e-4, atol=1e-4)
+
+    prompt = [3, 17, 91, 45]
+    eng = ServeEngine(card, B=1, S_max=32)
+    eng.submit(Request(rid=0, prompt=prompt, max_new=5))
+    out = eng.run(max_steps=10)[0].out
+    seq = list(prompt)
+    for t in out:
+        h = card(torch.as_tensor([seq], device=cuda_device))
+        lg = card.logits(h[:, -1:])[0, -1]
+        assert float(lg.max() - lg[t]) <= 1e-3, (seq, t, int(lg.argmax()))
+        seq.append(t)
