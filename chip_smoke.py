@@ -46,9 +46,11 @@ Phases, in order; any failed check raises and ends the run non-zero:
      refreshed) and one beyond-slack step of one partition (only it
      rebuilt, re-traversed through K3), each matching a float64 direct sum
      at the stepped positions;
-  7. K4 and K5 against their plain versions on the card: K4 at qwen3-0.6b's
-     prefill shape (B 1, H 16, Hkv 8, S 4096, D 128, bfloat16, causal), at
-     (1, 2, 1, 200, 64) float32 and with a window of 64; K5 at rwkv6-1.6b's
+  7. K4 and K5 against their plain versions on the card: K4 (against the
+     plain version with its roundings) at qwen3-0.6b's prefill shape (B 1,
+     H 16, Hkv 8, S 4096, D 128, bfloat16, causal; elementwise and per-row
+     tolerances K4_BF16_*), at (1, 2, 1, 200, 64) float32 and with a window
+     of 64; K5 at rwkv6-1.6b's
      (BH 4 x 32, S 1024, D 64, bfloat16 r/k/v, float32 w in (0.8, 1), zero
      and random initial state) and at C = 1; each timed with CUDA events
      beside its plain version, K4 also beside
@@ -59,10 +61,12 @@ Phases, in order; any failed check raises and ends the run non-zero:
      default_rng(0), 8 new tokens each) and then prefills one 4,096-token
      prompt, with the model's kernel count set to 0 just before and read
      just after; tokens/s, prefill and decode-step times, a profile of one
-     decode step and of the long prefill; one request served alone, whose
-     every greedy token is the argmax of a full forward over the sequence
-     so far, up to 5e-2 of the largest logit (decode reads the cache, the
-     forward recomputes it, and bfloat16 rounds the two differently);
+     decode step and of the long prefill; each request served alone: the
+     engine's logits (prefill, then decode over the cache) agree with a
+     full forward over the sequence so far within LM_LOGIT_TOL of the
+     largest |logit| (bfloat16 rounds the two paths differently), and each
+     greedy token is the forward's argmax except at near ties (top-2 gap
+     at most twice the measured difference), counted;
   9. one JSON line listing every ported kernel;
  10. the last line: {"ok": true, "device": {...}}.
 
@@ -102,9 +106,27 @@ MAC_OPS_PER_LANE = 12
 RTOL_KERNEL = 2e-5
 # Published bf16 dense tensor-core peak of one H100 SXM (data sheet, 700 W)
 PEAK_BF16_FLOPS = 989e12
-# K5 per (token, head, i, j): k*v, u*kv + S, r*(...) accumulated, w*S + kv
-# (an fma counts as 2)
-WKV_OPS_PER_ENTRY = 7
+# K5 per (token, head, i, j), the least the function needs: the output
+# y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i takes one fma per entry (2;
+# the second sum is O(D) per token), the update w_i S_ij + k_i v_j one
+# multiply and one fma (3); an fma counts as 2
+WKV_OPS_PER_ENTRY = 5
+# K4 at the main path's shape in bfloat16, against `attention_rounded_ref`:
+# elementwise atol + rtol |plain| (rtol two units in the last place of a
+# bfloat16 value at the worst; atol one unit at |o| in [0.5, 1), above the
+# 1e-3 at which one value of 8.4 million failed), and per query row
+# ||got - plain|| <= K4_ROW_REL ||plain|| (2.3x the largest measured,
+# 4.4e-3), which also holds the rows whose outputs are small
+K4_BF16_ATOL, K4_BF16_RTOL, K4_ROW_REL = 4e-3, 1.6e-2, 1e-2
+# greedy check: every logit of the engine's path (prefill, then decode over
+# the cache) within LM_LOGIT_TOL of the largest |logit| of a full forward
+# over the same sequence (about twice the 1.55e-2 measured on one request
+# of qwen3-0.6b, whose decode attention rounds the scores to bfloat16 where
+# K4 keeps them in float32; rwkv6-1.6b read 0); a token is exempt from being the forward's argmax only
+# where the forward's top-2 gap is at most twice the difference measured at
+# that step, the one case in which the two paths may order the top two
+# differently
+LM_LOGIT_TOL = 3e-2
 # LM serving: requests, slots, new tokens, cache length, the long prompt
 LM_REQUESTS, LM_SLOTS, LM_NEW, LM_SMAX, LM_LONG = 8, 4, 8, 128, 4096
 BITWISE_TILES = 1 << 20      # live tiles in the K1 == K2 bitwise check
@@ -397,16 +419,31 @@ def rel_l2(dev, x, q, phi, direct_potential) -> float:
     return float(np.linalg.norm(phi[idx] - d) / np.linalg.norm(d))
 
 
-def check_tol(torch, name, got, want, rtol, atol) -> float:
-    """|got - want| <= atol + rtol |want| elementwise, in float32; prints and
-    returns the max abs error."""
+def check_tol(torch, name, got, want, rtol, atol, row_rel=None) -> float:
+    """|got - want| <= atol + rtol |want| elementwise, in float32, and with
+    `row_rel` ||got - want|| <= row_rel ||want|| over each row (the last
+    dimension); prints and returns the max abs error."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    bad = int((err > atol + rtol * want.abs()).sum())
+    tol = atol + rtol * want.abs()
+    bad = int((err > tol).sum())
     max_err = float(err.max())
+    worst = int((err / tol).argmax())
+    print(f"  {name}: closest to its tolerance: |got - plain| "
+          f"{float(err.flatten()[worst]):.3e} at |plain| "
+          f"{float(want.flatten()[worst].abs()):.3e}, tolerance "
+          f"{float(tol.flatten()[worst]):.3e}", flush=True)
+    rows = ""
+    if row_rel is not None:
+        rel = err.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+        bad_rows = int((rel > row_rel).sum())
+        rows = (f"; per-row relative L2 max {float(rel.max()):.3e}, median "
+                f"{float(rel.median()):.3e}, over {row_rel}: {bad_rows}")
+        bad += bad_rows
     print(f"  {name}: max_abs_err {max_err:.3e}, max |plain| "
-          f"{float(want.abs().max()):.3e}, over rtol {rtol} / atol {atol}: "
-          f"{bad}", flush=True)
+          f"{float(want.abs().max()):.3e}, median |plain| "
+          f"{float(want.abs().median()):.3e}, over rtol {rtol} / atol "
+          f"{atol}: {bad}{rows}", flush=True)
     if bad or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: {bad} values outside tolerance")
     return max_err
@@ -423,21 +460,24 @@ def lm_kernel_checks(torch, kattn, krwkv, dev, power) -> dict:
         return torch.as_tensor(a, device=dev).to(dtype)
 
     out = {}
-    # K4 at qwen3-0.6b's prefill shape; the reference's bf16 tolerance
+    # K4 at qwen3-0.6b's prefill shape, against the plain version that
+    # rounds as the kernel does (see K4_BF16_ATOL)
     B, H, Hkv, S, D = 1, 16, 8, LM_LONG, 128
     q, k, v = (normal((B, h, S, D), bf16) for h in (H, Hkv, Hkv))
     got = kattn.flash_attention(q, k, v, causal=True)
     err = check_tol(torch, f"K4 ({B}, {H}, {Hkv}, {S}, {D}) bf16 causal", got,
-                    kattn.attention_ref(q, k, v, causal=True), 5e-2, 5e-2)
+                    kattn.attention_rounded_ref(q, k, v, causal=True),
+                    K4_BF16_RTOL, K4_BF16_ATOL, row_rel=K4_ROW_REL)
     for shape, window in (((1, 2, 1, 200, 64), None),
                           ((1, 2, 2, 256, 64), 64)):
         b, h, hk, s_, d = shape
         q2, k2, v2 = (normal((b, n, s_, d), f32) for n in (h, hk, hk))
         check_tol(torch, f"K4 {shape} f32 causal window {window}",
                   kattn.flash_attention(q2, k2, v2, window=window),
-                  kattn.attention_ref(q2, k2, v2, window=window), 2e-4, 2e-4)
+                  kattn.attention_rounded_ref(q2, k2, v2, window=window),
+                  2e-4, 2e-4)
     ms = cuda_ms(torch, lambda: kattn.flash_attention(q, k, v))
-    pms = cuda_ms(torch, lambda: kattn.attention_ref(q, k, v), reps=3)
+    pms = cuda_ms(torch, lambda: kattn.attention_rounded_ref(q, k, v), reps=3)
     lms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
     pairs = S * (S + 1) // 2                    # causal (query, key) pairs
@@ -499,22 +539,59 @@ def timed_sync(torch, fn):
     return r, time.perf_counter() - t0
 
 
-def greedy_check(torch, model, prompt, out, tol_frac=5e-2) -> int:
-    """Every token the engine emitted is the argmax of a full forward over
-    the sequence so far, up to tol_frac of the largest logit.  Returns how
-    many are the exact argmax."""
-    seq, exact = list(prompt), 0
-    for t in out:
+class LogitTape:
+    """Stands in for the model in a `ServeEngine`: forwards prefill and
+    decode_step and keeps each call's last-position logits in float32."""
+
+    def __init__(self, model):
+        self.model, self.device, self.logits = model, model.device, []
+
+    def prefill(self, *args, **kw):
+        cache, lg = self.model.prefill(*args, **kw)
+        self.logits.append(lg[:, -1].float())
+        return cache, lg
+
+    def decode_step(self, *args):
+        lg, cache = self.model.decode_step(*args)
+        self.logits.append(lg[:, -1].float())
+        return lg, cache
+
+
+def greedy_check(torch, model, prompt, out, tape) -> tuple:
+    """Each token a request served alone was given: the argmax of the
+    engine's logits (`tape`), and those logits within LM_LOGIT_TOL of the
+    largest |logit| of a full forward over the sequence so far.  The token
+    must be the forward's argmax unless the forward's top-2 gap is at most
+    twice the difference of the two at that step.  Returns (tokens exempted
+    as near ties, the largest difference as a fraction of the largest
+    |logit|)."""
+    if len(tape.logits) != len(out):
+        raise AssertionError(f"{len(tape.logits)} engine calls for "
+                             f"{len(out)} tokens")
+    seq, exempt, worst = list(prompt), 0, 0.0
+    for t, lg_e in zip(out, tape.logits):
         h = model(torch.as_tensor([seq], device=model.device))
         lg = model.logits(h[:, -1:])[0, -1].float()
-        short, tol = float(lg.max() - lg[t]), tol_frac * float(lg.abs().max())
-        exact += int(lg.argmax()) == t
-        if short > tol:
-            raise AssertionError(f"greedy token {t} at length {len(seq)} is "
-                                 f"{short:.4f} below the forward's argmax "
-                                 f"{int(lg.argmax())} (tolerance {tol:.4f})")
+        scale = float(lg.abs().max())
+        diff = float((lg_e[0] - lg).abs().max()) / scale
+        top2 = lg.topk(2).values
+        gap = float(top2[0] - top2[1]) / scale
+        worst = max(worst, diff)
+        where = (f"token {t} at length {len(seq)} (forward argmax "
+                 f"{int(lg.argmax())}, |engine - forward| {diff:.3e} of the "
+                 f"largest |logit| {scale:.3f}, forward top-2 gap {gap:.3e})")
+        if int(lg_e[0].argmax()) != t:
+            raise AssertionError(f"{where}: not the engine's argmax")
+        if diff > LM_LOGIT_TOL:
+            raise AssertionError(f"{where}: engine and forward logits differ "
+                                 f"beyond {LM_LOGIT_TOL}")
+        if gap <= 2 * diff:
+            exempt += 1
+            print(f"    near tie: {where}", flush=True)
+        elif int(lg.argmax()) != t:
+            raise AssertionError(f"{where}: not the forward's argmax")
         seq.append(t)
-    return exact
+    return exempt, worst
 
 
 def serve_lm(torch, arch: str, counter, dev, card) -> dict:
@@ -584,13 +661,22 @@ def serve_lm(torch, arch: str, counter, dev, card) -> dict:
     profile_run(torch, f"{arch} prefill of {LM_LONG} tokens",
                 lambda: model.prefill(long, LM_LONG))
 
-    solo = ServeEngine(model, B=1, S_max=LM_SMAX)
-    solo.submit(Request(rid=0, prompt=list(reqs[0].prompt), max_new=LM_NEW))
-    out = solo.run(max_steps=LM_SMAX)[0].out
-    exact = greedy_check(torch, model, reqs[0].prompt, out)
-    print(f"  {arch}: greedy continuation {out}: every token the forward's "
-          f"argmax within 5e-2 of the largest logit, {exact} of {len(out)} "
-          f"exactly", flush=True)
+    n_tok = n_exempt = 0
+    worst = 0.0
+    for r in reqs:                  # each request served alone
+        tape = LogitTape(model)
+        solo = ServeEngine(tape, B=1, S_max=LM_SMAX)
+        solo.submit(Request(rid=r.rid, prompt=list(r.prompt),
+                            max_new=LM_NEW))
+        out = solo.run(max_steps=LM_SMAX)[0].out
+        exempt, diff = greedy_check(torch, model, r.prompt, out, tape)
+        n_tok, n_exempt = n_tok + len(out), n_exempt + exempt
+        worst = max(worst, diff)
+    print(f"  {arch}: greedy continuations of the {len(reqs)} requests, "
+          f"each served alone: {n_tok - n_exempt} of {n_tok} tokens the "
+          f"exact argmax of a full forward, {n_exempt} exempt as near ties; "
+          f"engine logits within {worst:.3e} of the largest |logit| of the "
+          f"forward's (limit {LM_LOGIT_TOL})", flush=True)
     del model, engine, solo
     torch.cuda.empty_cache()
     return dict(launches=launches, tok_s=toks / t_serve)

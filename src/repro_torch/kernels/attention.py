@@ -16,7 +16,11 @@ the tensor cores (see the note in the source).
 `attention_ref` is the plain PyTorch version, the counterpart of
 `repro.kernels.ref.attention_ref`: the whole (S, S) score matrix, masked
 with -1e30, softmax in float32.  The wrapper runs it for tensors on the CPU
-and launches the kernel for tensors on a CUDA device.
+and launches the kernel for tensors on a CUDA device.  In bfloat16 it rounds
+the scores to bfloat16, as the reference's oracle does, where the kernel
+rounds q * scale; `attention_rounded_ref` is the plain version with the
+kernel's roundings, to hold the kernel to a bfloat16 tolerance of about one
+unit in the last place of the output.
 
 `launches` counts kernel launches: the wrapper adds one where it launches
 the kernel, and nowhere else.
@@ -30,7 +34,8 @@ import torch
 
 from repro_torch.kernels.build import library
 
-__all__ = ["flash_attention", "attention_ref", "HEAD_DIMS", "NEG_INF"]
+__all__ = ["flash_attention", "attention_ref", "attention_rounded_ref",
+           "HEAD_DIMS", "NEG_INF"]
 
 HEAD_DIMS = (32, 64, 128)       # the head sizes the kernel is built for
 NEG_INF = -1e30
@@ -56,6 +61,35 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None):
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def attention_rounded_ref(q, k, v, *, causal: bool = True,
+                          window: int | None = None):
+    """Plain version with the kernel's (the Pallas kernel's) roundings:
+    q * scale in the input type (scale rounded to it first), float32 scores,
+    p = exp(s - max) rounded to v's type before a float32 PV product, and
+    acc / max(l, 1e-30) with l the sum of the unrounded p, rounded to the
+    input type.  The kernel rounds p against the running max of the key
+    tiles it has seen, this against the row's max, so in bfloat16 a term of
+    the PV sum may differ by one rounding of p (2^-9 of it)."""
+    B, H, S, D = q.shape
+    group = H // k.shape[1]
+    scale = float(torch.tensor(D ** -0.5, dtype=q.dtype))
+    qs = (q * scale).float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vf)
+    return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
 
 
 def _check(q, k, v, window):

@@ -4,7 +4,8 @@ serving step.
 `Model` registers every weight as a frozen `nn.Parameter` (so `.to()`,
 `state_dict()` and `named_parameters()` work) and keeps the same tensors as
 the nested tree the functional code reads (`model.params`: dicts, with
-`blocks` a list of per-layer trees).  `build_model(cfg)` draws random
+`blocks` a list of per-layer trees), built once and again after a
+conversion such as `.to()`, not at every call.  `build_model(cfg)` draws random
 weights from a seeded `torch.Generator` on the card unless `device` says
 otherwise; `build_model(cfg, params=tree)` wraps given weights, for
 instance the reference's converted by `repro_torch.convert`.
@@ -49,10 +50,12 @@ class Model(nn.Module):
         tf.check_supported(cfg)
         self.cfg = cfg
         self.weights = _module(params)
+        self.params = _tree(self.weights)
 
-    @property
-    def params(self) -> dict:
-        return _tree(self.weights)
+    def _apply(self, fn, *args, **kw):
+        out = super()._apply(fn, *args, **kw)
+        self.params = _tree(self.weights)
+        return out
 
     @property
     def device(self) -> torch.device:

@@ -13,9 +13,11 @@ Tolerance rtol/atol 2e-5 against the plain versions (float32 sums in
 another order, `rsqrtf` against `torch.rsqrt`); K1 and K2 are bitwise equal
 on identical slabs because they share one tile body.  K3 equals its plain
 version bit for bit: both round the same float32 steps in the same order.
-K4 at the reference's own tolerances (tests/test_kernels.py): rtol/atol
-2e-4 in float32, 5e-2 in bfloat16, where the kernel rounds q * scale and the
-plain version the scores to bfloat16.  K5 at rtol/atol 1e-4 in float32; in
+K4 against `attention_rounded_ref`, the plain version with the kernel's
+roundings: rtol/atol 2e-4 in float32; in bfloat16 atol 4e-3 + rtol 1.6e-2
+elementwise (two units in the last place of a bfloat16 output at the worst:
+both round one float32 value to it) and 1e-2 per query row in relative L2,
+the limits chip_smoke.py holds it to at qwen3-0.6b's shape.  K5 at rtol/atol 1e-4 in float32; in
 bfloat16 both round one float32 sum (taken in another order) to the output
 type, so they may land on neighbouring values: rtol 1e-2 / atol 1e-4.
 """
@@ -220,9 +222,14 @@ def test_k4_matches_plain_on_card(cuda_device, B, H, Hkv, S, D, dtype,
     torch.cuda.synchronize()
     assert kattn.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
-    want = kattn.attention_ref(q, k, v, causal=causal, window=window)
-    tol = 2e-4 if dtype == torch.float32 else 5e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    want = kattn.attention_rounded_ref(q, k, v, causal=causal,
+                                       window=window).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=1.6e-2, atol=4e-3)
+        err = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
+        assert float(err.max()) <= 1e-2
 
 
 def test_k4_rejects_what_it_does_not_take_on_card(cuda_device):

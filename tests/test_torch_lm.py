@@ -236,3 +236,17 @@ def test_convert_rejects_a_misshapen_tree():
     bad = dict(tree, extra=tree["final_ln"])
     with pytest.raises(ValueError, match="keys"):
         lm_params_from_numpy(cfg, bad, device="cpu")
+
+
+def test_model_params_follow_a_conversion():
+    """`Model.params` is built once, holds the registered parameters
+    themselves, and is rebuilt when `.to()` converts them."""
+    model = build_model(get_config("qwen3-0.6b", smoke=True), device="cpu")
+    tree = model.params
+    assert model.params is tree
+    leaves = {id(t) for t in jax.tree.leaves(
+        tree, is_leaf=lambda x: isinstance(x, torch.Tensor))}
+    assert leaves == {id(p) for p in model.parameters()}
+    model.to(torch.float32)
+    assert model.params["embed"].dtype == torch.float32
+    assert model.params["blocks"][0]["attn0"]["wq"].dtype == torch.float32

@@ -67,6 +67,29 @@ def test_attention_ref_sliding_window(window):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("B,H,Hkv,S,D,dtype,window", [
+    (1, 4, 4, 128, 64, "float32", None),
+    (2, 4, 2, 256, 64, "float32", None),
+    (1, 8, 2, 128, 128, "float32", None),
+    (1, 2, 1, 200, 64, "float32", None),
+    (1, 2, 2, 256, 64, "float32", 64),
+    (1, 2, 2, 128, 64, "bfloat16", None),
+])
+def test_attention_rounded_ref_matches_reference(B, H, Hkv, S, D, dtype,
+                                                 window):
+    """The plain version with the kernel's roundings (the one the card holds
+    K4 to) against the reference's oracle, at its tolerances."""
+    rng = np.random.default_rng(S + D + H)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _both(rng.normal(size=(B, h, S, D)).astype(np.float32), dtype)
+        for h in (H, Hkv, Hkv))
+    got = kattn.attention_rounded_ref(qt, kt, vt, window=window)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    want = jref.attention_ref(qj, kj, vj, window=window)
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
 def test_attention_ref_bf16():
     rng = np.random.default_rng(7)
     arrs = [_both(rng.normal(size=(1, 2, 128, 64)).astype(np.float32),
