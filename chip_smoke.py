@@ -47,21 +47,25 @@ Phases, in order; any failed check raises and ends the run non-zero:
      rebuilt, re-traversed through K3), each matching a float64 direct sum
      at the stepped positions;
   7. K4 and K5 against their plain versions on the card: K4 (against the
-     plain version with its roundings) at qwen3-0.6b's prefill shape (B 1,
-     H 16, Hkv 8, S 4096, D 128, bfloat16, causal; elementwise and per-row
-     tolerances K4_BF16_*), at (1, 2, 1, 200, 64) float32 and with a window
-     of 64; K5 at rwkv6-1.6b's
+     plain version with its roundings, and against the one that also walks
+     its 128-key tiles) at qwen3-0.6b's prefill shape (B 1, H 16, Hkv 8,
+     S 4096, D 128, bfloat16, causal; elementwise and per-row tolerances
+     K4_BF16_*, K4_TILED_ROW_REL), at (1, 2, 1, 200, 64) float32 and with
+     a window of 64; K5 at rwkv6-1.6b's
      (BH 4 x 32, S 1024, D 64, bfloat16 r/k/v, float32 w in (0.8, 1), zero
      and random initial state) and at C = 1; each timed with CUDA events
      beside its plain version, K4 also beside
      `F.scaled_dot_product_attention` on the same inputs (a yardstick the
-     port never calls);
+     port never calls), in bfloat16 at S = 512 to 4,096 (D 128) and at
+     (1, 32, 8, 4096, 64) with TFLOP/s and the share of its bound, and once
+     in float32;
   8. serving, for each of qwen3-0.6b and rwkv6-1.6b: `ServeEngine(B=4,
      S_max=128)` answers 8 requests (prompts of 4-15 tokens from
      default_rng(0), 8 new tokens each) and then prefills one 4,096-token
      prompt, with the model's kernel count set to 0 just before and read
      just after; tokens/s, prefill and decode-step times, a profile of one
-     decode step and of the long prefill; each request served alone: the
+     decode step and of the long prefill (the port's kernels named, each
+     with its share of device time); each request served alone: the
      engine's logits (prefill, then decode over the cache) agree with a
      full forward over the sequence so far within LM_LOGIT_TOL of the
      largest |logit| (bfloat16 rounds the two paths differently), and each
@@ -118,6 +122,11 @@ WKV_OPS_PER_ENTRY = 5
 # ||got - plain|| <= K4_ROW_REL ||plain|| (2.3x the largest measured,
 # 4.4e-3), which also holds the rows whose outputs are small
 K4_BF16_ATOL, K4_BF16_RTOL, K4_ROW_REL = 4e-3, 1.6e-2, 1e-2
+# K4 per query row against `attention_tiled_ref`, the plain version in the
+# kernel's own 128-key tiles: the same p roundings, float32 sums in another
+# order; about 2x the largest measured (3.1e-3, one bf16 step in a row of
+# small outputs; tests/test_torch_kernels_cuda.py also holds the median)
+K4_TILED_ROW_REL = 6e-3
 # greedy check: every logit of the engine's path (prefill, then decode over
 # the cache) within LM_LOGIT_TOL of the largest |logit| of a full forward
 # over the same sequence (about twice the 1.55e-2 measured on one request
@@ -226,11 +235,19 @@ def check_close(name, got, want, absum):
     return max_err
 
 
+# the port's kernels as the profiler names them (their CUDA function names)
+KERNEL_NAMES = {"flash_attention_tc": "K4 (bf16, wgmma + TMA)",
+                "flash_attention_kernel": "K4 (float32, CUDA cores)",
+                "wkv_kernel": "K5"}
+
+
 def profile_run(torch, label: str, fn, top: int = 8) -> None:
     """One warm fn() under torch.profiler: the device-busy share (time of
     the device's own events over wall time) and the kernels that take the
-    most device time.  Only device-side events are summed: a CPU op's
-    device time repeats that of the kernels it launched."""
+    most device time, each with its share of the busy time and, for the
+    port's own kernels, its name in this script.  Only device-side events
+    are summed: a CPU op's device time repeats that of the kernels it
+    launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -253,7 +270,10 @@ def profile_run(torch, label: str, fn, top: int = 8) -> None:
           f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%, "
           f"{sum(r[2] for r in rows)} device ops", flush=True)
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:top]:
-        print(f"    {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
+        ours = [v for n, v in KERNEL_NAMES.items() if n in key]
+        print(f"    {us / 1e3:9.3f} ms {100 * us / 1e6 / busy:5.1f}%  "
+              f"x{count:<5d} {ours[0] + ': ' if ours else ''}{key[:90]}",
+              flush=True)
 
 
 class FrontierSpy:
@@ -459,15 +479,28 @@ def lm_kernel_checks(torch, kattn, krwkv, dev, power) -> dict:
         a = (rng.normal(size=shape) * scale).astype(np.float32)
         return torch.as_tensor(a, device=dev).to(dtype)
 
+    def k4_bound(b, h, hk, s_, d, nbyte):
+        """(bound ms, its side, operations) of causal K4 at one shape."""
+        ops = 4.0 * d * (s_ * (s_ + 1) // 2) * b * h   # QK^T and PV, fma = 2
+        nb = nbyte * (2.0 * b * h * s_ * d + 2.0 * b * hk * s_ * d)
+        peak = PEAK_BF16_FLOPS if nbyte == 2 else PEAK_F32_FLOPS
+        tb, to = nb / PEAK_BYTES * 1e3, ops / peak * 1e3
+        return ((tb, "bytes") if tb >= to else (to, "operations")) + (ops,)
+
     out = {}
     # K4 at qwen3-0.6b's prefill shape, against the plain version that
-    # rounds as the kernel does (see K4_BF16_ATOL)
+    # rounds as the kernel does (see K4_BF16_ATOL) and against the one that
+    # also walks the kernel's 128-key tiles (K4_TILED_ROW_REL)
     B, H, Hkv, S, D = 1, 16, 8, LM_LONG, 128
     q, k, v = (normal((B, h, S, D), bf16) for h in (H, Hkv, Hkv))
     got = kattn.flash_attention(q, k, v, causal=True)
     err = check_tol(torch, f"K4 ({B}, {H}, {Hkv}, {S}, {D}) bf16 causal", got,
                     kattn.attention_rounded_ref(q, k, v, causal=True),
                     K4_BF16_RTOL, K4_BF16_ATOL, row_rel=K4_ROW_REL)
+    check_tol(torch, f"K4 ({B}, {H}, {Hkv}, {S}, {D}) bf16 causal against "
+              f"attention_tiled_ref (block_k {kattn.BLOCK_K})", got,
+              kattn.attention_tiled_ref(q, k, v, causal=True),
+              K4_BF16_RTOL, K4_BF16_ATOL, row_rel=K4_TILED_ROW_REL)
     for shape, window in (((1, 2, 1, 200, 64), None),
                           ((1, 2, 2, 256, 64), 64)):
         b, h, hk, s_, d = shape
@@ -476,22 +509,48 @@ def lm_kernel_checks(torch, kattn, krwkv, dev, power) -> dict:
                   kattn.flash_attention(q2, k2, v2, window=window),
                   kattn.attention_rounded_ref(q2, k2, v2, window=window),
                   2e-4, 2e-4)
-    ms = cuda_ms(torch, lambda: kattn.flash_attention(q, k, v))
+    ms = device_ms(torch, lambda: kattn.flash_attention(q, k, v), reps=20)
+    call_ms = cuda_ms(torch, lambda: kattn.flash_attention(q, k, v))
     pms = cuda_ms(torch, lambda: kattn.attention_rounded_ref(q, k, v), reps=3)
-    lms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    pairs = S * (S + 1) // 2                    # causal (query, key) pairs
-    ops = 4.0 * D * pairs * B * H               # QK^T and PV, fma = 2
-    nbytes = 2.0 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16_FLOPS * 1e3
-    bms, by = (tb, "bytes") if tb >= to else (to, "operations")
-    print(f"  K4 at qwen3-0.6b prefill: {ms:.4f} ms, plain {pms:.4f} ms, "
+    lms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=20)
+    bms, by, ops = k4_bound(B, H, Hkv, S, D, 2)
+    print(f"  K4 at qwen3-0.6b prefill: {ms:.4f} ms device time ({call_ms:.4f}"
+          f" ms a call from the host), plain {pms:.4f} ms, "
           f"scaled_dot_product_attention {lms:.4f} ms, bound {bms:.4f} ms "
           f"({by}, {ops / 1e9:.2f} GFLOP at the bf16 tensor-core peak); "
-          f"{ops / ms / 1e9:.2f} TFLOP/s; power limit {power}", flush=True)
+          f"{ops / ms / 1e9:.2f} TFLOP/s, {100 * bms / ms:.1f}% of the bound; "
+          f"power limit {power}", flush=True)
     out["K4"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                      max_abs_err=err, library_ms=lms)
     del q, k, v, got
+
+    # K4 across lengths and head sizes, each beside SDPA on the same inputs
+    for b, h, hk, s_, d in ((1, 16, 8, 512, 128), (1, 16, 8, 1024, 128),
+                            (1, 16, 8, 2048, 128), (1, 16, 8, 4096, 128),
+                            (1, 32, 8, 4096, 64)):
+        q, k, v = (normal((b, n, s_, d), bf16) for n in (h, hk, hk))
+        t = device_ms(torch, lambda: kattn.flash_attention(q, k, v), reps=20)
+        t_l = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=20)
+        bms_s, by_s, ops_s = k4_bound(b, h, hk, s_, d, 2)
+        print(f"  K4 bf16 causal {(b, h, hk, s_, d)}: {t:.4f} ms, "
+              f"{ops_s / t / 1e9:.2f} TFLOP/s, bound {bms_s:.4f} ms ({by_s}), "
+              f"{100 * bms_s / t:.1f}% of the bound; "
+              f"scaled_dot_product_attention {t_l:.4f} ms "
+              f"({ops_s / t_l / 1e9:.2f} TFLOP/s); power limit {power}",
+              flush=True)
+    del q, k, v
+    # the float32 path (CUDA cores), once
+    b, h, hk, s_, d = 1, 16, 8, 1024, 128
+    q, k, v = (normal((b, n, s_, d), f32) for n in (h, hk, hk))
+    t = device_ms(torch, lambda: kattn.flash_attention(q, k, v), reps=10)
+    bms_s, by_s, ops_s = k4_bound(b, h, hk, s_, d, 4)
+    print(f"  K4 float32 causal {(b, h, hk, s_, d)} (CUDA cores): {t:.4f} ms, "
+          f"{ops_s / t / 1e9:.2f} TFLOP/s, bound {bms_s:.4f} ms ({by_s}, "
+          f"float32 peak outside the tensor cores); power limit {power}",
+          flush=True)
+    del q, k, v
 
     # K5 at rwkv6-1.6b's prefill shape and at decode (C = 1)
     BH, C, D = 4 * 32, 1024, 64
@@ -721,7 +780,8 @@ def main() -> int:
         logs = kbuild.build()
         for src, log in logs.items():
             for line in log.splitlines():
-                if "registers" in line or "smem" in line or "spill" in line:
+                if ("registers" in line or "smem" in line
+                        or "spill" in line or "C75" in line):
                     print(f"  {src}: {line.strip()}")
 
     # ------------------------------------------------------------- 2 -----

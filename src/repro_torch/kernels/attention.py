@@ -1,5 +1,5 @@
-"""K4: blocked causal flash attention (GQA, sliding window), its plain version
-and its wrapper.
+"""K4: blocked causal flash attention (GQA, sliding window), its plain
+versions and its wrapper.
 
 `flash_attention` replaces the Pallas TPU kernel
 `repro.kernels.attention.flash_attention` with the hand-written CUDA kernel
@@ -9,9 +9,11 @@ float32 or bfloat16 -> (B, H, S, D) in the same type.  The kernel keeps the
 Pallas kernel's roundings (q * scale in the input type, p in v's type before
 the PV product, float32 accumulation, acc / max(l, 1e-30)), masks keys past
 S and visits only the key tiles that the causal and window bounds admit.  At
-the model's shapes it is bound by operations (S^2 D / 2 multiply-adds per
-head); this first version runs them as float32 FMAs on the CUDA cores, not
-the tensor cores (see the note in the source).
+the models' shapes it is bound by operations (S^2 D / 2 multiply-adds per
+head).  In bfloat16 both products run on the tensor cores (wgmma, K and V
+tiles brought by TMA, 128 query rows and 128-key tiles); float32 runs on
+the CUDA cores, since TF32 would round the inputs (see the note in the
+source).
 
 `attention_ref` is the plain PyTorch version, the counterpart of
 `repro.kernels.ref.attention_ref`: the whole (S, S) score matrix, masked
@@ -20,7 +22,10 @@ and launches the kernel for tensors on a CUDA device.  In bfloat16 it rounds
 the scores to bfloat16, as the reference's oracle does, where the kernel
 rounds q * scale; `attention_rounded_ref` is the plain version with the
 kernel's roundings, to hold the kernel to a bfloat16 tolerance of about one
-unit in the last place of the output.
+unit in the last place of the output.  `attention_tiled_ref` also walks the
+keys in the kernel's tiles (the Pallas kernel's online softmax, p rounded
+against the running max), so it differs from the bfloat16 kernel only by
+the order of float32 sums.
 
 `launches` counts kernel launches: the wrapper adds one where it launches
 the kernel, and nowhere else.
@@ -35,9 +40,10 @@ import torch
 from repro_torch.kernels.build import library
 
 __all__ = ["flash_attention", "attention_ref", "attention_rounded_ref",
-           "HEAD_DIMS", "NEG_INF"]
+           "attention_tiled_ref", "HEAD_DIMS", "BLOCK_K", "NEG_INF"]
 
 HEAD_DIMS = (32, 64, 128)       # the head sizes the kernel is built for
+BLOCK_K = 128                   # keys per tile of the bfloat16 kernel
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -92,6 +98,45 @@ def attention_rounded_ref(q, k, v, *, causal: bool = True,
     return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
 
 
+def attention_tiled_ref(q, k, v, *, causal: bool = True,
+                        window: int | None = None, block_k: int = BLOCK_K):
+    """Plain version in the kernel's (the Pallas kernel's) tile order: the
+    online softmax over key tiles of `block_k`, with `attention_rounded_ref`'s
+    roundings but p = exp(s - m) rounded to v's type against the running max
+    m of the tiles seen so far, l the sum of the unrounded p, and the
+    accumulator rescaled by exp(m_old - m) per tile.  Every tile is visited:
+    one the kernel skips is masked for every row of its query tile, and adds
+    exactly 0 after a live tile, or is scaled by exactly 0 before one."""
+    B, H, S, D = q.shape
+    group = H // k.shape[1]
+    scale = float(torch.tensor(D ** -0.5, dtype=q.dtype))
+    qs = (q * scale).float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    qi = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, H, S, 1), NEG_INF, device=q.device)
+    l = torch.zeros(B, H, S, 1, device=q.device)
+    acc = torch.zeros(B, H, S, D, device=q.device)
+    for k0 in range(0, S, block_k):
+        k1 = min(k0 + block_k, S)
+        s = torch.einsum("bhqd,bhkd->bhqk", qs, kf[:, :, k0:k1])
+        ki = torch.arange(k0, k1, device=q.device)[None, :]
+        mask = torch.ones(S, k1 - k0, dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= ki <= qi
+        if window is not None:
+            mask &= ki > qi - window
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(v.dtype).float(), vf[:, :, k0:k1])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
 def _check(q, k, v, window):
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention: expected q (B, H, S, D) and k/v "
@@ -129,9 +174,9 @@ def _lib():
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None):
     """q (B, H, S, D); k/v (B, Hkv, S, D) -> (B, H, S, D), any S.  CPU
-    tensors run `attention_ref`; CUDA tensors (contiguous, D in `HEAD_DIMS`)
-    launch K4 on the current stream, raising if the launch fails; any other
-    device raises."""
+    tensors run `attention_ref`; CUDA tensors (contiguous, D in `HEAD_DIMS`,
+    bfloat16 ones 16-byte aligned for the TMA) launch K4 on the current
+    stream, raising if the launch fails; any other device raises."""
     global launches
     _check(q, k, v, window)
     dev = q.device
@@ -145,6 +190,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     B, H, S, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} must be 16-byte "
+                                 f"aligned in bfloat16 (TMA)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -2,8 +2,9 @@
 
 Self-attention over a whole sequence goes to the hand-written kernel K4
 (`attention_flash`, the model-layout wrapper of
-`repro_torch.kernels.attention.flash_attention`), where the reference runs
-its plain-XLA `attention_full` / `attention_chunked`.  `attention_full`
+`repro_torch.kernels.attention.flash_attention`: in bfloat16 on the tensor
+cores, in float32 on the CUDA cores), where the reference runs its
+plain-XLA `attention_full` / `attention_chunked`.  `attention_full`
 stays for the single-query decode against the cache with its `kv_len` mask,
 which the reference also computes outside Pallas.  Layouts are the
 reference's: q (B, S, H, hd), k/v (B, S, Hkv, hd).

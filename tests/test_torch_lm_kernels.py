@@ -5,7 +5,9 @@ versions, held against the JAX reference's oracles.
 K4's `attention_ref` against `repro.kernels.ref.attention_ref` on the shapes
 of tests/test_kernels.py, at its tolerances (rtol/atol 2e-4; bfloat16
 5e-2), and, in the model layout, against `repro.models.layers.
-attention_full`.  K5's `wkv_ref` / `rwkv6_wkv` against `repro.kernels.ref.
+attention_full`; `attention_tiled_ref` (the kernel's tile order) against
+the reference's oracle (float32 1e-5, bfloat16 5e-2) and against
+`attention_rounded_ref` (float32 1e-5, bfloat16 at K4's limits).  K5's `wkv_ref` / `rwkv6_wkv` against `repro.kernels.ref.
 wkv_ref` (1e-4), against the model's chunkwise `repro.models.rwkv6.
 wkv_chunked` with `w` clipped as the port clips it, and for chunk
 invariance (1e-5).  The Pallas interpret paths are not the oracle: they are
@@ -88,6 +90,68 @@ def test_attention_rounded_ref_matches_reference(B, H, Hkv, S, D, dtype,
     want = jref.attention_ref(qj, kj, vj, window=window)
     tol = 2e-4 if dtype == "float32" else 5e-2
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+# `attention_tiled_ref`, the plain version in the kernel's 128-key tiles
+_TILED_CASES = [
+    (1, 4, 4, 128, 64, None, True),     # MHA, one tile
+    (2, 4, 2, 256, 64, None, True),     # GQA group 2, two tiles
+    (1, 8, 2, 128, 128, None, True),    # GQA group 4
+    (1, 2, 1, 200, 64, None, True),     # ragged S
+    (1, 2, 2, 256, 64, 64, True),       # window
+    (1, 2, 2, 300, 32, 100, True),      # window edge inside tiles, ragged
+    (2, 4, 1, 100, 32, None, False),    # non-causal
+    (2, 4, 2, 129, 128, None, True),    # B = 2, one key past a tile
+]
+
+
+def _tiled_inputs(B, H, Hkv, S, D, dtype):
+    rng = np.random.default_rng(S + D + H)
+    return [_both(rng.normal(size=(B, h, S, D)).astype(np.float32), dtype)
+            for h in (H, Hkv, Hkv)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,S,D,window,causal", _TILED_CASES)
+def test_attention_tiled_ref_matches_reference(B, H, Hkv, S, D, window, causal,
+                                               dtype):
+    """Against the reference's oracle: float32 at 1e-5; bfloat16 at the
+    reference's own bfloat16 tolerance for its flash kernel, 5e-2
+    (tests/test_kernels.py).  The oracle rounds the scores to bfloat16,
+    the kernel's roundings do not, so K4's tighter limits do not apply to
+    this pair (measured on these cases: 7.3e-3 past K4's atol, 1.28e-2 per
+    row); they hold against `attention_rounded_ref` below."""
+    (qj, qt), (kj, kt), (vj, vt) = _tiled_inputs(B, H, Hkv, S, D, dtype)
+    got = kattn.attention_tiled_ref(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    want = jref.attention_ref(qj, kj, vj, causal=causal, window=window)
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,S,D,window,causal", _TILED_CASES)
+def test_attention_tiled_ref_matches_rounded_ref(B, H, Hkv, S, D, window,
+                                                 causal, dtype):
+    """Against the plain version with the same roundings but p rounded
+    against the row's max: float32 at 1e-5; bfloat16 at K4's limits (atol
+    4e-3 + rtol 1.6e-2, per-row relative L2 1e-2).  With one tile over all
+    keys the two are the same arithmetic, bit for bit."""
+    (_, qt), (_, kt), (_, vt) = _tiled_inputs(B, H, Hkv, S, D, dtype)
+    got = kattn.attention_tiled_ref(qt, kt, vt, causal=causal, window=window)
+    want = kattn.attention_rounded_ref(qt, kt, vt, causal=causal,
+                                       window=window)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2,
+                                   atol=4e-3)
+        rel = ((got.float() - want.float()).norm(dim=-1)
+               / want.float().norm(dim=-1))
+        assert float(rel.max()) <= 1e-2
+    one = kattn.attention_tiled_ref(qt, kt, vt, causal=causal, window=window,
+                                    block_k=S)
+    assert torch.equal(one, want)
 
 
 def test_attention_ref_bf16():
