@@ -51,9 +51,12 @@ Phases, in order; any failed check raises and ends the run non-zero:
      its 128-key tiles) at qwen3-0.6b's prefill shape (B 1, H 16, Hkv 8,
      S 4096, D 128, bfloat16, causal; elementwise and per-row tolerances
      K4_BF16_*, K4_TILED_ROW_REL), at (1, 2, 1, 200, 64) float32 and with
-     a window of 64; K5 at rwkv6-1.6b's
-     (BH 4 x 32, S 1024, D 64, bfloat16 r/k/v, float32 w in (0.8, 1), zero
-     and random initial state) and at C = 1; each timed with CUDA events
+     a window of 64; K5 (its launch parameters printed; bfloat16 r/k/v,
+     float32 w in (0.8, 1), zero and random initial state, y at rtol 1e-2
+     / atol 1e-4, the state at 1e-4) at rwkv6-1.6b's (BH 4 x 32, S 1024,
+     D 64), at the serving prefill's (32, 4096, 64) and at decode's
+     contiguous (128, 1, 64), each timed by device time and by a call from
+     the host beside its bound; each timed with CUDA events
      beside its plain version, K4 also beside
      `F.scaled_dot_product_attention` on the same inputs (a yardstick the
      port never calls), in bfloat16 at S = 512 to 4,096 (D 128) and at
@@ -81,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -235,6 +239,10 @@ def check_close(name, got, want, absum):
     return max_err
 
 
+# K5's template arguments in ptxas's mangled entry names: type, D, G, JC,
+# JL, TC
+WKV_ENTRY = re.compile(r"wkv_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi"
+                       r"(\d+)ELi(\d+)ELi(\d+)E")
 # the port's kernels as the profiler names them (their CUDA function names)
 KERNEL_NAMES = {"flash_attention_tc": "K4 (bf16, wgmma + TMA)",
                 "flash_attention_kernel": "K4 (float32, CUDA cores)",
@@ -552,38 +560,52 @@ def lm_kernel_checks(torch, kattn, krwkv, dev, power) -> dict:
           flush=True)
     del q, k, v
 
-    # K5 at rwkv6-1.6b's prefill shape and at decode (C = 1)
-    BH, C, D = 4 * 32, 1024, 64
-    r, k, v = (normal((BH, C, D), bf16, 0.5) for _ in range(3))
-    w = torch.as_tensor(rng.uniform(0.8, 1.0, (BH, C, D)).astype(np.float32),
-                        device=dev)
-    u = normal((BH, D), f32, 0.1)
+    # K5 at rwkv6-1.6b's shapes: 4 slots x 32 heads x 1,024 tokens, the
+    # serving path's prefill of one 4,096-token prompt, and decode (C = 1)
+    def k5_inputs(BH, C, D, random_state):
+        r, k, v = (normal((BH, C, D), bf16, 0.5) for _ in range(3))
+        w = torch.as_tensor(rng.uniform(0.8, 1.0, (BH, C, D)).astype(
+            np.float32), device=dev)
+        s0 = (normal((BH, D, D), f32, 0.1) if random_state
+              else torch.zeros(BH, D, D, device=dev))
+        return r, k, v, w, normal((BH, D), f32, 0.1), s0
+
+    def k5_check(label, args):
+        y, s1 = krwkv.wkv_chunk(*args)
+        y_p, s_p = krwkv.wkv_ref(*args)
+        return max(check_tol(torch, f"K5 y {label}", y, y_p, 1e-2, 1e-4),
+                   check_tol(torch, f"K5 state {label}", s1, s_p, 1e-4,
+                             1e-4))
+
+    def k5_bound(BH, C, D):
+        """(ms, side): r, k, v, y in bf16 and w in float32 once per (token,
+        head, channel), the state read and written once; 5 ops an entry."""
+        nbytes = BH * C * D * (3 * 2 + 4 + 2) + 2 * 4.0 * BH * D * D
+        return bound_ms(nbytes, float(WKV_OPS_PER_ENTRY) * BH * C * D * D)
+
     err = 0.0
-    for label, s0 in (("zero", torch.zeros(BH, D, D, device=dev)),
-                      ("random", normal((BH, D, D), f32, 0.1))):
-        y, s1 = krwkv.wkv_chunk(r, k, v, w, u, s0)
-        y_p, s_p = krwkv.wkv_ref(r, k, v, w, u, s0)
-        err = max(err, check_tol(torch, f"K5 y ({BH}, {C}, {D}) bf16, "
-                                 f"{label} s0", y, y_p, 1e-2, 1e-4),
-                  check_tol(torch, f"K5 state, {label} s0", s1, s_p, 1e-4,
-                            1e-4))
-        y1, s11 = krwkv.wkv_chunk(r[:, :1], k[:, :1], v[:, :1], w[:, :1], u,
-                                  s0)
-        y1p, s1p = krwkv.wkv_ref(r[:, :1], k[:, :1], v[:, :1], w[:, :1], u,
-                                 s0)
-        check_tol(torch, f"K5 y at C = 1, {label} s0", y1, y1p, 1e-2, 1e-4)
-        check_tol(torch, f"K5 state at C = 1, {label} s0", s11, s1p, 1e-4,
-                  1e-4)
-    ms = cuda_ms(torch, lambda: krwkv.wkv_chunk(r, k, v, w, u, s0))
-    pms = cuda_ms(torch, lambda: krwkv.wkv_ref(r, k, v, w, u, s0), reps=3)
-    dms = device_ms(torch, lambda: krwkv.wkv_chunk(
-        r[:, :1], k[:, :1], v[:, :1], w[:, :1], u, s0))
-    ops = float(WKV_OPS_PER_ENTRY) * BH * C * D * D
-    nbytes = BH * C * D * (3 * 2 + 4 + 2) + 2 * 4.0 * BH * D * D
-    bms, by = bound_ms(nbytes, ops)
-    print(f"  K5 at rwkv6-1.6b prefill ({BH}, {C}, {D}): {ms:.4f} ms, plain "
-          f"{pms:.4f} ms, bound {bms:.4f} ms ({by}); at C = 1 (decode) "
-          f"{dms:.4f} ms device time; power limit {power}", flush=True)
+    times = {}
+    for BH, C, D in ((4 * 32, 1024, 64), (32, LM_LONG, 64), (4 * 32, 1, 64)):
+        print(f"  K5 ({BH}, {C}, {D}): launch (G, JC, JL, TC) = "
+              f"{krwkv.wkv_launch_params(BH, C, D)}", flush=True)
+        for random_state in (False, True):
+            args = k5_inputs(BH, C, D, random_state)
+            err = max(err, k5_check(f"({BH}, {C}, {D}) bf16, "
+                                    f"{'random' if random_state else 'zero'}"
+                                    f" s0", args))
+        ms = device_ms(torch, lambda: krwkv.wkv_chunk(*args))
+        call_ms = cuda_ms(torch, lambda: krwkv.wkv_chunk(*args))
+        bms, by = k5_bound(BH, C, D)
+        times[(BH, C, D)] = (ms, bms, by, args)
+        print(f"  K5 ({BH}, {C}, {D}) bf16: {ms:.4f} ms device time "
+              f"({call_ms:.4f} ms a call from the host), bound {bms:.4f} ms "
+              f"({by}), {100 * bms / ms:.1f}% of the bound; power limit "
+              f"{power}", flush=True)
+    ms, bms, by, args = times[(4 * 32, 1024, 64)]
+    pms = cuda_ms(torch, lambda: krwkv.wkv_ref(*args), reps=3)
+    print(f"  K5 at rwkv6-1.6b prefill (128, 1024, 64): {ms:.4f} ms, plain "
+          f"{pms:.4f} ms, bound {bms:.4f} ms ({by}); power limit {power}",
+          flush=True)
     out["K5"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                      max_abs_err=err, library_ms=None)
     return out
@@ -779,10 +801,16 @@ def main() -> int:
     with phase("build kernels (nvcc, sm_90a, one process per source)"):
         logs = kbuild.build()
         for src, log in logs.items():
+            entry = ""
             for line in log.splitlines():
+                m = WKV_ENTRY.search(line)
+                if m:           # K5's instantiations, by template argument
+                    entry = (f"wkv_kernel<{'f32' if m[1] == 'f' else 'bf16'}"
+                             f", D {m[2]}, G {m[3]}, JC {m[4]}, JL {m[5]}, "
+                             f"TC {m[6]}>: ")
                 if ("registers" in line or "smem" in line
                         or "spill" in line or "C75" in line):
-                    print(f"  {src}: {line.strip()}")
+                    print(f"  {src}: {entry}{line.strip()}")
 
     # ------------------------------------------------------------- 2 -----
     n = args.n

@@ -11,8 +11,9 @@ ctypes), and `rwkv6_wkv` replaces the reference's chunk scan
 (`repro.kernels.ops.rwkv6_wkv`, a `lax.scan` over chunk launches): the
 kernel keeps the state in registers for the whole sequence, so one launch
 covers every chunk and the result does not depend on `chunk`.  The
-recurrence is serial in t; with one block per batch-head the kernel runs
-near the latency of the per-token chain (see the note in the source).
+recurrence is serial in t, so the kernel splits each head's state by
+columns over blocks and by rows over lanes (`wkv_launch_params`; see the
+note in the source).
 
 `wkv_ref` is the plain PyTorch version, the token loop of
 `repro.kernels.ref.wkv_ref`, in float32.  The wrapper runs it for tensors on
@@ -30,9 +31,11 @@ import torch
 
 from repro_torch.kernels.build import library
 
-__all__ = ["wkv_chunk", "rwkv6_wkv", "wkv_ref", "HEAD_DIMS"]
+__all__ = ["wkv_chunk", "rwkv6_wkv", "wkv_ref", "wkv_launch_params",
+           "HEAD_DIMS"]
 
 HEAD_DIMS = (32, 64, 128)       # the head sizes the kernel is built for
+_SMS = 132                      # streaming multiprocessors of an H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -70,11 +73,38 @@ def _check(r, k, v, w, u, state):
         raise ValueError(f"wkv: inputs on different devices: {devs}")
 
 
+def wkv_launch_params(BH: int, C: int, D: int) -> tuple:
+    """(G, JC, JL, TC) of K5's launch for BH batch-heads, C tokens and head
+    dim D: each column of a head's state is owned by G adjacent lanes
+    holding D / G rows each, a lane holds JL such columns, a block JC
+    columns (D / JC blocks a head, G JC / JL threads each), and TC tokens
+    are staged per step (1 for decode).  At D = 64 (rwkv6's heads): where
+    the blocks fill every SM twice over, the kernel is bound by reads of
+    shared memory, which 4 columns a lane cut to a quarter; below that,
+    by how fast each of an SM's few warps issues, where 2 columns a lane
+    over 4 warps and 16-token chunks measured fastest (`PERF.md` §6).
+    The kernel is built for exactly these choices (WKV_CONFIGS in
+    csrc/wkv.cu)."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"wkv: head dim {D} not in {HEAD_DIMS}")
+    if D == 64:
+        G, JC = 16, 16
+        JL, TC = (4, 8) if BH * (D // JC) >= 2 * _SMS else (2, 16)
+    else:
+        G, JC, JL, TC = 8, 16, 1, 16 if D == 32 else 8
+    return G, JC, JL, 1 if C <= 1 else TC
+
+
+def _aligned(t):
+    """t, or a copy of it if its data is not 16-byte aligned (the kernel
+    reads r, k, v and w 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = library("wkv.cu")
-    lib.repro_wkv.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    lib.repro_wkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     lib.repro_wkv.restype = ctypes.c_int
     lib.repro_wkv_error_string.argtypes = [ctypes.c_int]
@@ -97,10 +127,10 @@ def wkv_chunk(r, k, v, w, u, state):
     if dev.type != "cuda":
         raise ValueError(f"wkv: unsupported device {dev}")
     BH, C, D = r.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"wkv: head dim {D} not in {HEAD_DIMS}")
-    r, k, v = (t.contiguous() for t in (r, k, v))
-    w, u, state = (t.float().contiguous() for t in (w, u, state))
+    G, JC, JL, TC = wkv_launch_params(BH, C, D)
+    r, k, v = (_aligned(t.contiguous()) for t in (r, k, v))
+    w = _aligned(w.float().contiguous())
+    u, state = (t.float().contiguous() for t in (u, state))
     y = torch.empty_like(r)
     s1 = torch.empty_like(state)
     lib = _lib()
@@ -109,7 +139,7 @@ def wkv_chunk(r, k, v, w, u, state):
         err = lib.repro_wkv(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                             w.data_ptr(), u.data_ptr(), state.data_ptr(),
                             y.data_ptr(), s1.data_ptr(), _DTYPES[r.dtype], BH,
-                            C, D, stream)
+                            C, D, G, JC, JL, TC, stream)
     if err != 0:
         raise RuntimeError("wkv kernel launch failed: "
                            + lib.repro_wkv_error_string(err).decode())

@@ -23,9 +23,14 @@ NEG_INF = -1e30
 
 
 def rms_norm(x, gamma, eps: float = 1e-5):
-    xf = x.float()
-    var = xf.square().mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+    """x * rsqrt(mean(x^2) + eps) in float32, rounded to x's type, times
+    gamma.  `F.rms_norm` normalises each row on its own, so a row's result
+    does not depend on how many rows are normalised with it; on the card a
+    mean over the last dimension may sum a row in another order when the
+    row count changes, and then a request served in pieces (prefill, then
+    decode) drifts from a forward over its whole sequence."""
+    xn = F.rms_norm(x.float(), (x.shape[-1],), eps=eps)
+    return xn.to(x.dtype) * gamma
 
 
 def swiglu(x, w_gate, w_up, w_down):

@@ -21,7 +21,8 @@ the limits chip_smoke.py holds it to at qwen3-0.6b's shape; the bfloat16
 tensor-core kernel also against `attention_tiled_ref`, in its own tile
 order (K4_TILED_ROW_REL, K4_TILED_ROW_MEDIAN below).  K5 at rtol/atol 1e-4 in float32; in
 bfloat16 both round one float32 sum (taken in another order) to the output
-type, so they may land on neighbouring values: rtol 1e-2 / atol 1e-4.
+type, so they may land on neighbouring values: rtol 1e-2 / atol 1e-4; two
+K5 launches on the same inputs are bitwise equal.
 """
 import numpy as np
 import pytest
@@ -328,6 +329,20 @@ def test_k4_rejects_what_it_does_not_take_on_card(cuda_device):
         kattn.flash_attention(q.half(), q.half(), q.half())
 
 
+def _wkv_inputs(rng, BH, C, D, dtype, device, random_state, w_lo=0.8):
+    r, k, v = (_normal(rng, (BH, C, D), dtype, device, 0.5) for _ in "rkv")
+    w = torch.as_tensor(rng.uniform(w_lo, 1.0, (BH, C, D)).astype(np.float32),
+                        device=device)
+    u = _normal(rng, (BH, D), torch.float32, device, 0.1)
+    s0 = (_normal(rng, (BH, D, D), torch.float32, device, 0.1)
+          if random_state else torch.zeros(BH, D, D, device=device))
+    return r, k, v, w, u, s0
+
+
+# the grid's edges: every head dim, C below, at and off a multiple of the
+# staged chunk (8 or 16 tokens), both launches of D = 64 (2 columns a lane
+# below BH 66, 4 from it), decode (C = 1) at the serving batch (BH = 4
+# slots x 32 heads), and rwkv6-1.6b's 4,096-token prefill
 @pytest.mark.parametrize("BH,C,D,dtype,random_state", [
     (2, 128, 64, torch.float32, False),
     (4, 64, 32, torch.float32, True),
@@ -336,16 +351,21 @@ def test_k4_rejects_what_it_does_not_take_on_card(cuda_device):
     (6, 1, 64, torch.float32, True),
     (8, 200, 64, torch.bfloat16, True),
     (8, 1, 64, torch.bfloat16, True),
+    (4, 100, 32, torch.bfloat16, True),
+    (2, 77, 128, torch.bfloat16, True),
+    (3, 37, 64, torch.bfloat16, False),
+    (3, 37, 128, torch.float32, True),
+    (128, 1, 64, torch.bfloat16, True),
+    (128, 1, 128, torch.float32, False),
+    (32, 4096, 64, torch.bfloat16, True),
+    (65, 50, 64, torch.float32, True),
+    (66, 50, 64, torch.float32, True),
+    (128, 300, 64, torch.bfloat16, False),
 ])
 def test_k5_matches_plain_on_card(cuda_device, BH, C, D, dtype, random_state):
     rng = np.random.default_rng(BH * C + D)
-    r, k, v = (_normal(rng, (BH, C, D), dtype, cuda_device, 0.5)
-               for _ in "rkv")
-    w = torch.as_tensor(rng.uniform(0.8, 1.0, (BH, C, D)).astype(np.float32),
-                        device=cuda_device)
-    u = _normal(rng, (BH, D), torch.float32, cuda_device, 0.1)
-    s0 = (_normal(rng, (BH, D, D), torch.float32, cuda_device, 0.1)
-          if random_state else torch.zeros(BH, D, D, device=cuda_device))
+    r, k, v, w, u, s0 = _wkv_inputs(rng, BH, C, D, dtype, cuda_device,
+                                    random_state)
     before = krwkv.launches
     y, s1 = krwkv.wkv_chunk(r, k, v, w, u, s0)
     torch.cuda.synchronize()
@@ -356,6 +376,68 @@ def test_k5_matches_plain_on_card(cuda_device, BH, C, D, dtype, random_state):
     torch.testing.assert_close(y.float(), y_want.float(), rtol=tol[0],
                                atol=tol[1])
     torch.testing.assert_close(s1, s_want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_at_the_decay_clamp_on_card(cuda_device, dtype):
+    """Decays at the model's clamp (1e-5), every tenth one at 1: y and the
+    state stay finite and match the plain version at the same limits."""
+    rng = np.random.default_rng(11)
+    r, k, v, w, u, s0 = _wkv_inputs(rng, 4, 300, 64, dtype, cuda_device,
+                                    True)
+    w = torch.full_like(w, 1e-5)
+    w[:, ::10] = 1.0
+    y, s1 = krwkv.wkv_chunk(r, k, v, w, u, s0)
+    y_want, s_want = krwkv.wkv_ref(r, k, v, w, u, s0)
+    assert torch.isfinite(y).all() and torch.isfinite(s1).all()
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-4)
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=tol[0],
+                               atol=tol[1])
+    torch.testing.assert_close(s1, s_want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("BH,C,D", [(32, 1000, 64), (128, 1, 64),
+                                    (3, 37, 128)])
+def test_k5_bitwise_repeatable_on_card(cuda_device, BH, C, D):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    rng = np.random.default_rng(C)
+    args = _wkv_inputs(rng, BH, C, D, torch.bfloat16, cuda_device, True)
+    y1, s1 = krwkv.wkv_chunk(*args)
+    y2, s2 = krwkv.wkv_chunk(*args)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("BH,splits", [(32, (15, 1, 1)), (32, (32, 8)),
+                                       (128, (15, 1, 1)), (128, (16, 1))])
+def test_k5_split_into_launches_is_bitwise_on_card(cuda_device, BH, splits):
+    """A sequence cut into launches (a prefill, then decode steps), the
+    state handed from one to the next, gives the bits of one launch over
+    the whole sequence, at both of D = 64's launch shapes."""
+    rng = np.random.default_rng(BH + len(splits))
+    r, k, v, w, u, s0 = _wkv_inputs(rng, BH, sum(splits), 64, torch.bfloat16,
+                                    cuda_device, True)
+    y_all, s_all = krwkv.wkv_chunk(r, k, v, w, u, s0)
+    ys, s, t = [], s0, 0
+    for c in splits:
+        y, s = krwkv.wkv_chunk(r[:, t:t + c], k[:, t:t + c], v[:, t:t + c],
+                               w[:, t:t + c], u, s)
+        ys.append(y)
+        t += c
+    assert torch.equal(torch.cat(ys, 1), y_all) and torch.equal(s, s_all)
+
+
+def test_k5_takes_unaligned_views_on_card(cuda_device):
+    """Contiguous views that start off a 16-byte boundary (the kernel reads
+    16 bytes at a time) give the result of aligned copies."""
+    rng = np.random.default_rng(5)
+    r, k, v, w, u, s0 = _wkv_inputs(rng, 2, 65, 32, torch.bfloat16,
+                                    cuda_device, True)
+    flat = [torch.cat([t.new_zeros(1), t.flatten()]) for t in (r, k, v, w)]
+    views = [f[1:].view(t.shape) for f, t in zip(flat, (r, k, v, w))]
+    assert all(t.data_ptr() % 16 for t in views)
+    y, s1 = krwkv.wkv_chunk(*views, u, s0)
+    y_want, s_want = krwkv.wkv_chunk(r, k, v, w, u, s0)
+    assert torch.equal(y, y_want) and torch.equal(s1, s_want)
 
 
 def test_k5_chunk_invariance_on_card(cuda_device):
@@ -409,3 +491,45 @@ def test_lm_on_card_matches_cpu_and_serves(cuda_device, arch):
         lg = card.logits(h[:, -1:])[0, -1]
         assert float(lg.max() - lg[t]) <= 1e-3, (seq, t, int(lg.argmax()))
         seq.append(t)
+
+
+def test_rwkv6_served_alone_matches_forward_bitwise_on_card(cuda_device):
+    """rwkv6-1.6b at full width (random bfloat16 weights, seed 0): two
+    requests of chip_smoke.py's draw, each served alone (prefill, then
+    decode through K5 at C = 1), give exactly the logits of a forward over
+    the sequence so far.  K5 is bitwise the same however a sequence is cut
+    into launches, and `rms_norm` normalises each row on its own, so the
+    two paths may not differ at all."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config("rwkv6-1.6b")
+    model = build_model(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, int(rng.integers(
+        4, 16)))] for _ in range(6)]
+
+    class Tape:
+        def __init__(self):
+            self.device, self.logits = model.device, []
+
+        def prefill(self, *args, **kw):
+            cache, lg = model.prefill(*args, **kw)
+            self.logits.append(lg[:, -1])
+            return cache, lg
+
+        def decode_step(self, *args):
+            lg, cache = model.decode_step(*args)
+            self.logits.append(lg[:, -1])
+            return lg, cache
+
+    for prompt in (prompts[0], prompts[5]):
+        tape = Tape()
+        eng = ServeEngine(tape, B=1, S_max=32)
+        eng.submit(Request(rid=0, prompt=list(prompt), max_new=6))
+        out = eng.run(max_steps=16)[0].out
+        seq = list(prompt)
+        for t, lg_e in zip(out, tape.logits):
+            h = model(torch.as_tensor([seq], device=cuda_device))
+            assert torch.equal(lg_e[0], model.logits(h[:, -1:])[0, -1]), seq
+            seq.append(t)

@@ -10,7 +10,8 @@ the reference's oracle (float32 1e-5, bfloat16 5e-2) and against
 `attention_rounded_ref` (float32 1e-5, bfloat16 at K4's limits).  K5's `wkv_ref` / `rwkv6_wkv` against `repro.kernels.ref.
 wkv_ref` (1e-4), against the model's chunkwise `repro.models.rwkv6.
 wkv_chunked` with `w` clipped as the port clips it, and for chunk
-invariance (1e-5).  The Pallas interpret paths are not the oracle: they are
+invariance (1e-5); K5's launch shapes (`wkv_launch_params`) cover every
+(head, row, column) of the state exactly once.  The Pallas interpret paths are not the oracle: they are
 red on this tree.  The CUDA kernels themselves are tested on the card in
 tests/test_torch_kernels_cuda.py.
 """
@@ -301,3 +302,30 @@ def test_rwkv6_wkv_rejects_ragged_chunks_and_bad_shapes():
         krwkv.rwkv6_wkv(r, k, v, w, u, s0, chunk=32)
     with pytest.raises(ValueError, match="state"):
         krwkv.wkv_chunk(r, k, v, w, u, s0[:, :16])
+
+
+@pytest.mark.parametrize("BH", [1, 32, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_wkv_launch_params_cover_the_state(D, BH):
+    """K5's launch, as `wkv_launch_params` chooses it and csrc/wkv.cu maps
+    it (block b: head b // (D / JC); thread t: columns (b % (D / JC)) JC +
+    (t // G) JL + c, c < JL, rows 4 (q G + t % G) + e, e < 4): G lanes of
+    one warp share a column, a block fits the card, and the grid covers
+    every (head, row, column) of the state exactly once, for a prefill and
+    for decode."""
+    for C in (1, 37, 4096):
+        G, JC, JL, TC = krwkv.wkv_launch_params(BH, C, D)
+        assert D % G == 0 and D % JC == 0 and (D // G) % 4 == 0
+        assert 32 % G == 0 and JC % JL == 0 and G * JC // JL <= 1024
+        assert TC >= 1 and TC & (TC - 1) == 0 and (TC == 1) == (C == 1)
+        owners = np.zeros((BH, D, D), np.int64)    # (head, row, column)
+        for b in range(BH * D // JC):
+            bh, cb = divmod(b, D // JC)
+            for t in range(G * JC // JL):
+                rows = [4 * (q * G + t % G) + e for q in range(D // G // 4)
+                        for e in range(4)]
+                for c in range(JL):
+                    owners[bh, rows, cb * JC + t // G * JL + c] += 1
+        assert (owners == 1).all()
+    with pytest.raises(ValueError, match="head dim"):
+        krwkv.wkv_launch_params(BH, 16, 48)
