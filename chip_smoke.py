@@ -29,8 +29,13 @@ Phases, in order; any failed check raises and ends the run non-zero:
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes: K3 bit for bit on the largest frontier of that
      planning and on every generation of one full traversal, K1 on every
-     P2P bucket, K2 on the stream table, and K1 against K2 bit for bit on
-     identical slabs; time kernel and plain version with CUDA events;
+     P2P bucket, K2 on the stream table (its out_valid lanes; exactly 0.0
+     on the others, where the plain version sums the slab), and K1 against
+     K2 bit for bit on identical live slabs below each tile's tgt_len; time
+     kernel and plain version with CUDA events; for K1 and K2 also print
+     ptxas's registers and spills, the launch shape and the pair terms
+     evaluated beside the live pairs (tools/p2p_variants.py times the other
+     launch shapes);
   4. at N = 20,000 the engine on the card against the engine on the CPU,
      at rtol 1e-5 / atol 1e-4 plus 1e-6 of sum_j |q_j| / r_ij: both sum
      float32 terms in different orders (the card's atomics change order
@@ -221,6 +226,14 @@ def wall_of(module, name: str, acc: dict):
 def bound_ms(nbytes: float, ops: float) -> tuple:
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def print_ptxas(logs: dict, src: str) -> None:
+    """The ptxas lines (registers, spills) of one source from phase 1."""
+    lines = [ln.strip() for ln in logs.get(src, "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    for ln in lines or ["(no ptxas output: built before this run)"]:
+        print(f"  {src} ptxas: {ln}", flush=True)
 
 
 def check_close(name, got, want, absum):
@@ -894,8 +907,10 @@ def main() -> int:
         del spy, chk, ca, ra, cb, rb
 
         eng = sess_g.engine
-        k1 = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "pairs": 0,
+        k1 = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bytes": 0.0,
+              "bytes_all_targets": 0.0, "pairs": 0, "terms": 0,
               "max_abs_err": 0.0}
+        print_ptxas(logs, "p2p.cu")
         for b in eng.tables.p2p_buckets:
             xt, xs, qs = _gather_bucket(eng.x, eng.q, b["t_idx"], b["s_idx"],
                                         b["s_valid"])
@@ -909,20 +924,45 @@ def main() -> int:
             live = b["mask"] > 0
             pairs = int((b["t_valid"][live].sum(1).double()
                          * b["s_valid"][live].sum(1).double()).sum())
-            ms = cuda_ms(torch, lambda: kp2p.p2p(qs, xs, xt))
+            # sources up to each row's last nonzero charge (the kernel's
+            # loop), the only x_src any implementation must read; a row of
+            # zero charges needs none of its targets either
+            nz = qs != 0
+            trims = torch.where(nz.any(1), S - nz.flip(1).int().argmax(1), 0)
+            trim, rows_live = int(trims.sum()), int((trims > 0).sum())
+            warps = kp2p.p2p_launch_params(P)
+            ms = device_ms(torch, lambda: kp2p.p2p(qs, xs, xt), reps=20)
+            call_ms = cuda_ms(torch, lambda: kp2p.p2p(qs, xs, xt))
             pms = cuda_ms(torch, lambda: kp2p.p2p_ref(qs, xs, xt), reps=3)
-            nbytes = 4.0 * (P * S + 3 * P * S + 3 * P * T + P * T)
+            nbytes = 4.0 * (P * S + 3 * trim + 3 * rows_live * T + P * T)
             bms, by = bound_ms(nbytes, FLOPS_PER_PAIR * pairs)
-            print(f"  K1 bucket (rows {P}, T {T}, S {S}): {ms:.4f} ms, plain "
-                  f"{pms:.4f} ms, live pairs {pairs}, bound {bms:.4f} ms "
-                  f"({by}), power limit {power}", flush=True)
+            k1["bytes_all_targets"] += nbytes + 12.0 * (P - rows_live) * T
+            print(f"  K1 bucket (rows {P}, T {T}, S {S}), {warps} warps a "
+                  f"block: {ms:.4f} ms device time (one call from the host "
+                  f"{call_ms:.4f}), plain {pms:.4f} ms; terms evaluated "
+                  f"{trim * T} for {pairs} live pairs ({trim} sources up to "
+                  f"the rows' last charges of {P * S}, {rows_live} rows with "
+                  f"a charge); bound {bms:.4f} ms ({by}); power limit "
+                  f"{power}", flush=True)
             k1["ms"] += ms
+            k1["call_ms"] += call_ms
             k1["plain_ms"] += pms
             k1["bytes"] += nbytes
             k1["pairs"] += pairs
+            k1["terms"] += trim * T
             k1["max_abs_err"] = max(k1["max_abs_err"], err)
-            del xt, xs, qs, got, want, absum
+            del xt, xs, qs, got, want, absum, nz, trims
         bms, by = bound_ms(k1["bytes"], FLOPS_PER_PAIR * k1["pairs"])
+        ball, _ = bound_ms(k1["bytes_all_targets"],
+                           FLOPS_PER_PAIR * k1["pairs"])
+        print(f"  K1 over the buckets, {kp2p.p2p_launch_params(1 << 20)} "
+              f"warps a block of {kp2p.ROWS_PER_WARP} rows each: "
+              f"{k1['ms']:.4f} ms device time (one call each from the host "
+              f"{k1['call_ms']:.4f}), bound {bms:.4f} ms ({by}, "
+              f"{k1['bytes'] / 1e9:.4f} GB; {ball:.4f} ms counting the "
+              f"targets of rows without a charge), {bms / k1['ms']:.1%} of "
+              f"it; terms evaluated {k1['terms']} for {k1['pairs']} live "
+              f"pairs", flush=True)
         results["K1"] = dict(ms=k1["ms"], plain_ms=k1["plain_ms"],
                              bound_ms=bms, bound_by=by,
                              max_abs_err=k1["max_abs_err"],
@@ -935,6 +975,7 @@ def main() -> int:
                                  "buckets")
         meta, bt, smax = stream["meta"], stream["block_t"], stream["smax"]
         payload = stream_payload(engs.x, engs.q, stream["pad"])
+        print_ptxas(logs, "p2p_stream.cu")
         got = kstream.p2p_stream(meta, payload, block_t=bt, smax=smax)
         want = kstream.p2p_stream_gathered(meta, payload, block_t=bt,
                                            smax=smax)
@@ -942,20 +983,43 @@ def main() -> int:
         pay_abs[3].abs_()
         absum = kstream.p2p_stream_gathered(meta, pay_abs, block_t=bt,
                                             smax=smax)
-        err = check_close(f"K2 (tiles {meta.shape[0]}, block_t {bt}, "
-                          f"smax {smax})", got, want, absum)
-        del want, absum, pay_abs
+        # the kernel's contract: the plain version's sums on out_valid
+        # lanes, exactly 0.0 on the others (which the caller drops)
+        valid = stream["out_valid"]
+        err = check_close(f"K2 on out_valid lanes (tiles {meta.shape[0]}, "
+                          f"block_t {bt}, smax {smax})", got[valid],
+                          want[valid], absum[valid])
+        nonzero = int((got[~valid] != 0).sum())
+        print(f"  K2 off out_valid: {int((~valid).sum())} lanes, "
+              f"{nonzero} not exactly 0.0", flush=True)
+        if nonzero:
+            raise AssertionError(f"K2 wrote {nonzero} nonzero lanes past "
+                                 f"tgt_len")
+        del want, absum, pay_abs, valid
         live = meta[:, 3] > 0
-        pairs = int((meta[live, 1].double() * meta[live, 3].double()).sum())
-        ms = cuda_ms(torch, lambda: kstream.p2p_stream(meta, payload,
-                                                       block_t=bt, smax=smax))
+        ns = meta[live, 1].clamp(0, smax).double()
+        nt = meta[live, 3].clamp(0, bt).double()
+        pairs = int((ns * nt).sum())
+        slots = int((ns * 32 * torch.ceil(nt / 32)).sum())
+        warps = kstream.stream_launch_params(meta.shape[0])
+
+        def k2():
+            return kstream.p2p_stream(meta, payload, block_t=bt, smax=smax)
+
+        ms = device_ms(torch, k2, reps=20)
+        call_ms = cuda_ms(torch, k2)
         pms = cuda_ms(torch, lambda: kstream.p2p_stream_gathered(
             meta, payload, block_t=bt, smax=smax), reps=3)
         nbytes = 4.0 * (meta.numel() + payload.numel() + meta.shape[0] * bt)
         bms, by = bound_ms(nbytes, FLOPS_PER_PAIR * pairs)
-        print(f"  K2 (tiles {meta.shape[0]}, live {int(live.sum())}): "
-              f"{ms:.4f} ms, plain {pms:.4f} ms, live pairs {pairs}, bound "
-              f"{bms:.4f} ms ({by}), power limit {power}", flush=True)
+        print(f"  K2 (tiles {meta.shape[0]}, live {int(live.sum())}), "
+              f"{warps} warps a block of {kstream.TILES_PER_WARP} tiles "
+              f"each: {ms:.4f} ms device time (one call "
+              f"from the host {call_ms:.4f}), plain {pms:.4f} ms; terms "
+              f"evaluated {pairs} = the live pairs (lane slots issued "
+              f"{slots}, {smax * bt * int(live.sum())} before: smax x "
+              f"block_t a live tile); bound {bms:.4f} ms ({by}), "
+              f"{bms / ms:.1%} of it; power limit {power}", flush=True)
         results["K2"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                              max_abs_err=err, pairs=pairs)
 
@@ -966,13 +1030,14 @@ def main() -> int:
         a = kp2p.p2p(qs, xs, xt)
         b2 = kstream.p2p_stream(ml.contiguous(), payload, block_t=bt,
                                 smax=smax)
-        if not torch.equal(a, b2):
+        lv = torch.arange(bt, device=dev)[None, :] < ml[:, 3:4]
+        if not torch.equal(a[lv], b2[lv]):
             raise AssertionError(
                 f"K1 and K2 differ on identical slabs: "
-                f"{int((a != b2).sum())} of {a.numel()} values")
-        print(f"  K1 == K2 bitwise on {ml.shape[0]} identical slabs",
-              flush=True)
-        del qs, xs, xt, a, b2, got, ml
+                f"{int((a[lv] != b2[lv]).sum())} of {int(lv.sum())} values")
+        print(f"  K1 == K2 bitwise on {ml.shape[0]} identical live slabs "
+              f"({int(lv.sum())} lanes below tgt_len)", flush=True)
+        del qs, xs, xt, a, b2, got, ml, lv
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- 4 -----

@@ -56,8 +56,9 @@ def stream_payload(x, q, pad: int):
 
 def p2p_stream_vals(x, q, stream: dict):
     """Evaluate the unified stream table (device `meta`) -> (Ti, block_t)
-    f32 values.  Lanes past a tile's target count carry real sums and are
-    dropped by the caller's accumulation through `out_valid`."""
+    f32 values.  Lanes past a tile's target count (0.0 from the kernel,
+    sums from the plain version) are dropped by the caller's accumulation
+    through `out_valid`."""
     payload = stream_payload(x, q, stream["pad"])
     return p2p_stream(stream["meta"], payload, block_t=stream["block_t"],
                       smax=stream["smax"])

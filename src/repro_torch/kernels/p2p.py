@@ -7,14 +7,15 @@ gathered targets:
 
 `p2p` replaces the Pallas TPU kernel `repro.kernels.p2p.p2p_pallas` with the
 hand-written CUDA kernel `csrc/p2p.cu` (built for sm_90a, bound through
-ctypes).  On this card the kernel is bound by device-memory bytes: a pair
-costs 11 float32 operations (an fma counted as 2), while each row brings
-12 bytes per target and 16 per source.  The kernel reads each input once —
-a row's sources are staged once in shared memory, each target is one
-thread with its sum in registers — and writes each output once (see the
-note in the source).  `p2p_ref` is the plain PyTorch version (the counterpart of
-`repro.kernels.ref.p2p_ref`); the wrapper runs it for tensors on the CPU and
-launches the kernel for tensors on a CUDA device.
+ctypes).  On this card the kernel is bound by device-memory bytes once it
+skips the buckets' padding: one warp takes a row (ROWS_PER_WARP rows in
+turn; `p2p_launch_params` picks the warps per block), stops the row's
+source loop at its last nonzero charge (a row of zero charges only reads
+q), and gives each lane two targets a pass, so each source staged in
+shared memory feeds two pairs (see the note in the source).  The sum is bit for bit that of the full
+loop over S.  `p2p_ref` is the plain PyTorch version (the counterpart of
+`repro.kernels.ref.p2p_ref`); the wrapper runs it for tensors on the CPU
+and launches the kernel for tensors on a CUDA device.
 
 `launches` counts kernel launches: the wrapper adds one where it launches
 the kernel, and nowhere else.
@@ -28,9 +29,12 @@ import torch
 
 from repro_torch.kernels.build import library
 
-__all__ = ["p2p", "p2p_ref", "heuristic_stream_params", "BLOCK_CANDIDATES"]
+__all__ = ["p2p", "p2p_ref", "p2p_launch_params", "heuristic_stream_params",
+           "BLOCK_CANDIDATES"]
 
 BLOCK_CANDIDATES = (128, 256, 512)
+_SMS = 132                      # streaming multiprocessors of an H100
+ROWS_PER_WARP = 8               # REPRO_P2P_ROWS of csrc/p2p.cu
 
 launches = 0
 
@@ -79,17 +83,35 @@ def _lib():
     lib.repro_p2p_gathered.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
     lib.repro_p2p_gathered.restype = ctypes.c_int
     lib.repro_p2p_error_string.argtypes = [ctypes.c_int]
     lib.repro_p2p_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def warps_per_block(units: int, most: int) -> int:
+    """Warps per block for a launch of one warp per row or tile: `most`,
+    halved while the grid would give the card's SMs fewer than two blocks
+    each, so that small launches still spread over every SM."""
+    w = most
+    while w > 1 and -(-units // w) < 2 * _SMS:
+        w //= 2
+    return w
+
+
+def p2p_launch_params(P: int) -> int:
+    """Warps per block of K1's launch over P rows (ROWS_PER_WARP rows a
+    warp): 4, fewer for grids too small to give every SM two blocks.  At
+    the main path's buckets 4 measured 2-3% faster than 8 (`PERF.md` §6)."""
+    return warps_per_block(-(-P // ROWS_PER_WARP), 4)
+
+
 def p2p(q, x_src, x_tgt):
     """q (P, S), x_src (P, S, 3), x_tgt (P, T, 3) float32 -> (P, T) float32.
     CPU tensors run `p2p_ref`; CUDA tensors launch K1 on the current stream
-    (raising if the launch fails); any other device raises."""
+    with `p2p_launch_params(P)` warps per block, raising if the launch
+    fails; any other device raises."""
     global launches
     _check(q, x_src, x_tgt)
     dev = q.device
@@ -108,9 +130,9 @@ def p2p(q, x_src, x_tgt):
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_p2p_gathered(q.data_ptr(), x_src.data_ptr(),
-                                     x_tgt.data_ptr(), out.data_ptr(), P, S,
-                                     T, stream)
+        err = lib.repro_p2p_gathered(
+            q.data_ptr(), x_src.data_ptr(), x_tgt.data_ptr(), out.data_ptr(),
+            P, S, T, p2p_launch_params(P), stream)
     if err != 0:
         raise RuntimeError("p2p kernel launch failed: "
                            + lib.repro_p2p_error_string(err).decode())

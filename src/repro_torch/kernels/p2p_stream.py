@@ -11,20 +11,27 @@ gather done inside the kernel:
            (`engine.p2p.stream_payload`).
 
 Tile i sums the (4, smax) source slab starting at src_start, with q masked
-to 0 past src_len, into every lane of the (4, block_t) target slab starting
-at tgt_start; lanes past tgt_len carry real sums that the caller drops
-through the table's `out_valid`.
+to 0 past src_len, into the lanes of the (4, block_t) target slab starting
+at tgt_start.  The two versions differ past tgt_len, where the caller drops
+every lane through the table's `out_valid`:
+
+  - the kernel evaluates only the live src_len x tgt_len pairs of a tile and
+    writes exactly 0.0 in lanes [tgt_len, block_t) (and in dead tiles);
+  - the plain version `p2p_stream_gathered` computes every lane, as the
+    reference does, so it stays comparable with `repro` on all of them.
 
 `p2p_stream` replaces the Pallas TPU kernel
 `repro.kernels.p2p_stream.p2p_stream` with the hand-written CUDA kernel
 `csrc/p2p_stream.cu` (sm_90a, bound through ctypes).  On this card it is
-bound by device-memory bytes, like K1, but reads the payload in place
-instead of materialising gathered operands; each block reads its own meta
-row, stages its source slab once in shared memory, and runs the tile body it
-shares with K1, so the two agree bit for bit on identical slabs (see the
-note in the source).  `p2p_stream_gathered` is the plain PyTorch version
-(the counterpart of `repro.core.engine.p2p.p2p_stream_gathered`): it gathers
-the same slabs and runs K1's plain version on them.
+bound by device-memory bytes, most of them the (Ti, block_t) output: one
+warp takes a tile (TILES_PER_WARP tiles in turn; `stream_launch_params`
+picks the warps per block), reads its meta row and its sources from the
+payload in place, and runs the pair body it shares with K1, so the two
+agree bit for bit on identical slabs in every lane below tgt_len (see the
+note in the source).
+`p2p_stream_gathered` is the counterpart of
+`repro.core.engine.p2p.p2p_stream_gathered`: it gathers the same slabs and
+runs K1's plain version on them.
 
 `launches` counts kernel launches: the wrapper adds one where it launches
 the kernel, and nowhere else.
@@ -37,9 +44,12 @@ import functools
 import torch
 
 from repro_torch.kernels.build import library
-from repro_torch.kernels.p2p import p2p_ref
+from repro_torch.kernels.p2p import p2p_ref, warps_per_block
 
-__all__ = ["p2p_stream", "p2p_stream_gathered", "stream_slabs"]
+__all__ = ["p2p_stream", "p2p_stream_gathered", "stream_launch_params",
+           "stream_slabs"]
+
+TILES_PER_WARP = 8              # REPRO_P2P_TILES of csrc/p2p_stream.cu
 
 launches = 0
 
@@ -99,17 +109,28 @@ def _lib():
     lib.repro_p2p_stream.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
     lib.repro_p2p_stream.restype = ctypes.c_int
     lib.repro_p2p_stream_error_string.argtypes = [ctypes.c_int]
     lib.repro_p2p_stream_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def stream_launch_params(n_tiles: int) -> int:
+    """Warps per block of K2's launch over n_tiles tiles (TILES_PER_WARP
+    tiles a warp): 4, fewer for grids too small to give every SM two
+    blocks.  At the main path's 2^21 tiles 4 measured 1-2% faster than 8
+    (`PERF.md` §6)."""
+    return warps_per_block(-(-n_tiles // TILES_PER_WARP), 4)
+
+
 def p2p_stream(meta, payload, *, block_t: int, smax: int):
     """meta (Ti, 4) int32, payload (4, F) float32 -> (Ti, block_t) float32.
     CPU tensors run `p2p_stream_gathered`; CUDA tensors launch K2 on the
-    current stream (raising if the launch fails); any other device raises."""
+    current stream with `stream_launch_params(Ti)` warps per block, raising
+    if the launch fails; any other device raises.  On the card lanes at or
+    past a tile's tgt_len are 0.0 (the plain version computes them; see the
+    module note)."""
     global launches
     _check(meta, payload, block_t, smax)
     dev = payload.device
@@ -123,12 +144,15 @@ def p2p_stream(meta, payload, *, block_t: int, smax: int):
     out = torch.empty(Ti, block_t, dtype=torch.float32, device=dev)
     if Ti == 0:
         return out
+    if meta.data_ptr() % 16:            # the kernel reads a row as an int4
+        meta = meta.clone()
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_p2p_stream(meta.data_ptr(), payload.data_ptr(),
                                    out.data_ptr(), Ti, payload.shape[1],
-                                   block_t, smax, stream)
+                                   block_t, smax, stream_launch_params(Ti),
+                                   stream)
     if err != 0:
         raise RuntimeError("p2p_stream kernel launch failed: "
                            + lib.repro_p2p_stream_error_string(err).decode())

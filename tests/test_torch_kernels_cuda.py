@@ -10,8 +10,11 @@ so it also runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerance rtol/atol 2e-5 against the plain versions (float32 sums in
-another order, `rsqrtf` against `torch.rsqrt`); K1 and K2 are bitwise equal
-on identical slabs because they share one tile body.  K3 equals its plain
+another order, `rsqrtf` against `torch.rsqrt`); K2 writes exactly 0.0 past
+each tile's tgt_len, where its plain version sums the slab, so it is held
+to the plain version on the lanes below tgt_len and to zeros on the rest;
+K1 and K2 are bitwise equal on identical slabs below tgt_len because they
+share one pair body and one summation order.  K3 equals its plain
 version bit for bit: both round the same float32 steps in the same order.
 K4 against `attention_rounded_ref`, the plain version with the kernel's
 roundings: rtol/atol 2e-4 in float32; in bfloat16 atol 4e-3 + rtol 1.6e-2
@@ -92,7 +95,22 @@ def test_k1_rejects_non_contiguous_on_card(cuda_device):
         kp2p.p2p(q, xs, xt.transpose(0, 1).contiguous().transpose(0, 1))
 
 
+def _k2_against_plain(got, meta, pay, bt, smax):
+    """K2's output against its plain version on the lanes below each tile's
+    tgt_len, at RTOL / ATOL, and exactly 0.0 on every other lane."""
+    lane = torch.arange(bt, device=meta.device)
+    valid = lane[None, :] < meta[:, 3:4]
+    want = kstream.p2p_stream_gathered(meta, pay, block_t=bt, smax=smax)
+    torch.testing.assert_close(got[valid], want[valid], rtol=RTOL, atol=ATOL)
+    rest = got[~valid]
+    assert torch.equal(rest, torch.zeros_like(rest))
+    return valid
+
+
 def test_k2_matches_plain_and_k1_bitwise_on_card(cuda_device, stream_case):
+    """K2 against its plain version on the out_valid lanes (exact zeros on
+    the rest), and K1 on the same slabs bit for bit on the lanes below each
+    tile's tgt_len: past it K2 writes 0 where K1 sums the slab."""
     stream, payload = stream_case
     bt, smax = stream["block_t"], stream["smax"]
     meta = torch.as_tensor(stream["meta"]).to(cuda_device)
@@ -101,13 +119,100 @@ def test_k2_matches_plain_and_k1_bitwise_on_card(cuda_device, stream_case):
     got = kstream.p2p_stream(meta, pay, block_t=bt, smax=smax)
     torch.cuda.synchronize()
     assert kstream.launches == before + 1
-    torch.testing.assert_close(
-        got, kstream.p2p_stream_gathered(meta, pay, block_t=bt, smax=smax),
-        rtol=RTOL, atol=ATOL)
+    valid = _k2_against_plain(got, meta, pay, bt, smax)
+    assert torch.equal(valid.cpu(), torch.as_tensor(stream["out_valid"]))
     live = meta[meta[:, 3] > 0].contiguous()
     q, xs, xt = kstream.stream_slabs(live, pay, block_t=bt, smax=smax)
-    assert torch.equal(kp2p.p2p(q, xs, xt),
-                       kstream.p2p_stream(live, pay, block_t=bt, smax=smax))
+    k1 = kp2p.p2p(q, xs, xt)
+    k2 = kstream.p2p_stream(live, pay, block_t=bt, smax=smax)
+    lv = torch.arange(bt, device=cuda_device)[None, :] < live[:, 3:4]
+    assert torch.equal(k1[lv], k2[lv])
+
+
+def _k2_meta(block_t, seed=0):
+    """A hand-built tile table: every (tgt_len, src_len) of the edge cases,
+    a dead tile between each two live ones and two at the end, on a random
+    payload (charges in [-1, 1], a few exactly 0) padded as the engine pads
+    it."""
+    rng = np.random.default_rng(seed)
+    t_lens = [1, 31, 32, 33, 64, 65, 128] + ([200, 256] if block_t > 128
+                                             else [])
+    rows = []
+    F = 5000
+    for tl in t_lens:
+        for sl in (0, 1, 31, 33, 64):
+            rows.append([rng.integers(0, F - 64), sl,
+                         rng.integers(0, F - block_t), tl])
+            rows.append([0, 0, 0, 0])
+    rows += [[0, 0, 0, 0]] * 2
+    meta = np.asarray(rows, np.int32)
+    x = rng.uniform(-1, 1, (3, F))
+    q = rng.uniform(-1, 1, F)
+    q[rng.choice(F, 200, replace=False)] = 0.0
+    pay = np.concatenate([np.concatenate([x, q[None]]),
+                          np.zeros((4, max(64, block_t)))], axis=1)
+    return meta, pay.astype(np.float32)
+
+
+@pytest.mark.parametrize("block_t", [128, 256])
+def test_k2_live_pairs_only_on_card(cuda_device, block_t):
+    """tgt_len across the two-targets-a-lane passes, src_len across the
+    32-source chunks (smax 64), dead tiles between live ones."""
+    meta, pay = _k2_meta(block_t)
+    meta = torch.as_tensor(meta, device=cuda_device)
+    pay = torch.as_tensor(pay, device=cuda_device)
+    got = kstream.p2p_stream(meta, pay, block_t=block_t, smax=64)
+    torch.cuda.synchronize()
+    _k2_against_plain(got, meta, pay, block_t, 64)
+    # a tile with no sources is all zeros, a dead tile too
+    assert not got[meta[:, 1] == 0].any()
+
+
+def test_k2_bitwise_repeatable_on_card(cuda_device):
+    """Two launches give the same bits."""
+    meta, pay = _k2_meta(256, seed=1)
+    meta = torch.as_tensor(meta, device=cuda_device)
+    pay = torch.as_tensor(pay, device=cuda_device)
+    assert torch.equal(kstream.p2p_stream(meta, pay, block_t=256, smax=64),
+                       kstream.p2p_stream(meta, pay, block_t=256, smax=64))
+
+
+def _k1_zero_patterns(P, S, T, seed=0):
+    """K1 inputs whose rows end in zero charges (row i keeps (i * 7) % (S +
+    1) sources), with interior zeros and some rows all zero."""
+    q, xs, xt = _p2p_inputs(P, S, T, seed)
+    keep = (torch.arange(P) * 7) % (S + 1)
+    q[torch.arange(S)[None, :] >= keep[:, None]] = 0.0
+    q[:, ::5] = 0.0                                   # interior zeros
+    q[::4] = 0.0                                      # rows of padding
+    return q, xs, xt
+
+
+@pytest.mark.parametrize("S", [45, 300])
+@pytest.mark.parametrize("T", [1, 37, 64, 200])
+def test_k1_trimmed_rows_match_plain_on_card(cuda_device, S, T):
+    q, xs, xt = (t.to(cuda_device) for t in _k1_zero_patterns(23, S, T))
+    got = kp2p.p2p(q, xs, xt)
+    torch.testing.assert_close(got, kp2p.p2p_ref(q, xs, xt), rtol=RTOL,
+                               atol=ATOL)
+    assert not got[::4].any()                         # padding rows are 0
+
+
+@pytest.mark.parametrize("S,keep", [(64, 23), (37, 1), (300, 257)])
+def test_k1_stops_at_the_last_charge_bitwise_on_card(cuda_device, S, keep):
+    """A row gives the bits of the same row with its trailing zero sources
+    cut off (S = 37 also takes the unaligned rows' scalar loads)."""
+    q, xs, xt = (t.to(cuda_device) for t in _p2p_inputs(9, S, 64, seed=S))
+    q[:, keep:] = 0.0
+    cut = kp2p.p2p(q[:, :keep].contiguous(), xs[:, :keep].contiguous(), xt)
+    assert torch.equal(kp2p.p2p(q, xs, xt), cut)
+
+
+def test_k1_bitwise_repeatable_on_card(cuda_device):
+    """Two launches give the same bits."""
+    q, xs, xt = (t.to(cuda_device)
+                 for t in _k1_zero_patterns(1000, 40, 64, seed=3))
+    assert torch.equal(kp2p.p2p(q, xs, xt), kp2p.p2p(q, xs, xt))
 
 
 def test_engine_on_card_launches_kernels_and_matches_cpu(cuda_device):
