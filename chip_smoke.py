@@ -47,11 +47,30 @@ Phases, in order; any failed check raises and ends the run non-zero:
      launch count set to 0 just before and read just after; the two
      potentials agree, and both match a float64 direct sum on 4,096
      sampled targets (computed on the card);
-  6. stepping at N: three within-slack steps (no rebuild, every partition
+  6. the protocol layer and the per-partition reference executor on the
+     main path's geometry (planned once in phase 2): `FMMSession.sweep()`
+     of the four protocols with delivery checked (stages, messages, wire
+     MB, relay factor, rounds and LogGP ms each; one evaluation serves all
+     four, the same read-only potential); `execute_geometry(geo,
+     use_kernels=True, asarray=DeviceMemo)` cold and warm (median of 3),
+     with K1's launches per call (one per P2P block) and the memo's
+     uploads per call (none after the first); K1 against its plain
+     version on the executor's own blocks (for each (T, S) the remote block
+     with the fewest rows and the local one with the most, each with its
+     launch shape, at phase 3's tolerance); the executor against the
+     engine at phase 4's tolerance (sum_j |q_j| / r_ij from an engine
+     evaluate with |q|) and at rel-L2 < 3e-3 against phase 5's direct sum;
+     the quickstart's
+     `run_distributed_fmm(x, q, nparts=8, ...)` at N on the card (planned
+     with K3; one DeprecationWarning); and `plan_geometry` of the same
+     points in 64 parts with the host traversal, whose four schedules
+     (delivery checked) must give the stage and message counts of
+     PLAN64_COUNTS at N = 2^20, HSDX relaying over several stages;
+  7. stepping at N: three within-slack steps (no rebuild, every partition
      refreshed) and one beyond-slack step of one partition (only it
      rebuilt, re-traversed through K3), each matching a float64 direct sum
      at the stepped positions;
-  7. K4 and K5 against their plain versions on the card: K4 (against the
+  8. K4 and K5 against their plain versions on the card: K4 (against the
      plain version with its roundings, and against the one that also walks
      its 128-key tiles) at qwen3-0.6b's prefill shape (B 1, H 16, Hkv 8,
      S 4096, D 128, bfloat16, causal; elementwise and per-row tolerances
@@ -67,7 +86,7 @@ Phases, in order; any failed check raises and ends the run non-zero:
      port never calls), in bfloat16 at S = 512 to 4,096 (D 128) and at
      (1, 32, 8, 4096, 64) with TFLOP/s and the share of its bound, and once
      in float32;
-  8. serving, for each of qwen3-0.6b and rwkv6-1.6b: `ServeEngine(B=4,
+  9. serving, for each of qwen3-0.6b and rwkv6-1.6b: `ServeEngine(B=4,
      S_max=128)` answers 8 requests (prompts of 4-15 tokens from
      default_rng(0), 8 new tokens each) and then prefills one 4,096-token
      prompt, with the model's kernel count set to 0 just before and read
@@ -79,8 +98,8 @@ Phases, in order; any failed check raises and ends the run non-zero:
      largest |logit| (bfloat16 rounds the two paths differently), and each
      greedy token is the forward's argmax except at near ties (top-2 gap
      at most twice the measured difference), counted;
-  9. one JSON line listing every ported kernel;
- 10. the last line: {"ok": true, "device": {...}}.
+ 10. one JSON line listing every ported kernel;
+ 11. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -490,8 +509,201 @@ def check_tol(torch, name, got, want, rtol, atol, row_rel=None) -> float:
     return max_err
 
 
+# the protocol table of the 64-partition host plan of the default workload
+# at N = 2^20 (stages, messages), fixed by the plan's bytes matrix and
+# adjacency boxes, which the host traversal makes independent of the card
+PLAN64_COUNTS = {"alltoallv": (1, 4032), "nbx": (1, 4032),
+                 "pairwise": (6, 384), "hsdx": (5, 1669)}
+
+
+def print_comm(label: str, cs) -> None:
+    st = cs.stats
+    print(f"  {label} {cs.protocol:9s}: stages {st['n_stages']}, messages "
+          f"{st['n_msgs']}, wire {st['wire_bytes'] / 1e6:.2f} MB, relay "
+          f"factor {st['relay_factor']:.3f}, rounds {st['n_rounds']}, LogGP "
+          f"{cs.loggp_time * 1e3:.3f} ms (the cost model's output)",
+          flush=True)
+
+
+def executor_k1_blocks(torch, kp2p, walked, dev) -> None:
+    """K1 against its plain version at the executor's own launch shapes:
+    for each (T, S), the remote block with the fewest rows (the smallest
+    grids, where `p2p_launch_params` gives fewer warps a block) and the
+    local block with the most, gathered on the card as `fmm.p2p_apply`
+    gathers them.  These launches are checks, not the path's."""
+    f32 = torch.float32
+    pick = {}
+    for local, tgt, src, b in walked:
+        key = (b.shape[1], b.shape[2], local)
+        old = pick.get(key)
+        if old is None or (b.shape[0] > old[2].shape[0] if local
+                           else b.shape[0] < old[2].shape[0]):
+            pick[key] = (tgt, src, b)
+    for (T, S, local), (tgt, src, b) in sorted(pick.items()):
+        def up(a, dtype=None):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+        xt = up(tgt.x, f32)[up(b.t_idx)]
+        xs = up(src.x, f32)[up(b.s_idx)]
+        qs = torch.where(up(b.s_valid), up(src.q, f32)[up(b.s_idx)],
+                         torch.zeros((), dtype=f32, device=dev))
+        P = qs.shape[0]
+        warps = kp2p.p2p_launch_params(P)
+        grid = -(-(-(-P // kp2p.ROWS_PER_WARP)) // warps)
+        check_close(f"K1 executor {'local' if local else 'remote'} block "
+                    f"(rows {P}, T {T}, S {S}), {warps} warps a block, "
+                    f"{grid} blocks", kp2p.p2p(qs, xs, xt),
+                    kp2p.p2p_ref(qs, xs, xt),
+                    kp2p.p2p_ref(qs.abs(), xs, xt))
+        del xt, xs, qs
+
+
+def protocols_and_executor(torch, sess, x, q, idx, d, dev, card) -> None:
+    """Phase 6: the protocol sweep, the per-partition reference executor
+    with K1, the legacy `run_distributed_fmm`, and the schedules of a
+    64-partition host plan, on the main path's geometry."""
+    import warnings
+    from repro_torch.core import api as tapi
+    from repro_torch.core.distributed_fmm import run_distributed_fmm
+    from repro_torch.core.engine import DeviceEngine
+    from repro_torch.kernels import mac as kmac
+    from repro_torch.kernels import p2p as kp2p
+
+    geo, n = sess.geometry, len(x)
+    B = geo.bytes_matrix
+    print(f"  geometry: {geo.spec.nparts} parts, diameter {geo.diameter}, "
+          f"max degree {geo.adjacency_degree:.0f}, LET {B.sum() / 1e6:.2f} "
+          f"MB in {int((B > 0).sum())} pairs", flush=True)
+
+    # -- the sweep: four protocols from one evaluation --------------------
+    sweeper = tapi.FMMSession(geo, device=dev)
+    _, t_engine = timed_sync(torch, lambda: sweeper.engine)
+    acc = {}
+    with wall_of(DeviceEngine, "evaluate", acc):
+        out, t_sweep = timed_sync(
+            torch, lambda: sweeper.sweep(check_delivery=True))
+    for cs in (res.comm for res in out.values()):
+        print_comm("nparts 8", cs)
+    phis = [res.phi for res in out.values()]
+    print(f"  sweep (check_delivery=True): {t_sweep:.4f} s host time for "
+          f"{len(out)} protocols and {acc['evaluate#']} evaluation(s) "
+          f"({acc['evaluate']:.4f} s of it; engine tables built before it "
+          f"in {t_engine:.3f} s); card {card}", flush=True)
+    if acc["evaluate#"] != 1 or not all(p is phis[0] for p in phis) \
+            or phis[0].flags.writeable:
+        raise AssertionError("the sweep did not serve every protocol from "
+                             "one read-only evaluation")
+    phi_eng = phis[0]
+    e = sweeper.engine
+    phi_abs = DeviceEngine(e.tables, e.x.cpu().numpy(),
+                           e.q.abs().cpu().numpy(), device=dev).evaluate()
+    del sweeper, e, out, phis
+
+    # -- the reference executor: K1 on every P2P block --------------------
+    plans = [pl for r in geo.receivers if r is not None
+             for pl in [r.local] + [rb.inter for rb in r.remote]]
+    blocks = [b for pl in plans if pl.n_p2p for b in pl.p2p_blocks]
+    # (local?, target tree, source tree, block) as p2p_apply walks them
+    walked = [(src is r.tree, r.tree, src, b) for r in geo.receivers
+              if r is not None
+              for src, pl in [(r.tree, r.local)]
+              + [(rb.graft, rb.inter) for rb in r.remote]
+              if pl.n_p2p for b in pl.p2p_blocks]
+    shapes = sorted({b.shape[1:] for b in blocks})
+    rows = sum(b.shape[0] for b in blocks)
+    print(f"  executor: {len(plans)} interaction plans, {len(blocks)} P2P "
+          f"blocks, {rows} rows, (T, S) {shapes}, "
+          f"{sum(pl.n_m2l for pl in plans)} M2L pairs, "
+          f"{sum(pl.n_m2p for pl in plans)} M2P pairs", flush=True)
+    memo = tapi.DeviceMemo(dev)
+    times, per_call, misses = [], [], []
+    for _ in range(4):
+        kp2p.launches = 0
+        m0 = memo.misses
+        phi_x, t = timed_sync(torch, lambda: tapi.execute_geometry(
+            geo, use_kernels=True, asarray=memo))
+        times.append(t)
+        per_call.append(kp2p.launches)
+        misses.append(memo.misses - m0)
+    print(f"  execute_geometry(use_kernels=True, asarray=memo): cold "
+          f"{times[0]:.4f} s, warm median {statistics.median(times[1:]):.4f}"
+          f" s (runs {', '.join(f'{t:.4f}' for t in times[1:])}); K1 "
+          f"launches per call {per_call}; memo uploads per call {misses} "
+          f"({len(memo)} tables resident); card {card}", flush=True)
+    if per_call != [len(blocks)] * 4 or misses[1:] != [0, 0, 0]:
+        raise AssertionError("the executor did not launch K1 once per P2P "
+                             "block, or uploaded a table again")
+    executor_k1_blocks(torch, kp2p, walked, dev)
+    diff = np.abs(phi_x - phi_eng)
+    tol = 1e-4 + 1e-5 * np.abs(phi_eng) + 1e-6 * phi_abs
+    worst = float((diff / tol).max())
+    rel = float(np.linalg.norm(phi_x[idx] - d) / np.linalg.norm(d))
+    print(f"  executor vs engine: max |diff| {diff.max():.3e}, largest "
+          f"|diff| / (1e-4 + 1e-5 |phi| + 1e-6 sum|q|/r) {worst:.3f}; "
+          f"rel-L2 vs direct sum on {len(idx)} targets {rel:.3e}",
+          flush=True)
+    if not (phi_x.shape == (n,) and np.isfinite(phi_x).all()
+            and worst <= 1.0 and rel < 3e-3):
+        raise AssertionError("the reference executor disagrees with the "
+                             "engine or the direct sum")
+    del memo, phi_x
+
+    # -- the quickstart's call at the full N ------------------------------
+    kmac.launches = 0
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        res, t_run = timed_sync(torch, lambda: run_distributed_fmm(
+            x, q, nparts=8, method="orb", protocol="hsdx", theta=0.5,
+            ncrit=64))
+    dep = [w for w in rec if issubclass(w.category, DeprecationWarning)]
+    rel = float(np.linalg.norm(res.phi[idx] - d) / np.linalg.norm(d))
+    st = res.schedule_stats
+    print(f"  run_distributed_fmm (N={n}, 8 parts, hybrid ORB, hsdx): "
+          f"{t_run:.3f} s wall, K3 launches {kmac.launches}; card {card}",
+          flush=True)
+    print(f"    rel. L2 error vs direct sum : {rel:.2e} ({len(idx)} sampled "
+          f"targets)", flush=True)
+    print(f"    LET volume                  : "
+          f"{res.bytes_matrix.sum() / 1e6:.2f} MB total", flush=True)
+    print(f"    HSDX stages                 : {res.n_stages} (adjacency "
+          f"degree max {res.adjacency_degree:.0f}, diameter "
+          f"{res.diameter})", flush=True)
+    print(f"    messages                    : {st['n_msgs']} (relay factor "
+          f"{st['relay_factor']:.2f})", flush=True)
+    print(f"    LogGP time model            : {res.loggp_time * 1e3:.2f} ms",
+          flush=True)
+    if not (rel < 3e-3 and len(dep) == 1 and kmac.launches > 0):
+        raise AssertionError(f"run_distributed_fmm: rel-L2 {rel}, "
+                             f"{len(dep)} DeprecationWarning(s)")
+    del res
+
+    # -- a relaying HSDX at scale: 64 partitions, host-traversed ----------
+    geo64, t_plan = timed_sync(torch, lambda: tapi.plan_geometry(
+        x, q, dc_replace(geo.spec, nparts=64, traversal_backend="host"),
+        device=dev))
+    B64 = geo64.bytes_matrix
+    print(f"  nparts 64 (host traversal): planned in {t_plan:.3f} s; "
+          f"diameter {geo64.diameter}, max degree "
+          f"{geo64.adjacency_degree:.0f}, LET {B64.sum() / 1e6:.2f} MB in "
+          f"{int((B64 > 0).sum())} ordered pairs; card {card}", flush=True)
+    t0 = time.perf_counter()
+    comms = {name: tapi.schedule_comm(geo64, name, check_delivery=True)
+             for name in PLAN64_COUNTS}
+    t_sched = time.perf_counter() - t0
+    for cs in comms.values():
+        print_comm("nparts 64", cs)
+    print(f"  nparts 64: four schedules with delivery checked in "
+          f"{t_sched:.3f} s host time", flush=True)
+    got = {k: (cs.n_stages, cs.stats["n_msgs"]) for k, cs in comms.items()}
+    want = PLAN64_COUNTS if n == 1 << 20 else got
+    hsdx = comms["hsdx"]
+    if got != want or hsdx.n_stages <= 1 \
+            or hsdx.stats["payload_bytes"] != int(B64.sum()):
+        raise AssertionError(f"nparts 64 schedules: {got}, expected "
+                             f"{want} and HSDX relaying the whole LET")
+
+
 def lm_kernel_checks(torch, kattn, krwkv, dev, power) -> dict:
-    """Phase 7: K4 and K5 against their plain versions, timed."""
+    """Phase 8: K4 and K5 against their plain versions, timed."""
     import torch.nn.functional as F
     rng = np.random.default_rng(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -689,7 +901,7 @@ def greedy_check(torch, model, prompt, out, tape) -> tuple:
 
 
 def serve_lm(torch, arch: str, counter, dev, card) -> dict:
-    """Phase 8 for one architecture: the serving path at full width."""
+    """Phase 9 for one architecture: the serving path at full width."""
     from repro_torch.configs import get_config, param_count
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine
@@ -1187,6 +1399,11 @@ def main() -> int:
         del sess_s, out, phi_g, phi_s
 
     # ------------------------------------------------------------- 6 -----
+    with phase(f"protocols and the reference executor, N = {n}"):
+        protocols_and_executor(torch, sess_g, x, q, idx, d, dev, card)
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- 7 -----
     with phase(f"stepping, N = {n}"):
         sess = sess_g
         geo = sess.geometry
@@ -1244,19 +1461,19 @@ def main() -> int:
                 and rel < 3e-3):
             raise AssertionError(f"rebuilt rel-L2 {rel} >= 3e-3")
 
-    # ------------------------------------------------------------- 7 -----
+    # ------------------------------------------------------------- 8 -----
     with phase("LM kernels K4 and K5 against their plain versions"):
         results.update(lm_kernel_checks(torch, kattn, krwkv, dev, power))
         torch.cuda.empty_cache()
 
-    # ------------------------------------------------------------- 8 -----
+    # ------------------------------------------------------------- 9 -----
     for arch, counter, name in (("qwen3-0.6b", kattn, "K4"),
                                 ("rwkv6-1.6b", krwkv, "K5")):
         with phase(f"serving {arch}"):
             launches[name] = serve_lm(torch, arch, counter, dev,
                                       card)["launches"]
 
-    # ------------------------------------------------------------- 9 -----
+    # ------------------------------------------------------------ 10 -----
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

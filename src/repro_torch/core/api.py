@@ -1,17 +1,26 @@
-"""Layered FMM API of the port: GeometryPlan -> FMMSession.
+"""Layered FMM API of the port: GeometryPlan -> CommSchedule -> FMMSession.
 
-The port of the parts of `repro.core.api` on the single-device main path:
+The port of `repro.core.api` for one device:
 
   1. `plan_geometry(x, q, PartitionSpec) -> GeometryPlan` — all host-side
-     geometry, built once: partitioning, completely local trees, batched
-     sender-side LET extraction (`extract_lets` runs once per sender for all
-     remote boxes), per-receiver frozen interaction plans against every
-     grafted subtree, the (P, P) bytes matrix and the MAC slack budget.  It
-     is NumPy throughout except for the per-tree upward pass that fills the
-     LET payload multipoles, which runs in PyTorch on `device`.
-  2. `FMMSession` — holds a `GeometryPlan`, evaluates it through the
-     batched `DeviceEngine` (repro_torch.core.engine), and advances it in
-     time with `step(new_x[, new_q])`.
+     geometry, built once with no protocol argument: partitioning,
+     completely local trees, batched sender-side LET extraction
+     (`extract_lets` runs once per sender for all remote boxes),
+     per-receiver frozen interaction plans against every grafted subtree,
+     the (P, P) bytes matrix and the MAC slack budget.  It is NumPy
+     throughout except for the per-tree upward pass that fills the LET
+     payload multipoles, which runs in PyTorch on `device`.
+  2. `schedule_comm(geometry, protocol) -> CommSchedule` — a cheap pure
+     function over the frozen bytes matrix and the Lemma-1 adjacency boxes
+     (`protocols.py`, host NumPy): sweeping the four protocols reuses one
+     `GeometryPlan` with no geometry work.
+  3. `FMMSession` — holds a `GeometryPlan`, evaluates it through the
+     batched `DeviceEngine` (repro_torch.core.engine) or, with
+     `engine=False`, the per-partition reference executor
+     `execute_geometry` (its uploads memoized by a `DeviceMemo`), caches
+     the potential per geometry version so `.sweep()` answers every
+     protocol from one evaluation, and advances in time with
+     `step(new_x[, new_q])`.
 
 Planning traversal: `PartitionSpec.traversal_backend` None/"auto" plans
 with the device dual traversal and its MAC kernel K3
@@ -31,20 +40,25 @@ host mirrors (multipoles, LET payloads, grafted views) are filled lazily by
 that partition and exactly the LETs and receiver plans that touch it,
 re-traversed on the resolved backend.
 
-Protocol schedules, multi-device exchange, observability and resilience are
+The multi-device exchange, observability, resilience and `report()` are
 later slices.
 """
 from __future__ import annotations
 
 import math
+import weakref
 from dataclasses import dataclass, field, replace as dc_replace
 
 import numpy as np
+import torch
 
+from repro_torch.core import protocols as proto
 from repro_torch.core.engine import DeviceEngine
 from repro_torch.core.engine.traversal import (device_dual_traversal,
                                                resolve_traversal_backend)
-from repro_torch.core.fmm import upward_pass
+from repro_torch.core.fmm import (downward_pass, executor_device, l2p_pass,
+                                  m2l_apply, m2p_apply, p2p_apply,
+                                  resolve_use_kernels, upward_pass)
 from repro_torch.core.hsdx import adjacency_from_boxes, graph_diameter
 from repro_torch.core.let import LETData, extract_lets, graft, refresh_let
 from repro_torch.core.multipole import get_operators
@@ -56,9 +70,10 @@ from repro_torch.core.plan import (InteractionPlan, TreeSchedules,
 from repro_torch.core.tree import bucket_size, build_tree
 from repro_torch.device import resolve_device
 
-__all__ = ["PartitionSpec", "GeometryPlan", "RemoteBlock", "ReceiverPlan",
-           "StepReport", "plan_geometry", "sync_host_multipoles",
-           "FMMSession", "DEFAULT_SFC_BOX_INFLATION"]
+__all__ = ["PartitionSpec", "GeometryPlan", "CommSchedule", "SessionResult",
+           "StepReport", "RemoteBlock", "ReceiverPlan", "DeviceMemo",
+           "plan_geometry", "schedule_comm", "execute_geometry",
+           "sync_host_multipoles", "FMMSession", "DEFAULT_SFC_BOX_INFLATION"]
 
 # default eps-inflation of SFC partitions' tight boxes when deriving the
 # adjacency graph (fraction of the global span); ORB regions share split
@@ -151,6 +166,45 @@ class GeometryPlan:
 
 
 @dataclass(frozen=True)
+class CommSchedule:
+    """Layer 2: one protocol's schedule over a frozen GeometryPlan."""
+    protocol: str
+    schedule: proto.Schedule
+    stats: dict
+    loggp_time: float
+    grain_bytes: int | None
+
+    @property
+    def n_stages(self) -> int:
+        return self.schedule.n_stages
+
+
+@dataclass(frozen=True)
+class SessionResult:
+    """One protocol's end-to-end answer: the (shared) potential plus this
+    protocol's communication accounting."""
+    phi: np.ndarray
+    protocol: str
+    comm: CommSchedule
+    bytes_matrix: np.ndarray
+    partition_stats: dict
+    adjacency_degree: float
+    diameter: int
+
+    @property
+    def schedule_stats(self) -> dict:
+        return self.comm.stats
+
+    @property
+    def loggp_time(self) -> float:
+        return self.comm.loggp_time
+
+    @property
+    def n_stages(self) -> int:
+        return self.comm.n_stages
+
+
+@dataclass(frozen=True)
 class StepReport:
     """What `FMMSession.step` did: which partitions kept their cached
     structure, which were numerically refreshed, which were rebuilt."""
@@ -160,6 +214,57 @@ class StepReport:
     shift: tuple                 # per-partition max drift vs x_ref
     slack: tuple                 # per-partition budget the shift was tested against
     version: int                 # geometry version after the step
+
+
+# ------------------------------------------------------------ device memo --
+class DeviceMemo:
+    """Memoized host->device uploads keyed by (array identity, dtype).
+
+    The `asarray=` hook of the per-tree executors (`fmm.py`): the first
+    execution uploads each frozen plan table once to `device`; later
+    executions reuse the cached tensor (no transfer).  Entries are anchored
+    by a *weak* reference to the host array: while the array lives, `id()`
+    stays unique and the tensor is served from cache; when a `step` replaces
+    it (new positions, multipoles, LET payloads) and the old geometry is
+    dropped, the entry evicts itself, so a long-running session does not
+    accumulate stale host or device buffers.  Uploads are copies
+    (`torch.tensor`), so no cached tensor keeps its host array alive.
+
+    `misses` counts uploads and `hits` counts served tensors, so `misses` is
+    the session's host->device transfer meter.  A tensor passed in is
+    returned as is, moved to `device` and `dtype` where it is not there
+    already, and never cached."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self._views: dict = {}
+        self.hits = 0
+        self.misses = 0
+
+    def __call__(self, arr, dtype=None):
+        if isinstance(arr, torch.Tensor):
+            return arr.to(device=self.device, dtype=dtype)
+        key = (id(arr), None if dtype is None else str(dtype))
+        hit = self._views.get(key)
+        if hit is not None:
+            self.hits += 1
+            return hit[1]
+        self.misses += 1
+        dev = torch.tensor(np.asarray(arr), dtype=dtype, device=self.device)
+        try:
+            anchor = weakref.ref(arr, lambda _, k=key: self._views.pop(k, None))
+        except TypeError:                   # not weakly referenceable: pin it
+            anchor = arr
+        self._views[key] = (anchor, dev)
+        return dev
+
+    def is_resident(self, arr) -> bool:
+        """True iff `arr` IS one of the memoized tensors (identity, not
+        equality)."""
+        return any(view is arr for _, view in self._views.values())
+
+    def __len__(self) -> int:
+        return len(self._views)
 
 
 # --------------------------------------------------------------- layer 1 ---
@@ -375,6 +480,30 @@ def plan_geometry(x, q, spec: PartitionSpec | None = None, *, device=None,
     )
 
 
+# --------------------------------------------------------------- layer 2 ---
+def schedule_comm(geometry, protocol: str = "hsdx",
+                  prm: proto.LogGPParams | None = None,
+                  grain_bytes: int | None = None,
+                  check_delivery: bool = True) -> CommSchedule:
+    """Layer 2: a pure function over the geometry's frozen bytes matrix and
+    adjacency boxes — no partitioning, trees, traversal or LET work, so a
+    protocol sweep costs four cheap schedule constructions, not four
+    geometry builds.  `check_delivery` runs the store-and-forward simulator
+    and raises unless the schedule delivers exactly the bytes matrix."""
+    B = geometry.bytes_matrix
+    sched = proto.make_schedule(protocol, B, boxes=geometry.adj_boxes)
+    if check_delivery:
+        delivered = proto.simulate_delivery(sched)
+        expect = {(i, j): int(B[i, j]) for i in range(len(B))
+                  for j in range(len(B)) if i != j and B[i, j] > 0}
+        if delivered != expect:
+            raise RuntimeError(f"{protocol} failed to deliver the LET")
+    return CommSchedule(
+        protocol=protocol, schedule=sched, stats=proto.schedule_stats(sched),
+        loggp_time=proto.loggp_time(sched, prm=prm, grain_bytes=grain_bytes),
+        grain_bytes=grain_bytes)
+
+
 # --------------------------------------------------------- host mirrors ---
 def sync_host_multipoles(geo, device=None) -> None:
     """Fill the deferred host-side numeric mirrors of `geo.Ms_stale`
@@ -383,7 +512,7 @@ def sync_host_multipoles(geo, device=None) -> None:
     send, and re-graft the receiver views over the refreshed LETs.  In
     place: a cache fill with exactly what an eager step would have produced,
     not a semantic change; a no-op when nothing is stale."""
-    stale = set(geo.Ms_stale)
+    stale = set(getattr(geo, "Ms_stale", ()))
     if not stale:
         return
     ops = get_operators(geo.spec.p, resolve_device(device))
@@ -410,17 +539,74 @@ def sync_host_multipoles(geo, device=None) -> None:
     geo.Ms_stale = ()
 
 
+# --------------------------------------------------------------- executor --
+def execute_geometry(geo, use_kernels: bool | None = None, asarray=None, *,
+                     device=None) -> np.ndarray:
+    """Reference executor — kernels + gathers only, one partition at a time:
+    no traversal, no list building, no padding.  Works on any plan-shaped
+    object (GeometryPlan or the legacy DistributedPlan).  The batched
+    engine (repro_torch.core.engine) is pinned against this path.
+
+    Runs on `device`, else the hook's device (`asarray=DeviceMemo(...)`
+    uploads every frozen table at most once across calls), else the card.
+    On a CUDA device every P2P block is one K1 launch (`use_kernels=False`
+    raises there); on the CPU, False runs the plain near field of
+    `fmm.p2p_apply` in place of K1's plain version.
+    Each partition's potential is summed in float64 on the device; the
+    potential comes to the host once, in original body order."""
+    dev = executor_device(asarray, device)
+    resolve_use_kernels(use_kernels, dev)
+    sync_host_multipoles(geo, dev)
+    ops = get_operators(geo.p, dev)
+    order, parts = [], []
+    for j in range(geo.nparts):
+        r = geo.receivers[j]
+        if r is None:
+            continue
+        t = r.tree
+        L = m2l_apply(ops, geo.Ms[j], r.local, asarray=asarray)
+        phi_local = p2p_apply(t, t, r.local, use_kernels=use_kernels,
+                              asarray=asarray, device=dev)
+        for rb in r.remote:
+            if rb.inter.n_m2l:
+                L = L + m2l_apply(ops, rb.graft.M, rb.inter, asarray=asarray)
+            if rb.inter.n_p2p:
+                phi_local += p2p_apply(t, rb.graft, rb.inter,
+                                       use_kernels=use_kernels,
+                                       asarray=asarray, device=dev)
+            if rb.inter.n_m2p:
+                phi_local += m2p_apply(t, rb.graft.M, rb.inter, p=geo.p,
+                                       asarray=asarray, device=dev)
+        L = downward_pass(t, ops, L, sched=r.sched, asarray=asarray)
+        phi_local += l2p_pass(t, ops, L, sched=r.sched, asarray=asarray)
+        order.append(geo.owners[j][t.perm])
+        parts.append(phi_local)
+    phi = np.zeros(geo.n)
+    if parts:
+        phi[np.concatenate(order)] = torch.cat(parts).cpu().numpy()
+    return phi
+
+
 # --------------------------------------------------------------- layer 3 ---
 class FMMSession:
-    """One geometry evaluated through the batched `DeviceEngine`, and
-    advanced in time by `step`.
+    """Layer 3: one geometry, all protocols, many timesteps.
+
+    Evaluation runs through the batched `DeviceEngine` (`engine=None` or
+    True) or the per-partition reference executor `execute_geometry`
+    (`engine=False`), whose frozen tables the session's `DeviceMemo`
+    uploads once.  `potentials` caches the (protocol-independent) potential
+    per geometry version, so `.sweep()` answers all four protocols from one
+    evaluation; `comm` memoizes the schedules until a step rebuilds a
+    partition.
 
     `device=None` runs on the card (raises without one); pass
     `device="cpu"` to run on the CPU, where the kernel wrappers use their
-    plain versions.  `p2p_stream` selects the streaming near field (K2)
-    over the gathered buckets (K1, the default)."""
+    plain versions; on the card the near field always runs the kernels
+    (K1 / K2).  `p2p_stream` selects the engine's streaming near
+    field (K2) over the gathered buckets (K1, the default)."""
 
     def __init__(self, geometry: GeometryPlan, *, device=None,
+                 engine: bool | None = None,
                  p2p_stream: bool = False):
         if not (hasattr(geometry, "receivers")
                 and hasattr(geometry, "bytes_matrix")):
@@ -429,44 +615,106 @@ class FMMSession:
                 f"output), got {type(geometry).__name__}")
         self._geo = geometry
         self.device = resolve_device(device)
+        self.engine_enabled = engine is not False
         self.p2p_stream = bool(p2p_stream)
         self._engine = None
+        self._memo = DeviceMemo(self.device)
+        self._comm_cache: dict = {}
+        self._phi: np.ndarray | None = None
+        self._phi_version = -1
 
     @classmethod
     def from_points(cls, x, q, spec: PartitionSpec | None = None, *,
-                    device=None, p2p_stream: bool = False,
-                    **overrides) -> "FMMSession":
+                    device=None, engine: bool | None = None,
+                    p2p_stream: bool = False, **overrides) -> "FMMSession":
         dev = resolve_device(device)
         return cls(plan_geometry(x, q, spec, device=dev, **overrides),
-                   device=dev, p2p_stream=p2p_stream)
+                   device=dev, engine=engine, p2p_stream=p2p_stream)
 
     @property
     def geometry(self) -> GeometryPlan:
         return self._geo
 
     @property
-    def engine(self) -> DeviceEngine:
+    def memo(self) -> DeviceMemo:
+        return self._memo
+
+    @property
+    def engine(self) -> DeviceEngine | None:
         """The session's `DeviceEngine`, built on first access and again
-        after a step that rebuilt a partition."""
+        after a step that rebuilt a partition; None under reference
+        dispatch (`engine=False`)."""
+        if not self.engine_enabled:
+            return None
         if self._engine is None or self._engine.geo is not self._geo:
             self._engine = DeviceEngine.from_geometry(
                 self._geo, device=self.device, p2p_stream=self.p2p_stream)
         return self._engine
 
+    # ------------------------------------------------------------- comm ---
+    def comm(self, protocol: str = "hsdx", grain_bytes: int | None = None,
+             prm: proto.LogGPParams | None = None,
+             check_delivery: bool = True) -> CommSchedule:
+        """Memoized `schedule_comm` (dropped when a step rebuilds any
+        partition, i.e. whenever the bytes matrix can change)."""
+        key = (protocol, grain_bytes, check_delivery)
+        if prm is None and key in self._comm_cache:
+            return self._comm_cache[key]
+        cs = schedule_comm(self._geo, protocol, prm=prm,
+                           grain_bytes=grain_bytes,
+                           check_delivery=check_delivery)
+        if prm is None:
+            self._comm_cache[key] = cs
+        return cs
+
+    # ------------------------------------------------------------ kernels -
     def evaluate(self) -> np.ndarray:
-        """Run the engine now; returns the potential in original body order
-        (float64, host, read-only)."""
-        phi = self.engine.evaluate()
+        """Evaluate now (ignoring the potential cache) and refresh the cached
+        potential; returns it in original body order (float64, host).  The
+        array is read-only: every SessionResult of this geometry version
+        shares it."""
+        if self.engine_enabled:
+            phi = self.engine.evaluate()
+        else:
+            phi = execute_geometry(self._geo, asarray=self._memo)
         phi.setflags(write=False)
+        self._phi, self._phi_version = phi, self._geo.version
         return phi
+
+    def potentials(self, protocol: str = "hsdx",
+                   grain_bytes: int | None = None,
+                   prm: proto.LogGPParams | None = None,
+                   check_delivery: bool = True) -> SessionResult:
+        """Potential (original body order) + this protocol's communication
+        accounting.  The potential is protocol-independent and computed once
+        per geometry version."""
+        cs = self.comm(protocol, grain_bytes=grain_bytes, prm=prm,
+                       check_delivery=check_delivery)
+        if self._phi is None or self._phi_version != self._geo.version:
+            self.evaluate()
+        return SessionResult(
+            phi=self._phi, protocol=protocol, comm=cs,
+            bytes_matrix=self._geo.bytes_matrix,
+            partition_stats=self._geo.partition_stats,
+            adjacency_degree=self._geo.adjacency_degree,
+            diameter=self._geo.diameter)
+
+    def sweep(self, protocols=proto.PROTOCOLS,
+              grain_bytes: int | None = None,
+              prm: proto.LogGPParams | None = None,
+              check_delivery: bool = True) -> dict:
+        """All protocols from one GeometryPlan and one evaluation."""
+        return {name: self.potentials(name, grain_bytes=grain_bytes, prm=prm,
+                                      check_delivery=check_delivery)
+                for name in protocols}
 
     # ------------------------------------------------------------- step ---
     def step(self, new_x, new_q=None) -> StepReport:
         """Advance to new body positions (and charges), reusing every cached
         structure the MAC slack margins still cover (module docstring).
 
-        Unmoved bodies are a cache hit: the geometry object, its version
-        and the engine are untouched.  Drift within a partition's slack
+        Unmoved bodies are a cache hit: the geometry object, its version,
+        the engine, the memo and the cached potential are untouched.  Drift within a partition's slack
         rebinds that partition's payload onto the cached structure; drift
         beyond it rebuilds the partition and exactly the LETs and receiver
         plans that touch it."""
@@ -493,8 +741,9 @@ class FMMSession:
         # Batched device revalidation: a warm engine scores every
         # partition's drift and changed flag in one pass from one new_x
         # upload; the restacked payload becomes the next evaluation's.
-        eng = (self._engine if self._engine is not None
-               and self._engine.geo is geo else None)
+        eng = (self._engine if self.engine_enabled
+               and self._engine is not None and self._engine.geo is geo
+               else None)
         use_dev = eng is not None and q_unchanged
         if use_dev:
             delta, stale = eng.step_drift(new_x)
@@ -531,13 +780,17 @@ class FMMSession:
                 eng.discard_pending()
             return report
 
-        # Within-slack refreshes stay on the device: the engine recomputes
-        # the multipoles from the restacked payload, and the host mirrors
-        # are deferred to sync_host_multipoles.
+        # Engine-backed within-slack refreshes stay on the device: the engine
+        # recomputes the multipoles from the restacked payload, and the host
+        # mirrors are deferred to sync_host_multipoles.  The reference
+        # executor reads the host mirrors, so they are refreshed eagerly.
+        defer = self.engine_enabled and not rebuilt
         self._geo = self._advance(geo, new_x, new_q, delta, set(rebuilt),
-                                  set(refreshed), defer_numeric=not rebuilt,
+                                  set(refreshed), defer_numeric=defer,
                                   device=self.device)
-        if rebuilt:                      # structure changed: tables stale
+        self._phi = None
+        if rebuilt:            # structure and bytes matrix changed: stale
+            self._comm_cache.clear()
             self._engine = None
         elif self._engine is not None:
             self._engine.refresh_payload(self._geo, use_pending=use_dev)

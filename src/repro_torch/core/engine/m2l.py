@@ -16,9 +16,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["far_tail_kernel", "m2p_vals_kernel", "M2L_CHUNK"]
+from repro_torch.core.multipole import M2L_CHUNK
 
-M2L_CHUNK = 1 << 19
+__all__ = ["far_tail_kernel", "m2p_vals_kernel"]
 
 
 def _offsets(P: int, stride: int, device) -> torch.Tensor:

@@ -29,7 +29,12 @@ import numpy as np
 import torch
 
 __all__ = ["multi_indices", "num_coeffs", "MultipoleOperators",
-           "get_operators", "p2p"]
+           "get_operators", "p2p", "M2L_CHUNK"]
+
+# M2L rows per operator call in the per-tree executors (core.fmm) and the
+# engine's far field: bounds the transient (rows, nk, nk) translation
+# matrices, which at 2^23 rows would take about 13 GB in one call.
+M2L_CHUNK = 1 << 19
 
 
 def multi_indices(max_order: int) -> np.ndarray:

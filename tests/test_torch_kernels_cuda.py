@@ -1,7 +1,8 @@
 """The port's CUDA kernels K1 (csrc/p2p.cu), K2 (csrc/p2p_stream.cu), K3
 (csrc/mac.cu), K4 (csrc/attention.cu) and K5 (csrc/wkv.cu) against their
 plain PyTorch versions, on the card, and the paths that run them: the
-engine, the device traversal, a step, and the language models.
+engine, the per-partition reference executor, `run_distributed_fmm`, the
+device traversal, a step, and the language models.
 
 A CUDA kernel has no CPU mode: every test here takes the `cuda_device`
 fixture, which skips it where no card is present.  The file imports no JAX,
@@ -239,6 +240,75 @@ def test_engine_on_card_launches_kernels_and_matches_cpu(cuda_device):
         cpu = FMMSession(geo, device="cpu", p2p_stream=stream).evaluate()
         tol = 1e-4 + 1e-5 * np.abs(cpu) + 1e-6 * phi_abs
         assert np.all(np.abs(card - cpu) <= tol)
+
+
+def test_executor_refuses_plain_near_field_on_card(cuda_device):
+    """On the card the near field is K1: `use_kernels=False` raises in
+    `execute_geometry` and `fmm.p2p_apply` before anything launches."""
+    from repro_torch.core import fmm
+    from repro_torch.core.api import execute_geometry
+    x = make_distribution("sphere", 3000, seed=42)
+    q = np.random.default_rng(0).uniform(-1, 1, 3000)
+    geo = plan_geometry(x, q, PartitionSpec(nparts=4), device="cpu")
+    r = geo.receivers[0]
+    before = kp2p.launches
+    with pytest.raises(ValueError, match="CPU only"):
+        execute_geometry(geo, use_kernels=False, device=cuda_device)
+    with pytest.raises(ValueError, match="CPU only"):
+        fmm.p2p_apply(r.tree, r.tree, r.local, use_kernels=False,
+                      device=cuda_device)
+    assert kp2p.launches == before
+
+
+def test_executor_on_card_launches_k1_per_block_and_matches_cpu(cuda_device):
+    """`execute_geometry` on the card runs K1 once for every P2P block of
+    every plan it evaluates, agrees with the executor on the CPU at the
+    engine test's card-against-CPU tolerance, and a memoized repeat
+    uploads nothing."""
+    from repro_torch.core.api import DeviceMemo, FMMSession, execute_geometry
+    x = make_distribution("sphere", 3000, seed=42)
+    q = np.random.default_rng(0).uniform(-1, 1, 3000)
+    spec = PartitionSpec(nparts=4)
+    geo = plan_geometry(x, q, spec, device="cpu")
+    phi_abs = FMMSession(plan_geometry(x, np.abs(q), spec, device="cpu"),
+                         device="cpu").evaluate()
+    blocks = sum(len(pl.p2p_blocks) for r in geo.receivers
+                 for pl in [r.local] + [rb.inter for rb in r.remote]
+                 if pl.n_p2p)
+    memo = DeviceMemo(cuda_device)
+    before = kp2p.launches
+    card = execute_geometry(geo, asarray=memo)
+    assert kp2p.launches == before + blocks
+    misses = memo.misses
+    again = execute_geometry(geo, asarray=memo)
+    assert memo.misses == misses and kp2p.launches == before + 2 * blocks
+    cpu = execute_geometry(geo, device="cpu")
+    tol = 1e-4 + 1e-5 * np.abs(cpu) + 1e-6 * phi_abs
+    assert np.all(np.abs(card - cpu) <= tol)
+    assert np.all(np.abs(again - cpu) <= tol)
+    sess = FMMSession(geo, device=cuda_device, engine=False)
+    assert np.all(np.abs(sess.evaluate() - cpu) <= tol)
+    assert kp2p.launches == before + 3 * blocks
+
+
+def test_run_distributed_fmm_on_card_matches_direct_sum(cuda_device):
+    """The quickstart's call on the card at N = 20,000: planned with K3,
+    evaluated with K1, rel-L2 < 3e-3 against the float64 direct sum."""
+    import warnings
+    from repro_torch.core.distributed_fmm import run_distributed_fmm
+    from repro_torch.core.fmm import direct_potential
+    n = 20000
+    x = make_distribution("sphere", n, seed=42)
+    q = np.random.default_rng(0).uniform(-1, 1, n)
+    k1, k3 = kp2p.launches, kmac.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        res = run_distributed_fmm(x, q, nparts=8, method="orb",
+                                  protocol="hsdx", theta=0.5, ncrit=64)
+    assert kp2p.launches > k1 and kmac.launches > k3
+    d = direct_potential(x, q, device=cuda_device)
+    assert np.linalg.norm(res.phi - d) / np.linalg.norm(d) < 3e-3
+    assert res.n_stages >= 1 and res.schedule_stats["n_msgs"] > 0
 
 
 @pytest.mark.parametrize("K", [128, 4096, 1 << 20])
