@@ -70,7 +70,30 @@ Phases, in order; any failed check raises and ends the run non-zero:
      refreshed) and one beyond-slack step of one partition (only it
      rebuilt, re-traversed through K3), each matching a float64 direct sum
      at the stepped positions;
-  8. K4 and K5 against their plain versions on the card: K4 (against the
+     (phases 2-7 drive the per-phase engine, `fused=False`; phase 10's
+     engines the eager decode step, `graph=False`)
+  8. compiled serving as CUDA graphs, the card's default: at N on the
+     main path's geometry, on each route (gathered K1, stream K2), a
+     compiled `FMMSession` against a per-phase one: capture time,
+     `memory_reserved` before and after the capture and the graph's pool,
+     warm evaluates (median of 3) with device busy shares, one replay per
+     evaluate (entry calls, launch log, the route's kernel counter set to
+     0 just before and read just after), the route's kernel named in a
+     profiled replay with its share, agreement at tests/test_engine.py's
+     rtol 1e-6 / atol 2e-5 (the count past it printed, held to that plus
+     1e-7 sum|q|/r, with the eager path against itself beside it) and
+     rel-L2 < 3e-3 against phase 5's direct sum; a second geometry of the
+     same shape class (the points reflected through the origin: same
+     digest, other tables) served from the same entry with no capture and
+     one hit, its rebind copy timed, both evaluated alternately; three
+     within-slack steps, one replay each, against per-phase steps; the
+     same comparison at N = 2^15; for qwen3-0.6b and rwkv6-1.6b, phase
+     10's traffic through `ServeEngine(graph=True)` against `graph=False`
+     (same tokens, logits within 1e-3 of the largest |logit|), tokens/s of
+     the first run (capture included) and of a warm run, decode-step time
+     and device busy share both ways, the launches a replay makes (K5
+     once a layer for rwkv6, no K4);
+  9. K4 and K5 against their plain versions on the card: K4 (against the
      plain version with its roundings, and against the one that also walks
      its 128-key tiles) at qwen3-0.6b's prefill shape (B 1, H 16, Hkv 8,
      S 4096, D 128, bfloat16, causal; elementwise and per-row tolerances
@@ -86,7 +109,7 @@ Phases, in order; any failed check raises and ends the run non-zero:
      port never calls), in bfloat16 at S = 512 to 4,096 (D 128) and at
      (1, 32, 8, 4096, 64) with TFLOP/s and the share of its bound, and once
      in float32;
-  9. serving, for each of qwen3-0.6b and rwkv6-1.6b: `ServeEngine(B=4,
+ 10. serving, for each of qwen3-0.6b and rwkv6-1.6b: `ServeEngine(B=4,
      S_max=128)` answers 8 requests (prompts of 4-15 tokens from
      default_rng(0), 8 new tokens each) and then prefills one 4,096-token
      prompt, with the model's kernel count set to 0 just before and read
@@ -98,8 +121,8 @@ Phases, in order; any failed check raises and ends the run non-zero:
      largest |logit| (bfloat16 rounds the two paths differently), and each
      greedy token is the forward's argmax except at near ties (top-2 gap
      at most twice the measured difference), counted;
- 10. one JSON line listing every ported kernel;
- 11. the last line: {"ok": true, "device": {...}}.
+ 11. one JSON line listing every ported kernel;
+ 12. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -278,16 +301,17 @@ WKV_ENTRY = re.compile(r"wkv_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi"
 # the port's kernels as the profiler names them (their CUDA function names)
 KERNEL_NAMES = {"flash_attention_tc": "K4 (bf16, wgmma + TMA)",
                 "flash_attention_kernel": "K4 (float32, CUDA cores)",
-                "wkv_kernel": "K5"}
+                "wkv_kernel": "K5", "p2p_gathered_kernel": "K1",
+                "p2p_stream_kernel": "K2"}
 
 
-def profile_run(torch, label: str, fn, top: int = 8) -> None:
+def profile_run(torch, label: str, fn, top: int = 8) -> tuple:
     """One warm fn() under torch.profiler: the device-busy share (time of
     the device's own events over wall time) and the kernels that take the
     most device time, each with its share of the busy time and, for the
     port's own kernels, its name in this script.  Only device-side events
     are summed: a CPU op's device time repeats that of the kernels it
-    launched."""
+    launched.  Returns (wall s, busy s, [(name, device us, count)])."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -305,7 +329,7 @@ def profile_run(torch, label: str, fn, top: int = 8) -> None:
     if not rows:
         print(f"  {label} profile: device time not measured (the profiler "
               f"recorded no device events); wall {wall:.4f} s", flush=True)
-        return
+        return wall, None, rows
     print(f"  {label} profile: wall {wall:.4f} s, device busy {busy:.4f} s "
           f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%, "
           f"{sum(r[2] for r in rows)} device ops", flush=True)
@@ -314,6 +338,7 @@ def profile_run(torch, label: str, fn, top: int = 8) -> None:
         print(f"    {us / 1e3:9.3f} ms {100 * us / 1e6 / busy:5.1f}%  "
               f"x{count:<5d} {ours[0] + ': ' if ours else ''}{key[:90]}",
               flush=True)
+    return wall, busy, rows
 
 
 class FrontierSpy:
@@ -575,7 +600,7 @@ def protocols_and_executor(torch, sess, x, q, idx, d, dev, card) -> None:
           f"MB in {int((B > 0).sum())} pairs", flush=True)
 
     # -- the sweep: four protocols from one evaluation --------------------
-    sweeper = tapi.FMMSession(geo, device=dev)
+    sweeper = tapi.FMMSession(geo, device=dev, fused=False)
     _, t_engine = timed_sync(torch, lambda: sweeper.engine)
     acc = {}
     with wall_of(DeviceEngine, "evaluate", acc):
@@ -595,7 +620,8 @@ def protocols_and_executor(torch, sess, x, q, idx, d, dev, card) -> None:
     phi_eng = phis[0]
     e = sweeper.engine
     phi_abs = DeviceEngine(e.tables, e.x.cpu().numpy(),
-                           e.q.abs().cpu().numpy(), device=dev).evaluate()
+                           e.q.abs().cpu().numpy(), device=dev,
+                           fused=False).evaluate()
     del sweeper, e, out, phis
 
     # -- the reference executor: K1 on every P2P block --------------------
@@ -703,7 +729,7 @@ def protocols_and_executor(torch, sess, x, q, idx, d, dev, card) -> None:
 
 
 def lm_kernel_checks(torch, kattn, krwkv, dev, power) -> dict:
-    """Phase 8: K4 and K5 against their plain versions, timed."""
+    """Phase 9: K4 and K5 against their plain versions, timed."""
     import torch.nn.functional as F
     rng = np.random.default_rng(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -901,7 +927,7 @@ def greedy_check(torch, model, prompt, out, tape) -> tuple:
 
 
 def serve_lm(torch, arch: str, counter, dev, card) -> dict:
-    """Phase 9 for one architecture: the serving path at full width."""
+    """Phase 10 for one architecture: the serving path at full width."""
     from repro_torch.configs import get_config, param_count
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine
@@ -920,7 +946,7 @@ def serve_lm(torch, arch: str, counter, dev, card) -> dict:
     # warm-up: build the kernels' libraries, cuBLAS handles, the allocator
     model.prefill(torch.as_tensor([reqs[0].prompt], device=dev), LM_SMAX)
 
-    engine = ServeEngine(model, B=LM_SLOTS, S_max=LM_SMAX)
+    engine = ServeEngine(model, B=LM_SLOTS, S_max=LM_SMAX, graph=False)
     for r in reqs:
         engine.submit(r)
     counter.launches = 0
@@ -971,7 +997,7 @@ def serve_lm(torch, arch: str, counter, dev, card) -> dict:
     worst = 0.0
     for r in reqs:                  # each request served alone
         tape = LogitTape(model)
-        solo = ServeEngine(tape, B=1, S_max=LM_SMAX)
+        solo = ServeEngine(tape, B=1, S_max=LM_SMAX, graph=False)
         solo.submit(Request(rid=r.rid, prompt=list(r.prompt),
                             max_new=LM_NEW))
         out = solo.run(max_steps=LM_SMAX)[0].out
@@ -986,6 +1012,354 @@ def serve_lm(torch, arch: str, counter, dev, card) -> dict:
     del model, engine, solo
     torch.cuda.empty_cache()
     return dict(launches=launches, tok_s=toks / t_serve)
+
+
+# ------------------------------------------------------------ phase 8 ------
+def agree(label, got, want, phi_abs, card) -> None:
+    """got against want at tests/test_engine.py's rtol 1e-6 / atol 2e-5,
+    printing how many values lie past it, and held to that plus 1e-7 of
+    sum_j |q_j| / r_ij: the float32 `index_add_` atomics of the upward
+    pass and the M2L add in an order that changes from run to run, so two
+    runs of the same kernels differ by float32 rounding of the absolute
+    terms, not of the potential (which cancels)."""
+    diff = np.abs(got - want)
+    plain = 2e-5 + 1e-6 * np.abs(want)
+    over = int((diff > plain).sum())
+    worst = float((diff / (plain + 1e-7 * phi_abs)).max())
+    print(f"    {label}: max |diff| {diff.max():.3e}, {over} of {len(want)} "
+          f"past rtol 1e-6 / atol 2e-5 (largest ratio "
+          f"{float((diff / plain).max()):.3f}); largest |diff| / (that + "
+          f"1e-7 sum|q|/r) {worst:.3f}; card {card}", flush=True)
+    if not worst <= 1.0:
+        raise AssertionError(f"{label}: potentials disagree")
+
+
+def profile_diff(label: str, rows_a, rows_b) -> None:
+    """The kernels whose count or device time differs between two profiles
+    (by more than 0.1 ms), from profile_run's rows."""
+    a = {r[0]: r[1:] for r in rows_a}
+    b = {r[0]: r[1:] for r in rows_b}
+    out = []
+    for key in sorted(set(a) | set(b)):
+        (ua, ca), (ub, cb) = a.get(key, (0.0, 0)), b.get(key, (0.0, 0))
+        if ca != cb or abs(ub - ua) > 100:
+            out.append(f"    x{ca} -> x{cb}, {ua / 1e3:.3f} -> {ub / 1e3:.3f}"
+                       f" ms  {key[:100]}")
+    print(f"  {label}: {len(out)} kernels differ in count or by > 0.1 ms"
+          + "".join("\n" + o for o in out), flush=True)
+
+
+def kernel_share(rows, name: str) -> str:
+    """'<kernel>: <ms> ms, <share>% of the device time' from profile rows."""
+    busy = sum(r[1] for r in rows)
+    mine = [r for r in rows if name in r[0]]
+    if not mine:
+        raise AssertionError(f"{name} does not appear in the profile")
+    us = sum(r[1] for r in mine)
+    return (f"{name} {us / 1e3:.4f} ms x{sum(r[2] for r in mine)}, "
+            f"{100 * us / busy:.2f}% of the device time")
+
+
+def fmm_graph_route(torch, label, geo, stream, cache, idx, d, dev, card,
+                    phi_abs=None):
+    """Eager against graphed warm evaluates of one route on `geo`: capture,
+    pool, medians of 3 with device busy shares, one replay per evaluate,
+    the route's kernel in a profiled replay, agreement.  Returns (graphed
+    session, eager session, eager potential, phi_abs)."""
+    from repro_torch.core.api import FMMSession
+    from repro_torch.core.engine import DeviceEngine
+    from repro_torch.kernels import p2p as kp2p
+    from repro_torch.kernels import p2p_stream as kstream
+    eager = FMMSession(geo, device=dev, p2p_stream=stream, fused=False)
+    graphed = FMMSession(geo, device=dev, p2p_stream=stream, exe_cache=cache)
+    if not graphed.engine.fused or eager.engine.fused:
+        raise AssertionError("the card's default is not the compiled path")
+    eager.evaluate()
+    t_e, t_f = [], []
+    for _ in range(3):
+        phi_e, t = timed_sync(torch, eager.evaluate)
+        t_e.append(t)
+
+    def eager_full():          # the multipoles recomputed, as after a step
+        eager.engine._M = None
+        return eager.evaluate()
+
+    for _ in range(3):
+        t_f.append(timed_sync(torch, eager_full)[1])
+    phi_e2 = eager.evaluate()
+    if phi_abs is None:
+        e = eager.engine
+        phi_abs = DeviceEngine(e.tables, e.x.cpu().numpy(),
+                               e.q.abs().cpu().numpy(), device=dev,
+                               fused=False).evaluate()
+    misses = cache.misses
+    _, t_cold = timed_sync(torch, graphed.evaluate)
+    entry = graphed.engine._entries["evaluate"]
+    call = entry.call
+    if cache.misses != misses + 1 or call.graph is None:
+        raise AssertionError(f"{label}: no capture on the first evaluate")
+    kern, counter = ("K2", kstream) if stream else ("K1", kp2p)
+    per = entry.launches.get(kern, 0)
+    print(f"  {label}: capture {call.capture_s:.4f} s (warm-up of 2 and "
+          f"capture; first evaluate {t_cold:.4f} s); memory_reserved "
+          f"{call.reserved_before / 2**30:.3f} GiB before the capture, "
+          f"{call.reserved_after / 2**30:.3f} GiB after: pool "
+          f"{call.pool_bytes / 2**30:.3f} GiB; launches a replay "
+          f"{entry.launches}; card {card}", flush=True)
+    counter.launches = 0
+    calls, log = entry.calls, len(graphed.engine.launch_log)
+    t_g = []
+    for _ in range(3):
+        phi_g, t = timed_sync(torch, graphed.evaluate)
+        t_g.append(t)
+    launched = counter.launches
+    replays = entry.calls - calls
+    kinds = [k for k, _ in graphed.engine.launch_log[log:]]
+    print(f"  {label}: warm evaluate, median of 3: eager "
+          f"{statistics.median(t_e):.4f} s (runs "
+          f"{', '.join(f'{t:.4f}' for t in t_e)}; the multipoles cached "
+          f"per payload), eager with the upward pass "
+          f"{statistics.median(t_f):.4f} s (runs "
+          f"{', '.join(f'{t:.4f}' for t in t_f)}), graphed "
+          f"{statistics.median(t_g):.4f} s (runs "
+          f"{', '.join(f'{t:.4f}' for t in t_g)}); {replays} replays for 3 "
+          f"evaluates, {kern} launches {launched} ({per} a replay); card "
+          f"{card}", flush=True)
+    if replays != 3 or kinds != ["evaluate"] * 3 or per <= 0 \
+            or launched != 3 * per:
+        raise AssertionError(f"{label}: not one replay per warm evaluate "
+                             f"({replays}, {kinds}, {kern} {launched})")
+    _, _, rows_e = profile_run(torch, f"{label} eager evaluate",
+                               eager_full, top=4)
+    _, _, rows = profile_run(torch, f"{label} graphed evaluate",
+                             graphed.evaluate, top=4)
+    profile_diff(f"{label}: graphed replay against the eager evaluate with "
+                 f"the upward pass", rows_e, rows)
+    name = "p2p_stream_kernel" if stream else "p2p_gathered_kernel"
+    print(f"  {label} graphed replay: {kernel_share(rows, name)} ({kern}); "
+          f"card {card}", flush=True)
+    agree(f"{label} graphed vs eager", phi_g, phi_e, phi_abs, card)
+    agree(f"{label} eager vs eager (run to run)", phi_e2, phi_e, phi_abs,
+          card)
+    if d is not None:
+        rel = float(np.linalg.norm(phi_g[idx] - d) / np.linalg.norm(d))
+        print(f"  {label} graphed: rel-L2 vs direct sum {rel:.3e}; card "
+              f"{card}", flush=True)
+        if not rel < 3e-3:
+            raise AssertionError(f"{label}: rel-L2 {rel} >= 3e-3")
+    return graphed, eager, phi_e, phi_abs
+
+
+def compiled_fmm(torch, geo, x, q, spec, idx, d, dev, card) -> None:
+    """Phase 8, FMM: both routes at N, a second geometry of the same shape
+    class, within-slack steps, and N = 2^15."""
+    from repro_torch.core.api import FMMSession, plan_geometry
+    from repro_torch.core.distributions import make_distribution
+    from repro_torch.core.engine import ExecutableCache, shape_class_digest
+    from repro_torch.core.engine import fused as fmod
+    from repro_torch.core.fmm import direct_potential
+    n = len(x)
+    cache_s = ExecutableCache()
+    fmm_graph_route(torch, f"stream (K2), N = {n}", geo, True, cache_s, idx,
+                    d, dev, card)
+    del cache_s
+    torch.cuda.empty_cache()
+    cache = ExecutableCache()
+    graphed, eager, phi_e, phi_abs = fmm_graph_route(
+        torch, f"gathered (K1), N = {n}", geo, False, cache, idx, d, dev,
+        card)
+
+    # -- a second geometry of the same shape class: the points reflected --
+    geo_b, t_plan = timed_sync(torch, lambda: plan_geometry(-x, q, spec,
+                                                            device=dev))
+    sess_b = FMMSession(geo_b, device=dev, exe_cache=cache)
+    eager_b = FMMSession(geo_b, device=dev, fused=False)
+    fa = fmod.flatten_eval_tables(graphed.engine.tables)
+    fb = fmod.flatten_eval_tables(sess_b.engine.tables)
+    differ = [k for k in fa if not torch.equal(fa[k], fb[k])]
+    if shape_class_digest(fa) != shape_class_digest(fb) or not differ:
+        raise AssertionError("the reflected geometry is not another "
+                             "geometry of the same shape class")
+    stats = cache.stats()
+    entry = sess_b.engine._fused_entry("evaluate")
+    if entry is not graphed.engine._entries["evaluate"] \
+            or cache.misses != stats["misses"] \
+            or cache.hits != stats["hits"] + 1:
+        raise AssertionError(f"second geometry: {cache.stats()} after "
+                             f"{stats}")
+    graphed.evaluate()                          # the entry holds A's tables
+    _, t_rebind = timed_sync(torch, lambda: sess_b.engine._bind(
+        entry, "evaluate"))
+    tab_bytes = sum(v.numel() * v.element_size() for v in fb.values())
+    print(f"  second geometry (the points reflected through the origin, "
+          f"planned in {t_plan:.3f} s): same digest, {len(differ)} of "
+          f"{len(fa)} tables differ; cache {cache.stats()} (no capture, "
+          f"one hit); rebind copy of {tab_bytes / 2**30:.3f} GiB of tables "
+          f"and the payload {t_rebind * 1e3:.3f} ms; card {card}",
+          flush=True)
+    phi_eb = eager_b.evaluate()
+    for sess, want, tag in [(graphed, phi_e, "A"), (sess_b, phi_eb, "B")] * 2:
+        (phi, t) = timed_sync(torch, sess.evaluate)
+        agree(f"geometry {tag} graphed ({t:.4f} s, rebinds "
+              f"{entry.rebinds}) vs its eager", phi, want, phi_abs, card)
+    rel = float(np.linalg.norm(phi[idx] - d) / np.linalg.norm(d))
+    print(f"  geometry B: rel-L2 vs the direct sum (reflection-invariant) "
+          f"{rel:.3e}; card {card}", flush=True)
+    if not rel < 3e-3:
+        raise AssertionError(f"geometry B: rel-L2 {rel}")
+    del sess_b, eager_b, geo_b, fa, fb
+    torch.cuda.empty_cache()
+
+    # -- within-slack steps: graphed against eager -------------------------
+    eps = float(geo.slack.min())
+    rng = np.random.default_rng(2)
+    decided = []
+    real = graphed.engine.refresh_payload
+
+    def spy(geometry, *, use_pending=False):
+        decided.append(use_pending)
+        return real(geometry, use_pending=use_pending)
+
+    graphed.engine.refresh_payload = spy
+    for k in range(3):
+        xk = x + rng.uniform(-eps / 4, eps / 4, x.shape)
+        entry_s = graphed.engine._entries.get("step")
+        calls = 0 if entry_s is None else entry_s.calls
+        rg, t_g = timed_sync(torch, lambda: graphed.step(xk))
+        re_, t_e = timed_sync(torch, lambda: eager.step(xk))
+        replays = graphed.engine._entries["step"].calls - calls
+        phi_g, tg = timed_sync(torch, graphed.evaluate)
+        phi_e, te = timed_sync(torch, eager.evaluate)
+        print(f"  within-slack step {k + 1}: graphed {t_g:.4f} s ({replays} "
+              f"replay of the step), eager {t_e:.4f} s; evaluate after it "
+              f"graphed {tg:.4f} s, eager {te:.4f} s; card {card}",
+              flush=True)
+        if rg.rebuilt != () or rg.refreshed != re_.refreshed or replays != 1:
+            raise AssertionError(f"step {k + 1}: {rg}, {re_}, {replays}")
+        agree(f"after step {k + 1}, graphed vs eager", phi_g, phi_e, phi_abs,
+              card)
+    print(f"  steps that took the device decision: {sum(decided)} of "
+          f"{len(decided)} (the rest revalidated on the host in float64, "
+          f"the drift within the float32 guard band); card {card}",
+          flush=True)
+    del graphed, eager, cache
+    torch.cuda.empty_cache()
+
+    # -- N = 2^15, 8 parts: where the host bounds the eager evaluate -------
+    m = 1 << 15
+    xm = make_distribution("sphere", m, seed=42)
+    qm = np.random.default_rng(0).uniform(-1, 1, m)
+    geo_m = plan_geometry(xm, qm, spec, device=dev)
+    im = np.random.default_rng(1).choice(m, size=4096, replace=False)
+    dm = direct_potential(xm, qm, x_tgt=xm[im], chunk=64, device=dev)
+    g, e, _, _ = fmm_graph_route(torch, f"gathered (K1), N = {m}", geo_m,
+                                 False, ExecutableCache(), im, dm, dev, card)
+    del g, e
+    torch.cuda.empty_cache()
+
+
+class LogitRecorder:
+    """Keeps a float32 copy of the logits of every call a ServeEngine makes
+    (prefill and decode) by wrapping its `_emit`."""
+
+    def __init__(self, engine):
+        self.logits = []
+        real = engine._emit
+
+        def emit(logits):
+            self.logits.append(logits[:, -1].float().clone())
+            real(logits)
+
+        engine._emit = emit
+
+
+def lm_graph(torch, arch: str, dev, card) -> None:
+    """Phase 8, LM: ServeEngine with the decode step as one graph replay
+    against the eager step, on phase 10's traffic."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.kernels import rwkv as krwkv
+    cfg = get_config(arch)
+    model = build_model(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, int(
+        rng.integers(4, 16)))] for _ in range(LM_REQUESTS)]
+    model.prefill(torch.as_tensor([prompts[0]], device=dev), LM_SMAX)
+    res = {}
+    for label, graph in (("eager", False), ("graphed", True)):
+        eng = ServeEngine(model, B=LM_SLOTS, S_max=LM_SMAX, graph=graph)
+        rec = LogitRecorder(eng)
+        runs = []
+        for run in range(2):
+            reqs = [Request(rid=i, prompt=list(p), max_new=LM_NEW)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            krwkv.launches = 0
+            _, t = timed_sync(torch, lambda: eng.run(max_steps=LM_SMAX))
+            toks = {r.rid: list(r.out) for r in reqs}
+            runs.append((toks, t, krwkv.launches))
+        res[label] = (eng, rec, runs)
+    (eng_e, rec_e, runs_e), (eng_g, rec_g, runs_g) = res["eager"], \
+        res["graphed"]
+    n_tok = LM_REQUESTS * LM_NEW
+    same = all(r[0] == runs_e[0][0] for r in runs_e + runs_g)
+    n_calls = len(rec_e.logits)
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(rec_g.logits, rec_e.logits))
+    call = eng_g.decode_call
+    print(f"  {arch}: graphed and eager ServeEngine tokens "
+          f"{'identical' if same else 'DIFFER'} for all {LM_REQUESTS} "
+          f"requests over 2 runs each; logits of {len(rec_g.logits)} / "
+          f"{n_calls} calls, largest difference {worst:.3e} of the largest "
+          f"|logit|; card {card}", flush=True)
+    if not same or len(rec_g.logits) != n_calls or worst > 1e-3:
+        raise AssertionError(f"{arch}: graphed and eager serving differ")
+    print(f"  {arch}: capture {call.capture_s:.4f} s, memory_reserved "
+          f"{call.reserved_before / 2**30:.3f} -> "
+          f"{call.reserved_after / 2**30:.3f} GiB (pool "
+          f"{call.pool_bytes / 2**20:.1f} MiB); launches a replay "
+          f"{call.launches}; card {card}", flush=True)
+    if "K4" in call.launches or (cfg.family == "ssm" and call.launches.get(
+            "K5") != cfg.n_layers):
+        raise AssertionError(f"{arch}: captured launches {call.launches}")
+    for label, runs, note in (("eager", runs_e, ""),
+                              ("graphed", runs_g, ", capture included")):
+        (_, t1, _), (_, t2, k5) = runs
+        print(f"  {arch} {label}: {n_tok} tokens, first run {t1:.4f} s "
+              f"({n_tok / t1:.2f} tok/s{note}), warm run {t2:.4f} s "
+              f"({n_tok / t2:.2f} tok/s); K5 launches on the warm run {k5}; "
+              f"card {card}", flush=True)
+
+    batch = torch.as_tensor(np.random.default_rng(2).integers(
+        1, cfg.vocab, (LM_SLOTS, 15)), device=dev)
+    cache, lg = model.prefill(batch, LM_SMAX)
+    nxt = lg[:, -1].argmax(-1)[:, None]
+    st = eng_g._static
+    eng_g._bind_cache(cache)
+    st["tokens"].copy_(nxt)
+    t_e, t_g = [], []
+    for i in range(5):
+        _, t = timed_sync(torch, lambda: model.decode_step(cache, nxt,
+                                                           15 + i))
+        t_e.append(t)
+        st["pos"].fill_(15 + i)
+        _, t = timed_sync(torch, call.replay)
+        t_g.append(t)
+    k5 = krwkv.launches
+    call.replay()
+    k5 = krwkv.launches - k5
+    print(f"  {arch}: decode step ({LM_SLOTS} slots), median of 5: eager "
+          f"{statistics.median(t_e) * 1e3:.3f} ms, graphed replay "
+          f"{statistics.median(t_g) * 1e3:.3f} ms (runs "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in t_g)}); K5 launches a "
+          f"replay {k5}; card {card}", flush=True)
+    profile_run(torch, f"{arch} eager decode step",
+                lambda: model.decode_step(cache, nxt, 20), top=3)
+    profile_run(torch, f"{arch} graphed decode step", call.replay, top=3)
+    del model, cache, eng_e, eng_g, rec_e, rec_g, st, call
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1050,7 +1424,8 @@ def main() -> int:
                 wall_of(tapi, "device_dual_traversal", trav):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            sess_g = FMMSession.from_points(x, q, spec, device=dev)
+            sess_g = FMMSession.from_points(x, q, spec, device=dev,
+                                            fused=False)
             torch.cuda.synchronize()
             t_plan = time.perf_counter() - t0
         launches["K3"] = kmac.launches
@@ -1073,7 +1448,9 @@ def main() -> int:
               flush=True)
         compare_geometries(torch, kmac, sess_g.geometry, geo_h)
         del geo_h
-    sess_s = FMMSession(sess_g.geometry, device=dev, p2p_stream=True)
+    sess_s = FMMSession(sess_g.geometry, device=dev, p2p_stream=True,
+                        fused=False)
+    geo_main = sess_g.geometry           # phase 8 plans nothing again
 
     # ------------------------------------------------------------- 3 -----
     results = {}
@@ -1263,8 +1640,8 @@ def main() -> int:
                                            device="cpu"),
                              device="cpu").evaluate()
         for stream_on in (False, True):
-            phi_c = FMMSession(geo, device=dev,
-                               p2p_stream=stream_on).evaluate()
+            phi_c = FMMSession(geo, device=dev, p2p_stream=stream_on,
+                               fused=False).evaluate()
             phi_h = FMMSession(geo, device="cpu",
                                p2p_stream=stream_on).evaluate()
             diff = np.abs(phi_c - phi_h)
@@ -1280,7 +1657,8 @@ def main() -> int:
 
         # stepped sessions: the card's planned through K3, the CPU's through
         # its plain version (bit for bit the same margins, so the same plans)
-        card_s = FMMSession.from_points(xs_, qs_, spec, device=dev)
+        card_s = FMMSession.from_points(xs_, qs_, spec, device=dev,
+                                        fused=False)
         cpu_s = FMMSession.from_points(
             xs_, qs_, dc_replace(spec, traversal_backend="device"),
             device="cpu")
@@ -1462,18 +1840,28 @@ def main() -> int:
             raise AssertionError(f"rebuilt rel-L2 {rel} >= 3e-3")
 
     # ------------------------------------------------------------- 8 -----
+    del sess, sess_g
+    torch.cuda.empty_cache()
+    with phase(f"compiled serving (CUDA graphs), N = {n}"):
+        print(f"  card {card}", flush=True)
+        compiled_fmm(torch, geo_main, x, q, spec, idx, d, dev, card)
+        for arch in ("qwen3-0.6b", "rwkv6-1.6b"):
+            lm_graph(torch, arch, dev, card)
+    del geo_main
+
+    # ------------------------------------------------------------- 9 -----
     with phase("LM kernels K4 and K5 against their plain versions"):
         results.update(lm_kernel_checks(torch, kattn, krwkv, dev, power))
         torch.cuda.empty_cache()
 
-    # ------------------------------------------------------------- 9 -----
+    # ------------------------------------------------------------ 10 -----
     for arch, counter, name in (("qwen3-0.6b", kattn, "K4"),
                                 ("rwkv6-1.6b", krwkv, "K5")):
         with phase(f"serving {arch}"):
             launches[name] = serve_lm(torch, arch, counter, dev,
                                       card)["launches"]
 
-    # ------------------------------------------------------------ 10 -----
+    # ------------------------------------------------------------ 11 -----
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

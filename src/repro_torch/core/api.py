@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import protocols as proto
-from repro_torch.core.engine import DeviceEngine
+from repro_torch.core.engine import DeviceEngine, resolve_cache
 from repro_torch.core.engine.traversal import (device_dual_traversal,
                                                resolve_traversal_backend)
 from repro_torch.core.fmm import (downward_pass, executor_device, l2p_pass,
@@ -603,11 +603,19 @@ class FMMSession:
     `device="cpu"` to run on the CPU, where the kernel wrappers use their
     plain versions; on the card the near field always runs the kernels
     (K1 / K2).  `p2p_stream` selects the engine's streaming near
-    field (K2) over the gathered buckets (K1, the default)."""
+    field (K2) over the gathered buckets (K1, the default).
+
+    `fused` serves a warm evaluate and a within-slack step's revalidation
+    as one replay of a compiled entry (a CUDA graph; default on for a CUDA
+    device, `engine.default_fused_enabled`); `fused=False` keeps the
+    per-phase engine.  `exe_cache` is the entry cache the engine resolves
+    against (the process-wide `GLOBAL_CACHE` when omitted), read through
+    `exe_cache_stats`."""
 
     def __init__(self, geometry: GeometryPlan, *, device=None,
                  engine: bool | None = None,
-                 p2p_stream: bool = False):
+                 p2p_stream: bool = False, fused: bool | None = None,
+                 exe_cache=None):
         if not (hasattr(geometry, "receivers")
                 and hasattr(geometry, "bytes_matrix")):
             raise ValueError(
@@ -617,6 +625,8 @@ class FMMSession:
         self.device = resolve_device(device)
         self.engine_enabled = engine is not False
         self.p2p_stream = bool(p2p_stream)
+        self.fused = fused               # None -> default_fused_enabled()
+        self.exe_cache = exe_cache       # None -> the process-wide cache
         self._engine = None
         self._memo = DeviceMemo(self.device)
         self._comm_cache: dict = {}
@@ -626,10 +636,12 @@ class FMMSession:
     @classmethod
     def from_points(cls, x, q, spec: PartitionSpec | None = None, *,
                     device=None, engine: bool | None = None,
-                    p2p_stream: bool = False, **overrides) -> "FMMSession":
+                    p2p_stream: bool = False, fused: bool | None = None,
+                    exe_cache=None, **overrides) -> "FMMSession":
         dev = resolve_device(device)
         return cls(plan_geometry(x, q, spec, device=dev, **overrides),
-                   device=dev, engine=engine, p2p_stream=p2p_stream)
+                   device=dev, engine=engine, p2p_stream=p2p_stream,
+                   fused=fused, exe_cache=exe_cache)
 
     @property
     def geometry(self) -> GeometryPlan:
@@ -648,8 +660,19 @@ class FMMSession:
             return None
         if self._engine is None or self._engine.geo is not self._geo:
             self._engine = DeviceEngine.from_geometry(
-                self._geo, device=self.device, p2p_stream=self.p2p_stream)
+                self._geo, device=self.device, p2p_stream=self.p2p_stream,
+                fused=self.fused, exe_cache=self.exe_cache, memo=self._memo)
         return self._engine
+
+    @property
+    def exe_cache_stats(self) -> dict:
+        """Hit / miss / eviction counters of the compiled-entry cache this
+        session resolves against.  `misses` counts captures: a second
+        geometry of the same shape class must not move it."""
+        eng = self._engine
+        cache = (eng.exe_cache if eng is not None
+                 else resolve_cache(self.exe_cache))
+        return cache.stats()
 
     # ------------------------------------------------------------- comm ---
     def comm(self, protocol: str = "hsdx", grain_bytes: int | None = None,

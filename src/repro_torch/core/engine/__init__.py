@@ -23,17 +23,32 @@ within-slack `FMMSession.step` revalidates with `step_drift` (one `new_x`
 upload, restacked on the device, every partition's drift in one pass) and
 rebinds with `refresh_payload`; the multipoles are cached per payload and
 recomputed by the next evaluation.
+
+Compiled serving (`fused=True`, the default on a CUDA device): a warm
+`evaluate()` is one CUDA graph replay of the whole pipeline above, and a
+`step_drift()` one replay of the restack and both reductions
+(`engine.fused`), each captured once per shape class through
+`engine.exe_cache`.  The entry owns static buffers; the engine copies its
+payload into them when it changed, and its tables when the entry last
+served another engine (`CompiledEntry.rebinds`).  The per-phase methods
+stay available on the same engine and are the pinned comparison.
 """
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
 
+from repro_torch.core.engine import fused as fused_mod
+from repro_torch.core.engine.exe_cache import (GLOBAL_CACHE, CompiledEntry,
+                                               ExecutableCache, resolve_cache)
 from repro_torch.core.engine.m2l import far_tail_kernel, m2p_vals_kernel
 from repro_torch.core.engine.p2p import p2p_bucket_vals, p2p_stream_vals
 from repro_torch.core.engine.schedules import (EngineTables,
                                                build_engine_tables,
                                                build_p2p_stream_tables,
+                                               shape_class_digest,
                                                stack_bodies,
                                                stack_reference_bodies,
                                                to_device, to_numpy)
@@ -45,7 +60,19 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.p2p import heuristic_stream_params
 
 __all__ = ["DeviceEngine", "EngineTables", "build_engine_tables",
-           "build_p2p_stream_tables", "stack_bodies"]
+           "build_p2p_stream_tables", "stack_bodies", "default_fused_enabled",
+           "ExecutableCache", "GLOBAL_CACHE", "resolve_cache",
+           "shape_class_digest"]
+
+_TOKENS = itertools.count(1)      # engine identities for entry rebinding
+
+
+def default_fused_enabled(device) -> bool:
+    """Compiled-serving default: on for a CUDA device, where a warm
+    evaluate's few thousand device operations become one graph replay (the
+    reference's fused tier is on for every device backend); off on the CPU,
+    where nothing is captured.  Opt in anywhere with `fused=True`."""
+    return torch.device(device).type == "cuda"
 
 
 class DeviceEngine:
@@ -63,12 +90,25 @@ class DeviceEngine:
         hold (`stream_fallbacks` counts it).
     geometry : the `GeometryPlan` the tables were built from (`geo`); the
         step methods need it, evaluation does not.
+    fused : serve a warm `evaluate()` / `step_drift()` as one replay of a
+        compiled entry (`engine.fused`); default `default_fused_enabled`
+        (on iff the device is CUDA).  On the CPU an entry runs its closure
+        eagerly over the same static buffers.
+    exe_cache : `exe_cache.ExecutableCache` of compiled entries; the
+        process-wide `GLOBAL_CACHE` when omitted, so geometries of one
+        shape class share one capture across sessions.
+    memo : the session's `DeviceMemo`; a tensor resident there is never
+        taken as a payload buffer (`_bindable` raises TypeError).
     """
 
     def __init__(self, tables: EngineTables, x_pad, q_pad, *, device=None,
-                 p2p_stream: bool = False, geometry=None):
+                 p2p_stream: bool = False, geometry=None,
+                 fused: bool | None = None, exe_cache=None, memo=None):
         self.device = resolve_device(device)
+        self.memo = memo
         self.tables = tables.to(self.device)
+        self._token = next(_TOKENS)
+        self._payload_version = 0
         self._set_payload(x_pad, q_pad)
         self.ops = get_operators(tables.p, self.device)
         self.p2p_stream = bool(p2p_stream)
@@ -79,6 +119,12 @@ class DeviceEngine:
         self._x_ref_pad = None       # stacked slack reference, built lazily
         self._pending_x = None       # payload staged by step_drift
         self.payload_refreshes = 0
+        self.fused = (default_fused_enabled(self.device) if fused is None
+                      else bool(fused))
+        self.exe_cache = resolve_cache(exe_cache)
+        self._entries: dict = {}     # kind -> CompiledEntry
+        self._flat: dict = {}        # kind -> this engine's flat tables
+        self.launch_log: list = []   # (kind, key) per compiled call
         # float32 guard band of drift-vs-slack decisions: step_drift measures
         # in float32, so its absolute error is a few ulps of the coordinate
         # scale; the session revalidates on the host in float64 within it
@@ -87,30 +133,47 @@ class DeviceEngine:
             * max(np.abs(geometry.x_ref).max(), 1.0)))
 
     @classmethod
-    def from_geometry(cls, geometry, *, device=None,
-                      p2p_stream: bool = False) -> "DeviceEngine":
+    def from_geometry(cls, geometry, *, device=None, p2p_stream: bool = False,
+                      fused: bool | None = None, exe_cache=None,
+                      memo=None) -> "DeviceEngine":
         tables = build_engine_tables(geometry)
         x_pad, q_pad = stack_bodies(geometry.trees, tables.n_bodies_max)
         return cls(tables, x_pad, q_pad, device=device,
-                   p2p_stream=p2p_stream, geometry=geometry)
+                   p2p_stream=p2p_stream, geometry=geometry, fused=fused,
+                   exe_cache=exe_cache, memo=memo)
 
     # ----------------------------------------------------------- payload --
+    def _bindable(self, arr) -> torch.Tensor:
+        """A float32 copy of `arr` on the engine's device, which the engine
+        may write in place and copy into compiled entries.  A tensor
+        resident in the session's `DeviceMemo` is refused: the memo serves
+        it to every other consumer, so it may never become a payload
+        buffer (the counterpart of the reference's donation guard)."""
+        if isinstance(arr, torch.Tensor):
+            if self.memo is not None and self.memo.is_resident(arr):
+                raise TypeError(
+                    "refusing to bind a DeviceMemo-resident tensor as a "
+                    "payload buffer: the engine writes its payload in place "
+                    "and the memo would serve the changed tensor; pass a "
+                    "fresh array instead")
+            return arr.to(device=self.device, dtype=torch.float32, copy=True)
+        return torch.tensor(np.asarray(arr, np.float32), device=self.device)
+
     def _set_payload(self, x_pad, q_pad) -> None:
-        self.x = torch.as_tensor(np.asarray(x_pad, np.float32),
-                                 device=self.device)
-        self.q = torch.as_tensor(np.asarray(q_pad, np.float32),
-                                 device=self.device)
+        self.x, self.q = self._bindable(x_pad), self._bindable(q_pad)
+        self._payload_version += 1
 
     def refresh_payload(self, geometry, *, use_pending: bool = False) -> None:
         """Rebind to a same-structure geometry (a within-slack step): take
         the new (x, q) payload and drop the cached multipoles; the index
         tables stay on the device untouched.  With `use_pending=True` the
-        payload that the last `step_drift` restacked on the device becomes
-        the x payload directly (the session guarantees q is unchanged on
-        that path)."""
+        payload that the last `step_drift` restacked on the device is
+        copied into the x payload buffer (the session guarantees q is
+        unchanged on that path)."""
         self.geo = geometry
         if use_pending and self._pending_x is not None:
-            self.x = self._pending_x
+            self.x.copy_(self._pending_x)
+            self._payload_version += 1
         else:
             self._set_payload(*stack_bodies(geometry.trees,
                                             self.tables.n_bodies_max))
@@ -128,7 +191,11 @@ class DeviceEngine:
         changed flag (against the current payload) in one pass.  The
         restacked payload is staged for `refresh_payload(use_pending=True)`.
 
-        Returns (drift (P,) float64, changed (P,) bool) host arrays."""
+        Returns (drift (P,) float64, changed (P,) bool) host arrays.
+
+        Compiled (`fused`): one upload of `new_x` into the step entry's
+        buffer and one replay; the staged payload is the entry's output
+        buffer until `refresh_payload` copies it."""
         if self.geo is None:
             raise ValueError("step_drift needs the engine's geometry: build "
                              "it with DeviceEngine.from_geometry")
@@ -136,14 +203,96 @@ class DeviceEngine:
         if self._x_ref_pad is None:
             self._x_ref_pad = torch.as_tensor(
                 stack_reference_bodies(self.geo, t), device=self.device)
-        xd = torch.as_tensor(np.asarray(new_x, np.float32),
-                             device=self.device)
-        x_pad = restack_payload(xd, t.orig_idx, t.flat_idx, t.n_parts,
-                                t.n_bodies_max)
-        drift, changed = partition_drift(x_pad, self._x_ref_pad, self.x)
+        new_x = torch.as_tensor(np.asarray(new_x, np.float32))
+        if self.fused:
+            entry = self._fused_entry("step")
+            self._bind(entry, "step")
+            entry.inputs["new_x"].copy_(new_x)
+            drift, changed, x_pad = entry()
+            self.launch_log.append(("step", entry.key))
+        else:
+            x_pad = restack_payload(new_x.to(self.device), t.orig_idx,
+                                    t.flat_idx, t.n_parts, t.n_bodies_max)
+            drift, changed = partition_drift(x_pad, self._x_ref_pad, self.x)
         self._pending_x = x_pad
         return (drift.cpu().numpy().astype(np.float64),
                 changed.cpu().numpy())
+
+    # ----------------------------------------------------------- compiled --
+    def _fused_entry(self, kind: str):
+        """This engine's compiled entry of `kind` ("evaluate" or "step"),
+        resolved through the shape-class cache once per engine lifetime, so
+        the cache's hit / miss counters meter per-geometry resolutions: a
+        second geometry of the same shape class is one hit and no capture.
+        A new entry is built from copies of this engine's tables and
+        payload (captured on CUDA)."""
+        entry = self._entries.get(kind)
+        if entry is not None:
+            return entry
+        t = self.tables
+        if kind == "evaluate":
+            stream = self.stream_tables()
+            flat = fused_mod.flatten_eval_tables(t, stream)
+            if stream is not None:
+                impl, launch = "stream", (stream["smax"], stream["block_t"])
+                statics = {k: stream[k] for k in ("pad", "block_t", "smax")}
+            else:
+                impl, launch = "gathered", fused_mod.bucket_launch_params(t)
+                statics = None
+            fn = fused_mod.build_fused_evaluate(self.ops, t, statics)
+            payload = {"x": self.x, "q": self.q}
+        elif kind == "step":
+            flat = fused_mod.flatten_step_tables(t, self._x_ref_pad)
+            impl, launch = "gathered", ()        # the step runs no P2P
+            fn = fused_mod.build_fused_step(t)
+            payload = {"new_x": torch.zeros(t.n, 3, dtype=torch.float32,
+                                            device=self.device),
+                       "x": self.x}
+        else:
+            raise ValueError(f"unknown compiled entry kind {kind!r}")
+        key = fused_mod.executable_key(
+            kind, shape_class_digest(flat), n=t.n, n_parts=t.n_parts, p=t.p,
+            theta=None if self.geo is None else self.geo.theta,
+            backend=str(self.device), launch=launch, p2p_impl=impl)
+
+        def compile_entry():
+            inputs = {k: v.clone() for k, v in payload.items()}
+            inputs["tab"] = {k: v.clone() for k, v in flat.items()}
+            entry = CompiledEntry(key, fn, inputs, self.device)
+            entry.owner, entry.payload = self._token, self._payload_version
+            return entry
+
+        entry = self.exe_cache.get_or_compile(key, compile_entry)
+        self._flat[kind] = flat
+        self._entries[kind] = entry
+        return entry
+
+    def _bind(self, entry, kind: str) -> None:
+        """Make `entry`'s static buffers hold this engine's tables (copied
+        when the entry last served another engine: a rebind) and its
+        current payload (copied when it changed since)."""
+        if entry.owner != self._token:
+            if entry.owner is not None:
+                entry.rebinds += 1
+            for k, buf in entry.inputs["tab"].items():
+                buf.copy_(self._flat[kind][k])
+            entry.owner, entry.payload = self._token, None
+        if entry.payload != self._payload_version:
+            entry.inputs["x"].copy_(self.x)
+            if "q" in entry.inputs:
+                entry.inputs["q"].copy_(self.q)
+            entry.payload = self._payload_version
+
+    def _evaluate_fused(self) -> np.ndarray:
+        """One replay: payload and tables in the entry's buffers, the
+        potential out; only the (N,) potential moves to the host.  The
+        multipoles the entry returns stay in its buffer (another engine's
+        replay may overwrite them), so `upward()` does not take them."""
+        entry = self._fused_entry("evaluate")
+        self._bind(entry, "evaluate")
+        phi, _ = entry()
+        self.launch_log.append(("evaluate", entry.key))
+        return phi.cpu().numpy()
 
     # ---------------------------------------------------------- streaming --
     def stream_tables(self) -> dict | None:
@@ -205,21 +354,17 @@ class DeviceEngine:
 
     def accumulate(self, parts) -> np.ndarray:
         """Sum (idx, valid, vals) value tables into the potential in float64
-        on the device; returns it in original body order on the host."""
+        on the device (`fused.accumulate`); returns it in original body
+        order on the host."""
         t = self.tables
-        phi_flat = torch.zeros(t.n_parts * t.n_bodies_max,
-                               dtype=torch.float64, device=self.device)
-        zero = torch.zeros((), dtype=torch.float64, device=self.device)
-        for idx, valid, vals in parts:
-            contrib = torch.where(valid.reshape(-1),
-                                  vals.reshape(-1).to(torch.float64), zero)
-            phi_flat.index_add_(0, idx.reshape(-1), contrib)
-        phi = torch.zeros(t.n, dtype=torch.float64, device=self.device)
-        phi[t.orig_idx] = phi_flat[t.flat_idx]
-        return phi.cpu().numpy()
+        return fused_mod.accumulate(parts, t.n, t.n_parts * t.n_bodies_max,
+                                    t.orig_idx, t.flat_idx).cpu().numpy()
 
     def evaluate(self) -> np.ndarray:
-        """Full potential in original body order (float64, host)."""
+        """Full potential in original body order (float64, host): one
+        compiled call with `fused`, else the phases one by one."""
+        if self.fused:
+            return self._evaluate_fused()
         M = self.upward()
         parts = [self.far_field(M), *self.near_field()]
         m2p = self.m2p(M)

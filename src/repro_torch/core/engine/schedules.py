@@ -21,6 +21,7 @@ Host-side NumPy, output-identical to the JAX reference
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -29,8 +30,25 @@ import torch
 from repro_torch.core.plan import bucket_size
 
 __all__ = ["BatchedUpwardSchedule", "EngineTables", "build_batched_upward",
-           "build_engine_tables", "build_p2p_stream_tables", "stack_bodies",
-           "stack_reference_bodies", "to_device", "to_numpy"]
+           "build_engine_tables", "build_p2p_stream_tables",
+           "shape_class_digest", "stack_bodies", "stack_reference_bodies",
+           "to_device", "to_numpy"]
+
+
+def shape_class_digest(tables: dict) -> str:
+    """Digest of a flat {name: tensor} table set's *shape class*: every
+    entry's name, dtype and shape, never its values.  Two geometries with
+    equal digests give the same compiled entry (`engine.fused`), which is
+    what lets `exe_cache.ExecutableCache` serve the second one without a
+    capture.  Hash the tensors as the entry binds them, so the digest sees
+    torch's dtypes (the reference's digest sees JAX's, which turn int64
+    into int32 without x64: digests of the two packages do not compare)."""
+    h = hashlib.sha1()
+    for name in sorted(tables):
+        a = tables[name]
+        h.update(f"{name}:{str(a.dtype).removeprefix('torch.')}:"
+                 f"{tuple(a.shape)};".encode())
+    return h.hexdigest()
 
 
 # ---------------------------------------------------------------- helpers --

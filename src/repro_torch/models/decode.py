@@ -15,7 +15,12 @@ stores as `rms_norm(block_output, ln2)[:, -1:]` where the block reads
 the port reproduces it.  The dense caches are bfloat16 whatever the model's
 type, as `init_cache` makes them and `decode_step` writes them.
 
-`decode_step` updates a dense cache in place (one position per step).
+`decode_step` updates the caches in place: a dense cache one position per
+step (`index_copy_` at `pos`), the rwkv6 state and token tails by `copy_`.
+`pos` may be a 0-d int64 tensor on the device, which every read of it
+(RoPE, the cache write, the `kv_len` mask) takes as it is, so a CUDA graph
+of the step replays at any position (`serve.engine`); this matches the
+reference's traced `pos` and `dynamic_update_slice`.
 """
 from __future__ import annotations
 
@@ -106,32 +111,32 @@ def _prefill_recurrent(params, x, cfg, cache):
 
 
 # ----------------------------------------------------------------- decode --
-def decode_step(params, cache, tokens, pos: int, cfg):
+def decode_step(params, cache, tokens, pos, cfg):
     """One token for every sequence.  tokens: (B, 1); pos: the position
-    being written.  Returns (logits (B, 1, V), cache)."""
+    being written, an int or a 0-d int64 tensor on the tokens' device.
+    Updates `cache` in place; returns (logits (B, 1, V), cache)."""
     check_supported(cfg)
     B = tokens.shape[0]
     h = embed(params, tokens, cfg)
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.long, device=h.device)
     if cfg.family == "ssm":
-        blocks = []
         for pb, c in zip(params["blocks"], cache["blocks"]):
             h, new_c = rwkv_mod.rwkv_block(
                 h, pb["rwkv"], cfg,
                 cache={"tm_tok": c["tm_tok"].to(h.dtype), "wkv": c["wkv"],
                        "cm_tok": c["cm_tok"].to(h.dtype)})
-            blocks.append({"tm_tok": new_c["tm_tok"].to(CDT),
-                           "wkv": new_c["wkv"],
-                           "cm_tok": new_c["cm_tok"].to(CDT)})
-        cache = dict(cache, blocks=blocks)
+            for k in ("tm_tok", "wkv", "cm_tok"):
+                c[k].copy_(new_c[k])
     else:
-        positions = torch.full((1,), pos, dtype=torch.long, device=h.device)
+        positions = pos.reshape(1)
         for pb, c in zip(params["blocks"], cache["blocks"]):
             pa = pb["attn0"]
             xn = rms_norm(h, pa["ln"], cfg.norm_eps)
             q = _q(xn, pa, cfg, positions)
             k, v = _kv(xn, pa, cfg, positions)
-            c["k"][:, pos] = k[:, 0]
-            c["v"][:, pos] = v[:, 0]
+            c["k"].index_copy_(1, positions, k.to(c["k"].dtype))
+            c["v"].index_copy_(1, positions, v.to(c["v"].dtype))
             o = attention_full(q, c["k"].to(q.dtype), c["v"].to(q.dtype),
                                causal=False, kv_len=pos + 1)
             h = h + o.reshape(B, 1, -1) @ pa["wo"]

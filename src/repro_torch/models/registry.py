@@ -71,7 +71,7 @@ class Model(nn.Module):
     def prefill(self, tokens, S_max: int):
         return decode_mod.prefill(self.params, tokens, self.cfg, S_max)
 
-    def decode_step(self, cache, tokens, pos: int):
+    def decode_step(self, cache, tokens, pos):
         return decode_mod.decode_step(self.params, cache, tokens, pos,
                                       self.cfg)
 

@@ -6,6 +6,15 @@ S_max cache, and decodes one token per step for every live slot, retiring
 finished slots and admitting queued requests (slot reuse = continuous
 batching).  At a batch boundary the live requests are prefilled again with
 their prompt plus what they have generated, as the reference does.
+
+The decode step is one CUDA graph replay on the card (`graph=None` or True;
+the reference decodes as one `jax.jit` program): captured at the first
+prefill over static tokens, position, cache and logits, every prefill's
+cache is copied into the static cache, and each step copies the next
+tokens and position in and replays.  On the CPU (`graph=None` there means
+off) `graph=True` runs the step eagerly over the same static buffers;
+`graph=False` calls `model.decode_step` on the prefill's cache.  The
+greedy choice and its `tolist()` stay outside the graph.
 """
 from __future__ import annotations
 
@@ -13,6 +22,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from repro_torch.graphs import CapturedCall
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -27,14 +38,19 @@ class Request:
 
 
 class ServeEngine:
-    def __init__(self, model, B: int = 4, S_max: int = 128):
+    def __init__(self, model, B: int = 4, S_max: int = 128,
+                 graph: bool | None = None):
         self.model, self.B, self.S_max = model, B, S_max
+        self.graph = (model.device.type == "cuda" if graph is None
+                      else bool(graph))
         self.queue: list[Request] = []
         self.slots: list[Request | None] = [None] * B
         self.pos = 0
         self.cache = None
         self.finished: list[Request] = []
         self._next = None
+        self._static = None          # static tokens, pos and cache
+        self.decode_call = None      # the captured decode step
 
     def submit(self, req: Request):
         self.queue.append(req)
@@ -54,11 +70,35 @@ class ServeEngine:
         toks = np.zeros((self.B, L), np.int64)
         for i, c in ctx.items():    # right-align so decode position is shared
             toks[i, L - len(c):] = c
-        self.cache, logits = self.model.prefill(
+        cache, logits = self.model.prefill(
             torch.as_tensor(toks, device=self.model.device), S_max=self.S_max)
+        self.cache = self._bind_cache(cache) if self.graph else cache
         self.pos = L
         self._emit(logits)
         return True
+
+    def _bind_cache(self, cache) -> dict:
+        """Copy a prefill's cache into the decode step's static cache,
+        capturing the step over static buffers at the first call (its
+        warm-up writes the static cache, which the copy then overwrites).
+        Every prefill of this engine has B rows and S_max, so one capture
+        serves them all."""
+        if self._static is None:
+            dev = self.model.device
+            st = {"tokens": torch.zeros(self.B, 1, dtype=torch.long,
+                                        device=dev),
+                  "pos": torch.zeros((), dtype=torch.long, device=dev),
+                  "cache": {"blocks": [{k: torch.zeros_like(v)
+                                        for k, v in c.items()}
+                                       for c in cache["blocks"]]}}
+            self._static = st
+            self.decode_call = CapturedCall(lambda: self.model.decode_step(
+                st["cache"], st["tokens"], st["pos"])[:1], dev)
+        static = self._static["cache"]
+        for dst, src in zip(static["blocks"], cache["blocks"]):
+            for k, buf in dst.items():
+                buf.copy_(src[k])
+        return static
 
     def _emit(self, logits):
         """Greedy next token of every slot; append it to the live requests."""
@@ -79,8 +119,13 @@ class ServeEngine:
             self.slots[i] = None    # slot reuse (continuous batching)
 
     def step(self):
-        logits, self.cache = self.model.decode_step(self.cache, self._next,
-                                                    self.pos)
+        if self.graph:
+            self._static["tokens"].copy_(self._next)
+            self._static["pos"].fill_(self.pos)
+            logits, = self.decode_call.replay()
+        else:
+            logits, self.cache = self.model.decode_step(self.cache,
+                                                        self._next, self.pos)
         self.pos += 1
         self._emit(logits)
 

@@ -217,11 +217,12 @@ def test_k1_bitwise_repeatable_on_card(cuda_device):
 
 
 def test_engine_on_card_launches_kernels_and_matches_cpu(cuda_device):
-    """The session on the card goes through K1 (gathered) and K2 (stream)
-    and agrees with the session on the CPU at rtol 1e-5 / atol 1e-4 plus
-    1e-6 of sum_j |q_j| / r_ij: the card's atomics and rsqrtf round the
-    float32 terms in another order, so the difference scales with the sum
-    of each potential's absolute terms, not with the potential."""
+    """The per-phase session on the card goes through K1 (gathered) and K2
+    (stream) and agrees with the session on the CPU at rtol 1e-5 / atol
+    1e-4 plus 1e-6 of sum_j |q_j| / r_ij: the card's atomics and rsqrtf
+    round the float32 terms in another order, so the difference scales
+    with the sum of each potential's absolute terms, not with the
+    potential.  (The compiled session: test_fused_evaluate_on_card_*.)"""
     from repro_torch.core.api import FMMSession
     x = make_distribution("sphere", 3000, seed=42)
     q = np.random.default_rng(0).uniform(-1, 1, 3000)
@@ -231,8 +232,8 @@ def test_engine_on_card_launches_kernels_and_matches_cpu(cuda_device):
                          device="cpu").evaluate()
     for stream in (False, True):
         k1, k2 = kp2p.launches, kstream.launches
-        card = FMMSession(geo, device=cuda_device,
-                          p2p_stream=stream).evaluate()
+        card = FMMSession(geo, device=cuda_device, p2p_stream=stream,
+                          fused=False).evaluate()
         if stream:
             assert kstream.launches == k2 + 1 and kp2p.launches == k1
         else:
@@ -699,8 +700,8 @@ def test_rwkv6_served_alone_matches_forward_bitwise_on_card(cuda_device):
             return lg, cache
 
     for prompt in (prompts[0], prompts[5]):
-        tape = Tape()
-        eng = ServeEngine(tape, B=1, S_max=32)
+        tape = Tape()                   # records calls: the eager step
+        eng = ServeEngine(tape, B=1, S_max=32, graph=False)
         eng.submit(Request(rid=0, prompt=list(prompt), max_new=6))
         out = eng.run(max_steps=16)[0].out
         seq = list(prompt)
@@ -708,3 +709,88 @@ def test_rwkv6_served_alone_matches_forward_bitwise_on_card(cuda_device):
             h = model(torch.as_tensor([seq], device=cuda_device))
             assert torch.equal(lg_e[0], model.logits(h[:, -1:])[0, -1]), seq
             seq.append(t)
+
+
+# ------------------------------------------------- compiled serving (graphs) --
+@pytest.mark.parametrize("stream", [False, True])
+def test_fused_evaluate_on_card_replays_and_matches_eager(cuda_device,
+                                                          stream):
+    """At N = 20,000 the compiled session (the card's default) captures one
+    CUDA graph per entry and serves each warm evaluate and within-slack
+    step as one replay that runs K1 (gathered) or K2 (stream), with the
+    kernels' counters advanced by the launches the capture recorded.  Its
+    potentials agree with the per-phase session's at rtol 1e-6 / atol 2e-5
+    plus 1e-7 of sum_j |q_j| / r_ij: both run the same kernels, but
+    `index_add_`'s float32 atomics add in an order that changes from run
+    to run, and that rounding scales with the sum of absolute terms."""
+    from repro_torch.core.api import FMMSession
+    from repro_torch.core.engine import ExecutableCache
+    n = 20000
+    x = make_distribution("sphere", n, seed=42)
+    q = np.random.default_rng(0).uniform(-1, 1, n)
+    spec = PartitionSpec(nparts=8)
+    geo = plan_geometry(x, q, spec, device="cpu")
+    phi_abs = FMMSession(plan_geometry(x, np.abs(q), spec, device="cpu"),
+                         device="cpu").evaluate()
+    cache = ExecutableCache()
+    graphed = FMMSession(geo, device=cuda_device, p2p_stream=stream,
+                         exe_cache=cache)
+    eager = FMMSession(geo, device=cuda_device, p2p_stream=stream,
+                       fused=False)
+    assert graphed.engine.fused and not eager.engine.fused
+
+    def close(a, b):
+        tol = 2e-5 + 1e-6 * np.abs(b) + 1e-7 * phi_abs
+        assert np.all(np.abs(a - b) <= tol), float(np.abs(a - b).max())
+
+    close(graphed.evaluate(), eager.evaluate())
+    entry = graphed.engine._entries["evaluate"]
+    assert entry.call.graph is not None and cache.misses == 1
+    counter, name = (kstream, "K2") if stream else (kp2p, "K1")
+    per_replay = entry.launches[name]
+    assert per_replay == (1 if stream else
+                          len(graphed.engine.tables.p2p_buckets))
+    before, calls = counter.launches, entry.calls
+    phi = graphed.evaluate()
+    torch.cuda.synchronize()
+    assert counter.launches == before + per_replay
+    assert entry.calls == calls + 1
+    close(phi, eager.evaluate())
+
+    eps = float(geo.slack.min())
+    x1 = x + np.random.default_rng(2).uniform(-eps / 4, eps / 4, x.shape)
+    rg, re_ = graphed.step(x1), eager.step(x1)
+    assert rg.rebuilt == re_.rebuilt == () and rg.refreshed == re_.refreshed
+    assert graphed.engine._entries["step"].calls == 1
+    absum = FMMSession(plan_geometry(x1, np.abs(q), spec, device="cpu"),
+                       device="cpu").evaluate()
+    phi_g, phi_e = graphed.evaluate(), eager.evaluate()
+    tol = 2e-5 + 1e-6 * np.abs(phi_e) + 1e-7 * absum
+    assert np.all(np.abs(phi_g - phi_e) <= tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+def test_serve_engine_graph_matches_eager_on_card(cuda_device, arch):
+    """A tiny model (the smoke config, bfloat16) served on the card with the
+    decode step as one CUDA graph replay gives the same tokens as the eager
+    step for every request; rwkv6's replay runs K5 once a layer and no
+    replay runs K4 (decode attention is plain PyTorch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, seed=0, device=cuda_device)
+    outs = []
+    for graph in (False, None):
+        rng = np.random.default_rng(0)
+        eng = ServeEngine(model, B=4, S_max=64, graph=graph)
+        for rid in range(8):
+            eng.submit(Request(rid=rid, prompt=[int(t) for t in rng.integers(
+                1, cfg.vocab, int(rng.integers(4, 16)))], max_new=8))
+        outs.append({r.rid: r.out for r in eng.run(max_steps=64)})
+    assert eng.graph and eng.decode_call.graph is not None
+    assert sorted(outs[1]) == list(range(8)) and outs[0] == outs[1]
+    launches = eng.decode_call.launches
+    assert "K4" not in launches
+    if cfg.family == "ssm":
+        assert launches == {"K5": cfg.n_layers}
