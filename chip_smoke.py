@@ -70,7 +70,23 @@ Phases, in order; any failed check raises and ends the run non-zero:
      refreshed) and one beyond-slack step of one partition (only it
      rebuilt, re-traversed through K3), each matching a float64 direct sum
      at the stepped positions;
-     (phases 2-7 drive the per-phase engine, `fused=False`; phase 10's
+ 7b. the multi-rank LET exchange on the main path's geometry, the ranks
+     stacked on the card (one card: NCCL refuses two ranks on one device),
+     at D = 4 and 8 ranks (DIST_RANKS), for each of bulk, grain and hsdx
+     through `FMMSession(geo, mesh=stacked_mesh(D))`: the ShardedEngine's
+     build time, the program's rounds, cold and warm evaluates (median of
+     3), K1's launches a call (the counter set to 0 just before each warm
+     evaluate and read just after: one a bucket a rank), the spans
+     `verify_exchange` finds word-exact, moved / delivered / padded MB, the
+     exchange alone timed (copies within the card's memory, not a network)
+     beside its LogGP prediction for a wire, peak `memory_allocated`,
+     agreement with the eager engine as in phase 8 (the eager engine
+     against itself beside it) and rel-L2 < 3e-3 against phase 5's direct
+     sum; K1 against its plain version on every launch of a dist
+     evaluation at phase 3's tolerance; one within-slack step of the mesh
+     session, each protocol then against a direct sum at the stepped
+     positions;
+     (phases 2-7b drive the per-phase engine, `fused=False`; phase 10's
      engines the eager decode step, `graph=False`)
   8. compiled serving as CUDA graphs, the card's default: at N on the
      main path's geometry, on each route (gathered K1, stream K2), a
@@ -1362,6 +1378,148 @@ def lm_graph(torch, arch: str, dev, card) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------- phase 7b ------
+DIST_RANKS = (4, 8)          # ranks stacked on the card: 2 and 1 parts each
+
+
+def dist_k1_checks(torch, kp2p, sess, protocol, card) -> float:
+    """K1 against its plain version on every launch of one dist evaluation
+    (each rank's buckets, gathered after a real exchange), at phase 3's
+    tolerance (check_close's), one line a bucket over the ranks; returns
+    the largest |K1 - plain|."""
+    per = {}
+    for r, bi, qs, xs, xt in sess.dist.near_field_operands(protocol):
+        got = kp2p.p2p(qs, xs, xt)
+        want = kp2p.p2p_ref(qs, xs, xt)
+        err = (got - want).abs()
+        tol = RTOL_KERNEL * (want.abs() + kp2p.p2p_ref(qs.abs(), xs, xt))
+        P, S = qs.shape
+        b = per.setdefault(bi, {"shape": (P, xt.shape[1], S), "ranks": 0,
+                                "err": 0.0, "bad": 0})
+        b["ranks"] += 1
+        b["err"] = max(b["err"], float(err.max()))
+        b["bad"] += int((err > tol).sum())
+        del got, want, err, tol
+    for bi, b in per.items():
+        P, T, S = b["shape"]
+        print(f"  K1 on the dist path, bucket {bi} (rows {P} a rank, T {T}, "
+              f"S {S}, {kp2p.p2p_launch_params(P)} warps a block) on "
+              f"{b['ranks']} ranks: max_abs_err {b['err']:.3e}, over "
+              f"tolerance {b['bad']}; card {card}", flush=True)
+        if b["bad"]:
+            raise AssertionError(f"K1 dist bucket {bi}: {b['bad']} values "
+                                 f"outside tolerance")
+    return max(b["err"] for b in per.values())
+
+
+def dist_exchange(torch, geo, x, q, idx, d, dev, card) -> float:
+    """Phase 7b: the multi-rank LET exchange, ranks stacked on the card, for
+    each of DIST_RANKS and each protocol, against the eager engine and the
+    direct sum; one within-slack step of the mesh session.  Returns K1's
+    largest |K1 - plain| on the dist path."""
+    from repro_torch.core.api import FMMSession
+    from repro_torch.core.dist import DIST_PROTOCOLS
+    from repro_torch.core.engine import DeviceEngine
+    from repro_torch.core.fmm import direct_potential
+    from repro_torch.kernels import p2p as kp2p
+    from repro_torch.launch.mesh import stacked_mesh
+    eager = FMMSession(geo, device=dev, fused=False)
+    phi_e = eager.evaluate()
+    e = eager.engine
+    phi_abs = DeviceEngine(e.tables, e.x.cpu().numpy(),
+                           e.q.abs().cpu().numpy(), device=dev,
+                           fused=False).evaluate()
+    e._M = None                     # recompute the multipoles, as dist does
+    agree("eager engine vs itself (run to run, upward recomputed)",
+          eager.evaluate(), phi_e, phi_abs, card)
+    del eager, e
+    eps = float(geo.slack.min())
+    x1 = x + np.random.default_rng(5).uniform(-eps / 4, eps / 4, x.shape)
+    d1 = direct_potential(x1, q, x_tgt=x1[idx], chunk=64, device=dev)
+    k1_err = 0.0
+    for D in DIST_RANKS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        sess = FMMSession(geo, device=dev, mesh=stacked_mesh(D, dev))
+        eng, t_build = timed_sync(torch, lambda: sess.dist)
+        lay = eng.layout
+        print(f"  D = {D} ranks stacked on the card ({lay.parts_per_rank} "
+              f"parts a rank): ShardedEngine built in {t_build:.3f} s "
+              f"(NumPy tables and upload); {len(lay.pairs)} inter-rank "
+              f"spans, {lay.total_words * 4 / 1e6:.3f} MB a pool; "
+              f"{len(eng.p2p_buckets)} P2P buckets a rank (rows "
+              f"{[int(b['mask'].shape[1]) for b in eng.p2p_buckets]}); "
+              f"card {card}", flush=True)
+        for protocol in DIST_PROTOCOLS:
+            sess.dist_protocol = protocol
+            prog, t_prog = timed_sync(torch, lambda: eng.program(protocol))
+            _, t_cold = timed_sync(torch, sess.evaluate)
+            warm, calls = [], []
+            for _ in range(3):
+                kp2p.launches = 0
+                phi, t = timed_sync(torch, sess.evaluate)
+                calls.append(kp2p.launches)
+                warm.append(t)
+            per_call = calls[0]
+            spans = eng.verify_exchange(protocol)
+            st = eng.measure_exchange(protocol, reps=3)
+            print(f"  D {D} {protocol}: program built in {t_prog:.3f} s, "
+                  f"{prog.n_rounds} rounds; evaluate cold {t_cold:.4f} s, "
+                  f"warm median {statistics.median(warm):.4f} s (runs "
+                  f"{', '.join(f'{w:.4f}' for w in warm)}); K1 launches a "
+                  f"call {per_call} ({D} ranks x {len(eng.p2p_buckets)} "
+                  f"buckets); verify_exchange: {spans} of "
+                  f"{len(lay.pairs)} spans word-exact; card {card}",
+                  flush=True)
+            print(f"  D {D} {protocol}: moved {st['moved_bytes'] / 1e6:.3f} "
+                  f"MB, delivered {st['delivered_bytes'] / 1e6:.3f} MB, "
+                  f"padded wire {st['padded_wire_bytes'] / 1e6:.3f} MB; "
+                  f"exchange alone (copies within the card's memory, not a "
+                  f"network) {st['measured_s'] * 1e3:.4f} ms, mean of 3 "
+                  f"after a warm-up; LogGP prediction for a wire "
+                  f"{st['loggp_s'] * 1e3:.4f} ms; card {card}", flush=True)
+            if calls != [D * len(eng.p2p_buckets)] * 3 or per_call <= 0:
+                raise AssertionError(f"D {D} {protocol}: K1 launched "
+                                     f"{per_call} times a call")
+            if spans != len(lay.pairs) or not prog.n_rounds:
+                raise AssertionError(f"D {D} {protocol}: {spans} spans, "
+                                     f"{prog.n_rounds} rounds")
+            if phi.shape != (len(x),) or not np.isfinite(phi).all():
+                raise AssertionError(f"D {D} {protocol}: bad potential")
+            agree(f"D {D} {protocol} vs the eager engine", phi, phi_e,
+                  phi_abs, card)
+            rel = float(np.linalg.norm(phi[idx] - d) / np.linalg.norm(d))
+            print(f"  D {D} {protocol}: rel-L2 vs direct sum {rel:.3e}",
+                  flush=True)
+            if not rel < 3e-3:
+                raise AssertionError(f"D {D} {protocol}: rel-L2 {rel}")
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        print(f"  D {D}: peak memory_allocated over the build and the "
+              f"evaluates {peak / 2**30:.3f} GiB above the "
+              f"{base / 2**30:.3f} GiB held before; card {card}", flush=True)
+        k1_err = max(k1_err, dist_k1_checks(torch, kp2p, sess, "hsdx", card))
+
+        rep, t_step = timed_sync(torch, lambda: sess.step(x1))
+        if rep.rebuilt != () or len(rep.refreshed) != geo.nparts \
+                or sess.dist is not eng:
+            raise AssertionError(f"D {D} within-slack step: {rep}")
+        for protocol in DIST_PROTOCOLS:
+            sess.dist_protocol = protocol
+            phi1, t_eval = timed_sync(torch, sess.evaluate)
+            rel = float(np.linalg.norm(phi1[idx] - d1) / np.linalg.norm(d1))
+            print(f"  D {D} within-slack step ({t_step:.4f} s, every "
+                  f"partition refreshed, the dist engine kept), then "
+                  f"{protocol} evaluate {t_eval:.4f} s: rel-L2 vs direct sum "
+                  f"at the stepped positions {rel:.3e}; card {card}",
+                  flush=True)
+            if not (np.isfinite(phi1).all() and rel < 3e-3):
+                raise AssertionError(f"D {D} step {protocol}: rel-L2 {rel}")
+        del sess, eng, phi, phi1
+    torch.cuda.empty_cache()
+    return k1_err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
@@ -1839,9 +1997,15 @@ def main() -> int:
                 and rel < 3e-3):
             raise AssertionError(f"rebuilt rel-L2 {rel} >= 3e-3")
 
-    # ------------------------------------------------------------- 8 -----
+    # ------------------------------------------------------------ 7b -----
     del sess, sess_g
     torch.cuda.empty_cache()
+    with phase(f"multi-rank LET exchange, ranks stacked on the card, N = "
+               f"{n}"):
+        err = dist_exchange(torch, geo_main, x, q, idx, d, dev, card)
+        results["K1"]["max_abs_err"] = max(results["K1"]["max_abs_err"], err)
+
+    # ------------------------------------------------------------- 8 -----
     with phase(f"compiled serving (CUDA graphs), N = {n}"):
         print(f"  card {card}", flush=True)
         compiled_fmm(torch, geo_main, x, q, spec, idx, d, dev, card)

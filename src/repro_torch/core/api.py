@@ -1,6 +1,6 @@
 """Layered FMM API of the port: GeometryPlan -> CommSchedule -> FMMSession.
 
-The port of `repro.core.api` for one device:
+The port of `repro.core.api`:
 
   1. `plan_geometry(x, q, PartitionSpec) -> GeometryPlan` — all host-side
      geometry, built once with no protocol argument: partitioning,
@@ -15,12 +15,13 @@ The port of `repro.core.api` for one device:
      (`protocols.py`, host NumPy): sweeping the four protocols reuses one
      `GeometryPlan` with no geometry work.
   3. `FMMSession` — holds a `GeometryPlan`, evaluates it through the
-     batched `DeviceEngine` (repro_torch.core.engine) or, with
-     `engine=False`, the per-partition reference executor
-     `execute_geometry` (its uploads memoized by a `DeviceMemo`), caches
-     the potential per geometry version so `.sweep()` answers every
-     protocol from one evaluation, and advances in time with
-     `step(new_x[, new_q])`.
+     batched `DeviceEngine` (repro_torch.core.engine), with `mesh=` through
+     the multi-rank `dist.ShardedEngine` (the LET moved between ranks by
+     one of the exchange programs), or, with `engine=False`, the
+     per-partition reference executor `execute_geometry` (its uploads
+     memoized by a `DeviceMemo`), caches the potential per geometry version
+     so `.sweep()` answers every protocol from one evaluation, and advances
+     in time with `step(new_x[, new_q])`.
 
 Planning traversal: `PartitionSpec.traversal_backend` None/"auto" plans
 with the device dual traversal and its MAC kernel K3
@@ -40,12 +41,13 @@ host mirrors (multipoles, LET payloads, grafted views) are filled lazily by
 that partition and exactly the LETs and receiver plans that touch it,
 re-traversed on the resolved backend.
 
-The multi-device exchange, observability, resilience and `report()` are
-later slices.
+Observability, resilience (the dist -> engine fallback among it) and
+`report()` are later slices: a failed exchange raises.
 """
 from __future__ import annotations
 
 import math
+import os
 import weakref
 from dataclasses import dataclass, field, replace as dc_replace
 
@@ -53,6 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import protocols as proto
+from repro_torch.core.dist import DIST_PROTOCOLS, ShardedEngine
 from repro_torch.core.engine import DeviceEngine, resolve_cache
 from repro_torch.core.engine.traversal import (device_dual_traversal,
                                                resolve_traversal_backend)
@@ -610,12 +613,20 @@ class FMMSession:
     device, `engine.default_fused_enabled`); `fused=False` keeps the
     per-phase engine.  `exe_cache` is the entry cache the engine resolves
     against (the process-wide `GLOBAL_CACHE` when omitted), read through
-    `exe_cache_stats`."""
+    `exe_cache_stats`.
+
+    `mesh` (`launch.mesh.stacked_mesh(n)` or `group_mesh()`, on the
+    session's device) evaluates through the multi-rank `ShardedEngine`
+    (`.dist`), its LET moved by the `dist_protocol` program ("bulk",
+    "grain" with `dist_grain_bytes` chunks, or "hsdx"); with
+    `REPRO_VERIFY_EXCHANGE=1` every delivered span is checked once per
+    (protocol, geometry version) first.  A failed exchange raises."""
 
     def __init__(self, geometry: GeometryPlan, *, device=None,
                  engine: bool | None = None,
                  p2p_stream: bool = False, fused: bool | None = None,
-                 exe_cache=None):
+                 exe_cache=None, mesh=None, dist_protocol: str = "bulk",
+                 dist_grain_bytes: int | None = None):
         if not (hasattr(geometry, "receivers")
                 and hasattr(geometry, "bytes_matrix")):
             raise ValueError(
@@ -627,21 +638,36 @@ class FMMSession:
         self.p2p_stream = bool(p2p_stream)
         self.fused = fused               # None -> default_fused_enabled()
         self.exe_cache = exe_cache       # None -> the process-wide cache
+        if dist_protocol not in DIST_PROTOCOLS:
+            raise ValueError(f"unknown dist_protocol {dist_protocol!r}; "
+                             f"expected one of {DIST_PROTOCOLS}")
+        if mesh is not None and torch.device(mesh.device) != self.device:
+            raise ValueError(f"mesh: its device {mesh.device} is not the "
+                             f"session's {self.device}")
+        self.mesh = mesh                 # a dist.comm mesh -> dist dispatch
+        self.dist_protocol = dist_protocol
+        self.dist_grain_bytes = dist_grain_bytes
         self._engine = None
+        self._dist = None
         self._memo = DeviceMemo(self.device)
         self._comm_cache: dict = {}
         self._phi: np.ndarray | None = None
         self._phi_version = -1
+        self._exchange_verified: set = set()
 
     @classmethod
     def from_points(cls, x, q, spec: PartitionSpec | None = None, *,
                     device=None, engine: bool | None = None,
                     p2p_stream: bool = False, fused: bool | None = None,
-                    exe_cache=None, **overrides) -> "FMMSession":
+                    exe_cache=None, mesh=None, dist_protocol: str = "bulk",
+                    dist_grain_bytes: int | None = None,
+                    **overrides) -> "FMMSession":
         dev = resolve_device(device)
         return cls(plan_geometry(x, q, spec, device=dev, **overrides),
                    device=dev, engine=engine, p2p_stream=p2p_stream,
-                   fused=fused, exe_cache=exe_cache)
+                   fused=fused, exe_cache=exe_cache, mesh=mesh,
+                   dist_protocol=dist_protocol,
+                   dist_grain_bytes=dist_grain_bytes)
 
     @property
     def geometry(self) -> GeometryPlan:
@@ -663,6 +689,35 @@ class FMMSession:
                 self._geo, device=self.device, p2p_stream=self.p2p_stream,
                 fused=self.fused, exe_cache=self.exe_cache, memo=self._memo)
         return self._engine
+
+    @property
+    def dist(self) -> ShardedEngine | None:
+        """The session's `ShardedEngine` (mesh dispatch), built on first
+        access and again after a step that rebuilt a partition; None
+        without a mesh."""
+        if self.mesh is None:
+            return None
+        if self._dist is None or self._dist.geo is not self._geo:
+            self._dist = ShardedEngine(self._geo, self.mesh,
+                                       grain_bytes=self.dist_grain_bytes)
+        return self._dist
+
+    @property
+    def exchange_stats(self) -> dict:
+        """Per-rank wire accounting of the session's dist protocol (moved /
+        delivered bytes, rounds, padding) and its LogGP prediction; without
+        a mesh, a payload marked `enabled: False`."""
+        if self.mesh is None:
+            return {"enabled": False, "protocol": self.dist_protocol,
+                    "reason": "no mesh: pass FMMSession(mesh=...) for "
+                              "multi-rank exchange accounting",
+                    "n_rounds": 0, "moved_bytes": 0, "delivered_bytes": 0,
+                    "padded_wire_bytes": 0, "per_rank_sent": [],
+                    "per_rank_recv": [], "grain_bytes": None,
+                    "loggp_time": 0.0, "rank_bytes": []}
+        st = dict(self.dist.exchange_stats(self.dist_protocol))
+        st["enabled"] = True
+        return st
 
     @property
     def exe_cache_stats(self) -> dict:
@@ -691,12 +746,27 @@ class FMMSession:
         return cs
 
     # ------------------------------------------------------------ kernels -
+    def _verify_exchange_once(self) -> None:
+        """`REPRO_VERIFY_EXCHANGE=1`: check every delivered wire span
+        against its sender-side payload, once per (protocol, geometry
+        version); raises `dist.ExchangeVerificationError` on a mismatch."""
+        key = (self.dist_protocol, self._geo.version)
+        if key in self._exchange_verified:
+            return
+        self.dist.verify_exchange(self.dist_protocol)
+        self._exchange_verified.add(key)
+
     def evaluate(self) -> np.ndarray:
         """Evaluate now (ignoring the potential cache) and refresh the cached
         potential; returns it in original body order (float64, host).  The
         array is read-only: every SessionResult of this geometry version
         shares it."""
-        if self.engine_enabled:
+        if self.mesh is not None:
+            if os.environ.get("REPRO_VERIFY_EXCHANGE", "") in (
+                    "1", "on", "yes", "true"):
+                self._verify_exchange_once()
+            phi = self.dist.evaluate(self.dist_protocol)
+        elif self.engine_enabled:
             phi = self.engine.evaluate()
         else:
             phi = execute_geometry(self._geo, asarray=self._memo)
@@ -815,8 +885,14 @@ class FMMSession:
         if rebuilt:            # structure and bytes matrix changed: stale
             self._comm_cache.clear()
             self._engine = None
-        elif self._engine is not None:
-            self._engine.refresh_payload(self._geo, use_pending=use_dev)
+            self._dist = None                # wire layout / spans changed too
+        else:
+            if self._engine is not None:
+                self._engine.refresh_payload(self._geo, use_pending=use_dev)
+            if self._dist is not None:
+                # the dist engine recomputes multipoles AND LET wire
+                # payloads on the device from the restacked (x, q)
+                self._dist.refresh_payload(self._geo)
         return report
 
     @staticmethod

@@ -41,8 +41,8 @@ from repro_torch.kernels.p2p import p2p_launch_params
 
 __all__ = ["flatten_eval_tables", "flatten_step_tables",
            "bucket_launch_params", "build_fused_evaluate",
-           "build_fused_step", "accumulate", "executable_key",
-           "theta_bucket"]
+           "build_fused_step", "accumulate", "accumulate_flat",
+           "executable_key", "theta_bucket"]
 
 _M2L_KEYS = ("src", "tgt", "mask", "d")
 _P2P_KEYS = ("t_idx", "t_valid", "s_idx", "s_valid", "mask")
@@ -90,18 +90,25 @@ def bucket_launch_params(tables) -> tuple:
 
 
 # ------------------------------------------------------ compiled closures --
+def accumulate_flat(parts, n_flat: int, device) -> torch.Tensor:
+    """Sum (idx, valid, vals) value tables into a (n_flat,) float64 flat
+    potential on `device` with `index_add_`, in the order given."""
+    phi_flat = torch.zeros(n_flat, dtype=torch.float64, device=device)
+    zero = torch.zeros((), dtype=torch.float64, device=device)
+    for idx, valid, vals in parts:
+        contrib = torch.where(valid.reshape(-1),
+                              vals.reshape(-1).to(torch.float64), zero)
+        phi_flat.index_add_(0, idx.reshape(-1), contrib)
+    return phi_flat
+
+
 def accumulate(parts, n: int, n_flat: int, orig_idx, flat_idx):
     """Sum (idx, valid, vals) value tables into the potential in float64 on
     the device with `index_add_`; returns it (n,) in original body order,
     on the device.  `DeviceEngine.accumulate` and the compiled evaluate
     both run this."""
     dev = orig_idx.device
-    phi_flat = torch.zeros(n_flat, dtype=torch.float64, device=dev)
-    zero = torch.zeros((), dtype=torch.float64, device=dev)
-    for idx, valid, vals in parts:
-        contrib = torch.where(valid.reshape(-1),
-                              vals.reshape(-1).to(torch.float64), zero)
-        phi_flat.index_add_(0, idx.reshape(-1), contrib)
+    phi_flat = accumulate_flat(parts, n_flat, dev)
     phi = torch.zeros(n, dtype=torch.float64, device=dev)
     phi[orig_idx] = phi_flat[flat_idx]
     return phi

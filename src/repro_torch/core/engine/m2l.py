@@ -25,17 +25,22 @@ def _offsets(P: int, stride: int, device) -> torch.Tensor:
     return torch.arange(P, device=device, dtype=torch.int64) * stride
 
 
-def far_tail_kernel(ops, M, x, m2l: dict, up: dict):
+def far_tail_kernel(ops, M, x, m2l: dict, up: dict, M_src=None):
     """M (P, C, nk), x (P, N, 3) + the M2L rows and the stacked downward /
-    leaf tables -> padded L2P values (P, Bl, W) f32."""
+    leaf tables -> padded L2P values (P, Bl, W) f32.  `M_src` holds the
+    multipoles the M2L rows' sources index (default M's flat view; the
+    multi-rank engine passes its rank's cells followed by the received
+    halo cells)."""
     P, C, nk = M.shape
     N = x.shape[1]
     dev = M.device
     M_flat = M.reshape(P * C, nk)
+    if M_src is None:
+        M_src = M_flat
     L = torch.zeros_like(M_flat)
     for a in range(0, m2l["src"].shape[0], M2L_CHUNK):
         sl = slice(a, a + M2L_CHUNK)
-        contrib = (ops.m2l(M_flat[m2l["src"][sl]], m2l["d"][sl])
+        contrib = (ops.m2l(M_src[m2l["src"][sl]], m2l["d"][sl])
                    * m2l["mask"][sl, None])
         L.index_add_(0, m2l["tgt"][sl], contrib)
 
@@ -52,9 +57,11 @@ def far_tail_kernel(ops, M, x, m2l: dict, up: dict):
     return ops.l2p(Lf, y, up["leaf_centers"]) * up["leaf_mask"][..., None]
 
 
-def m2p_vals_kernel(ops, M, x, b, centers, mask, t_idx):
-    """Batched M2P fallback values (B, wt) against flat global multipoles."""
+def m2p_vals_kernel(ops, M, x, b, centers, mask, t_idx, M_src=None):
+    """Batched M2P fallback values (B, wt) against flat global multipoles
+    (or against `M_src`, as in `far_tail_kernel`)."""
     P, C, nk = M.shape
-    M_flat = M.reshape(P * C, nk)
+    if M_src is None:
+        M_src = M.reshape(P * C, nk)
     x_flat = x.reshape(-1, 3)
-    return ops.m2p(M_flat[b], x_flat[t_idx], centers) * mask[:, None]
+    return ops.m2p(M_src[b], x_flat[t_idx], centers) * mask[:, None]

@@ -794,3 +794,46 @@ def test_serve_engine_graph_matches_eager_on_card(cuda_device, arch):
     assert "K4" not in launches
     if cfg.family == "ssm":
         assert launches == {"K5": cfg.n_layers}
+
+
+# ------------------------------------------------ multi-rank exchange --------
+@pytest.mark.parametrize("protocol", ["bulk", "grain", "hsdx"])
+def test_stacked_dist_engine_on_card_matches_engine(cuda_device, protocol):
+    """At N = 20,000 in 8 parts, 4 ranks stacked on the card: each rank's
+    P2P buckets launch K1 (one launch a bucket a rank), every span arrives
+    word for word, and the potential agrees with the card's per-phase
+    engine at rtol 1e-6 / atol 2e-5 plus 1e-7 of sum_j |q_j| / r_ij (both
+    use float32 `index_add_` atomics, whose order changes from run to
+    run); a within-slack step of a mesh session keeps the same agreement."""
+    from repro_torch.core.api import FMMSession
+    from repro_torch.launch.mesh import stacked_mesh
+    n = 20000
+    x = make_distribution("sphere", n, seed=42)
+    q = np.random.default_rng(0).uniform(-1, 1, n)
+    spec = PartitionSpec(nparts=8)
+    geo = plan_geometry(x, q, spec, device="cpu")
+    phi_abs = FMMSession(plan_geometry(x, np.abs(q), spec, device="cpu"),
+                         device="cpu").evaluate()
+    eager = FMMSession(geo, device=cuda_device, fused=False)
+    sess = FMMSession(geo, device=cuda_device,
+                      mesh=stacked_mesh(4, cuda_device),
+                      dist_protocol=protocol)
+
+    def close(a, b, absum):
+        tol = 2e-5 + 1e-6 * np.abs(b) + 1e-7 * absum
+        assert np.all(np.abs(a - b) <= tol), float(np.abs(a - b).max())
+
+    before = kp2p.launches
+    phi = sess.evaluate()
+    torch.cuda.synchronize()
+    assert kp2p.launches - before == 4 * len(sess.dist.p2p_buckets) > 0
+    assert sess.dist.verify_exchange(protocol) == len(sess.dist.layout.pairs)
+    close(phi, eager.evaluate(), phi_abs)
+
+    eps = float(geo.slack.min())
+    x1 = x + np.random.default_rng(2).uniform(-eps / 4, eps / 4, x.shape)
+    rs, re_ = sess.step(x1), eager.step(x1)
+    assert rs.rebuilt == re_.rebuilt == () and rs.refreshed == re_.refreshed
+    absum = FMMSession(plan_geometry(x1, np.abs(q), spec, device="cpu"),
+                       device="cpu").evaluate()
+    close(sess.evaluate(), eager.evaluate(), absum)
