@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # N = 2^20 bodies, the default
     python3 chip_smoke.py --n 65536  # a smaller run of the same phases
+    python3 chip_smoke.py --out DIR  # phase 8b's trace and report there
+                                     # (default build/obs, gitignored)
 
 Drives the port's two paths on the card.  The FMM path —
 `FMMSession.from_points(x, q, spec)` (planned with the device dual traversal
@@ -109,6 +111,29 @@ Phases, in order; any failed check raises and ends the run non-zero:
      the first run (capture included) and of a warm run, decode-step time
      and device busy share both ways, the launches a replay makes (K5
      once a layer for rwkv6, no K4);
+  8b. observability and resilience, on the main path's geometry at N (and
+     N = 2^15), one card: the warm graphed (gathered) evaluate, median of
+     3, with `repro_torch.obs` disabled, enabled, and enabled with fences,
+     each one replay per evaluate (entry calls, K1 launches), and what
+     tracing adds; the fenced spans of one per-phase evaluate
+     (`engine.upward`, `engine.far_field`, `engine.p2p_bucket` once a
+     bucket, `engine.m2p`) beside its wall time; `report()`'s keys (the
+     reference's) and the chrome trace written to
+     `<--out>/phase8b_trace.json` (events, dropped); the chaos matrix
+     with `resilience=True`, one site at a time — `exe_cache.compile`
+     transient (retried, then one capture), `kernels.p2p.launch` raised
+     inside a CUDA graph capture (gathered -> per_phase, nothing cached),
+     `fused.launch` and `p2p.stream.tables` on a stream (K2) session
+     (streaming -> gathered), `memo.upload` on an `engine=False` session
+     (the bottom rung: a typed `ResilienceError`, then a clean evaluate)
+     and `dist.build_program` on 4 stacked ranks, bulk (dist -> gathered)
+     — each with its fallbacks, retries and the serving rung's K1 launches
+     (the counter set to 0 just before, read just after, > 0), its
+     potential held to a clean per-phase one at phase 8's gate, then the
+     accounting identity (faults fired = counted fallbacks + typed errors
+     + retries of transient faults); and `python -m
+     repro_torch.analysis.check_counters` on the card, which must exit 0
+     (its report and trace under `<--out>/check_counters/`);
   9. K4 and K5 against their plain versions on the card: K4 (against the
      plain version with its roundings, and against the one that also walks
      its 128-key tiles) at qwen3-0.6b's prefill shape (B 1, H 16, Hkv 8,
@@ -147,11 +172,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from contextlib import contextmanager
 from dataclasses import replace as dc_replace
 from pathlib import Path
@@ -1378,6 +1405,270 @@ def lm_graph(torch, arch: str, dev, card) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------- phase 8b ------
+REPORT_KEYS = {"obs", "timings", "metrics", "memo", "exe_cache", "geometry",
+               "resilience", "launches", "exchange"}
+PHASE_SPANS = ("engine.upward", "engine.far_field", "engine.p2p_bucket",
+               "engine.m2p")
+
+
+def traced_replays(torch, label, geo, dev, card) -> None:
+    """What tracing costs a warm graphed (gathered) evaluate: medians of 3
+    with obs disabled, enabled, and enabled with fences, each checked to be
+    one replay per evaluate (entry calls, K1 launches)."""
+    from repro_torch import obs
+    from repro_torch.core.api import FMMSession
+    from repro_torch.core.engine import ExecutableCache
+    from repro_torch.kernels import p2p as kp2p
+    sess = FMMSession(geo, device=dev, exe_cache=ExecutableCache())
+    sess.evaluate()                                 # capture
+    entry = sess.engine._entries["evaluate"]
+    per = entry.launches.get("K1", 0)
+    med = {}
+    for mode, kw in (("disabled", None), ("enabled", {}),
+                     ("enabled + fences", {"fences": True})):
+        if kw is None:
+            obs.configure(enabled=False)
+        else:
+            obs.configure(enabled=True, **kw)
+        calls = entry.calls
+        kp2p.launches = 0
+        times = [timed_sync(torch, sess.evaluate)[1] for _ in range(3)]
+        launched = kp2p.launches
+        med[mode] = statistics.median(times)
+        print(f"  {label}, obs {mode}: warm graphed evaluate median "
+              f"{med[mode]:.5f} s (runs {', '.join(f'{t:.5f}' for t in times)}"
+              f"); {entry.calls - calls} replays for 3 evaluates, K1 "
+              f"launches {launched} ({per} a replay); card {card}",
+              flush=True)
+        if entry.calls - calls != 3 or per <= 0 or launched != 3 * per:
+            raise AssertionError(f"{label}, obs {mode}: not one replay per "
+                                 f"warm evaluate")
+    obs.configure(enabled=False)
+    obs.reset()
+    print(f"  {label}: tracing adds {med['enabled'] - med['disabled']:+.5f} "
+          f"s, with fences {med['enabled + fences'] - med['disabled']:+.5f} "
+          f"s to the {med['disabled']:.5f} s untraced evaluate; card {card}",
+          flush=True)
+    del sess, entry
+    torch.cuda.empty_cache()
+
+
+def chaos_case(torch, label, make, site, counter, clean, phi_abs, card,
+               arm=None) -> None:
+    """One site of the chaos matrix, resilience on: arm it (with `arm`, a
+    context manager, in place of `inject_faults(site)`), evaluate with the
+    kernel counter set to 0 just before and read just after, print the
+    fallbacks, retries and launches, and hold the potential to the clean
+    one at phase 8's gate."""
+    from repro_torch.resilience import ResilienceError, inject_faults
+    from repro_torch.resilience import fallback as res_fb
+    sess = make()
+    retried = res_fb.retry_total()
+    rung = sess._current_rung()
+    cm = arm if arm is not None else inject_faults(site)
+    counter.launches = 0
+    typed = None
+    t0 = time.perf_counter()
+    try:
+        with cm:
+            phi = sess.evaluate()
+    except ResilienceError as exc:
+        typed = exc
+    dt = time.perf_counter() - t0
+    st = sess.resilience
+    fb = [(f["site"], f["from"], f["to"]) for f in st.fallbacks]
+    print(f"  chaos {label}: {rung} -> rung {st.rung}, fallbacks {fb}, "
+          f"retries {res_fb.retry_total() - retried}, typed error "
+          f"{None if typed is None else typed.site}, {counter.__name__} "
+          f"launches {counter.launches}; {dt:.3f} s; card {card}",
+          flush=True)
+    if typed is not None:
+        counter.launches = 0
+        phi = sess.evaluate()                       # the fault is spent
+        print(f"    evaluated again on rung {st.rung}: "
+              f"{counter.__name__} launches {counter.launches}", flush=True)
+    if counter.launches <= 0:
+        raise AssertionError(f"chaos {label}: the serving rung launched no "
+                             f"{counter.__name__}")
+    agree(f"chaos {label} vs the clean potential", phi, clean, phi_abs, card)
+    return sess
+
+
+def obs_resilience(torch, geo, spec, x, q, dev, card, out_dir) -> None:
+    """Phase 8b: tracing's cost, fenced phase times, report() and the
+    chrome trace, the chaos matrix with resilience on, and the counters
+    gate on the card."""
+    from repro_torch import obs
+    from repro_torch.core.api import FMMSession, plan_geometry
+    from repro_torch.core.distributions import make_distribution
+    from repro_torch.core.engine import DeviceEngine, ExecutableCache
+    from repro_torch.kernels import p2p as kp2p
+    from repro_torch.launch.mesh import stacked_mesh
+    from repro_torch.resilience import RetryPolicy
+    from repro_torch.resilience import fallback as res_fb
+    from repro_torch.resilience import faults as res_faults
+    n = len(x)
+
+    # -- 1. what tracing costs, at N and at 2^15 ---------------------------
+    traced_replays(torch, f"N = {n}", geo, dev, card)
+    m = 1 << 15
+    xm = make_distribution("sphere", m, seed=42)
+    qm = np.random.default_rng(0).uniform(-1, 1, m)
+    traced_replays(torch, f"N = {m}", plan_geometry(xm, qm, spec,
+                                                    device=dev), dev, card)
+
+    # -- 2. fenced phase times of one per-phase evaluate -------------------
+    tracer = obs.configure(enabled=True, fences=True)
+    eager = FMMSession(geo, device=dev, fused=False)
+    eager.evaluate()
+    tracer.clear()
+    eager.engine._M = None                  # the upward pass recomputed
+    clean, t_wall = timed_sync(torch, eager.evaluate)
+    spans = {}
+    for s in tracer.spans():
+        spans.setdefault(s.name, []).append(s.dur_s)
+    parts = ", ".join(f"{k} {sum(spans.get(k, [0.0])):.5f} s"
+                      + (f" (x{len(spans[k])}: "
+                         + ", ".join(f"{v:.5f}" for v in spans[k]) + ")"
+                         if len(spans.get(k, [])) > 1 else "")
+                      for k in PHASE_SPANS)
+    print(f"  fenced phases of one per-phase evaluate at N = {n}: {parts}; "
+          f"session.evaluate {sum(spans['session.evaluate']):.5f} s, wall "
+          f"{t_wall:.5f} s; card {card}", flush=True)
+    if len(spans.get("engine.p2p_bucket", [])) != \
+            len(eager.engine.tables.p2p_buckets) or any(
+                k not in spans for k in PHASE_SPANS):
+        raise AssertionError(f"fenced phases missing: {sorted(spans)}")
+    e = eager.engine
+    phi_abs = DeviceEngine(e.tables, e.x.cpu().numpy(),
+                           e.q.abs().cpu().numpy(), device=dev,
+                           fused=False).evaluate()
+
+    # -- 3. report() and the chrome trace ----------------------------------
+    rep = eager.report()
+    if set(rep) != REPORT_KEYS:
+        raise AssertionError(f"report() keys {sorted(rep)}")
+    ct = tracer.to_chrome_trace()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "phase8b_trace.json"
+    path.write_text(json.dumps(ct, default=str))
+    print(f"  report(): keys {sorted(rep)}; chrome trace "
+          f"{out_dir.name}/{path.name}: {len(ct['traceEvents'])} events, "
+          f"dropped {ct['otherData']['dropped_events']}", flush=True)
+    del eager, e
+    obs.configure(enabled=True)             # counters on, no fences
+    obs.reset()
+
+    # -- 4. the chaos matrix, resilience on --------------------------------
+    res_faults.reset_stats()
+    res_fb.reset_ledger()
+    cache = ExecutableCache()
+    quick = RetryPolicy(sleep=lambda s: None)
+
+    def session(**kw):
+        s = FMMSession(geo, device=dev, resilience=True, exe_cache=cache,
+                       **kw)
+        s.resilience.retry = quick
+        return s
+
+    @contextmanager
+    def armed_in_capture(site):
+        """Arm `site` once the capture has begun (past the warm-up), so
+        the fault is raised inside `torch.cuda.graph`."""
+        real = torch.cuda.graph
+
+        @contextmanager
+        def graph(*a, **kw):
+            with real(*a, **kw):
+                res_faults.arm(res_faults.FaultPlan({site: {}}))
+                yield
+
+        torch.cuda.graph = graph
+        try:
+            yield
+        finally:
+            torch.cuda.graph = real
+            res_faults.disarm()
+
+    reserved = torch.cuda.memory_reserved(dev)
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always", RuntimeWarning)
+        # exe_cache.compile, transient: retried, then one capture
+        s = chaos_case(torch, "exe_cache.compile (transient)",
+                       lambda: session(), "exe_cache.compile", kp2p, clean,
+                       phi_abs, card, arm=res_faults.inject_faults(
+                           {"exe_cache.compile": {"transient": True}}))
+        if s.resilience.degraded or cache.misses != 1 or len(cache) != 1:
+            raise AssertionError(f"transient capture fault: {cache.stats()}")
+        del s
+        # kernels.p2p.launch raised inside the capture of a fresh shape
+        # class (its own cache): one rung down, nothing cached, card usable
+        own = ExecutableCache()
+        s = chaos_case(torch, "kernels.p2p.launch (in the capture)",
+                       lambda: FMMSession(geo, device=dev, resilience=True,
+                                          exe_cache=own),
+                       "kernels.p2p.launch", kp2p, clean, phi_abs, card,
+                       arm=armed_in_capture("kernels.p2p.launch"))
+        if len(own) != 0 or s.resilience.fallbacks[0]["to"] != "per_phase":
+            raise AssertionError(f"capture fault: {own.stats()}, "
+                                 f"{s.resilience.fallbacks}")
+        del s, own
+        torch.cuda.empty_cache()
+        for label, kw, site in (
+                ("fused.launch (stream session)", dict(p2p_stream=True),
+                 "fused.launch"),
+                ("p2p.stream.tables", dict(p2p_stream=True),
+                 "p2p.stream.tables")):
+            s = chaos_case(torch, label, lambda: session(**kw), site, kp2p,
+                           clean, phi_abs, card)
+            if [(f["from"], f["to"]) for f in s.resilience.fallbacks] != \
+                    [("streaming", "gathered")]:
+                raise AssertionError(f"{label}: {s.resilience.fallbacks}")
+            del s
+        s = chaos_case(torch, "memo.upload (engine=False)",
+                       lambda: session(engine=False), "memo.upload", kp2p,
+                       clean, phi_abs, card)
+        del s
+        s = chaos_case(torch, "dist.build_program (4 stacked ranks, bulk)",
+                       lambda: session(mesh=stacked_mesh(4, dev)),
+                       "dist.build_program", kp2p, clean, phi_abs, card)
+        if [(f["from"], f["to"]) for f in s.resilience.fallbacks] != \
+                [("dist", "gathered")]:
+            raise AssertionError(f"dist: {s.resilience.fallbacks}")
+        del s
+    fired = res_faults.fired_total()
+    led = res_fb.ledger_counts()
+    fallbacks, typed = res_fb.fallback_total(), res_fb.typed_error_total()
+    retries = res_fb.retry_total()
+    print(f"  chaos accounting: faults fired {res_faults.fired_counts()} "
+          f"({fired}) = counted fallbacks {fallbacks} + typed errors {typed} "
+          f"+ retries of transients {retries}; ledgers {led}; "
+          f"{len(warned)} RuntimeWarnings (one per transition); "
+          f"memory_reserved {reserved / 2**30:.3f} GiB before the matrix, "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB after "
+          f"(the matrix's gathered entry held by its cache); card {card}",
+          flush=True)
+    if fired != fallbacks + typed + retries or fired != 6:
+        raise AssertionError("chaos accounting identity broken")
+    obs.configure(enabled=False)
+    obs.reset()
+    del cache
+    torch.cuda.empty_cache()
+
+    # -- 5. the counters gate on the card ----------------------------------
+    gate = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.check_counters",
+         "--out", str(out_dir / "check_counters")],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=600)
+    for line in gate.stdout.strip().splitlines():
+        print(f"  gate: {line}", flush=True)
+    if gate.returncode != 0:
+        print(gate.stderr[-3000:], file=sys.stderr)
+        raise AssertionError(f"check_counters exited {gate.returncode}")
+
+
 # ----------------------------------------------------------- phase 7b ------
 DIST_RANKS = (4, 8)          # ranks stacked on the card: 2 and 1 parts each
 
@@ -1523,6 +1814,9 @@ def dist_exchange(torch, geo, x, q, idx, d, dev, card) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
+    ap.add_argument("--out", type=Path, default=ROOT / "build" / "obs",
+                    help="directory for phase 8b's chrome trace and the "
+                         "counters gate's report")
     args = ap.parse_args()
 
     import torch
@@ -2011,6 +2305,11 @@ def main() -> int:
         compiled_fmm(torch, geo_main, x, q, spec, idx, d, dev, card)
         for arch in ("qwen3-0.6b", "rwkv6-1.6b"):
             lm_graph(torch, arch, dev, card)
+
+    # ------------------------------------------------------------ 8b -----
+    with phase(f"observability and resilience, N = {n}"):
+        obs_resilience(torch, geo_main, spec, x, q, dev, card,
+                       args.out.resolve())
     del geo_main
 
     # ------------------------------------------------------------- 9 -----

@@ -41,8 +41,15 @@ host mirrors (multipoles, LET payloads, grafted views) are filled lazily by
 that partition and exactly the LETs and receiver plans that touch it,
 re-traversed on the resolved backend.
 
-Observability, resilience (the dist -> engine fallback among it) and
-`report()` are later slices: a failed exchange raises.
+Observability (`repro_torch.obs`): planning records the `plan.*` spans,
+the memo its `memo.*` counters and upload events, a session the
+`session.evaluate` / `session.step` spans and counters; `FMMSession.report()`
+gathers them with the cache, launch, resilience and exchange accounting.
+Resilience (`repro_torch.resilience`): with `FMMSession(resilience=True)`
+a failed evaluation walks down the degradation ladder instead of raising
+(`_evaluate_resilient`), a failed device revalidation in `step` falls back
+to the host float64 one, and `health_checks=True` adds the finite-potential
+sentinel and the sampled MAC-slack audit.
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ from dataclasses import dataclass, field, replace as dc_replace
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import protocols as proto
 from repro_torch.core.dist import DIST_PROTOCOLS, ShardedEngine
 from repro_torch.core.engine import DeviceEngine, resolve_cache
@@ -72,6 +80,8 @@ from repro_torch.core.plan import (InteractionPlan, TreeSchedules,
                                    build_tree_schedules)
 from repro_torch.core.tree import bucket_size, build_tree
 from repro_torch.device import resolve_device
+from repro_torch.resilience import fallback as _rfb
+from repro_torch.resilience import faults as _rfaults
 
 __all__ = ["PartitionSpec", "GeometryPlan", "CommSchedule", "SessionResult",
            "StepReport", "RemoteBlock", "ReceiverPlan", "DeviceMemo",
@@ -234,9 +244,11 @@ class DeviceMemo:
     (`torch.tensor`), so no cached tensor keeps its host array alive.
 
     `misses` counts uploads and `hits` counts served tensors, so `misses` is
-    the session's host->device transfer meter.  A tensor passed in is
-    returned as is, moved to `device` and `dtype` where it is not there
-    already, and never cached."""
+    the session's host->device transfer meter (also counted as the obs
+    counters `memo.hits` / `memo.misses`, with one `memo.upload` event per
+    upload; the `memo.upload` fault seam fires before each).  A tensor
+    passed in is returned as is, moved to `device` and `dtype` where it is
+    not there already, and never cached."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -251,9 +263,18 @@ class DeviceMemo:
         hit = self._views.get(key)
         if hit is not None:
             self.hits += 1
+            obs.counter_add("memo.hits")
             return hit[1]
+        _rfaults.fire("memo.upload")
         self.misses += 1
-        dev = torch.tensor(np.asarray(arr), dtype=dtype, device=self.device)
+        obs.counter_add("memo.misses")
+        a = np.asarray(arr)
+        if obs.enabled():
+            obs.event("memo.upload", {"nbytes": int(a.nbytes),
+                                      "shape": list(a.shape),
+                                      "dtype": str(a.dtype if dtype is None
+                                                   else dtype)})
+        dev = torch.tensor(a, dtype=dtype, device=self.device)
         try:
             anchor = weakref.ref(arr, lambda _, k=key: self._views.pop(k, None))
         except TypeError:                   # not weakly referenceable: pin it
@@ -417,70 +438,83 @@ def plan_geometry(x, q, spec: PartitionSpec | None = None, *, device=None,
     _validate_geometry_inputs(x, q, spec)
     n = len(x)
     P = spec.nparts
-    part, boxes, adj_boxes = _partition(
-        x, P, spec.method, sfc_box_inflation=spec.sfc_box_inflation)
-    ops = get_operators(spec.p, dev)
+    with obs.span("plan.geometry") as sp_plan:
+        with obs.span("plan.partition"):
+            part, boxes, adj_boxes = _partition(
+                x, P, spec.method, sfc_box_inflation=spec.sfc_box_inflation)
+        ops = get_operators(spec.p, dev)
 
-    # --- completely local trees (local bounding box, tight cells; §3) ------
-    owners, trees, scheds, Ms = [], [], [], []
-    for pid in range(P):
-        idx = np.nonzero(part == pid)[0]
-        owners.append(idx)
-        if len(idx) == 0:
-            trees.append(None)
-            scheds.append(None)
-            Ms.append(None)
-            continue
-        t = build_tree(x[idx], q[idx], ncrit=spec.ncrit)
-        trees.append(t)
-        scheds.append(build_tree_schedules(t))
-        Ms.append(upward_pass(t, ops, sched=scheds[-1]).cpu().numpy())
+        # --- completely local trees (local bounding box, tight cells; §3) --
+        with obs.span("plan.trees"):
+            owners, trees, scheds, Ms = [], [], [], []
+            for pid in range(P):
+                idx = np.nonzero(part == pid)[0]
+                owners.append(idx)
+                if len(idx) == 0:
+                    trees.append(None)
+                    scheds.append(None)
+                    Ms.append(None)
+                    continue
+                t = build_tree(x[idx], q[idx], ncrit=spec.ncrit)
+                trees.append(t)
+                scheds.append(build_tree_schedules(t))
+                Ms.append(upward_pass(t, ops, sched=scheds[-1]).cpu().numpy())
 
-    # --- sender-initiated LET extraction: all remote boxes per sender in one
-    #     batched frontier pass; empty partitions neither send nor receive --
-    lets: dict[tuple[int, int], LETData] = {}
-    B = np.zeros((P, P), dtype=np.int64)
-    for i in range(P):
-        if trees[i] is None:
-            continue
-        others = np.array([j for j in range(P)
-                           if j != i and trees[j] is not None], dtype=np.int64)
-        if len(others) == 0:
-            continue
-        for j, let in zip(others, extract_lets(trees[i], Ms[i],
-                                               boxes[others, 0],
-                                               boxes[others, 1], spec.theta)):
-            lets[(i, int(j))] = let
-            B[i, j] = let.nbytes
+        # --- sender-initiated LET extraction: all remote boxes per sender in
+        #     one batched frontier pass; empty partitions neither send nor
+        #     receive -----------------------------------------------------
+        with obs.span("plan.lets"):
+            lets: dict[tuple[int, int], LETData] = {}
+            B = np.zeros((P, P), dtype=np.int64)
+            for i in range(P):
+                if trees[i] is None:
+                    continue
+                others = np.array([j for j in range(P)
+                                   if j != i and trees[j] is not None],
+                                  dtype=np.int64)
+                if len(others) == 0:
+                    continue
+                for j, let in zip(others, extract_lets(trees[i], Ms[i],
+                                                       boxes[others, 0],
+                                                       boxes[others, 1],
+                                                       spec.theta)):
+                    lets[(i, int(j))] = let
+                    B[i, j] = let.nbytes
 
-    # --- receiver side: graft + traverse ONCE into frozen plans ------------
-    pad_cells = _geometry_pad_cells(trees)
-    receivers: list = []
-    for j in range(P):
-        if trees[j] is None:
-            receivers.append(None)
-            continue
-        t = trees[j]
-        local, local_margin = _plan_pair(t, t, spec.theta, False, backend,
-                                         pad_cells, dev)
-        remote = [_remote_block(i, lets[(i, j)], t, spec.theta, backend,
-                                pad_cells, dev)
-                  for i in range(P) if (i, j) in lets]
-        receivers.append(ReceiverPlan(tree=t, sched=scheds[j], local=local,
-                                      local_margin=local_margin,
-                                      remote=remote))
+        # --- receiver side: graft + traverse ONCE into frozen plans --------
+        with obs.span("plan.receivers"):
+            pad_cells = _geometry_pad_cells(trees)
+            receivers: list = []
+            for j in range(P):
+                if trees[j] is None:
+                    receivers.append(None)
+                    continue
+                t = trees[j]
+                local, local_margin = _plan_pair(t, t, spec.theta, False,
+                                                 backend, pad_cells, dev)
+                remote = [_remote_block(i, lets[(i, j)], t, spec.theta,
+                                        backend, pad_cells, dev)
+                          for i in range(P) if (i, j) in lets]
+                receivers.append(ReceiverPlan(
+                    tree=t, sched=scheds[j], local=local,
+                    local_margin=local_margin, remote=remote))
 
-    adj = adjacency_from_boxes(adj_boxes)
-    deg = float(np.max([len(a) for a in adj]))
-    return GeometryPlan(
-        spec=spec, n=n, x0=x.copy(), q0=q.copy(), x_ref=x.copy(),
-        part=part, owners=owners, boxes=boxes, adj_boxes=adj_boxes,
-        trees=trees, scheds=scheds, Ms=Ms, lets=lets,
-        receivers=receivers, bytes_matrix=B,
-        adjacency_degree=deg, diameter=graph_diameter(adj),
-        slack=_slack_budget(P, spec.theta, receivers, lets),
-        partition_stats=dict(nparts=P, method=spec.method),
-    )
+        adj = adjacency_from_boxes(adj_boxes)
+        deg = float(np.max([len(a) for a in adj]))
+        obs.counter_add("plan.builds")
+        if obs.enabled():
+            sp_plan.set({"n": int(n), "nparts": int(P),
+                         "method": spec.method, "backend": backend,
+                         "let_bytes": int(B.sum())})
+        return GeometryPlan(
+            spec=spec, n=n, x0=x.copy(), q0=q.copy(), x_ref=x.copy(),
+            part=part, owners=owners, boxes=boxes, adj_boxes=adj_boxes,
+            trees=trees, scheds=scheds, Ms=Ms, lets=lets,
+            receivers=receivers, bytes_matrix=B,
+            adjacency_degree=deg, diameter=graph_diameter(adj),
+            slack=_slack_budget(P, spec.theta, receivers, lets),
+            partition_stats=dict(nparts=P, method=spec.method),
+        )
 
 
 # --------------------------------------------------------------- layer 2 ---
@@ -620,13 +654,29 @@ class FMMSession:
     (`.dist`), its LET moved by the `dist_protocol` program ("bulk",
     "grain" with `dist_grain_bytes` chunks, or "hsdx"); with
     `REPRO_VERIFY_EXCHANGE=1` every delivered span is checked once per
-    (protocol, geometry version) first.  A failed exchange raises."""
+    (protocol, geometry version) first.
+
+    `resilience` (default `REPRO_RESILIENCE`, off): off, a failed exchange,
+    capture, launch or upload raises.  On, it costs one rung of the
+    degradation ladder (`resilience.fallback.LADDER`; the session's knobs
+    classify it, `_current_rung`): dist -> streaming (K2) -> gathered (K1,
+    compiled on a CUDA device) -> per_phase (K1, `fused=False`) ->
+    reference (`execute_geometry`, K1 once a block); `xla_slab` has no rung
+    in the port and is skipped, and no rung runs a plain near field on a
+    CUDA device.  A failed exchange or exchange verification drops the mesh
+    for the single-device engine.  Transient errors retry in place first.
+    Every downgrade is counted, warned once and listed in
+    `report()["resilience"]`; an exhausted ladder raises
+    `ResilienceError`.  `health_checks=True` adds the finite-potential and
+    finite-multipole sentinel and the sampled MAC-slack audit of a step."""
 
     def __init__(self, geometry: GeometryPlan, *, device=None,
                  engine: bool | None = None,
                  p2p_stream: bool = False, fused: bool | None = None,
                  exe_cache=None, mesh=None, dist_protocol: str = "bulk",
-                 dist_grain_bytes: int | None = None):
+                 dist_grain_bytes: int | None = None,
+                 resilience: bool | None = None,
+                 health_checks: bool | None = None):
         if not (hasattr(geometry, "receivers")
                 and hasattr(geometry, "bytes_matrix")):
             raise ValueError(
@@ -647,6 +697,10 @@ class FMMSession:
         self.mesh = mesh                 # a dist.comm mesh -> dist dispatch
         self.dist_protocol = dist_protocol
         self.dist_grain_bytes = dist_grain_bytes
+        self.resilience = _rfb.ResilienceState(
+            enabled=(_rfb.default_resilience_enabled() if resilience is None
+                     else bool(resilience)),
+            health_checks=bool(health_checks))
         self._engine = None
         self._dist = None
         self._memo = DeviceMemo(self.device)
@@ -661,13 +715,16 @@ class FMMSession:
                     p2p_stream: bool = False, fused: bool | None = None,
                     exe_cache=None, mesh=None, dist_protocol: str = "bulk",
                     dist_grain_bytes: int | None = None,
+                    resilience: bool | None = None,
+                    health_checks: bool | None = None,
                     **overrides) -> "FMMSession":
         dev = resolve_device(device)
         return cls(plan_geometry(x, q, spec, device=dev, **overrides),
                    device=dev, engine=engine, p2p_stream=p2p_stream,
                    fused=fused, exe_cache=exe_cache, mesh=mesh,
                    dist_protocol=dist_protocol,
-                   dist_grain_bytes=dist_grain_bytes)
+                   dist_grain_bytes=dist_grain_bytes, resilience=resilience,
+                   health_checks=health_checks)
 
     @property
     def geometry(self) -> GeometryPlan:
@@ -729,6 +786,76 @@ class FMMSession:
                  else resolve_cache(self.exe_cache))
         return cache.stats()
 
+    def report(self, *, measure_exchange: bool | None = None,
+               protocols=None, reps: int = 3) -> dict:
+        """One structured flight-recorder dict for this session, with the
+        reference's keys: `obs` (tracer state), `timings` (span wall time
+        by name), `metrics` (counters, gauges, histograms), `memo`,
+        `exe_cache`, `geometry`, `resilience` (the ladder's state and every
+        fallback), `launches` and `exchange`.
+
+        `launches`, per compiled entry kind: its `calls`, the CUDA graph
+        replays one call makes (`entry_computations`: 1 when captured, 0 on
+        the CPU, where nothing is captured), `captured`, and the kernel
+        launches a replay makes as its capture recorded them
+        (`kernel_launches`); plus `fused_dispatches`, the engine's compiled
+        calls.  `exchange`, on a mesh session, per dist protocol: the wire
+        accounting, and with `measure_exchange` (default: tracing enabled)
+        the exchange alone timed `reps` times beside its LogGP prediction
+        (`ShardedEngine.measure_exchange`, with `model_drift`).  Never
+        raises on mesh-less or engine-less sessions: those blocks are
+        marked `{"enabled": False}`."""
+        tracer = obs.get_tracer()
+        rep: dict = {
+            "obs": {"enabled": obs.enabled(),
+                    "fences": obs.fences_enabled(),
+                    "events": len(tracer.events) if tracer else 0,
+                    "dropped": tracer.dropped if tracer else 0},
+            "timings": tracer.summary() if tracer else {},
+            "metrics": obs.metrics_snapshot(),
+            "memo": {"hits": self._memo.hits, "misses": self._memo.misses,
+                     "resident_views": len(self._memo._views)},
+            "exe_cache": self.exe_cache_stats,
+            "geometry": {"n": int(self._geo.n),
+                         "nparts": int(self._geo.spec.nparts),
+                         "version": int(self._geo.version),
+                         "bytes_matrix_total":
+                             int(self._geo.bytes_matrix.sum())},
+            "resilience": self.resilience.snapshot(),
+        }
+        eng = self._engine
+        if eng is not None and eng._entries:
+            launches: dict = {}
+            for kind, entry in eng._entries.items():
+                captured = entry.call.graph is not None
+                launches[kind] = {"calls": entry.calls,
+                                  "entry_computations": int(captured),
+                                  "captured": captured,
+                                  "kernel_launches": entry.launches}
+            launches["fused_dispatches"] = len(eng.launch_log)
+            rep["launches"] = launches
+        else:
+            rep["launches"] = {"enabled": False}
+
+        if self.mesh is None:
+            rep["exchange"] = {"enabled": False, "protocols": {}}
+        else:
+            do_measure = (obs.enabled() if measure_exchange is None
+                          else bool(measure_exchange))
+            names = tuple(protocols) if protocols else DIST_PROTOCOLS
+            per_proto = {}
+            for name in names:
+                if do_measure:
+                    per_proto[name] = self.dist.measure_exchange(name,
+                                                                 reps=reps)
+                else:
+                    per_proto[name] = self.dist.exchange_stats(name)
+            rep["exchange"] = {"enabled": True,
+                               "protocol": self.dist_protocol,
+                               "measured": do_measure,
+                               "protocols": per_proto}
+        return rep
+
     # ------------------------------------------------------------- comm ---
     def comm(self, protocol: str = "hsdx", grain_bytes: int | None = None,
              prm: proto.LogGPParams | None = None,
@@ -745,31 +872,145 @@ class FMMSession:
             self._comm_cache[key] = cs
         return cs
 
-    # ------------------------------------------------------------ kernels -
+    # ------------------------------------------------------- resilience ---
+    def _current_rung(self) -> str:
+        """Classify the session's knobs onto the degradation ladder
+        (`fallback.LADDER`): a mesh is "dist", `engine=False` "reference",
+        `p2p_stream` "streaming", `fused=False` "per_phase", else
+        "gathered" (`fused` at its default or on).  The inverse of
+        `_apply_rung`: applying a rung and then classifying returns it."""
+        if self.mesh is not None:
+            return "dist"
+        if not self.engine_enabled:
+            return "reference"
+        if self.p2p_stream:
+            return "streaming"
+        return "per_phase" if self.fused is False else "gathered"
+
+    def _apply_rung(self, rung: str) -> None:
+        """Set the session's knobs to a single-device ladder rung and drop
+        the engine, so the next evaluation rebuilds on the new route (the
+        memo and the entry cache are kept; an entry's key holds its route,
+        so no entry of the route given up serves the new one)."""
+        if rung == "streaming":
+            self.engine_enabled, self.p2p_stream = True, True
+        elif rung == "gathered":
+            self.engine_enabled, self.p2p_stream = True, False
+            if self.fused is False:
+                self.fused = None
+        elif rung == "per_phase":
+            self.engine_enabled, self.p2p_stream = True, False
+            self.fused = False
+        elif rung == "reference":
+            self.engine_enabled = False
+        else:
+            raise ValueError(f"no single-device ladder rung {rung!r} in the "
+                             "port")
+        self._engine = None
+
+    def _downgrade(self, exc: BaseException) -> None:
+        """Step one rung DOWN the ladder after `exc` killed the current one
+        (`xla_slab` skipped).  Dist failures drop the mesh and re-enter at
+        whatever single-device rung the knobs select; below `reference`
+        the ladder is exhausted and the typed `ResilienceError` carrying
+        the failing site is raised."""
+        frm = self._current_rung()
+        site = getattr(exc, "site", frm)
+        if frm == "dist":
+            self.mesh = None
+            self._dist = None
+            to = self._current_rung()
+        else:
+            below = [r for r in _rfb.LADDER[_rfb.LADDER.index(frm) + 1:]
+                     if r != "xla_slab"]
+            if not below:
+                raise _rfb.ResilienceError(
+                    site, f"resilience ladder exhausted at {frm!r}: "
+                          f"{exc}") from exc
+            to = below[0]
+            self._apply_rung(to)
+        self.resilience.note_fallback(site, frm, to, exc)
+
+    def _phi_healthy(self, phi) -> bool:
+        """Opt-in numerical sentinel: phi (and, under engine dispatch, the
+        engine's cached multipoles) must be finite.  A failure is treated
+        like any rung failure: downgrade and recompute on the next rung."""
+        st = self.resilience
+        st.health["checks"] += 1
+        ok = bool(np.isfinite(phi).all())
+        eng = self._engine
+        if ok and eng is not None and eng._M is not None:
+            ok = bool(torch.isfinite(eng._M).all())
+        if not ok:
+            st.health["failures"] += 1
+            obs.counter_add("resilience.health_failures")
+        return ok
+
     def _verify_exchange_once(self) -> None:
         """`REPRO_VERIFY_EXCHANGE=1`: check every delivered wire span
         against its sender-side payload, once per (protocol, geometry
-        version); raises `dist.ExchangeVerificationError` on a mismatch."""
+        version); raises `ExchangeVerificationError` on a mismatch —
+        terminal without resilience, a dist -> engine downgrade with it."""
         key = (self.dist_protocol, self._geo.version)
         if key in self._exchange_verified:
             return
         self.dist.verify_exchange(self.dist_protocol)
         self._exchange_verified.add(key)
+        self.resilience.exchange_verified += 1
 
-    def evaluate(self) -> np.ndarray:
-        """Evaluate now (ignoring the potential cache) and refresh the cached
-        potential; returns it in original body order (float64, host).  The
-        array is read-only: every SessionResult of this geometry version
-        shares it."""
+    def _dispatch_evaluate(self) -> tuple:
+        """One evaluation attempt on the CURRENT rung -> (phi, dispatch)."""
         if self.mesh is not None:
             if os.environ.get("REPRO_VERIFY_EXCHANGE", "") in (
                     "1", "on", "yes", "true"):
                 self._verify_exchange_once()
-            phi = self.dist.evaluate(self.dist_protocol)
-        elif self.engine_enabled:
-            phi = self.engine.evaluate()
-        else:
-            phi = execute_geometry(self._geo, asarray=self._memo)
+            return self.dist.evaluate(self.dist_protocol), "dist"
+        if self.engine_enabled:
+            return self.engine.evaluate(), "engine"
+        return execute_geometry(self._geo, asarray=self._memo), "reference"
+
+    def _evaluate_resilient(self) -> tuple:
+        """Walk the ladder until a rung produces a (healthy) potential.
+        Transient failures retry in place with backoff; anything else costs
+        one rung.  Terminates: every iteration either returns or strictly
+        descends the finite ladder (`_downgrade` raises at the bottom)."""
+        st = self.resilience
+        while True:
+            rung = self._current_rung()
+            try:
+                phi, dispatch = _rfb.call_with_retry(
+                    self._dispatch_evaluate, site=rung,
+                    policy=st.retry, state=st)
+            except _rfb.ResilienceError:
+                raise                       # already terminal + counted
+            except Exception as exc:
+                self._downgrade(exc)
+                continue
+            if st.health_checks and not self._phi_healthy(phi):
+                exc = RuntimeError(
+                    f"non-finite potential from rung {rung!r}")
+                exc.site = "health.phi"
+                self._downgrade(exc)
+                continue
+            st.rung = rung
+            return phi, dispatch
+
+    # ------------------------------------------------------------ kernels -
+    def evaluate(self) -> np.ndarray:
+        """Evaluate now (ignoring the potential cache) and refresh the cached
+        potential; returns it in original body order (float64, host).  With
+        `resilience=True` a failing route degrades down the ladder instead
+        of raising (`_evaluate_resilient`).  The array is read-only: every
+        SessionResult of this geometry version shares it."""
+        with obs.span("session.evaluate") as sp:
+            if self.resilience.enabled:
+                phi, dispatch = self._evaluate_resilient()
+            else:
+                phi, dispatch = self._dispatch_evaluate()
+            obs.counter_add("session.evaluations")
+            if obs.enabled():
+                sp.set({"dispatch": dispatch, "n": int(self._geo.n),
+                        "version": int(self._geo.version)})
         phi.setflags(write=False)
         self._phi, self._phi_version = phi, self._geo.version
         return phi
@@ -807,10 +1048,26 @@ class FMMSession:
         structure the MAC slack margins still cover (module docstring).
 
         Unmoved bodies are a cache hit: the geometry object, its version,
-        the engine, the memo and the cached potential are untouched.  Drift within a partition's slack
-        rebinds that partition's payload onto the cached structure; drift
-        beyond it rebuilds the partition and exactly the LETs and receiver
-        plans that touch it."""
+        the engine, the memo and the cached potential are untouched.  Drift
+        within a partition's slack rebinds that partition's payload onto
+        the cached structure; drift beyond it rebuilds the partition and
+        exactly the LETs and receiver plans that touch it.
+
+        With `resilience=True` a failed device revalidation (`step_drift`)
+        falls back to the host float64 one, counted; with `health_checks`
+        as well, up to 4 partitions' device drifts are audited against the
+        exact host float64 ones, and a disagreement beyond the float32
+        guard band sends the step to the host revalidation."""
+        with obs.span("session.step") as sp:
+            report = self._step_impl(new_x, new_q)
+            obs.counter_add("session.steps")
+            if obs.enabled():
+                sp.set({"cache_hit": report.cache_hit,
+                        "rebuilt": len(report.rebuilt),
+                        "refreshed": len(report.refreshed)})
+        return report
+
+    def _step_impl(self, new_x, new_q=None) -> StepReport:
         geo = self._geo
         P = geo.spec.nparts
         new_x = np.array(new_x, dtype=np.float64)
@@ -838,13 +1095,38 @@ class FMMSession:
                and self._engine is not None and self._engine.geo is geo
                else None)
         use_dev = eng is not None and q_unchanged
+        res = self.resilience
         if use_dev:
-            delta, stale = eng.step_drift(new_x)
-            if np.any(stale & (delta > geo.slack - eng.drift_guard)):
+            try:
+                delta, stale = eng.step_drift(new_x)
+            except Exception as exc:
+                if not res.enabled:
+                    raise
+                # device revalidation died: the host float64 loop below
+                # gives the same answers one rung slower
+                res.note_fallback(getattr(exc, "site", "engine.step_drift"),
+                                  "device_revalidation", "host", exc)
+                use_dev = False
+            if use_dev and np.any(stale & (delta > geo.slack
+                                           - eng.drift_guard)):
                 # a rebuild is coming, or a drift sits within the float32
                 # guard band of its slack: rebuild decisions and the
                 # conservative LET re-extraction boxes use exact float64
                 use_dev = False
+            if use_dev and res.enabled and res.health_checks:
+                # sampled MAC-slack audit: a silent drift underestimate is
+                # the one failure that serves a stale potential as a hit
+                for j in [j for j in range(P) if len(geo.owners[j])][:4]:
+                    idx = geo.owners[j]
+                    exact = math.sqrt(float(
+                        ((new_x[idx] - geo.x_ref[idx]) ** 2)
+                        .sum(axis=1).max()))
+                    res.audits["checks"] += 1
+                    if abs(exact - float(delta[j])) > eng.drift_guard:
+                        res.audits["failures"] += 1
+                        obs.counter_add("resilience.audit_failures")
+                        use_dev = False
+                        break
         if not use_dev:
             if eng is not None:
                 eng.discard_pending()

@@ -46,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.dist import programs as prog_mod
 from repro_torch.core.dist.layout import build_wire_layout, build_wire_tables
 from repro_torch.core.engine.fused import accumulate_flat
@@ -55,6 +56,7 @@ from repro_torch.core.engine.schedules import (build_batched_upward,
 from repro_torch.core.engine.upward import batched_upward_kernel
 from repro_torch.core.multipole import get_operators
 from repro_torch.kernels.p2p import p2p
+from repro_torch.resilience.fallback import ExchangeVerificationError
 
 __all__ = ["ShardedEngine", "ExchangeVerificationError"]
 
@@ -71,15 +73,6 @@ _MESH_ATTRS = ("n_ranks", "local_ranks", "device", "all_to_all", "ppermute",
                "all_gather")
 
 
-class ExchangeVerificationError(RuntimeError):
-    """A delivered wire span did not match its sender-side payload
-    (`ShardedEngine.verify_exchange`).  `site` names the check."""
-
-    def __init__(self, site: str, message: str):
-        super().__init__(message)
-        self.site = site
-
-
 def _pad_rank_rows(rows: dict, cap: int, fills: dict) -> dict:
     out = {}
     n = len(next(iter(rows.values()))) if rows else 0
@@ -94,7 +87,9 @@ def _pad_rank_rows(rows: dict, cap: int, fills: dict) -> dict:
 
 
 def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
+    """Wait for the device (not while a stream captures a CUDA graph, where
+    a synchronize would invalidate the capture)."""
+    if device.type == "cuda" and not torch.cuda.is_current_stream_capturing():
         torch.cuda.synchronize(device)
 
 
@@ -349,8 +344,9 @@ class ShardedEngine:
     # ----------------------------------------------------------- programs --
     def program(self, protocol: str) -> prog_mod.ExchangeProgram:
         if protocol not in self._programs:
-            self._programs[protocol] = prog_mod.build_exchange_program(
-                self.layout, protocol, grain_bytes=self.grain_bytes)
+            with obs.span("dist.build_program"):
+                self._programs[protocol] = prog_mod.build_exchange_program(
+                    self.layout, protocol, grain_bytes=self.grain_bytes)
         return self._programs[protocol]
 
     def exchange_stats(self, protocol: str) -> dict:
@@ -473,13 +469,17 @@ class ShardedEngine:
         """Full potential in original body order (float64, host): pack,
         exchange and compute on every rank this process holds, the ranks'
         float64 potentials all-gathered over the mesh."""
-        program = self.program(protocol)
-        pools, Ms = self._pack()
-        pools = prog_mod.apply_exchange(pools, program,
-                                        self._rounds(program), self.mesh)
-        phis = torch.stack([self._compute(l, Ms[l], pools[l])
-                            for l in range(len(self._ranks))])
-        phi_flat = self.mesh.all_gather(phis).reshape(-1)
+        with obs.span("dist.evaluate") as sp:
+            program = self.program(protocol)
+            pools, Ms = self._pack()
+            pools = prog_mod.apply_exchange(pools, program,
+                                            self._rounds(program), self.mesh)
+            phis = torch.stack([self._compute(l, Ms[l], pools[l])
+                                for l in range(len(self._ranks))])
+            phi_flat = sp.fence(self.mesh.all_gather(phis).reshape(-1))
+            obs.counter_add("dist.evaluations")
+            if obs.enabled():
+                sp.set({"protocol": protocol, "n_ranks": self.n_ranks})
         phi = torch.zeros(self.geo.n, dtype=torch.float64,
                           device=self.device)
         phi[self._orig_t] = phi_flat[self._flat_t]
@@ -515,7 +515,8 @@ class ShardedEngine:
         first corrupted span; returns the number of verified spans.  A
         session runs it once per (protocol, geometry version) under
         `REPRO_VERIFY_EXCHANGE=1`."""
-        packed, exchanged = self.exchange_pools(protocol)
+        with obs.span("dist.verify_exchange"):
+            packed, exchanged = self.exchange_pools(protocol)
         lay = self.layout
         for (i, j) in lay.pairs:
             off, w = lay.span_off[(i, j)], lay.span_words[(i, j)]
@@ -529,6 +530,7 @@ class ShardedEngine:
                     f"protocol {protocol!r}: span ({i}, {j}) "
                     f"[rank {ri} -> rank {rj}, {w} words @ {off}] arrived "
                     f"corrupted: {nbad} mismatched words")
+        obs.counter_add("dist.exchange.verified")
         return len(lay.pairs)
 
     # ---------------------------------------------------------- benchmark --
@@ -587,4 +589,11 @@ class ShardedEngine:
         st.update(measured_s=measured, loggp_s=loggp, model_drift=drift,
                   reps=reps, rounds=rounds,
                   rank_bytes=self.layout.rank_bytes.tolist())
+        obs.observe(f"dist.model_drift.{protocol}", drift)
+        if obs.enabled():
+            obs.event("dist.exchange_probe",
+                      {"protocol": protocol, "measured_s": measured,
+                       "loggp_s": loggp, "model_drift": drift,
+                       "moved_bytes": int(p.moved_bytes.sum()),
+                       "n_rounds": p.n_rounds})
         return st

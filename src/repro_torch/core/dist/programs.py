@@ -37,9 +37,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import hsdx as hsdx_mod
 from repro_torch.core import protocols as proto
 from repro_torch.core.dist.layout import WireLayout
+from repro_torch.resilience import faults as _faults
 
 __all__ = ["DIST_PROTOCOLS", "Round", "ExchangeProgram",
            "build_exchange_program", "rank_schedule", "round_tables",
@@ -232,6 +234,7 @@ def _hsdx(layout: WireLayout, sched: proto.Schedule) -> tuple:
 def build_exchange_program(layout: WireLayout, protocol: str, *,
                            grain_bytes: int | None = None) -> ExchangeProgram:
     """Build (and self-verify) one protocol's collective program."""
+    _faults.fire("dist.build_program")
     sched = rank_schedule(layout, protocol)
     offdiag = layout.rank_bytes.copy()
     np.fill_diagonal(offdiag, 0)
@@ -258,6 +261,12 @@ def build_exchange_program(layout: WireLayout, protocol: str, *,
         raise RuntimeError(
             f"{protocol}: delivered {delivered.tolist()} != bytes matrix "
             f"{offdiag.tolist()}")
+    if obs.enabled():
+        obs.event("dist.program_built",
+                  {"protocol": protocol, "n_rounds": len(rounds),
+                   "moved_bytes": int(moved.sum()),
+                   "delivered_bytes": int(delivered.sum()),
+                   "padded_wire_bytes": int(padded)})
     return ExchangeProgram(
         protocol=protocol, layout=layout, sched=sched, rounds=rounds,
         moved_bytes=moved, delivered_bytes=delivered,

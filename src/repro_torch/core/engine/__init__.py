@@ -32,6 +32,18 @@ Compiled serving (`fused=True`, the default on a CUDA device): a warm
 payload into them when it changed, and its tables when the entry last
 served another engine (`CompiledEntry.rebinds`).  The per-phase methods
 stay available on the same engine and are the pinned comparison.
+
+Observability (`repro_torch.obs`, the reference's names): the per-phase
+route records the spans `engine.upward`, `engine.far_field`,
+`engine.p2p_bucket` (one a K1 bucket) or `engine.p2p_stream`, and
+`engine.m2p`, each fenced under `REPRO_TRACE_FENCES`; a compiled evaluate
+records `engine.fused_evaluate` around the replay (the `fused.launch`
+fault seam fires in it, before the replay) and counts
+`engine.fused_launches` and the `p2p.stream.*` counters after it, outside
+the captured call; `step_drift` records `engine.step_drift`; the stream
+tables count `p2p.stream.builds` / `p2p.stream.fallbacks`.  Left out: the
+reference's `engine.donate.*` counters (static buffers replace donation)
+and `p2p.autotune.*` (K1's launch shape is fixed, no autotune).
 """
 from __future__ import annotations
 
@@ -40,6 +52,7 @@ import itertools
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.engine import fused as fused_mod
 from repro_torch.core.engine.exe_cache import (GLOBAL_CACHE, CompiledEntry,
                                                ExecutableCache, resolve_cache)
@@ -58,6 +71,7 @@ from repro_torch.core.engine.upward import batched_upward_kernel
 from repro_torch.core.multipole import get_operators
 from repro_torch.device import resolve_device
 from repro_torch.kernels.p2p import heuristic_stream_params
+from repro_torch.resilience import faults as _faults
 
 __all__ = ["DeviceEngine", "EngineTables", "build_engine_tables",
            "build_p2p_stream_tables", "stack_bodies", "default_fused_enabled",
@@ -200,23 +214,27 @@ class DeviceEngine:
             raise ValueError("step_drift needs the engine's geometry: build "
                              "it with DeviceEngine.from_geometry")
         t = self.tables
-        if self._x_ref_pad is None:
-            self._x_ref_pad = torch.as_tensor(
-                stack_reference_bodies(self.geo, t), device=self.device)
-        new_x = torch.as_tensor(np.asarray(new_x, np.float32))
-        if self.fused:
-            entry = self._fused_entry("step")
-            self._bind(entry, "step")
-            entry.inputs["new_x"].copy_(new_x)
-            drift, changed, x_pad = entry()
-            self.launch_log.append(("step", entry.key))
-        else:
-            x_pad = restack_payload(new_x.to(self.device), t.orig_idx,
-                                    t.flat_idx, t.n_parts, t.n_bodies_max)
-            drift, changed = partition_drift(x_pad, self._x_ref_pad, self.x)
-        self._pending_x = x_pad
-        return (drift.cpu().numpy().astype(np.float64),
-                changed.cpu().numpy())
+        with obs.span("engine.step_drift"):
+            if self._x_ref_pad is None:
+                self._x_ref_pad = torch.as_tensor(
+                    stack_reference_bodies(self.geo, t), device=self.device)
+            new_x = torch.as_tensor(np.asarray(new_x, np.float32))
+            if self.fused:
+                entry = self._fused_entry("step")
+                self._bind(entry, "step")
+                entry.inputs["new_x"].copy_(new_x)
+                drift, changed, x_pad = entry()
+                self.launch_log.append(("step", entry.key))
+                obs.counter_add("engine.fused_launches")
+            else:
+                x_pad = restack_payload(new_x.to(self.device), t.orig_idx,
+                                        t.flat_idx, t.n_parts,
+                                        t.n_bodies_max)
+                drift, changed = partition_drift(x_pad, self._x_ref_pad,
+                                                 self.x)
+            self._pending_x = x_pad
+            return (drift.cpu().numpy().astype(np.float64),
+                    changed.cpu().numpy())
 
     # ----------------------------------------------------------- compiled --
     def _fused_entry(self, kind: str):
@@ -288,10 +306,26 @@ class DeviceEngine:
         potential out; only the (N,) potential moves to the host.  The
         multipoles the entry returns stay in its buffer (another engine's
         replay may overwrite them), so `upward()` does not take them."""
-        entry = self._fused_entry("evaluate")
-        self._bind(entry, "evaluate")
-        phi, _ = entry()
-        self.launch_log.append(("evaluate", entry.key))
+        with obs.span("engine.fused_evaluate") as sp:
+            # simulated out-of-memory seam: what an oversubscribed card
+            # raises on the launch, and what the resilience ladder
+            # downgrades past
+            _faults.fire("fused.launch")
+            entry = self._fused_entry("evaluate")
+            self._bind(entry, "evaluate")
+            phi, _ = sp.fence(entry())
+            self.launch_log.append(("evaluate", entry.key))
+            obs.counter_add("engine.fused_launches")
+            if self._stream is not None:
+                # K2 launches a replay, as its capture recorded them; an
+                # entry on the CPU captures nothing and calls the near
+                # field's plain version once
+                obs.counter_add("p2p.stream.launches",
+                                entry.launches.get("K2", 1))
+                obs.counter_add("p2p.stream.tiles",
+                                self._stream["n_live_tiles"])
+                obs.counter_add("p2p.stream.dma_tiles",
+                                2 * self._stream["n_live_tiles"])
         return phi.cpu().numpy()
 
     # ---------------------------------------------------------- streaming --
@@ -314,9 +348,17 @@ class DeviceEngine:
         stream = build_p2p_stream_tables(buckets, block_t)
         if stream is None:
             self.stream_fallbacks += 1
+            obs.counter_add("p2p.stream.fallbacks")
             self.p2p_stream = False
             return None
         self._stream = to_device(stream, self.device)
+        obs.counter_add("p2p.stream.builds")
+        if obs.enabled():
+            obs.event("p2p.stream.tables",
+                      {"n_tiles": stream["n_tiles"],
+                       "n_live_tiles": stream["n_live_tiles"],
+                       "smax": stream["smax"], "block_t": block_t,
+                       "n_buckets": len(buckets)})
         return self._stream
 
     # ------------------------------------------------------------ phases --
@@ -324,32 +366,47 @@ class DeviceEngine:
         """Multipoles (P, n_cells_max, nk) f32, cached per payload."""
         if self._M is None:
             t = self.tables
-            self._M = batched_upward_kernel(self.ops, self.x, self.q,
-                                            t.up.tables, t.n_cells_max)
+            with obs.span("engine.upward") as sp:
+                self._M = sp.fence(batched_upward_kernel(
+                    self.ops, self.x, self.q, t.up.tables, t.n_cells_max))
         return self._M
 
     def far_field(self, M) -> tuple:
         """(idx, valid, vals): the L2P values of the far field."""
         t = self.tables
-        vals = far_tail_kernel(self.ops, M, self.x, t.m2l, t.up.tables)
+        with obs.span("engine.far_field") as sp:
+            vals = sp.fence(far_tail_kernel(self.ops, M, self.x, t.m2l,
+                                            t.up.tables))
         return t.l2p_t_idx, t.up.tables["leaf_valid"], vals
 
     def near_field(self) -> list:
         """[(idx, valid, vals)]: one entry per K1 bucket, or one K2 entry."""
         stream = self.stream_tables()
         if stream is not None:
-            vals = p2p_stream_vals(self.x, self.q, stream)
+            with obs.span("engine.p2p_stream") as sp:
+                vals = sp.fence(p2p_stream_vals(self.x, self.q, stream))
+                obs.counter_add("p2p.stream.launches")
+                obs.counter_add("p2p.stream.tiles", stream["n_live_tiles"])
+                # two slab reads (sources + targets) per live tile
+                obs.counter_add("p2p.stream.dma_tiles",
+                                2 * stream["n_live_tiles"])
             return [(stream["out_idx"], stream["out_valid"], vals)]
-        return [(b["t_idx"], b["t_valid"], p2p_bucket_vals(self.x, self.q, b))
-                for b in self.tables.p2p_buckets]
+        out = []
+        for b in self.tables.p2p_buckets:
+            with obs.span("engine.p2p_bucket") as sp:
+                vals = sp.fence(p2p_bucket_vals(self.x, self.q, b))
+            out.append((b["t_idx"], b["t_valid"], vals))
+        return out
 
     def m2p(self, M) -> tuple | None:
         """(idx, valid, vals) of the M2P fallback, or None without rows."""
         m = self.tables.m2p
         if m["b"].shape[0] == 0:
             return None
-        vals = m2p_vals_kernel(self.ops, M, self.x, m["b"], m["centers"],
-                               m["mask"], m["t_idx"])
+        with obs.span("engine.m2p") as sp:
+            vals = sp.fence(m2p_vals_kernel(self.ops, M, self.x, m["b"],
+                                            m["centers"], m["mask"],
+                                            m["t_idx"]))
         return m["t_idx"], m["t_valid"], vals
 
     def accumulate(self, parts) -> np.ndarray:

@@ -32,7 +32,10 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
+from repro_torch import obs
 from repro_torch.graphs import CapturedCall
+from repro_torch.resilience import fallback as _fb
+from repro_torch.resilience import faults as _faults
 
 __all__ = ["CompiledEntry", "ExecutableCache", "GLOBAL_CACHE",
            "resolve_cache", "DEFAULT_MAXSIZE"]
@@ -75,8 +78,9 @@ class ExecutableCache:
     """LRU-bounded map: shape-class key -> `CompiledEntry`.
 
     `get_or_compile` is the only population path, so `misses` is exactly
-    the number of entries this cache ever compiled.  A failed compile
-    (warm-up or capture) inserts nothing and raises.  Eviction drops the
+    the number of shape classes this cache was asked to compile (a build
+    that failed on every attempt counts too).  A failed compile (warm-up
+    or capture) inserts nothing and raises.  Eviction drops the
     least recently resolved entry; engines resolve an entry once per
     lifetime and then hold it, so an evicted entry keeps serving them and
     only new engines compile again."""
@@ -91,19 +95,42 @@ class ExecutableCache:
         self.evictions = 0
 
     def get_or_compile(self, key, compile_fn) -> CompiledEntry:
-        """The entry for `key`, built by `compile_fn()` (-> CompiledEntry)
-        on first sight of the shape class."""
+        """The entry for `key`, built by `compile_fn()` (-> CompiledEntry,
+        captured on CUDA) on first sight of the shape class.
+
+        Failure semantics: a failed build inserts NOTHING — the cache is
+        never poisoned by a partial entry, and the next call builds from
+        scratch (a raise inside a capture ends the capture first:
+        `torch.cuda.graph` closes it on the way out).  TRANSIENT errors
+        (exceptions carrying `transient=True`, e.g. injected ones) are
+        retried in place with the default deterministic backoff
+        (`resilience.fallback.call_with_retry`) before propagating;
+        deterministic errors propagate on first sight.  The
+        `exe_cache.compile` fault seam fires before each attempt's warm-up
+        and capture."""
         entry = self._entries.get(key)
         if entry is not None:
             self.hits += 1
+            obs.counter_add("exe_cache.hits")
             self._entries.move_to_end(key)
             return entry
         self.misses += 1
-        entry = compile_fn()
+        obs.counter_add("exe_cache.misses")
+
+        def attempt():
+            _faults.fire("exe_cache.compile")
+            return compile_fn()
+
+        # the capture-vs-replay split: every capture this process pays
+        # appears as one of these spans; entry calls are the replay side
+        with obs.span("exe_cache.compile",
+                      {"key": str(key)} if obs.enabled() else None):
+            entry = _fb.call_with_retry(attempt, site="exe_cache.compile")
         self._entries[key] = entry
         while len(self._entries) > self.maxsize:
             self._entries.popitem(last=False)
             self.evictions += 1
+            obs.counter_add("exe_cache.evictions")
         return entry
 
     def stats(self) -> dict:

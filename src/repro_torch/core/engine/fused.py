@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.engine.m2l import far_tail_kernel, m2p_vals_kernel
 from repro_torch.core.engine.p2p import p2p_bucket_vals, p2p_stream_vals
 from repro_torch.core.engine.traversal import (partition_drift,
@@ -120,6 +121,12 @@ def build_fused_evaluate(ops, tables, stream: dict | None = None):
     on the device.  `tab` is `flatten_eval_tables` (the entry's copies).
     `stream`, on the stream route, holds its statics (pad, block_t, smax);
     the near field is then one K2 launch, else one K1 launch per bucket."""
+    if obs.enabled():
+        obs.event("engine.fused_build",
+                  {"kind": "evaluate", "n": tables.n,
+                   "n_parts": tables.n_parts,
+                   "n_buckets": len(tables.p2p_buckets),
+                   "p2p_impl": "stream" if stream is not None else "gathered"})
     P, Cmax = tables.n_parts, tables.n_cells_max
     n_flat, n = P * tables.n_bodies_max, tables.n
     up_keys = tuple(tables.up.tables)
@@ -155,6 +162,10 @@ def build_fused_step(tables):
     partition's drift (against `tab["x_ref_pad"]`) and changed flag
     (against the current payload `x`), as `DeviceEngine.step_drift` does
     eagerly."""
+    if obs.enabled():
+        obs.event("engine.fused_build",
+                  {"kind": "step", "n": tables.n,
+                   "n_parts": tables.n_parts})
     P, Nmax = tables.n_parts, tables.n_bodies_max
 
     def fused(new_x, x, tab):

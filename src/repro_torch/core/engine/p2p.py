@@ -12,7 +12,10 @@ target tiles over the unified stream table
 operands.  `p2p_stream_gathered` is its plain version.
 
 The kernel wrappers pick the kernel for CUDA tensors and the plain version
-for CPU tensors, so this module has one code path for both.
+for CPU tensors, so this module has one code path for both.  Both entry
+points fire the `kernels.p2p.launch` fault seam (`resilience.faults`)
+before the kernel: Python dispatch, so inside a compiled entry it fires
+during the entry's warm-up or capture, never on a replay.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.kernels.p2p import p2p
 from repro_torch.kernels.p2p_stream import p2p_stream, p2p_stream_gathered
+from repro_torch.resilience import faults as _faults
 
 __all__ = ["p2p_bucket_vals", "p2p_stream_vals", "p2p_stream_gathered",
            "stream_payload"]
@@ -41,6 +45,7 @@ def p2p_bucket_vals(x, q, bucket: dict):
     masked values."""
     xt, xs, qs = _gather_bucket(x, q, bucket["t_idx"], bucket["s_idx"],
                                 bucket["s_valid"])
+    _faults.fire("kernels.p2p.launch")
     return p2p(qs, xs, xt) * bucket["mask"][:, None]
 
 
@@ -60,5 +65,6 @@ def p2p_stream_vals(x, q, stream: dict):
     sums from the plain version) are dropped by the caller's accumulation
     through `out_valid`."""
     payload = stream_payload(x, q, stream["pad"])
+    _faults.fire("kernels.p2p.launch")
     return p2p_stream(stream["meta"], payload, block_t=stream["block_t"],
                       smax=stream["smax"])

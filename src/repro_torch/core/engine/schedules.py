@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan import bucket_size
+from repro_torch.resilience import faults as _faults
 
 __all__ = ["BatchedUpwardSchedule", "EngineTables", "build_batched_upward",
            "build_engine_tables", "build_p2p_stream_tables",
@@ -262,6 +263,7 @@ def build_p2p_stream_tables(p2p_buckets, block_t: int) -> dict | None:
     block_t, n_tiles (== Ti, padded to a bucket_size envelope),
     n_live_tiles, and pad (payload zero-padding rows so fixed-size slab
     reads never run past the end: max(smax, block_t))."""
+    _faults.fire("p2p.stream.tables")
     if not p2p_buckets:
         return None
     metas = []

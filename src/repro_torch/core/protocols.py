@@ -30,6 +30,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import hsdx as hsdx_mod
 
 __all__ = ["LogGPParams", "Transfer", "Schedule", "make_schedule",
@@ -172,6 +173,11 @@ def make_schedule(name: str, B: np.ndarray, boxes: np.ndarray | None = None) -> 
         sched = _hsdx(B, boxes)
     else:
         raise ValueError(f"unknown protocol {name!r}")
+    if obs.enabled():
+        obs.event("protocols.make_schedule",
+                  {"protocol": name, "nparts": int(sched.nparts),
+                   "n_stages": len(sched.stages),
+                   "total_bytes": int(schedule_edge_bytes(sched).sum())})
     return sched
 
 

@@ -837,3 +837,119 @@ def test_stacked_dist_engine_on_card_matches_engine(cuda_device, protocol):
     absum = FMMSession(plan_geometry(x1, np.abs(q), spec, device="cpu"),
                        device="cpu").evaluate()
     close(sess.evaluate(), eager.evaluate(), absum)
+
+
+# ------------------------------------------- observability and resilience --
+def _card_case(n=20000):
+    """Phase 8's N = 20,000 case: geometry planned on the CPU, and sum_j
+    |q_j| / r_ij for the agreement gate."""
+    from repro_torch.core.api import FMMSession
+    x = make_distribution("sphere", n, seed=42)
+    q = np.random.default_rng(0).uniform(-1, 1, n)
+    spec = PartitionSpec(nparts=8)
+    geo = plan_geometry(x, q, spec, device="cpu")
+    phi_abs = FMMSession(plan_geometry(x, np.abs(q), spec, device="cpu"),
+                         device="cpu").evaluate()
+    return geo, phi_abs
+
+
+def _close_to(a, b, phi_abs):
+    tol = 2e-5 + 1e-6 * np.abs(b) + 1e-7 * phi_abs
+    assert np.all(np.abs(a - b) <= tol), float(np.abs(a - b).max())
+
+
+def test_fault_in_capture_then_next_rung_on_card(cuda_device, monkeypatch):
+    """A fault raised inside a CUDA graph capture (`kernels.p2p.launch`,
+    armed once the capture has begun, past the warm-up) ends the capture,
+    caches nothing and leaves the card usable: the resilient session serves
+    the evaluate on the next rung (per_phase, K1 launched eagerly), and a
+    new session then captures the same shape class and replays it."""
+    from repro_torch.core.api import FMMSession
+    from repro_torch.core.engine import ExecutableCache
+    from repro_torch.resilience import fallback as res_fb
+    from repro_torch.resilience import faults as res_faults
+    geo, phi_abs = _card_case()
+    want = FMMSession(geo, device=cuda_device, fused=False).evaluate()
+    real = torch.cuda.graph
+    armed = []
+
+    class ArmingGraph:
+        def __init__(self, *a, **kw):
+            self.cm = real(*a, **kw)
+
+        def __enter__(self):
+            self.cm.__enter__()
+            res_faults.arm(res_faults.FaultPlan({"kernels.p2p.launch": {}}))
+            armed.append(1)
+            return self
+
+        def __exit__(self, *exc):
+            return self.cm.__exit__(*exc)
+
+    res_fb.reset_ledger()
+    cache = ExecutableCache()
+    sess = FMMSession(geo, device=cuda_device, exe_cache=cache,
+                      resilience=True)
+    monkeypatch.setattr(torch.cuda, "graph", ArmingGraph)
+    try:
+        before = kp2p.launches
+        phi = sess.evaluate()
+        torch.cuda.synchronize()
+    finally:
+        res_faults.disarm()
+        monkeypatch.setattr(torch.cuda, "graph", real)
+    assert armed == [1] and len(cache) == 0
+    assert [(f["site"], f["from"], f["to"]) for f in
+            sess.resilience.fallbacks] == \
+        [("kernels.p2p.launch", "gathered", "per_phase")]
+    assert sess.resilience.rung == "per_phase" and kp2p.launches > before
+    _close_to(phi, want, phi_abs)
+    _close_to(sess.evaluate(), want, phi_abs)       # the next rung again
+    again = FMMSession(geo, device=cuda_device, exe_cache=cache)
+    again.evaluate()
+    entry = again.engine._entries["evaluate"]
+    assert entry.call.graph is not None and cache.misses == 2
+    before, per = kp2p.launches, entry.launches["K1"]
+    _close_to(again.evaluate(), want, phi_abs)
+    torch.cuda.synchronize()
+    assert kp2p.launches - before == per > 0
+    res_fb.reset_ledger()
+    res_faults.reset_stats()
+
+
+@pytest.mark.parametrize("fences", [False, True])
+def test_traced_warm_evaluate_is_one_replay_on_card(cuda_device, fences):
+    """With tracing on (and with fences), a warm graphed evaluate is still
+    one replay: spans and counters sit outside the captured call, and a
+    fence never runs inside a capture; `report()` records the captured
+    entry, its calls and the K1 launches a replay makes."""
+    from repro_torch import obs
+    from repro_torch.core.api import FMMSession
+    from repro_torch.core.engine import ExecutableCache
+    geo, phi_abs = _card_case()
+    want = FMMSession(geo, device=cuda_device, fused=False).evaluate()
+    obs.configure(enabled=True, fences=fences)
+    try:
+        sess = FMMSession(geo, device=cuda_device,
+                          exe_cache=ExecutableCache())
+        sess.evaluate()
+        entry = sess.engine._entries["evaluate"]
+        before, calls = kp2p.launches, entry.calls
+        phi = sess.evaluate()
+        torch.cuda.synchronize()
+        per = entry.launches["K1"]
+        assert entry.call.graph is not None and entry.calls == calls + 1
+        assert kp2p.launches - before == per > 0
+        rep = sess.report()
+        la = rep["launches"]["evaluate"]
+        assert la["captured"] and la["entry_computations"] == 1
+        assert la["calls"] == 2 and la["kernel_launches"] == {"K1": per}
+        counters = rep["metrics"]["counters"]
+        assert counters["engine.fused_launches"] == 2
+        assert counters["exe_cache.misses"] == 1
+        assert rep["timings"]["engine.fused_evaluate"]["count"] == 2
+        assert rep["obs"]["fences"] is fences
+    finally:
+        obs.configure(enabled=False)
+        obs.reset()
+    _close_to(phi, want, phi_abs)
