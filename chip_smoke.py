@@ -13,14 +13,19 @@ repository's default workload: a sphere-surface (boundary) distribution
 from `make_distribution("sphere", N, seed=42)`, charges uniform in [-1, 1]
 from `default_rng(0)`, and `PartitionSpec(nparts=8, method="orb",
 theta=0.5, ncrit=64, p=4)`.  The LM serving path — `ServeEngine` over
-`build_model(cfg)` — for qwen3-0.6b (self-attention through K4) and
-rwkv6-1.6b (the WKV recurrence through K5) at full width and depth, with
-random bfloat16 weights from a seeded generator.
+`build_model(cfg)` — for qwen3-0.6b, phi4-mini-3.8b and smollm-360m (dense
+self-attention through K4), gemma3-12b (5 local : 1 global sliding-window
+superblocks with ring caches, head dim 256 through K4) and rwkv6-1.6b (the
+WKV recurrence through K5) at full width and depth, and the MoE dbrx-132b
+and llama4-scout-17b-a16e at full width with depth cut to LM_CUT layers,
+with random bfloat16 weights from a seeded generator.
 
 Phases, in order; any failed check raises and ends the run non-zero:
 
   1. the card's name and power limit; build the five CUDA kernels from
-     `src/repro_torch/kernels/csrc` with nvcc (sm_90a, one process each);
+     `src/repro_torch/kernels/csrc` with nvcc (sm_90a, one process each),
+     printing ptxas's registers and spills per kernel (K4 by path and
+     head size, D = 256 included);
   2. plan the N-body geometry with the device traversal (K3's launch count
      set to 0 just before, read just after) and with the host traversal,
      and compare every receiver's pair lists: a difference is allowed only
@@ -110,7 +115,9 @@ Phases, in order; any failed check raises and ends the run non-zero:
      (same tokens, logits within 1e-3 of the largest |logit|), tokens/s of
      the first run (capture included) and of a warm run, decode-step time
      and device busy share both ways, the launches a replay makes (K5
-     once a layer for rwkv6, no K4);
+     once a layer for rwkv6, no K4); the same for gemma3-12b (its ring
+     caches written at a position read on the device) and dbrx-132b (its
+     MoE sublayers, depth cut), each with its seconds;
   8b. observability and resilience, on the main path's geometry at N (and
      N = 2^15), one card: the warm graphed (gathered) evaluate, median of
      3, with `repro_torch.obs` disabled, enabled, and enabled with fences,
@@ -149,19 +156,32 @@ Phases, in order; any failed check raises and ends the run non-zero:
      `F.scaled_dot_product_attention` on the same inputs (a yardstick the
      port never calls), in bfloat16 at S = 512 to 4,096 (D 128) and at
      (1, 32, 8, 4096, 64) with TFLOP/s and the share of its bound, and once
-     in float32;
- 10. serving, for each of qwen3-0.6b and rwkv6-1.6b: `ServeEngine(B=4,
+     in float32; K4 at gemma3-12b's prefill shape (B 1, H 16, Hkv 8, S
+     4096, D 256, bfloat16, causal, without and with a window of 1,024)
+     against both plain versions at the same limits, timed beside its
+     bound and SDPA (causal, or a boolean window mask), and at D = 256 in
+     float32 against `attention_ref`;
+ 10. serving, for each of qwen3-0.6b, rwkv6-1.6b, gemma3-12b, phi4-mini-
+     3.8b, smollm-360m and dbrx-132b (4 of 40 layers): `ServeEngine(B=4,
      S_max=128)` answers 8 requests (prompts of 4-15 tokens from
      default_rng(0), 8 new tokens each) and then prefills one 4,096-token
      prompt, with the model's kernel count set to 0 just before and read
-     just after; tokens/s, prefill and decode-step times, a profile of one
-     decode step and of the long prefill (the port's kernels named, each
-     with its share of device time); each request served alone: the
-     engine's logits (prefill, then decode over the cache) agree with a
-     full forward over the sequence so far within LM_LOGIT_TOL of the
-     largest |logit| (bfloat16 rounds the two paths differently), and each
-     greedy token is the forward's argmax except at near ties (top-2 gap
-     at most twice the measured difference), counted;
+     just after (K4 once a layer in that prefill: 48 for gemma3-12b);
+     tokens/s, prefill and decode-step times, a profile of one decode step
+     and of the long prefill (the port's kernels named, each with its
+     share of device time), dbrx's dropped MoE slots; each request served
+     alone: the engine's logits (prefill, then decode over the cache)
+     agree with a full forward over the sequence so far within
+     LM_LOGIT_TOL of the largest |logit| (bfloat16 rounds the two paths
+     differently), and each greedy token is the forward's argmax except at
+     near ties (top-2 gap at most twice the measured difference), counted;
+     with experts, only the steps at which the engine routed every token
+     of the sequence as the forward did and neither dropped a slot are
+     held to this (the others counted: random weights route most tokens
+     to the same experts, so dbrx drops slots in most steps); then dbrx
+     and llama4-scout-17b-a16e (4 of 48 layers): a 6-token request's
+     prefill and decode step, which no expert's capacity can refuse,
+     against its full forward the same way;
  11. one JSON line listing every ported kernel;
  12. the last line: {"ok": true, "device": {...}}.
 
@@ -232,6 +252,9 @@ K4_TILED_ROW_REL = 6e-3
 LM_LOGIT_TOL = 3e-2
 # LM serving: requests, slots, new tokens, cache length, the long prompt
 LM_REQUESTS, LM_SLOTS, LM_NEW, LM_SMAX, LM_LONG = 8, 4, 8, 128, 4096
+# depth of the models one card cannot hold (full width: 26.6 and 19.3 GiB
+# of bfloat16 weights at 4 layers, by param_count)
+LM_CUT = {"dbrx-132b": 4, "llama4-scout-17b-a16e": 4}
 BITWISE_TILES = 1 << 20      # live tiles in the K1 == K2 bitwise check
 MOVER = 1                    # the partition the beyond-slack step shifts
 MOVER_SHIFT = np.array([0.15, -0.1, 0.2])
@@ -341,6 +364,8 @@ def check_close(name, got, want, absum):
 # JL, TC
 WKV_ENTRY = re.compile(r"wkv_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi"
                        r"(\d+)ELi(\d+)ELi(\d+)E")
+# K4's: the kernel (tc: bf16 wgmma; kernel: float32 CUDA cores) and D
+ATTN_ENTRY = re.compile(r"flash_attention_(tc|kernel)I(?:f)?Li(\d+)E")
 # the port's kernels as the profiler names them (their CUDA function names)
 KERNEL_NAMES = {"flash_attention_tc": "K4 (bf16, wgmma + TMA)",
                 "flash_attention_kernel": "K4 (float32, CUDA cores)",
@@ -781,9 +806,13 @@ def lm_kernel_checks(torch, kattn, krwkv, dev, power) -> dict:
         a = (rng.normal(size=shape) * scale).astype(np.float32)
         return torch.as_tensor(a, device=dev).to(dtype)
 
-    def k4_bound(b, h, hk, s_, d, nbyte):
-        """(bound ms, its side, operations) of causal K4 at one shape."""
-        ops = 4.0 * d * (s_ * (s_ + 1) // 2) * b * h   # QK^T and PV, fma = 2
+    def k4_bound(b, h, hk, s_, d, nbyte, window=None):
+        """(bound ms, its side, operations) of causal K4 at one shape, the
+        operations those of the (query, key) pairs the causal mask and the
+        window admit."""
+        w = min(window or s_, s_)
+        pairs = w * (w + 1) // 2 + (s_ - w) * w
+        ops = 4.0 * d * pairs * b * h                  # QK^T and PV, fma = 2
         nb = nbyte * (2.0 * b * h * s_ * d + 2.0 * b * hk * s_ * d)
         peak = PEAK_BF16_FLOPS if nbyte == 2 else PEAK_F32_FLOPS
         tb, to = nb / PEAK_BYTES * 1e3, ops / peak * 1e3
@@ -800,7 +829,7 @@ def lm_kernel_checks(torch, kattn, krwkv, dev, power) -> dict:
                     kattn.attention_rounded_ref(q, k, v, causal=True),
                     K4_BF16_RTOL, K4_BF16_ATOL, row_rel=K4_ROW_REL)
     check_tol(torch, f"K4 ({B}, {H}, {Hkv}, {S}, {D}) bf16 causal against "
-              f"attention_tiled_ref (block_k {kattn.BLOCK_K})", got,
+              f"attention_tiled_ref (block_k {kattn.BLOCK_K[D]})", got,
               kattn.attention_tiled_ref(q, k, v, causal=True),
               K4_BF16_RTOL, K4_BF16_ATOL, row_rel=K4_TILED_ROW_REL)
     for shape, window in (((1, 2, 1, 200, 64), None),
@@ -826,6 +855,54 @@ def lm_kernel_checks(torch, kattn, krwkv, dev, power) -> dict:
     out["K4"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                      max_abs_err=err, library_ms=lms)
     del q, k, v, got
+
+    # K4 at gemma3-12b's prefill shape, head dim 256 (64-key tiles): its
+    # global sublayers causal, its local ones within a window of 1,024
+    B, H, Hkv, S, D = 1, 16, 8, LM_LONG, 256
+    q, k, v = (normal((B, h, S, D), bf16) for h in (H, Hkv, Hkv))
+    qi = torch.arange(S, device=dev)
+    for window in (None, 1024):
+        label = (f"K4 ({B}, {H}, {Hkv}, {S}, {D}) bf16 causal, window "
+                 f"{window}")
+        got = kattn.flash_attention(q, k, v, causal=True, window=window)
+        err = max(err, check_tol(
+            torch, label, got, kattn.attention_rounded_ref(
+                q, k, v, causal=True, window=window),
+            K4_BF16_RTOL, K4_BF16_ATOL, row_rel=K4_ROW_REL))
+        check_tol(torch, f"{label} against attention_tiled_ref (block_k "
+                  f"{kattn.BLOCK_K[D]})", got, kattn.attention_tiled_ref(
+                      q, k, v, causal=True, window=window),
+                  K4_BF16_RTOL, K4_BF16_ATOL, row_rel=K4_TILED_ROW_REL)
+        del got
+        mask = (qi[None, :] <= qi[:, None]) & (
+            qi[None, :] > qi[:, None] - (window or S + 1))
+        t = device_ms(torch, lambda: kattn.flash_attention(
+            q, k, v, window=window), reps=20)
+        t_p = cuda_ms(torch, lambda: kattn.attention_rounded_ref(
+            q, k, v, window=window), reps=3)
+        t_l = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True) if window is None
+            else F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                enable_gqa=True), reps=20)
+        bms_s, by_s, ops_s = k4_bound(B, H, Hkv, S, D, 2, window)
+        print(f"  K4 at gemma3-12b prefill, window {window}: {t:.4f} ms, "
+              f"{ops_s / t / 1e9:.2f} TFLOP/s, bound {bms_s:.4f} ms ({by_s}, "
+              f"{ops_s / 1e9:.2f} GFLOP), {100 * bms_s / t:.1f}% of the "
+              f"bound; plain {t_p:.4f} ms; scaled_dot_product_attention "
+              f"{t_l:.4f} ms ({'causal' if window is None else 'a boolean '
+              'window mask'}, GQA); power limit {power}", flush=True)
+        out[f"K4_d256_w{window}"] = dict(ms=t, plain_ms=t_p, bound_ms=bms_s,
+                                        library_ms=t_l)
+    del q, k, v, mask
+    for shape, window in (((1, 2, 1, 300, 256), None),
+                          ((1, 2, 2, 333, 256), 64)):
+        b, h, hk, s_, d = shape
+        q2, k2, v2 = (normal((b, n, s_, d), f32) for n in (h, hk, hk))
+        check_tol(torch, f"K4 {shape} f32 causal window {window} against "
+                  f"attention_ref", kattn.flash_attention(q2, k2, v2,
+                                                          window=window),
+                  kattn.attention_ref(q2, k2, v2, window=window), 2e-4, 2e-4)
+    out["K4"]["max_abs_err"] = err
 
     # K4 across lengths and head sizes, each beside SDPA on the same inputs
     for b, h, hk, s_, d in ((1, 16, 8, 512, 128), (1, 16, 8, 1024, 128),
@@ -914,44 +991,96 @@ def timed_sync(torch, fn):
     return r, time.perf_counter() - t0
 
 
+def lm_config(arch: str):
+    """`get_config(arch)` at full width, with depth cut to LM_CUT[arch]
+    layers where one card cannot hold the model (printed)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in LM_CUT:
+        print(f"  {arch}: n_layers cut from {cfg.n_layers} to {LM_CUT[arch]} "
+              f"(full width), to fit one card", flush=True)
+        cfg = dc_replace(cfg, n_layers=LM_CUT[arch])
+    return cfg
+
+
+def moe_routes(log) -> list:
+    """A routing log's entries as [(expert sets (T, k) sorted, keep)], one
+    per MoE sublayer call."""
+    return [(e.sort(dim=-1).values, keep) for e, keep, _ in log]
+
+
+def drops(routes) -> int:
+    return sum(int((~keep).sum()) for _, keep in routes)
+
+
 class LogitTape:
     """Stands in for the model in a `ServeEngine`: forwards prefill and
-    decode_step and keeps each call's last-position logits in float32."""
+    decode_step and keeps each call's last-position logits in float32 and
+    its MoE routing (`moe_routes`; empty without experts)."""
 
     def __init__(self, model):
-        self.model, self.device, self.logits = model, model.device, []
+        self.model, self.device = model, model.device
+        self.logits, self.routes = [], []
+
+    def _call(self, fn, *args, **kw):
+        from repro_torch.models import moe as tmoe
+        with tmoe.routing_log() as log:
+            out = fn(*args, **kw)
+        self.routes.append(moe_routes(log))
+        return out
 
     def prefill(self, *args, **kw):
-        cache, lg = self.model.prefill(*args, **kw)
+        cache, lg = self._call(self.model.prefill, *args, **kw)
         self.logits.append(lg[:, -1].float())
         return cache, lg
 
     def decode_step(self, *args):
-        lg, cache = self.model.decode_step(*args)
+        lg, cache = self._call(self.model.decode_step, *args)
         self.logits.append(lg[:, -1].float())
         return lg, cache
 
 
-def greedy_check(torch, model, prompt, out, tape) -> tuple:
+def greedy_check(torch, model, prompt, out, tape) -> dict:
     """Each token a request served alone was given: the argmax of the
     engine's logits (`tape`), and those logits within LM_LOGIT_TOL of the
     largest |logit| of a full forward over the sequence so far.  The token
     must be the forward's argmax unless the forward's top-2 gap is at most
-    twice the difference of the two at that step.  Returns (tokens exempted
-    as near ties, the largest difference as a fraction of the largest
-    |logit|)."""
+    twice the difference of the two at that step.  With experts, a step is
+    held to this only where the engine's calls so far (prefill, then one
+    token a step) routed every token of the sequence to the same experts as
+    the forward did, at every MoE sublayer, and neither dropped a slot: at
+    a routing near tie the two paths, which round the router's input
+    differently, may choose other experts.  Returns {tokens, exempt (near
+    ties), unrouted (routes differ), dropped (steps where either run
+    dropped), worst (largest difference as a fraction of the largest
+    |logit|)}."""
+    from repro_torch.models import moe as tmoe
     if len(tape.logits) != len(out):
         raise AssertionError(f"{len(tape.logits)} engine calls for "
                              f"{len(out)} tokens")
-    seq, exempt, worst = list(prompt), 0, 0.0
-    for t, lg_e in zip(out, tape.logits):
-        h = model(torch.as_tensor([seq], device=model.device))
+    seq, res = list(prompt), dict(tokens=len(out), exempt=0, unrouted=0,
+                                  dropped=0, worst=0.0)
+    for i, (t, lg_e) in enumerate(zip(out, tape.logits)):
+        with tmoe.routing_log() as log:
+            h = model(torch.as_tensor([seq], device=model.device))
+        fwd = moe_routes(log)
+        eng = [(torch.cat([c[j][0] for c in tape.routes[:i + 1]]),
+                torch.cat([c[j][1] for c in tape.routes[:i + 1]]))
+               for j in range(len(fwd))]
+        if drops(fwd) or drops(eng):
+            res["dropped"] += 1
+            seq.append(t)
+            continue
+        if not all(torch.equal(a[0], b[0]) for a, b in zip(eng, fwd)):
+            res["unrouted"] += 1
+            seq.append(t)
+            continue
         lg = model.logits(h[:, -1:])[0, -1].float()
         scale = float(lg.abs().max())
         diff = float((lg_e[0] - lg).abs().max()) / scale
         top2 = lg.topk(2).values
         gap = float(top2[0] - top2[1]) / scale
-        worst = max(worst, diff)
+        res["worst"] = max(res["worst"], diff)
         where = (f"token {t} at length {len(seq)} (forward argmax "
                  f"{int(lg.argmax())}, |engine - forward| {diff:.3e} of the "
                  f"largest |logit| {scale:.3f}, forward top-2 gap {gap:.3e})")
@@ -961,20 +1090,21 @@ def greedy_check(torch, model, prompt, out, tape) -> tuple:
             raise AssertionError(f"{where}: engine and forward logits differ "
                                  f"beyond {LM_LOGIT_TOL}")
         if gap <= 2 * diff:
-            exempt += 1
+            res["exempt"] += 1
             print(f"    near tie: {where}", flush=True)
         elif int(lg.argmax()) != t:
             raise AssertionError(f"{where}: not the forward's argmax")
         seq.append(t)
-    return exempt, worst
+    return res
 
 
 def serve_lm(torch, arch: str, counter, dev, card) -> dict:
     """Phase 10 for one architecture: the serving path at full width."""
-    from repro_torch.configs import get_config, param_count
+    from repro_torch.configs import param_count
     from repro_torch.models import build_model
+    from repro_torch.models import moe as tmoe
     from repro_torch.serve.engine import Request, ServeEngine
-    cfg = get_config(arch)
+    cfg = lm_config(arch)
     model, t_init = timed_sync(torch, lambda: build_model(cfg, seed=0,
                                                           device=dev))
     n_par = sum(p.numel() for p in model.parameters())
@@ -993,12 +1123,19 @@ def serve_lm(torch, arch: str, counter, dev, card) -> dict:
     for r in reqs:
         engine.submit(r)
     counter.launches = 0
-    done, t_serve = timed_sync(torch, lambda: engine.run(max_steps=LM_SMAX))
+    with tmoe.routing_log() as log:
+        done, t_serve = timed_sync(torch, lambda: engine.run(
+            max_steps=LM_SMAX))
+    drop_serve = drops(moe_routes(log))
     toks = sum(len(r.out) for r in done)
     long = torch.as_tensor(np.random.default_rng(1).integers(
         1, cfg.vocab, (1, LM_LONG)), device=dev)
-    (cache, lg_long), t_long = timed_sync(torch, lambda: model.prefill(
-        long, LM_LONG))
+    before = counter.launches
+    with tmoe.routing_log() as log:
+        (cache, lg_long), t_long = timed_sync(torch, lambda: model.prefill(
+            long, LM_LONG))
+    drop_long = drops(moe_routes(log))
+    per_prefill = counter.launches - before
     launches = counter.launches
     if len(done) != LM_REQUESTS or any(len(r.out) != LM_NEW for r in done):
         raise AssertionError(f"{arch}: served {[len(r.out) for r in done]}")
@@ -1007,11 +1144,20 @@ def serve_lm(torch, arch: str, counter, dev, card) -> dict:
         raise AssertionError(f"{arch}: bad logits of the long prefill")
     if launches <= 0:
         raise AssertionError(f"{arch}: its kernel was not launched")
+    if cfg.family != "ssm" and per_prefill != cfg.n_layers:
+        raise AssertionError(f"{arch}: {per_prefill} K4 launches in a "
+                             f"prefill, not one a layer ({cfg.n_layers})")
     del cache, lg_long
     print(f"  {arch}: served {len(done)} requests, {toks} tokens in "
           f"{t_serve:.4f} s ({toks / t_serve:.2f} tok/s through {LM_SLOTS} "
           f"slots), prefill of {LM_LONG} tokens {t_long:.4f} s; kernel "
-          f"launches {launches}; card {card}", flush=True)
+          f"launches {launches}, {per_prefill} in the {LM_LONG}-token "
+          f"prefill; card {card}", flush=True)
+    if cfg.n_experts:
+        print(f"  {arch}: MoE slots dropped (capacity factor "
+              f"{cfg.capacity_factor}): {drop_serve} over the served "
+              f"requests, {drop_long} in the {LM_LONG}-token prefill",
+              flush=True)
 
     batch = torch.as_tensor(np.random.default_rng(2).integers(
         1, cfg.vocab, (LM_SLOTS, 15)), device=dev)
@@ -1036,25 +1182,77 @@ def serve_lm(torch, arch: str, counter, dev, card) -> dict:
     profile_run(torch, f"{arch} prefill of {LM_LONG} tokens",
                 lambda: model.prefill(long, LM_LONG))
 
-    n_tok = n_exempt = 0
-    worst = 0.0
+    tot = dict(tokens=0, exempt=0, unrouted=0, dropped=0, worst=0.0)
     for r in reqs:                  # each request served alone
         tape = LogitTape(model)
         solo = ServeEngine(tape, B=1, S_max=LM_SMAX, graph=False)
         solo.submit(Request(rid=r.rid, prompt=list(r.prompt),
                             max_new=LM_NEW))
         out = solo.run(max_steps=LM_SMAX)[0].out
-        exempt, diff = greedy_check(torch, model, r.prompt, out, tape)
-        n_tok, n_exempt = n_tok + len(out), n_exempt + exempt
-        worst = max(worst, diff)
+        res = greedy_check(torch, model, r.prompt, out, tape)
+        tot = {k: max(v, res[k]) if k == "worst" else v + res[k]
+               for k, v in tot.items()}
+    held = tot["tokens"] - tot["unrouted"] - tot["dropped"]
     print(f"  {arch}: greedy continuations of the {len(reqs)} requests, "
-          f"each served alone: {n_tok - n_exempt} of {n_tok} tokens the "
-          f"exact argmax of a full forward, {n_exempt} exempt as near ties; "
-          f"engine logits within {worst:.3e} of the largest |logit| of the "
-          f"forward's (limit {LM_LOGIT_TOL})", flush=True)
+          f"each served alone: {held - tot['exempt']} of {tot['tokens']} "
+          f"tokens the exact argmax of a full forward, {tot['exempt']} "
+          f"exempt as near ties; engine logits within {tot['worst']:.3e} of "
+          f"the largest |logit| of the forward's (limit {LM_LOGIT_TOL})",
+          flush=True)
+    if cfg.n_experts:
+        print(f"  {arch}: of those {tot['tokens']} steps, {held} held to the "
+              f"gate; {tot['unrouted']} not, the engine having routed some "
+              f"token of the sequence to other experts than the forward "
+              f"(a near tie of the router), {tot['dropped']} not, one of the "
+              f"two having dropped a slot", flush=True)
+    if held <= 0:
+        raise AssertionError(f"{arch}: no step was held to the gate")
     del model, engine, solo
     torch.cuda.empty_cache()
     return dict(launches=launches, tok_s=toks / t_serve)
+
+
+def moe_forward_check(torch, arch: str, dev, card) -> int:
+    """Phase 10, a MoE model at full width (depth cut): one prefill and one
+    decode step of a request short enough that no expert can overflow its
+    capacity, served alone and held to a full forward as `greedy_check`
+    holds them.  Returns K4's launches in that run."""
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = lm_config(arch)
+    model, t_init = timed_sync(torch, lambda: build_model(cfg, seed=0,
+                                                          device=dev))
+    print(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters; random "
+          f"init {t_init:.3f} s", flush=True)
+    # 6 tokens: a forward over the 7 of the decode step routes at most 7
+    # slots to an expert (one a token), inside the least capacity of 8, so
+    # neither run can drop a slot and both steps can be held to the gate
+    prompt = [int(t) for t in np.random.default_rng(0).integers(
+        1, cfg.vocab, 6)]
+    tape = LogitTape(model)
+    solo = ServeEngine(tape, B=1, S_max=LM_SMAX, graph=False)
+    solo.submit(Request(rid=0, prompt=prompt, max_new=2))
+    kattn.launches = 0
+    out, t = timed_sync(torch, lambda: solo.run(max_steps=LM_SMAX)[0].out)
+    launches = kattn.launches
+    res = greedy_check(torch, model, prompt, out, tape)
+    held = res["tokens"] - res["unrouted"] - res["dropped"]
+    print(f"  {arch}: prefill of {len(prompt)} tokens and a decode step "
+          f"{t:.4f} s, K4 launches {launches}; against a full forward: "
+          f"{held} of {res['tokens']} steps held to the gate ({res['exempt']}"
+          f" near ties of the logits, {res['unrouted']} routed apart, "
+          f"{res['dropped']} with a dropped slot), logits within "
+          f"{res['worst']:.3e} of the largest |logit|; card {card}",
+          flush=True)
+    if launches != cfg.n_layers or held <= 0:
+        raise AssertionError(f"{arch}: K4 launches {launches}, {held} steps "
+                             f"held to the gate")
+    del model, solo, tape
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------------------ phase 8 ------
@@ -1319,11 +1517,10 @@ class LogitRecorder:
 def lm_graph(torch, arch: str, dev, card) -> None:
     """Phase 8, LM: ServeEngine with the decode step as one graph replay
     against the eager step, on phase 10's traffic."""
-    from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.kernels import rwkv as krwkv
-    cfg = get_config(arch)
+    cfg = lm_config(arch)
     model = build_model(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab, int(
@@ -1859,6 +2056,11 @@ def main() -> int:
                     entry = (f"wkv_kernel<{'f32' if m[1] == 'f' else 'bf16'}"
                              f", D {m[2]}, G {m[3]}, JC {m[4]}, JL {m[5]}, "
                              f"TC {m[6]}>: ")
+                m = ATTN_ENTRY.search(line)
+                if m:           # K4's, by path and head size
+                    entry = (f"flash_attention "
+                             f"{'bf16 wgmma' if m[1] == 'tc' else 'f32 simt'}"
+                             f" D {m[2]}: ")
                 if ("registers" in line or "smem" in line
                         or "spill" in line or "C75" in line):
                     print(f"  {src}: {entry}{line.strip()}")
@@ -2303,8 +2505,11 @@ def main() -> int:
     with phase(f"compiled serving (CUDA graphs), N = {n}"):
         print(f"  card {card}", flush=True)
         compiled_fmm(torch, geo_main, x, q, spec, idx, d, dev, card)
-        for arch in ("qwen3-0.6b", "rwkv6-1.6b"):
+        for arch in ("qwen3-0.6b", "rwkv6-1.6b", "gemma3-12b", "dbrx-132b"):
+            t0 = time.perf_counter()
             lm_graph(torch, arch, dev, card)
+            print(f"  {arch}: graph against eager {time.perf_counter() - t0:.3f}"
+                  f" s", flush=True)
 
     # ------------------------------------------------------------ 8b -----
     with phase(f"observability and resilience, N = {n}"):
@@ -2318,11 +2523,19 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ 10 -----
+    launches.update(K4=0, K5=0)
     for arch, counter, name in (("qwen3-0.6b", kattn, "K4"),
-                                ("rwkv6-1.6b", krwkv, "K5")):
+                                ("rwkv6-1.6b", krwkv, "K5"),
+                                ("gemma3-12b", kattn, "K4"),
+                                ("phi4-mini-3.8b", kattn, "K4"),
+                                ("smollm-360m", kattn, "K4"),
+                                ("dbrx-132b", kattn, "K4")):
         with phase(f"serving {arch}"):
-            launches[name] = serve_lm(torch, arch, counter, dev,
-                                      card)["launches"]
+            launches[name] += serve_lm(torch, arch, counter, dev,
+                                       card)["launches"]
+    for arch in ("dbrx-132b", "llama4-scout-17b-a16e"):
+        with phase(f"{arch}: a short request against its forward"):
+            launches["K4"] += moe_forward_check(torch, arch, dev, card)
 
     # ------------------------------------------------------------ 11 -----
     loaded = [m for m in sys.modules

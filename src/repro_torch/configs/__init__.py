@@ -1,26 +1,33 @@
 """Architecture registry: --arch <id> resolves here.
 
-The port serves the dense and ssm families: `qwen3-0.6b` and `rwkv6-1.6b`.
-The reference's other architectures (moe, hybrid, encdec, vlm, sliding
-window) are queued in ROADMAP.md and raise NotImplementedError here.
+The port serves the dense, moe and ssm families: the plain dense
+`qwen3-0.6b`, `phi4-mini-3.8b` and `smollm-360m`, `gemma3-12b` (5 local : 1
+global sliding-window superblocks), the MoE `dbrx-132b` and
+`llama4-scout-17b-a16e`, and `rwkv6-1.6b`.  The reference's hybrid, encdec
+and vlm architectures are queued in ROADMAP.md and raise
+NotImplementedError here.
 """
 from __future__ import annotations
 
 from importlib import import_module
 
 from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      active_param_count, cell_enabled,
                                       param_count)
 
 __all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "param_count",
-           "get_config", "list_archs"]
+           "active_param_count", "cell_enabled", "get_config", "list_archs"]
 
 _ARCH_MODULES = {
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "smollm-360m": "smollm_360m",
     "qwen3-0.6b": "qwen3_0_6b",
+    "gemma3-12b": "gemma3_12b",
+    "dbrx-132b": "dbrx_132b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b",
     "rwkv6-1.6b": "rwkv6_1_6b",
 }
-_QUEUED = ("phi4-mini-3.8b", "smollm-360m", "gemma3-12b",
-           "llama-3.2-vision-90b", "hymba-1.5b", "seamless-m4t-medium",
-           "dbrx-132b", "llama4-scout-17b-a16e")
+_QUEUED = ("llama-3.2-vision-90b", "hymba-1.5b", "seamless-m4t-medium")
 
 
 def list_archs() -> list[str]:

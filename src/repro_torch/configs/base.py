@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "param_count"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "cell_enabled",
+           "param_count", "active_param_count"]
 
 
 @dataclass(frozen=True)
@@ -79,6 +80,13 @@ SHAPES = {
 }
 
 
+def cell_enabled(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch, shape) is a valid cell; reason when skipped."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "pure full-attention arch: 512k decode skipped (DESIGN.md)"
+    return True, ""
+
+
 def param_count(cfg: ModelConfig) -> int:
     """Total parameters (approximate, matches the built model)."""
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
@@ -98,3 +106,12 @@ def param_count(cfg: ModelConfig) -> int:
         cross = (cfg.n_layers // cfg.cross_attn_period) * qkv
     emb = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
     return n_layers * per_layer + cross + emb
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: only top_k experts count)."""
+    if not cfg.n_experts:
+        return param_count(cfg)
+    d, f = cfg.d_model, cfg.d_ff
+    dense_moe_delta = (cfg.n_experts - cfg.top_k) * 3 * d * f * cfg.n_layers
+    return param_count(cfg) - dense_moe_delta

@@ -23,8 +23,11 @@ Keys of `arrays`:
 as the reference package's `Model.init` lays it out and converted leaf by
 leaf to NumPy, into the port's weight tree for `build_model(cfg, params=)`:
 the `(n_superblocks, ...)` leaves under `blocks` are unstacked into one tree
-per layer, bfloat16 goes through float32 (exact), and the weights keep the
-reference's `x @ W` orientation, W shaped (d_in, d_out).
+per superblock (a gemma3 superblock holds `attn0` .. `attn5` and `mlp0` ..
+`mlp5`, a moe one `attn0` and `moe0` with expert stacks (E, D, F) and a
+float32 router), bfloat16 goes through float32 (exact), float32 stays
+float32, and the weights keep the reference's `x @ W` orientation, W shaped
+(d_in, d_out).
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from repro_torch.core.engine.schedules import (BatchedUpwardSchedule,
                                                EngineTables)
 from repro_torch.device import resolve_device
 from repro_torch.models.params import ParamDef, map_tree
-from repro_torch.models.transformer import model_defs
+from repro_torch.models.transformer import _n_superblocks, model_defs
 
 __all__ = ["engine_tables_from_numpy", "lm_params_from_numpy", "UP_KEYS",
            "M2L_KEYS", "M2P_KEYS", "BUCKET_KEYS"]
@@ -98,14 +101,15 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
     weight tree on `device` (default: the card).  Every leaf keeps its type
     (bfloat16 or float32); a missing, extra or misshapen leaf raises."""
     dev = resolve_device(device)
-    n = cfg.n_layers
+    n = _n_superblocks(cfg)
     blocks = tree["blocks"]
     flat = dict(tree, blocks=[map_tree(lambda a, i=i: np.asarray(a)[i], blocks)
                               for i in range(n)])
     for a in _leaves(blocks):
         if np.shape(a)[0] != n:
             raise ValueError(f"lm_params_from_numpy: block leaf of shape "
-                             f"{np.shape(a)} is not stacked over {n} layers")
+                             f"{np.shape(a)} is not stacked over {n} "
+                             f"superblocks")
 
     def one(d: ParamDef, a, path: str) -> torch.Tensor:
         a = np.asarray(a)

@@ -11,9 +11,9 @@ the PV product, float32 accumulation, acc / max(l, 1e-30)), masks keys past
 S and visits only the key tiles that the causal and window bounds admit.  At
 the models' shapes it is bound by operations (S^2 D / 2 multiply-adds per
 head).  In bfloat16 both products run on the tensor cores (wgmma, K and V
-tiles brought by TMA, 128 query rows and 128-key tiles); float32 runs on
-the CUDA cores, since TF32 would round the inputs (see the note in the
-source).
+tiles brought by TMA, 128 query rows and 128-key tiles, 64-key tiles at
+head dim 256: `BLOCK_K`); float32 runs on the CUDA cores, since TF32 would
+round the inputs (see the note in the source).
 
 `attention_ref` is the plain PyTorch version, the counterpart of
 `repro.kernels.ref.attention_ref`: the whole (S, S) score matrix, masked
@@ -42,8 +42,9 @@ from repro_torch.kernels.build import library
 __all__ = ["flash_attention", "attention_ref", "attention_rounded_ref",
            "attention_tiled_ref", "HEAD_DIMS", "BLOCK_K", "NEG_INF"]
 
-HEAD_DIMS = (32, 64, 128)       # the head sizes the kernel is built for
-BLOCK_K = 128                   # keys per tile of the bfloat16 kernel
+HEAD_DIMS = (32, 64, 128, 256)  # the head sizes the kernel is built for
+# keys per tile of the bfloat16 kernel, by head size (csrc: Layout<D>::kBK)
+BLOCK_K = {32: 128, 64: 128, 128: 128, 256: 64}
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -99,15 +100,17 @@ def attention_rounded_ref(q, k, v, *, causal: bool = True,
 
 
 def attention_tiled_ref(q, k, v, *, causal: bool = True,
-                        window: int | None = None, block_k: int = BLOCK_K):
+                        window: int | None = None, block_k: int | None = None):
     """Plain version in the kernel's (the Pallas kernel's) tile order: the
-    online softmax over key tiles of `block_k`, with `attention_rounded_ref`'s
+    online softmax over key tiles of `block_k` (default: the bfloat16
+    kernel's at this head size, `BLOCK_K`), with `attention_rounded_ref`'s
     roundings but p = exp(s - m) rounded to v's type against the running max
     m of the tiles seen so far, l the sum of the unrounded p, and the
     accumulator rescaled by exp(m_old - m) per tile.  Every tile is visited:
     one the kernel skips is masked for every row of its query tile, and adds
     exactly 0 after a live tile, or is scaled by exactly 0 before one."""
     B, H, S, D = q.shape
+    block_k = block_k or BLOCK_K.get(D, 128)
     group = H // k.shape[1]
     scale = float(torch.tensor(D ** -0.5, dtype=q.dtype))
     qs = (q * scale).float()

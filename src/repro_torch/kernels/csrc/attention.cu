@@ -17,52 +17,56 @@
 // exp(-1e30 - m) = 0, so no NaN and the same result.
 //
 // What bounds it on this card: at the models' shapes (S in the thousands,
-// D = 128) the work is S^2 D / 2 multiply-adds per head against S D bytes, so
-// it is bound by operations, in bfloat16 by the tensor cores (989 TFLOP/s).
+// D = 64 to 256) the work is S^2 D / 2 multiply-adds per head against S D
+// bytes, so it is bound by operations, in bfloat16 by the tensor cores
+// (989 TFLOP/s).
 //
 // bfloat16 (namespace tc), the models' type: both products run on the tensor
 // cores as wgmma bf16 -> float32.  One block of 256 threads, two warpgroups,
 // owns 128 query rows (64 per warpgroup) of one (batch, head); a loop inside
-// the block walks the 128-key tiles that the causal and window bounds admit
-// (the TPU's sequential grid axis).  TMA brings Q once and K and V tiles into
-// a ring of three stages in shared memory (32 KB of Q and 3 x 64 KB of K and
-// V at D = 128), 128-byte swizzled (64-byte at D = 32), completing on
-// mbarriers.  The tensor maps are 3-D, (D, S, batch x head), so rows >= S
-// of a ragged tile are zero-filled, not the next head's.  Each warpgroup
-// rounds its Q rows to q * scale in place once, then fences the generic
-// proxy's writes for wgmma.  S = Q K^T is a wgmma with both operands in
-// shared memory (K-major); the scores stay in registers, where the row max
-// and sum reduce over the four lanes that share a row, and only tiles that
-// cross S, the diagonal or the window edge are masked.  p, packed to bf16
-// pairs, is exactly the A fragment of the PV wgmma (A from registers, V as
-// B through a transposed, MN-major descriptor): P never goes through shared
-// memory.  Within a warpgroup the tensor cores overlap the softmax: at tile
-// j it issues S_j and the PV product of tile j - 1, waits for S_j alone and
-// runs the softmax of tile j while PV_{j-1} runs; p is packed only once
-// PV_{j-1} is done, because ptxas serialises the wgmma's when registers
-// that feed one in flight are written (its warning C7513).  Thread 0 issues
-// the first loads; the load of tile j + 3 is issued by whichever warpgroup
-// is second to be done with tile j (a count per stage in shared memory), so
-// no block-wide barrier couples the two warpgroups: they drift apart, and
-// one's softmax also overlaps the other's products.  Query tiles are issued
-// heaviest first (the query tile is the slowest grid index, reversed), so
-// the short causal tiles fill in at the end.  204 registers at D = 128,
-// none spilled.
+// the block walks the key tiles that the causal and window bounds admit (the
+// TPU's sequential grid axis).  TMA brings Q once and K and V tiles into a ring
+// of stages in shared memory, 128-byte swizzled (64-byte at D = 32), completing
+// on mbarriers: up to D = 128, 128-key tiles in three stages (32 KB of Q and 3
+// x 64 KB of K and V at D = 128); at D = 256 (gemma3), 64-key tiles in two (64
+// KB of Q and 2 x 64 KB of K and V), since the larger ring exceeds the 227 KB a
+// block may use and a 128-key score tile beside a thread's 128 accumulators
+// exceeds its 255 registers (Layout).  The tensor maps are 3-D, (D, S, batch x
+// head), so rows >= S of a ragged tile are zero-filled, not the next head's.
+// Each warpgroup rounds its Q rows to q * scale in place once, then fences the
+// generic proxy's writes for wgmma.  S = Q K^T is a wgmma with both operands in
+// shared memory (K-major); the scores stay in registers, where the row max and
+// sum reduce over the four lanes that share a row, and only tiles that cross S,
+// the diagonal or the window edge are masked.  p, packed to bf16 pairs, is
+// exactly the A fragment of the PV wgmma (A from registers, V as B through a
+// transposed, MN-major descriptor): P never goes through shared memory.  Within
+// a warpgroup the tensor cores overlap the softmax: at tile j it issues S_j and
+// the PV product of tile j - 1, waits for S_j alone and runs the softmax of
+// tile j while PV_{j-1} runs; p is packed only once PV_{j-1} is done, because
+// ptxas serialises the wgmma's when registers that feed one in flight are
+// written (its warning C7513).  Thread 0 issues the first loads; the load of
+// tile j + kStages is issued by whichever warpgroup is second to be done with
+// tile j (a count per stage in shared memory), so no block-wide barrier couples
+// the two warpgroups: they drift apart, and one's softmax also overlaps the
+// other's products.  Query tiles are issued heaviest first (the query tile is
+// the slowest grid index, reversed), so the short causal tiles fill in at the
+// end.  204 registers at D = 128, none spilled; ptxas's line for D = 256 is
+// printed by chip_smoke.py.
 //
 // Not done, measured slower on the card (PERF.md): a producer warp or
 // warpgroup (the 288- or 384-thread block caps ptxas at 168 registers, and
 // setmaxnreg did not lift the cap, so the loop spills at D = 128), and the
 // two warpgroups taking turns on the tensor cores through named barriers.
 //
-// float32 (namespace simt), for the smoke models and tests: float32 FMAs on
-// the CUDA cores; tensor cores in TF32 would round the inputs to 10 bits.
-// One block of 256 threads per (query tile of 64 rows, head, batch) walks
-// the admitted 64-key tiles; Q, K, V and P tiles live in shared memory as
-// float32 (113 KB at D = 128).  A thread owns a 4 x 4 block of the score
-// tile (rows ty + 16 i, keys tx + 16 j) and the same 4 rows of the output
-// (columns tx + 16 c), so the row max and sum reduce over the 16 lanes of a
-// half-warp with shuffles.  Rows of Q and K are padded by one float, so the
-// 16 keys a half-warp reads at one d fall in 16 different banks.
+// float32 (namespace simt), for the smoke models and tests: float32 FMAs on the
+// CUDA cores; tensor cores in TF32 would round the inputs to 10 bits. One block
+// of 256 threads per (query tile of 64 rows, head, batch) walks the admitted
+// 64-key tiles; Q, K, V and P tiles live in shared memory as float32 (113 KB at
+// D = 128, 209 KB at D = 256).  A thread owns a 4 x 4 block of the score tile
+// (rows ty + 16 i, keys tx + 16 j) and the same 4 rows of the output (columns
+// tx + 16 c), so the row max and sum reduce over the 16 lanes of a half-warp
+// with shuffles.  Rows of Q and K are padded by one float, so the 16 keys a
+// half-warp reads at one d fall in 16 different banks.
 //
 // The shared-memory limit of each kernel is raised once per device, not per
 // launch.  The TMA encoder, cuTensorMapEncodeTiled, lives in libcuda and is
@@ -282,6 +286,8 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
       return launch<64>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
     case 128:
       return launch<128>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
+    case 256:
+      return launch<256>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -292,17 +298,22 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 namespace tc {
 
 constexpr int kBQ = 128;         // query rows per block, 64 per warpgroup
-constexpr int kBK = 128;         // keys per tile
 constexpr int kThreads = 256;    // two warpgroups
-constexpr int kStages = 3;       // K/V tiles in flight
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory layout for head size D.  A TMA box is an "atom column": kAW
-// elements of each row (one swizzle span, kSwz bytes) for all its rows, so a
-// tile of D columns is kNA atom columns one after another.
+// Tile shape and shared-memory layout for head size D.  Up to D = 128, kBK =
+// 128 keys a tile in kStages = 3 stages; at D = 256, 64 keys in 2 stages:
+// 128-key tiles would hold 64 KB of Q and 3 x 2 x 64 KB of K and V, past the
+// 227 KB a block may use, and a 128-column score tile beside the 128
+// accumulators a thread holds at D = 256 would not fit 255 registers.  A
+// TMA box is an "atom column": kAW elements of each row (one swizzle span,
+// kSwz bytes) for all its rows, so a tile of D columns is kNA atom columns
+// one after another.
 template <int D>
 struct Layout {
+  static constexpr int kBK = D <= 128 ? 128 : 64;           // keys per tile
+  static constexpr int kStages = D <= 128 ? 3 : 2;          // K/V tiles in flight
   static constexpr int kSwz = D * 2 < 128 ? D * 2 : 128;   // bytes
   static constexpr int kAW = kSwz / 2;                      // elements
   static constexpr int kNA = D / kAW;
@@ -421,6 +432,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d = A B or d += A B as above, B 16 x 64 (a 64-key tile at D = 256)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d += A B with A (64 x 16) from registers (the bf16 pairs of a k16 slice,
 // as mma.sync's A fragment) and B (16 x N) from shared memory, MN-major
 // (transposed: N contiguous)
@@ -475,6 +504,41 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // 2^x on the special-function unit (relative error about 2^-22)
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -487,12 +551,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// S = (q * scale) K^T for one warpgroup, 64 x 128 from the Q rows at q and
+// S = (q * scale) K^T for one warpgroup, 64 x kBK from the Q rows at q and
 // the K tile at k (both K-major), D / 16 k-steps, issued and committed; a
 // k-step inside a swizzle atom advances the start address by 32 bytes
 template <int D>
-__device__ __forceinline__ void issue_s(float (&s)[kBK / 2], uint32_t q,
-                                        uint32_t k) {
+__device__ __forceinline__ void issue_s(float (&s)[Layout<D>::kBK / 2],
+                                        uint32_t q, uint32_t k) {
   using L = Layout<D>;
   fence_regs(s);
   wgmma_fence();
@@ -502,7 +566,7 @@ __device__ __forceinline__ void issue_s(float (&s)[kBK / 2], uint32_t q,
     wgmma_ss(s,
              make_desc(q + a * kBQ * L::kSwz + in, 16, 8 * L::kSwz,
                        L::kDescLayout),
-             make_desc(k + a * kBK * L::kSwz + in, 16, 8 * L::kSwz,
+             make_desc(k + a * L::kBK * L::kSwz + in, 16, 8 * L::kSwz,
                        L::kDescLayout),
              kk > 0);
   }
@@ -511,20 +575,20 @@ __device__ __forceinline__ void issue_s(float (&s)[kBK / 2], uint32_t q,
 
 // acc += P V for one warpgroup: P's bf16 pairs from registers, the V tile at
 // v through an MN-major descriptor (LBO: the next atom column of D, SBO: the
-// next 8 keys), 128 / 16 k-steps, issued and committed
+// next 8 keys), kBK / 16 k-steps, issued and committed
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&p)[kBK / 4],
+                                         const uint32_t (&p)[Layout<D>::kBK / 4],
                                          uint32_t v) {
   using L = Layout<D>;
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
+  for (int kk = 0; kk < L::kBK / 16; ++kk) {
     const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                            p[4 * kk + 3]};
     wgmma_rs(acc, a,
-             make_desc(v + kk * 16 * L::kSwz, kBK * L::kSwz, 8 * L::kSwz,
+             make_desc(v + kk * 16 * L::kSwz, L::kBK * L::kSwz, 8 * L::kSwz,
                        L::kDescLayout),
              1);
   }
@@ -541,7 +605,7 @@ __device__ __forceinline__ bool live(int e, int row0, int k0, int cq, int S,
   return kj < S && (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
 }
 
-// The online softmax of one 128-key tile (first key k0) for this thread's
+// The online softmax of one BK-key tile (first key k0) for this thread's
 // two rows, masking keys past S, past the diagonal or the window (kMask):
 // updates the running max m and gives alpha = exp(m_old - m_new), the row
 // sums ls of p = exp(s - m_new) (over the four lanes that share a row), and
@@ -549,15 +613,15 @@ __device__ __forceinline__ bool live(int e, int row0, int k0, int cq, int S,
 // while a row has seen only masked keys (m = -1e30) that fma's residue
 // would not be 0, so m log2 e is taken as 0 and those terms are 0 instead
 // of 1: the first live tile scales them by alpha = 0 either way.
-template <bool kMask>
-__device__ __forceinline__ void softmax_pass(float (&s)[kBK / 2],
+template <int BK, bool kMask>
+__device__ __forceinline__ void softmax_pass(float (&s)[BK / 2],
                                              float (&m)[2], float (&alpha)[2],
                                              float (&ls)[2],
                                              int row0, int k0, int cq, int S,
                                              int causal, int window) {
   float mn[2] = {m[0], m[1]}, ml[2];
 #pragma unroll
-  for (int e = 0; e < kBK / 2; ++e) {
+  for (int e = 0; e < BK / 2; ++e) {
     const float x = !kMask || live(e, row0, k0, cq, S, causal, window)
                         ? s[e] : kNegInf;
     mn[(e >> 1) & 1] = fmaxf(mn[(e >> 1) & 1], x);
@@ -572,7 +636,7 @@ __device__ __forceinline__ void softmax_pass(float (&s)[kBK / 2],
     ls[r] = 0.f;
   }
 #pragma unroll
-  for (int j = 0; j < kBK / 4; ++j) {
+  for (int j = 0; j < BK / 4; ++j) {
     const int r = j & 1;
     const float x0 = !kMask || live(2 * j, row0, k0, cq, S, causal, window)
                          ? s[2 * j] : kNegInf;
@@ -593,17 +657,18 @@ __device__ __forceinline__ void softmax_pass(float (&s)[kBK / 2],
 
 // softmax_pass, masked only where the tile crosses S, the diagonal or the
 // window edge for some row of the warpgroup (rows from r_lo)
-__device__ __forceinline__ void softmax_tile(float (&s)[kBK / 2],
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
                                              float (&m)[2], float (&alpha)[2],
                                              float (&ls)[2],
                                              int row0, int k0, int r_lo,
                                              int cq, int S, int causal,
                                              int window) {
-  if (k0 + kBK > S || (causal && k0 + kBK - 1 > r_lo) ||
+  if (k0 + BK > S || (causal && k0 + BK - 1 > r_lo) ||
       (window > 0 && k0 <= r_lo + 63 - window))
-    softmax_pass<true>(s, m, alpha, ls, row0, k0, cq, S, causal, window);
+    softmax_pass<BK, true>(s, m, alpha, ls, row0, k0, cq, S, causal, window);
   else
-    softmax_pass<false>(s, m, alpha, ls, row0, k0, cq, S, causal, window);
+    softmax_pass<BK, false>(s, m, alpha, ls, row0, k0, cq, S, causal, window);
 }
 
 // TMA of key tile kt's K and V into stage st, completing on its barrier
@@ -616,9 +681,9 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk,
   mbar_expect_tx(bar, 2 * L::kTileBytes);
 #pragma unroll
   for (int a = 0; a < L::kNA; ++a) {
-    const uint32_t off = st * L::kTileBytes + a * kBK * L::kSwz;
-    tma_load(base + L::kK + off, tk, bar, a * L::kAW, kt * kBK, kvh);
-    tma_load(base + L::kV + off, tv, bar, a * L::kAW, kt * kBK, kvh);
+    const uint32_t off = st * L::kTileBytes + a * L::kBK * L::kSwz;
+    tma_load(base + L::kK + off, tk, bar, a * L::kAW, kt * L::kBK, kvh);
+    tma_load(base + L::kV + off, tv, bar, a * L::kAW, kt * L::kBK, kvh);
   }
 }
 
@@ -631,6 +696,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
                    float scale, int causal, int window) {
   using L = Layout<D>;
   constexpr int NO = D / 2;                // output accumulators per thread
+  constexpr int kBK = L::kBK, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms: 1024 B
@@ -644,7 +710,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
   const int q0 = qb * kBQ;
   // the key tiles that hold at least one unmasked key for some row
   const int n_kv = (S + kBK - 1) / kBK;
-  const int hi = causal ? min(n_kv, qb + 1) : n_kv;
+  const int hi = causal ? min(n_kv, (q0 + kBQ - 1) / kBK + 1) : n_kv;
   const int lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
   const int n = hi - lo;
   const uint32_t bar_q = base + L::kBar;   // then one "full" per stage
@@ -710,8 +776,8 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
     issue_s<D>(s, q_base, k_ring);
     wgmma_wait<0>();
     fence_regs(s);
-    softmax_tile(s, m, alpha, l, row0, lo * kBK, r_lo, cq, S, causal,
-                 window);
+    softmax_tile<kBK>(s, m, alpha, l, row0, lo * kBK, r_lo, cq, S, causal,
+                      window);
 #pragma unroll
     for (int j = 0; j < kBK / 4; ++j) p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
   }
@@ -730,8 +796,8 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
     issue_pv<D>(acc, p, v_ring + sp * L::kTileBytes);
     wgmma_wait<1>();               // the scores are in
     fence_regs(s);
-    softmax_tile(s, m, alpha, ls, row0, (lo + i) * kBK, r_lo, cq, S,
-                 causal, window);
+    softmax_tile<kBK>(s, m, alpha, ls, row0, (lo + i) * kBK, r_lo, cq, S,
+                      causal, window);
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + ls[r];
     wgmma_wait<0>();               // acc += P V of tile i - 1 is done
@@ -823,8 +889,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   cudaError_t err = allow_smem(kern, L::kSmem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap tq, tk, tv;
-  if (!encode<D>(&tq, q, S, B * H, kBQ) || !encode<D>(&tk, k, S, B * Hkv, kBK) ||
-      !encode<D>(&tv, v, S, B * Hkv, kBK))
+  if (!encode<D>(&tq, q, S, B * H, kBQ) ||
+      !encode<D>(&tk, k, S, B * Hkv, L::kBK) ||
+      !encode<D>(&tv, v, S, B * Hkv, L::kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, L::kSmem, stream>>>(
@@ -843,6 +910,8 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
       return launch<64>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
     case 128:
       return launch<128>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
+    case 256:
+      return launch<256>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -856,7 +925,7 @@ extern "C" {
 
 // Launches K4 on `stream` (a cudaStream_t).  dtype 0 = float32 (the CUDA-core
 // kernel), 1 = bfloat16 (the tensor-core kernel; q, k, v 16-byte aligned);
-// D in {32, 64, 128}; window <= 0 means no window.  Returns a cudaError_t:
+// D in {32, 64, 128, 256}; window <= 0 means no window.  Returns a cudaError_t:
 // the attribute call's, cudaErrorInvalidValue when a tensor map cannot be
 // encoded, or cudaGetLastError() after the launch.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* o,

@@ -5,7 +5,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --smoke --device cpu
 
-Weights are random, drawn from a generator seeded with 0.
+`--arch` takes any architecture `repro_torch.configs.list_archs()` names:
+qwen3-0.6b (the default), phi4-mini-3.8b, smollm-360m, gemma3-12b (sliding-
+window superblocks with ring caches), dbrx-132b and llama4-scout-17b-a16e
+(MoE; at full depth neither fits one 80 GB card) and rwkv6-1.6b.  Weights
+are random, drawn from a generator seeded with 0.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    help="one of repro_torch.configs.list_archs()")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

@@ -4,7 +4,7 @@ serving step.
 `Model` registers every weight as a frozen `nn.Parameter` (so `.to()`,
 `state_dict()` and `named_parameters()` work) and keeps the same tensors as
 the nested tree the functional code reads (`model.params`: dicts, with
-`blocks` a list of per-layer trees), built once and again after a
+`blocks` a list of per-superblock trees), built once and again after a
 conversion such as `.to()`, not at every call.  `build_model(cfg)` draws random
 weights from a seeded `torch.Generator` on the card unless `device` says
 otherwise; `build_model(cfg, params=tree)` wraps given weights, for
@@ -64,6 +64,11 @@ class Model(nn.Module):
     def forward(self, tokens):
         """Full-sequence forward -> final hidden states (B, S, D)."""
         return tf.forward(self.params, tokens, self.cfg)
+
+    def forward_with_aux(self, tokens):
+        """(final hidden states, the MoE aux loss summed over layers), the
+        reference's `forward` pair."""
+        return tf.forward_with_aux(self.params, tokens, self.cfg)
 
     def logits(self, h):
         return tf.logits_fn(self.params, h, self.cfg)

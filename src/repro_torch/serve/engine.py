@@ -13,7 +13,10 @@ prefill over static tokens, position, cache and logits, every prefill's
 cache is copied into the static cache, and each step copies the next
 tokens and position in and replays.  On the CPU (`graph=None` there means
 off) `graph=True` runs the step eagerly over the same static buffers;
-`graph=False` calls `model.decode_step` on the prefill's cache.  The
+`graph=False` calls `model.decode_step` on the prefill's cache.  A cache
+entry is a flat dict of tensors per superblock (gemma3's rings and the
+MoE layers' caches alike), which `_bind_cache` copies key by key; the MoE
+sublayers read nothing back to the host, so their step captures too.  The
 greedy choice and its `tolist()` stay outside the graph.
 """
 from __future__ import annotations

@@ -389,6 +389,10 @@ def _normal(rng, shape, dtype, device, scale=1.0):
     (1, 2, 2, 128, 64, torch.bfloat16, None, True),
     (1, 16, 8, 1024, 128, torch.bfloat16, None, True),
     (1, 4, 2, 333, 128, torch.bfloat16, 64, True),
+    (1, 2, 1, 200, 256, torch.float32, None, True),    # gemma3's head dim
+    (1, 2, 2, 300, 256, torch.float32, 64, True),
+    (2, 2, 1, 77, 256, torch.float32, None, False),
+    (1, 4, 2, 333, 256, torch.bfloat16, 64, True),
 ])
 def test_k4_matches_plain_on_card(cuda_device, B, H, Hkv, S, D, dtype,
                                   window, causal):
@@ -442,13 +446,13 @@ def _k4_bf16_case(device, B, H, Hkv, S, D, window, causal, seed=None):
     return got, q, k, v
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("S", [15, 127, 128, 129, 1000, 4096])
 def test_k4_bf16_tensor_cores_on_card(cuda_device, S, D):
     """The wgmma/TMA kernel at every head size, around the 128-row and
-    128-key tile edges and at the models' lengths; B = 2 with B x Hkv = 4
-    kv heads, so a ragged last tile that read past S would read the next
-    head's rows instead of zeros."""
+    128-key tile edges (64-key at D = 256) and at the models' lengths;
+    B = 2 with B x Hkv = 4 kv heads, so a ragged last tile that read past S
+    would read the next head's rows instead of zeros."""
     _k4_bf16_case(cuda_device, 2, 4, 2, S, D, None, True)
 
 
@@ -461,6 +465,9 @@ def test_k4_bf16_tensor_cores_on_card(cuda_device, S, D):
     (2, 4, 2, 129, 128, None, False),     # non-causal, ragged
     (1, 4, 4, 1000, 64, 300, False),      # non-causal with a window
     (2, 2, 1, 15, 128, None, False),
+    (2, 4, 2, 1000, 256, 200, True),      # D = 256: window inside tiles
+    (1, 4, 1, 1100, 256, 64, True),       # window of one 64-key tile
+    (2, 2, 1, 193, 256, None, False),     # non-causal, ragged
 ])
 def test_k4_bf16_masks_and_groups_on_card(cuda_device, B, H, Hkv, S, D,
                                           window, causal):
@@ -471,6 +478,8 @@ def test_k4_bf16_masks_and_groups_on_card(cuda_device, B, H, Hkv, S, D,
     (1, 16, 8, 4096, 128, None),          # qwen3-0.6b's prefill
     (2, 4, 2, 1000, 64, 200),
     (2, 4, 2, 129, 32, None),
+    (1, 16, 8, 4096, 256, None),          # gemma3-12b's global prefill
+    (1, 16, 8, 4096, 256, 1024),          # and its local (window) one
 ])
 def test_k4_bf16_matches_tiled_ref_on_card(cuda_device, B, H, Hkv, S, D,
                                            window):
@@ -479,7 +488,7 @@ def test_k4_bf16_matches_tiled_ref_on_card(cuda_device, B, H, Hkv, S, D,
     K4_TILED_ROW_REL, and most rows exactly (median K4_TILED_ROW_MEDIAN)."""
     got, q, k, v = _k4_bf16_case(cuda_device, B, H, Hkv, S, D, window, True)
     want = kattn.attention_tiled_ref(q, k, v, window=window,
-                                     block_k=kattn.BLOCK_K).float()
+                                     block_k=kattn.BLOCK_K[D]).float()
     torch.testing.assert_close(got.float(), want, rtol=K4_RTOL, atol=K4_ATOL)
     err = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
     assert float(err.max()) <= K4_TILED_ROW_REL
@@ -629,7 +638,8 @@ def test_k5_chunk_invariance_on_card(cuda_device):
     assert torch.equal(y32, y128) and torch.equal(s32, s128)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "gemma3-12b",
+                                  "dbrx-132b"])
 def test_lm_on_card_matches_cpu_and_serves(cuda_device, arch):
     """The smoke model in float32 on the card (through K4 / K5) against the
     same weights on the CPU (through the plain versions), at rtol/atol 1e-4
@@ -643,13 +653,13 @@ def test_lm_on_card_matches_cpu_and_serves(cuda_device, arch):
     from repro_torch.models import build_model
     from repro_torch.models.params import map_tree
     from repro_torch.serve.engine import Request, ServeEngine
-    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    cfg = _on_card(replace(get_config(arch, smoke=True), dtype="float32"))
     params = build_model(cfg, seed=0, device="cpu").params
     card = build_model(cfg, map_tree(lambda t: t.float().to(cuda_device),
                                      params))
     cpu = build_model(cfg, map_tree(lambda t: t.float(), params))
     toks = torch.as_tensor(np.random.default_rng(0).integers(1, 200, (2, 64)))
-    counter = kattn if cfg.family == "dense" else krwkv
+    counter = krwkv if cfg.family == "ssm" else kattn
     before = counter.launches
     lg_card = card.logits(card(toks.to(cuda_device)))
     torch.cuda.synchronize()
@@ -769,16 +779,27 @@ def test_fused_evaluate_on_card_replays_and_matches_eager(cuda_device,
     assert np.all(np.abs(phi_g - phi_e) <= tol)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+def _on_card(cfg):
+    """A smoke config whose head size K4 is not built for (gemma3's and
+    dbrx's 16) with head size 32, its smallest."""
+    from dataclasses import replace
+    return cfg if cfg.family == "ssm" or cfg.hd in kattn.HEAD_DIMS else \
+        replace(cfg, head_dim=32)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "gemma3-12b",
+                                  "dbrx-132b"])
 def test_serve_engine_graph_matches_eager_on_card(cuda_device, arch):
     """A tiny model (the smoke config, bfloat16) served on the card with the
     decode step as one CUDA graph replay gives the same tokens as the eager
     step for every request; rwkv6's replay runs K5 once a layer and no
-    replay runs K4 (decode attention is plain PyTorch)."""
+    replay runs K4 (decode attention is plain PyTorch).  gemma3's replay
+    writes its ring caches at a position read on the device (decoded past
+    its window of 16), dbrx's routes through its MoE sublayers."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine
-    cfg = get_config(arch, smoke=True)
+    cfg = _on_card(get_config(arch, smoke=True))
     model = build_model(cfg, seed=0, device=cuda_device)
     outs = []
     for graph in (False, None):

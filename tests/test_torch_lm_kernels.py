@@ -94,6 +94,7 @@ def test_attention_rounded_ref_matches_reference(B, H, Hkv, S, D, dtype,
 
 
 # `attention_tiled_ref`, the plain version in the kernel's 128-key tiles
+# (64-key tiles at D = 256)
 _TILED_CASES = [
     (1, 4, 4, 128, 64, None, True),     # MHA, one tile
     (2, 4, 2, 256, 64, None, True),     # GQA group 2, two tiles
@@ -103,6 +104,8 @@ _TILED_CASES = [
     (1, 2, 2, 300, 32, 100, True),      # window edge inside tiles, ragged
     (2, 4, 1, 100, 32, None, False),    # non-causal
     (2, 4, 2, 129, 128, None, True),    # B = 2, one key past a tile
+    (1, 2, 1, 200, 256, None, True),    # D = 256: 64-key tiles, ragged
+    (2, 2, 2, 150, 256, 70, True),      # D = 256, window edge inside tiles
 ]
 
 

@@ -151,3 +151,27 @@ def test_serve_cli_on_the_cpu(capsys):
     assert sorted(r.rid for r in done) == list(range(5))
     assert all(len(r.out) == 3 for r in done)
     assert "served 5 requests, 15 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["gemma3-12b", "dbrx-132b"])
+def test_static_buffer_step_serves_like_the_eager_step(arch):
+    """`graph=True` on the CPU runs the decode step eagerly over the static
+    tokens, position and cache that a CUDA graph replays on the card:
+    gemma3's ring caches (a 5 : 1 superblock, decoded past its window of
+    16) and dbrx's MoE sublayers must serve the same tokens as `graph=
+    False`, which decodes on each prefill's own cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, seed=0, device="cpu")
+    outs = []
+    for graph in (False, True):
+        eng = ServeEngine(model, B=SLOTS, S_max=S_MAX, graph=graph)
+        for r in _requests(Request, cfg.vocab):
+            r.max_new = 12
+            eng.submit(r)
+        outs.append({r.rid: r.out for r in eng.run(max_steps=S_MAX)})
+    assert eng._static is not None and eng.decode_call.graph is None
+    assert sorted(outs[1]) == list(range(N_REQ)) and outs[0] == outs[1]
+    assert max(len(r.prompt) for r in _requests(Request, cfg.vocab)) + 12 \
+        > (cfg.sliding_window or 0)
