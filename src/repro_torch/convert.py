@@ -22,12 +22,15 @@ Keys of `arrays`:
 `lm_params_from_numpy(cfg, tree)` turns a language model's parameter tree,
 as the reference package's `Model.init` lays it out and converted leaf by
 leaf to NumPy, into the port's weight tree for `build_model(cfg, params=)`:
-the `(n_superblocks, ...)` leaves under `blocks` are unstacked into one tree
-per superblock (a gemma3 superblock holds `attn0` .. `attn5` and `mlp0` ..
-`mlp5`, a moe one `attn0` and `moe0` with expert stacks (E, D, F) and a
-float32 router), bfloat16 goes through float32 (exact), float32 stays
-float32, and the weights keep the reference's `x @ W` orientation, W shaped
-(d_in, d_out).
+the `(n_superblocks, ...)` leaves under `blocks`, and under an encdec
+model's `enc_blocks` the `(n_enc_layers, ...)` ones, are unstacked into one
+tree per superblock (a gemma3 superblock holds `attn0` .. `attn5` and
+`mlp0` .. `mlp5`, a moe one `attn0` and `moe0` with expert stacks (E, D, F)
+and a float32 router, a vlm one `attn0` .. `attn3`, `cross4` and an MLP
+each, a hymba one `attn0`, `ssm0` and `mlp0`, an encdec decoder layer
+`attn0`, `dec_cross0` and `mlp0`), bfloat16 goes through float32 (exact),
+float32 stays float32, and the weights keep the reference's `x @ W`
+orientation, W shaped (d_in, d_out).
 """
 from __future__ import annotations
 
@@ -101,15 +104,18 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
     weight tree on `device` (default: the card).  Every leaf keeps its type
     (bfloat16 or float32); a missing, extra or misshapen leaf raises."""
     dev = resolve_device(device)
-    n = _n_superblocks(cfg)
-    blocks = tree["blocks"]
-    flat = dict(tree, blocks=[map_tree(lambda a, i=i: np.asarray(a)[i], blocks)
-                              for i in range(n)])
-    for a in _leaves(blocks):
-        if np.shape(a)[0] != n:
-            raise ValueError(f"lm_params_from_numpy: block leaf of shape "
-                             f"{np.shape(a)} is not stacked over {n} "
-                             f"superblocks")
+    flat = dict(tree)
+    for key, n in (("blocks", _n_superblocks(cfg)),
+                   ("enc_blocks", cfg.n_enc_layers)):
+        if key not in tree:
+            continue
+        for a in _leaves(tree[key]):
+            if np.shape(a)[0] != n:
+                raise ValueError(f"lm_params_from_numpy: {key} leaf of shape "
+                                 f"{np.shape(a)} is not stacked over {n} "
+                                 f"superblocks")
+        flat[key] = [map_tree(lambda a, i=i: np.asarray(a)[i], tree[key])
+                     for i in range(n)]
 
     def one(d: ParamDef, a, path: str) -> torch.Tensor:
         a = np.asarray(a)

@@ -11,6 +11,10 @@ allocated before the capture (outside the graph's private memory pool), and
 one call is captured into a `torch.cuda.CUDAGraph` that copies its results
 into them.  `replay()` then runs every kernel of that call in one launch.
 A failed warm-up or capture raises; nothing falls back to eager calls.
+Python's cyclic garbage collector is run before the capture and held off
+during it: a dead object that owns a graph (an engine and its captured
+call form a cycle) freed in the middle of a capture resets that graph,
+a CUDA call a capturing stream does not permit, and the capture fails.
 
 On the CPU nothing is captured, because the caller asked for the CPU:
 `replay()` calls `fn` over the same static buffers.
@@ -23,6 +27,7 @@ kernels that ran.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -71,16 +76,21 @@ class CapturedCall:
         torch.cuda.current_stream(dev).wait_stream(side)
         self.outputs = tuple(torch.empty_like(o) for o in out)
         del out
+        gc.collect()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         self.reserved_before = torch.cuda.memory_reserved(dev)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph):
                 for o, r in zip(self.outputs, self.fn()):
                     o.copy_(r)
         finally:
+            if collecting:
+                gc.enable()
             after = launch_counts()
             for k, n in before.items():
                 KERNELS[k].launches = n

@@ -1,14 +1,17 @@
-"""K4: blocked causal flash attention (GQA, sliding window), its plain
-versions and its wrapper.
+"""K4: blocked flash attention (GQA, causal, sliding window, or unmasked
+over keys of their own length), its plain versions and its wrapper.
 
 `flash_attention` replaces the Pallas TPU kernel
 `repro.kernels.attention.flash_attention` with the hand-written CUDA kernel
-`csrc/attention.cu` (sm_90a, bound through ctypes).  q (B, H, S, D), k/v
-(B, Hkv, S, D), H a multiple of Hkv (query head h reads kv head h // group),
-float32 or bfloat16 -> (B, H, S, D) in the same type.  The kernel keeps the
+`csrc/attention.cu` (sm_90a, bound through ctypes).  q (B, H, Sq, D), k/v
+(B, Hkv, Sk, D), H a multiple of Hkv (query head h reads kv head h // group),
+float32 or bfloat16 -> (B, H, Sq, D) in the same type.  Sk may differ from
+Sq only with `causal=False` and no window: the models' cross-attention over
+a memory (the reference computes it unmasked); `causal=False` with Sq == Sk
+is an encoder's bidirectional self-attention.  The kernel keeps the
 Pallas kernel's roundings (q * scale in the input type, p in v's type before
 the PV product, float32 accumulation, acc / max(l, 1e-30)), masks keys past
-S and visits only the key tiles that the causal and window bounds admit.  At
+Sk and visits only the key tiles that the causal and window bounds admit.  At
 the models' shapes it is bound by operations (S^2 D / 2 multiply-adds per
 head).  In bfloat16 both products run on the tensor cores (wgmma, K and V
 tiles brought by TMA, 128 query rows and 128-key tiles, 64-key tiles at
@@ -16,7 +19,7 @@ head dim 256: `BLOCK_K`); float32 runs on the CUDA cores, since TF32 would
 round the inputs (see the note in the source).
 
 `attention_ref` is the plain PyTorch version, the counterpart of
-`repro.kernels.ref.attention_ref`: the whole (S, S) score matrix, masked
+`repro.kernels.ref.attention_ref`: the whole (Sq, Sk) score matrix, masked
 with -1e30, softmax in float32.  The wrapper runs it for tensors on the CPU
 and launches the kernel for tensors on a CUDA device.  In bfloat16 it rounds
 the scores to bfloat16, as the reference's oracle does, where the kernel
@@ -51,20 +54,27 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 
 
-def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None):
-    """Plain version: q (B, H, S, D); k/v (B, Hkv, S, D) -> (B, H, S, D)."""
-    B, H, S, D = q.shape
-    group = H // k.shape[1]
-    k = k.repeat_interleave(group, dim=1)
-    v = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() / (D ** 0.5)
-    qi = torch.arange(S, device=q.device)[:, None]
-    ki = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
+def _mask(Sq, Sk, causal, window, device, k0=0):
+    """(Sq, Sk) bool: the keys k0 .. k0 + Sk - 1 each query may see."""
+    qi = torch.arange(Sq, device=device)[:, None]
+    ki = torch.arange(k0, k0 + Sk, device=device)[None, :]
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=device)
     if causal:
         mask &= ki <= qi
     if window is not None:
         mask &= ki > qi - window
+    return mask
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None):
+    """Plain version: q (B, H, Sq, D); k/v (B, Hkv, Sk, D) -> (B, H, Sq,
+    D)."""
+    B, H, Sq, D = q.shape
+    group = H // k.shape[1]
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() / (D ** 0.5)
+    mask = _mask(Sq, k.shape[2], causal, window, q.device)
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
@@ -79,21 +89,15 @@ def attention_rounded_ref(q, k, v, *, causal: bool = True,
     input type.  The kernel rounds p against the running max of the key
     tiles it has seen, this against the row's max, so in bfloat16 a term of
     the PV sum may differ by one rounding of p (2^-9 of it)."""
-    B, H, S, D = q.shape
+    B, H, Sq, D = q.shape
     group = H // k.shape[1]
     scale = float(torch.tensor(D ** -0.5, dtype=q.dtype))
     qs = (q * scale).float()
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
-    qi = torch.arange(S, device=q.device)[:, None]
-    ki = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= ki <= qi
-    if window is not None:
-        mask &= ki > qi - window
-    s = s.masked_fill(~mask, NEG_INF)
+    s = s.masked_fill(~_mask(Sq, k.shape[2], causal, window, q.device),
+                      NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vf)
     return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
@@ -109,27 +113,22 @@ def attention_tiled_ref(q, k, v, *, causal: bool = True,
     accumulator rescaled by exp(m_old - m) per tile.  Every tile is visited:
     one the kernel skips is masked for every row of its query tile, and adds
     exactly 0 after a live tile, or is scaled by exactly 0 before one."""
-    B, H, S, D = q.shape
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
     block_k = block_k or BLOCK_K.get(D, 128)
     group = H // k.shape[1]
     scale = float(torch.tensor(D ** -0.5, dtype=q.dtype))
     qs = (q * scale).float()
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
-    qi = torch.arange(S, device=q.device)[:, None]
-    m = torch.full((B, H, S, 1), NEG_INF, device=q.device)
-    l = torch.zeros(B, H, S, 1, device=q.device)
-    acc = torch.zeros(B, H, S, D, device=q.device)
-    for k0 in range(0, S, block_k):
-        k1 = min(k0 + block_k, S)
+    m = torch.full((B, H, Sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros(B, H, Sq, 1, device=q.device)
+    acc = torch.zeros(B, H, Sq, D, device=q.device)
+    for k0 in range(0, Sk, block_k):
+        k1 = min(k0 + block_k, Sk)
         s = torch.einsum("bhqd,bhkd->bhqk", qs, kf[:, :, k0:k1])
-        ki = torch.arange(k0, k1, device=q.device)[None, :]
-        mask = torch.ones(S, k1 - k0, dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= ki <= qi
-        if window is not None:
-            mask &= ki > qi - window
-        s = s.masked_fill(~mask, NEG_INF)
+        s = s.masked_fill(~_mask(Sq, k1 - k0, causal, window, q.device, k0),
+                          NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
@@ -140,15 +139,20 @@ def attention_tiled_ref(q, k, v, *, causal: bool = True,
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
-def _check(q, k, v, window):
+def _check(q, k, v, causal, window):
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"flash_attention: expected q (B, H, S, D) and k/v "
-                         f"(B, Hkv, S, D); got {tuple(q.shape)}, "
+        raise ValueError(f"flash_attention: expected q (B, H, Sq, D) and k/v "
+                         f"(B, Hkv, Sk, D); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    B, H, S, D = q.shape
-    if k.shape[0] != B or k.shape[2:] != (S, D) or H % k.shape[1] != 0:
+    B, H, Sq, D = q.shape
+    if (k.shape[0] != B or k.shape[3] != D or k.shape[2] < 1
+            or H % k.shape[1] != 0):
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
                          f"q {tuple(q.shape)} (H a multiple of Hkv)")
+    if k.shape[2] != Sq and (causal or window is not None):
+        raise ValueError(f"flash_attention: {k.shape[2]} keys for {Sq} "
+                         f"queries: keys of another length take neither the "
+                         f"causal mask nor a window")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: q, k, v must share one type of "
                         f"float32 / bfloat16; got {q.dtype}, {k.dtype}, "
@@ -166,8 +170,8 @@ def _lib():
     lib.repro_flash_attention.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     lib.repro_flash_attention.restype = ctypes.c_int
     lib.repro_attention_error_string.argtypes = [ctypes.c_int]
     lib.repro_attention_error_string.restype = ctypes.c_char_p
@@ -176,12 +180,13 @@ def _lib():
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None):
-    """q (B, H, S, D); k/v (B, Hkv, S, D) -> (B, H, S, D), any S.  CPU
-    tensors run `attention_ref`; CUDA tensors (contiguous, D in `HEAD_DIMS`,
-    bfloat16 ones 16-byte aligned for the TMA) launch K4 on the current
-    stream, raising if the launch fails; any other device raises."""
+    """q (B, H, Sq, D); k/v (B, Hkv, Sk, D) -> (B, H, Sq, D), any lengths,
+    Sk != Sq only with `causal=False` and no window.  CPU tensors run
+    `attention_ref`; CUDA tensors (contiguous, D in `HEAD_DIMS`, bfloat16
+    ones 16-byte aligned for the TMA) launch K4 on the current stream,
+    raising if the launch fails; any other device raises."""
     global launches
-    _check(q, k, v, window)
+    _check(q, k, v, causal, window)
     dev = q.device
     if dev.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
@@ -190,7 +195,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
-    B, H, S, D = q.shape
+    B, H, Sq, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     if q.dtype == torch.bfloat16:
@@ -206,7 +211,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, H, k.shape[1], S, D, float(D ** -0.5),
+            _DTYPES[q.dtype], B, H, k.shape[1], Sq, k.shape[2], D,
+            float(D ** -0.5),
             int(causal), 0 if window is None else int(window), stream)
     if err != 0:
         raise RuntimeError("attention kernel launch failed: "

@@ -2,10 +2,13 @@
 // window, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/attention.py::
-// flash_attention (body _attn_kernel).  q (B, H, S, D), k and v (B, Hkv, S, D),
-// all contiguous, float32 or bfloat16; output (B, H, S, D) in the input type.
-// Query head h reads kv head h / (H / Hkv).  Keys k >= S are masked (ragged
-// S), and so are k > q (causal) and k <= q - window (sliding window).
+// flash_attention (body _attn_kernel).  q (B, H, Sq, D), k and v (B, Hkv, Sk,
+// D), all contiguous, float32 or bfloat16; output (B, H, Sq, D) in the input
+// type.  Query head h reads kv head h / (H / Hkv).  Keys k >= Sk are masked
+// (ragged Sk), and so are k > q (causal) and k <= q - window (sliding window).
+// Sk may differ from Sq only without the causal mask and the window (the
+// models' cross-attention over a memory, unmasked as in the reference); Sq ==
+// Sk without them is the encoder's bidirectional self-attention.
 //
 // The Pallas kernel's roundings are kept: q * scale is rounded to the input
 // type (scale itself rounded to it first, as JAX rounds a Python scalar to an
@@ -32,7 +35,8 @@
 // KB of Q and 2 x 64 KB of K and V), since the larger ring exceeds the 227 KB a
 // block may use and a 128-key score tile beside a thread's 128 accumulators
 // exceeds its 255 registers (Layout).  The tensor maps are 3-D, (D, S, batch x
-// head), so rows >= S of a ragged tile are zero-filled, not the next head's.
+// head), so rows >= Sk of a ragged K or V tile (>= Sq of Q) are zero-filled,
+// not the next head's; the mask then gives those keys exactly 0 weight.
 // Each warpgroup rounds its Q rows to q * scale in place once, then fences the
 // generic proxy's writes for wgmma.  S = Q K^T is a wgmma with both operands in
 // shared memory (K-major); the scores stay in registers, where the row max and
@@ -130,7 +134,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int H,
-                       int Hkv, int S, float scale, int causal, int window) {
+                       int Hkv, int Sq, int Sk, float scale, int causal,
+                       int window) {
   constexpr int QS = D + 1;      // padded row stride of the Q and K tiles
   constexpr int NC = D / 16;     // output columns per thread
   extern __shared__ float smem[];
@@ -143,21 +148,21 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = qb * kBQ;
-  const T* qp = q + static_cast<size_t>(b * H + h) * S * D;
-  const T* kp = k + static_cast<size_t>(b * Hkv + hk) * S * D;
-  const T* vp = v + static_cast<size_t>(b * Hkv + hk) * S * D;
-  T* op = o + static_cast<size_t>(b * H + h) * S * D;
+  const T* qp = q + static_cast<size_t>(b * H + h) * Sq * D;
+  const T* kp = k + static_cast<size_t>(b * Hkv + hk) * Sk * D;
+  const T* vp = v + static_cast<size_t>(b * Hkv + hk) * Sk * D;
+  T* op = o + static_cast<size_t>(b * H + h) * Sq * D;
 
   const float sc = round_to<T>(scale);
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
-    Qs[r * QS + c] = (q0 + r < S)
+    Qs[r * QS + c] = (q0 + r < Sq)
         ? round_to<T>(to_f<T>(qp[static_cast<size_t>(q0 + r) * D + c]) * sc)
         : 0.f;
   }
 
   // the key tiles that hold at least one unmasked key for some row
-  const int n_kv = (S + kBK - 1) / kBK;
+  const int n_kv = (Sk + kBK - 1) / kBK;
   const int hi = causal ? min(n_kv, (q0 + kBQ - 1) / kBK + 1) : n_kv;
   const int lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
@@ -175,7 +180,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();             // the previous tile's K, V, P reads are done
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
       const int r = idx / D, c = idx % D;
-      const bool in = k0 + r < S;
+      const bool in = k0 + r < Sk;
       const size_t g = static_cast<size_t>(k0 + r) * D + c;
       Ks[r * QS + c] = in ? to_f<T>(kp[g]) : 0.f;
       Vs[r * D + c] = in ? to_f<T>(vp[g]) : 0.f;
@@ -207,7 +212,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
-        const bool ok = kj < S && (!causal || kj <= qi) &&
+        const bool ok = kj < Sk && (!causal || kj <= qi) &&
                         (window <= 0 || kj > qi - window);
         if (!ok) s[i][j] = kNegInf;
         mt = fmaxf(mt, s[i][j]);
@@ -251,7 +256,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
-    if (qi >= S) continue;
+    if (qi >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
@@ -261,33 +266,37 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int S, float scale, int causal, int window,
+           int Hkv, int Sq, int Sk, float scale, int causal, int window,
            cudaStream_t stream) {
   auto kern = flash_attention_kernel<float, D>;
   constexpr size_t smem = smem_bytes<D>();
   static std::atomic<uint32_t> ready{0};
   cudaError_t err = allow_smem(kern, static_cast<int>(smem), ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, S, scale,
-      causal, window);
+      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Sk,
+      scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Hkv, int S, int D, float scale, int causal, int window,
-             cudaStream_t stream) {
+             int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
+             int window, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
+      return launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
+                        stream);
     case 64:
-      return launch<64>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
+      return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
+                        stream);
     case 128:
-      return launch<128>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
+      return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
+                         stream);
     case 256:
-      return launch<256>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
+      return launch<256>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
+                         stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -598,15 +607,15 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 
 // whether accumulator entry e of this thread (rows row0, row0 + 8; columns
 // cq, cq + 1 of every 8) holds a key that its query may see
-__device__ __forceinline__ bool live(int e, int row0, int k0, int cq, int S,
+__device__ __forceinline__ bool live(int e, int row0, int k0, int cq, int Sk,
                                      int causal, int window) {
   const int qi = row0 + 8 * ((e >> 1) & 1);
   const int kj = k0 + 8 * (e >> 2) + cq + (e & 1);
-  return kj < S && (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
+  return kj < Sk && (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
 }
 
 // The online softmax of one BK-key tile (first key k0) for this thread's
-// two rows, masking keys past S, past the diagonal or the window (kMask):
+// two rows, masking keys past Sk, past the diagonal or the window (kMask):
 // updates the running max m and gives alpha = exp(m_old - m_new), the row
 // sums ls of p = exp(s - m_new) (over the four lanes that share a row), and
 // p itself in place of s.  exp(s - m) is 2^(s log2 e - m log2 e), one fma;
@@ -617,12 +626,12 @@ template <int BK, bool kMask>
 __device__ __forceinline__ void softmax_pass(float (&s)[BK / 2],
                                              float (&m)[2], float (&alpha)[2],
                                              float (&ls)[2],
-                                             int row0, int k0, int cq, int S,
+                                             int row0, int k0, int cq, int Sk,
                                              int causal, int window) {
   float mn[2] = {m[0], m[1]}, ml[2];
 #pragma unroll
   for (int e = 0; e < BK / 2; ++e) {
-    const float x = !kMask || live(e, row0, k0, cq, S, causal, window)
+    const float x = !kMask || live(e, row0, k0, cq, Sk, causal, window)
                         ? s[e] : kNegInf;
     mn[(e >> 1) & 1] = fmaxf(mn[(e >> 1) & 1], x);
   }
@@ -638,9 +647,9 @@ __device__ __forceinline__ void softmax_pass(float (&s)[BK / 2],
 #pragma unroll
   for (int j = 0; j < BK / 4; ++j) {
     const int r = j & 1;
-    const float x0 = !kMask || live(2 * j, row0, k0, cq, S, causal, window)
+    const float x0 = !kMask || live(2 * j, row0, k0, cq, Sk, causal, window)
                          ? s[2 * j] : kNegInf;
-    const float x1 = !kMask || live(2 * j + 1, row0, k0, cq, S, causal, window)
+    const float x1 = !kMask || live(2 * j + 1, row0, k0, cq, Sk, causal, window)
                          ? s[2 * j + 1] : kNegInf;
     const float p0 = exp2_approx(fmaf(x0, kLog2e, -ml[r]));
     const float p1 = exp2_approx(fmaf(x1, kLog2e, -ml[r]));
@@ -655,20 +664,20 @@ __device__ __forceinline__ void softmax_pass(float (&s)[BK / 2],
   }
 }
 
-// softmax_pass, masked only where the tile crosses S, the diagonal or the
+// softmax_pass, masked only where the tile crosses Sk, the diagonal or the
 // window edge for some row of the warpgroup (rows from r_lo)
 template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
                                              float (&m)[2], float (&alpha)[2],
                                              float (&ls)[2],
                                              int row0, int k0, int r_lo,
-                                             int cq, int S, int causal,
+                                             int cq, int Sk, int causal,
                                              int window) {
-  if (k0 + BK > S || (causal && k0 + BK - 1 > r_lo) ||
+  if (k0 + BK > Sk || (causal && k0 + BK - 1 > r_lo) ||
       (window > 0 && k0 <= r_lo + 63 - window))
-    softmax_pass<BK, true>(s, m, alpha, ls, row0, k0, cq, S, causal, window);
+    softmax_pass<BK, true>(s, m, alpha, ls, row0, k0, cq, Sk, causal, window);
   else
-    softmax_pass<BK, false>(s, m, alpha, ls, row0, k0, cq, S, causal, window);
+    softmax_pass<BK, false>(s, m, alpha, ls, row0, k0, cq, Sk, causal, window);
 }
 
 // TMA of key tile kt's K and V into stage st, completing on its barrier
@@ -692,8 +701,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_tc(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int H, int Hkv, int S,
-                   float scale, int causal, int window) {
+                   __nv_bfloat16* __restrict__ o, int H, int Hkv, int Sq,
+                   int Sk, float scale, int causal, int window) {
   using L = Layout<D>;
   constexpr int NO = D / 2;                // output accumulators per thread
   constexpr int kBK = L::kBK, kStages = L::kStages;
@@ -709,7 +718,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
   const int qb = gridDim.y - 1 - blockIdx.y;      // heaviest first
   const int q0 = qb * kBQ;
   // the key tiles that hold at least one unmasked key for some row
-  const int n_kv = (S + kBK - 1) / kBK;
+  const int n_kv = (Sk + kBK - 1) / kBK;
   const int hi = causal ? min(n_kv, (q0 + kBQ - 1) / kBK + 1) : n_kv;
   const int lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
   const int n = hi - lo;
@@ -776,7 +785,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
     issue_s<D>(s, q_base, k_ring);
     wgmma_wait<0>();
     fence_regs(s);
-    softmax_tile<kBK>(s, m, alpha, l, row0, lo * kBK, r_lo, cq, S, causal,
+    softmax_tile<kBK>(s, m, alpha, l, row0, lo * kBK, r_lo, cq, Sk, causal,
                       window);
 #pragma unroll
     for (int j = 0; j < kBK / 4; ++j) p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
@@ -796,7 +805,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
     issue_pv<D>(acc, p, v_ring + sp * L::kTileBytes);
     wgmma_wait<1>();               // the scores are in
     fence_regs(s);
-    softmax_tile<kBK>(s, m, alpha, ls, row0, (lo + i) * kBK, r_lo, cq, S,
+    softmax_tile<kBK>(s, m, alpha, ls, row0, (lo + i) * kBK, r_lo, cq, Sk,
                       causal, window);
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + ls[r];
@@ -820,9 +829,9 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = row0 + 8 * r;
-    if (qi >= S) continue;
+    if (qi >= Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * S + qi) * D + cq;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * Sq + qi) * D + cq;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
@@ -857,7 +866,8 @@ EncodeTiled encoder() {
 }
 
 // A 3-D map over a contiguous (n, S, D) bf16 tensor, innermost first: boxes
-// of (kAW, rows, 1), swizzled; rows past S read as zeros.
+// of (kAW, rows, 1), swizzled; rows past S read as zeros (S is Sq for q, Sk
+// for k and v).
 template <int D>
 bool encode(CUtensorMap* map, const void* ptr, int S, int n, int rows) {
   using L = Layout<D>;
@@ -881,7 +891,7 @@ bool encode(CUtensorMap* map, const void* ptr, int S, int n, int rows) {
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int S, float scale, int causal, int window,
+           int Hkv, int Sq, int Sk, float scale, int causal, int window,
            cudaStream_t stream) {
   using L = Layout<D>;
   auto kern = flash_attention_tc<D>;
@@ -889,29 +899,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   cudaError_t err = allow_smem(kern, L::kSmem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap tq, tk, tv;
-  if (!encode<D>(&tq, q, S, B * H, kBQ) ||
-      !encode<D>(&tk, k, S, B * Hkv, L::kBK) ||
-      !encode<D>(&tv, v, S, B * Hkv, L::kBK))
+  if (!encode<D>(&tq, q, Sq, B * H, kBQ) ||
+      !encode<D>(&tk, k, Sk, B * Hkv, L::kBK) ||
+      !encode<D>(&tv, v, Sk, B * Hkv, L::kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, L::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Hkv, S, scale, causal,
-      window);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Hkv, Sq, Sk, scale,
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Hkv, int S, int D, float scale, int causal, int window,
-             cudaStream_t stream) {
+             int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
+             int window, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
+      return launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
+                        stream);
     case 64:
-      return launch<64>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
+      return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
+                        stream);
     case 128:
-      return launch<128>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
+      return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
+                         stream);
     case 256:
-      return launch<256>(q, k, v, o, B, H, Hkv, S, scale, causal, window, stream);
+      return launch<256>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
+                         stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -925,20 +939,25 @@ extern "C" {
 
 // Launches K4 on `stream` (a cudaStream_t).  dtype 0 = float32 (the CUDA-core
 // kernel), 1 = bfloat16 (the tensor-core kernel; q, k, v 16-byte aligned);
-// D in {32, 64, 128, 256}; window <= 0 means no window.  Returns a cudaError_t:
-// the attribute call's, cudaErrorInvalidValue when a tensor map cannot be
-// encoded, or cudaGetLastError() after the launch.
+// D in {32, 64, 128, 256}; window <= 0 means no window; Sq != Sk only with
+// neither the causal mask nor a window.  Returns a cudaError_t: the attribute
+// call's, cudaErrorInvalidValue for arguments it does not take or when a
+// tensor map cannot be encoded, or cudaGetLastError() after the launch.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                          int dtype, int B, int H, int Hkv, int S, int D,
-                          float scale, int causal, int window, void* stream) {
-  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
-  if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+                          int dtype, int B, int H, int Hkv, int Sq, int Sk,
+                          int D, float scale, int causal, int window,
+                          void* stream) {
+  if (B <= 0 || Sq <= 0) return static_cast<int>(cudaSuccess);
+  if (Hkv <= 0 || H % Hkv != 0 || Sk <= 0 ||
+      (Sq != Sk && (causal || window > 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return simt::launch_d(q, k, v, o, B, H, Hkv, S, D, scale, causal, window,
-                          st);
+    return simt::launch_d(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal,
+                          window, st);
   if (dtype == 1)
-    return tc::launch_d(q, k, v, o, B, H, Hkv, S, D, scale, causal, window, st);
+    return tc::launch_d(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal,
+                        window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

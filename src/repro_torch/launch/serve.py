@@ -5,11 +5,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --smoke --device cpu
 
-`--arch` takes any architecture `repro_torch.configs.list_archs()` names:
-qwen3-0.6b (the default), phi4-mini-3.8b, smollm-360m, gemma3-12b (sliding-
-window superblocks with ring caches), dbrx-132b and llama4-scout-17b-a16e
-(MoE; at full depth neither fits one 80 GB card) and rwkv6-1.6b.  Weights
-are random, drawn from a generator seeded with 0.
+`--arch` takes the architectures `repro_torch.configs.list_archs()` names
+that prefill from tokens alone: qwen3-0.6b (the default), phi4-mini-3.8b,
+smollm-360m, gemma3-12b (sliding-window superblocks with ring caches),
+hymba-1.5b (attention and SSM heads), dbrx-132b and llama4-scout-17b-a16e
+(MoE; at full depth neither fits one 80 GB card) and rwkv6-1.6b.  The
+engine prefills tokens only, as the reference's does, so it refuses
+seamless-m4t-medium and llama-3.2-vision-90b, whose prefill needs frame or
+patch embeddings (serve them through `Model.prefill` and `decode_step`).
+Weights are random, drawn from a generator seeded with 0.
 """
 from __future__ import annotations
 
@@ -38,8 +42,12 @@ def main(argv=None):
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.is_encdec or cfg.family == "vlm":
+        ap.error(f"{args.arch} prefills from frame or patch embeddings "
+                 f"beside its tokens; the engine prefills tokens only: serve "
+                 f"it through Model.prefill and Model.decode_step")
+    dev = resolve_device(args.device)
     model = build_model(cfg, seed=0, device=dev)
     engine = ServeEngine(model, B=args.slots, S_max=args.s_max)
     rng = np.random.default_rng(0)

@@ -1,6 +1,7 @@
 """Shared model layers: RMSNorm, RoPE, SwiGLU and attention.
 
-Self-attention over a whole sequence goes to the hand-written kernel K4
+Attention over a whole sequence (causal, bidirectional or across to a
+memory) goes to the hand-written kernel K4
 (`attention_flash`, the model-layout wrapper of
 `repro_torch.kernels.attention.flash_attention`: in bfloat16 on the tensor
 cores, in float32 on the CUDA cores), where the reference runs its
@@ -83,9 +84,12 @@ def attention_full(q, k, v, *, causal=True, window=None, q_offset=0,
 
 
 def attention_flash(q, k, v, *, causal=True, window=None):
-    """Self-attention over a whole sequence through K4.  q: (B, S, H, hd);
-    k/v: (B, S, Hkv, hd) -> (B, S, H, hd).  The kernel's layout is
-    (B, H, S, hd), so the heads move in front and back again."""
+    """Attention over a whole sequence through K4.  q: (B, Sq, H, hd);
+    k/v: (B, Sk, Hkv, hd) -> (B, Sq, H, hd): causal self-attention (within
+    `window` keys when given), an encoder's bidirectional one
+    (`causal=False`), or cross-attention over a memory of Sk rows
+    (`causal=False`, no window).  The kernel's layout is (B, H, S, hd), so
+    the heads move in front and back again."""
     o = flash_attention(q.transpose(1, 2).contiguous(),
                         k.transpose(1, 2).contiguous(),
                         v.transpose(1, 2).contiguous(),

@@ -61,20 +61,26 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.weights.embed.device
 
-    def forward(self, tokens):
-        """Full-sequence forward -> final hidden states (B, S, D)."""
-        return tf.forward(self.params, tokens, self.cfg)
+    def forward(self, tokens, *, frames=None, vis=None):
+        """Full-sequence forward -> final hidden states (B, S, D).  `frames`
+        (B, S, D): an encdec model's frame embeddings; `vis` (B,
+        n_vis_tokens, D): a vlm's patch embeddings (the reference's batch
+        keys)."""
+        return tf.forward(self.params, tokens, self.cfg, frames=frames,
+                          vis=vis)
 
-    def forward_with_aux(self, tokens):
+    def forward_with_aux(self, tokens, *, frames=None, vis=None):
         """(final hidden states, the MoE aux loss summed over layers), the
         reference's `forward` pair."""
-        return tf.forward_with_aux(self.params, tokens, self.cfg)
+        return tf.forward_with_aux(self.params, tokens, self.cfg,
+                                   frames=frames, vis=vis)
 
     def logits(self, h):
         return tf.logits_fn(self.params, h, self.cfg)
 
-    def prefill(self, tokens, S_max: int):
-        return decode_mod.prefill(self.params, tokens, self.cfg, S_max)
+    def prefill(self, tokens, S_max: int, *, frames=None, vis=None):
+        return decode_mod.prefill(self.params, tokens, self.cfg, S_max,
+                                  frames=frames, vis=vis)
 
     def decode_step(self, cache, tokens, pos):
         return decode_mod.decode_step(self.params, cache, tokens, pos,

@@ -15,9 +15,14 @@ tokens and position in and replays.  On the CPU (`graph=None` there means
 off) `graph=True` runs the step eagerly over the same static buffers;
 `graph=False` calls `model.decode_step` on the prefill's cache.  A cache
 entry is a flat dict of tensors per superblock (gemma3's rings and the
-MoE layers' caches alike), which `_bind_cache` copies key by key; the MoE
-sublayers read nothing back to the host, so their step captures too.  The
-greedy choice and its `tolist()` stay outside the graph.
+MoE layers' caches alike, hymba's SSM state and conv tail), which
+`_bind_cache` copies key by key; the MoE sublayers read nothing back to the
+host, so their step captures too.  The greedy choice and its `tolist()`
+stay outside the graph.
+
+The engine prefills tokens only, as the reference's does, so it refuses
+the encoder-decoder and vlm models, whose prefill also needs frame or patch
+embeddings: they are served through `Model.prefill` and `decode_step`.
 """
 from __future__ import annotations
 
@@ -43,6 +48,14 @@ class Request:
 class ServeEngine:
     def __init__(self, model, B: int = 4, S_max: int = 128,
                  graph: bool | None = None):
+        cfg = getattr(model, "cfg", None)
+        if cfg is not None and (cfg.is_encdec or cfg.family == "vlm"):
+            raise ValueError(
+                f"ServeEngine: {cfg.name} needs frame or patch embeddings "
+                f"beside its tokens, and the engine prefills tokens only "
+                f"(as the reference's does): serve it through "
+                f"Model.prefill(tokens, S_max, frames= / vis=) and "
+                f"Model.decode_step")
         self.model, self.B, self.S_max = model, B, S_max
         self.graph = (model.device.type == "cuda" if graph is None
                       else bool(graph))

@@ -1,0 +1,43 @@
+"""The port's examples (examples/torch_*.py) run end to end on the CPU, each
+in a fresh process that must load neither JAX nor the JAX package, and
+print what their reference scripts print (examples/quickstart.py,
+fmm_protocols.py, serve_lm.py), their own asserts included."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_RUN = r"""
+import runpy, sys
+sys.argv = [sys.argv[1], "--device", "cpu"]
+runpy.run_path(sys.argv[0], run_name="__main__")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+sys.exit(f"loaded: {bad}" if bad else 0)
+"""
+
+
+EXPECT = {
+    "torch_quickstart": ["rel. L2 error vs direct sum", "HSDX stages", "OK"],
+    "torch_fmm_protocols": ["alltoallv", "nbx", "pairwise", "hsdx",
+                            "all protocols served from one GeometryPlan",
+                            "dist bulk", "dist grain", "dist hsdx",
+                            "chaos: killed fused.launch"],
+    "torch_serve_lm": ["request 5:", "OK — served 6 requests"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXPECT))
+def test_example_runs_on_the_cpu(name):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _RUN,
+                          str(ROOT / "examples" / f"{name}.py")], env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:] + out.stdout[-3000:]
+    for line in EXPECT[name]:
+        assert line in out.stdout, (line, out.stdout)

@@ -495,6 +495,47 @@ def test_k4_bf16_matches_tiled_ref_on_card(cuda_device, B, H, Hkv, S, D,
     assert float(err.median()) <= K4_TILED_ROW_MEDIAN
 
 
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,dtype", [
+    (2, 4, 2, 129, 77, 64, torch.bfloat16),     # ragged keys, B x Hkv = 4
+    (1, 8, 2, 200, 1600, 128, torch.bfloat16),  # vlm cross: 1,600 patches
+    (2, 4, 1, 1000, 333, 256, torch.bfloat16),  # D = 256, 64-key tiles
+    (2, 4, 2, 64, 200, 32, torch.bfloat16),     # more keys than queries
+    (2, 4, 2, 1000, 1000, 64, torch.bfloat16),  # encoder: Sq == Sk
+    (1, 16, 16, 1024, 1024, 64, torch.bfloat16),
+    (2, 4, 2, 129, 77, 64, torch.float32),
+    (1, 4, 2, 100, 300, 128, torch.float32),
+    (1, 2, 1, 50, 130, 256, torch.float32),
+    (2, 4, 2, 333, 333, 128, torch.float32),    # encoder: Sq == Sk
+])
+def test_k4_over_keys_of_their_own_length_on_card(cuda_device, B, H, Hkv, Sq,
+                                                  Sk, D, dtype):
+    """K4 unmasked (`causal=False`) over k/v of Sk rows for Sq queries, the
+    models' cross-attention over a memory and the encoder's bidirectional
+    self-attention, against its plain versions: float32 at 2e-4 against
+    `attention_rounded_ref`; bfloat16 at K4's limits against it and per row
+    against `attention_tiled_ref`.  With B x Hkv > 1 and Sk ragged, a key
+    tile read past one head's Sk rows would read the next head's."""
+    rng = np.random.default_rng(Sq + Sk + D)
+    q = _normal(rng, (B, H, Sq, D), dtype, cuda_device)
+    k = _normal(rng, (B, Hkv, Sk, D), dtype, cuda_device)
+    v = _normal(rng, (B, Hkv, Sk, D), dtype, cuda_device)
+    before = kattn.launches
+    got = kattn.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kattn.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = kattn.attention_rounded_ref(q, k, v, causal=False).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        return
+    torch.testing.assert_close(got.float(), want, rtol=K4_RTOL, atol=K4_ATOL)
+    err = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(err.max()) <= K4_ROW_REL
+    tiled = kattn.attention_tiled_ref(q, k, v, causal=False).float()
+    err = (got.float() - tiled).norm(dim=-1) / tiled.norm(dim=-1)
+    assert float(err.max()) <= K4_TILED_ROW_REL
+
+
 def test_k4_bf16_rejects_misaligned_on_card(cuda_device):
     buf = torch.zeros(2 * 64 * 64 + 1, device=cuda_device,
                       dtype=torch.bfloat16)
@@ -787,15 +828,68 @@ def _on_card(cfg):
         replace(cfg, head_dim=32)
 
 
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "seamless-m4t-medium",
+                                  "llama-3.2-vision-90b"])
+def test_lm_families_on_card_match_cpu(cuda_device, arch):
+    """The hybrid, encoder-decoder and vlm smoke models in float32 at head
+    dim 32 on the card (every attention over a sequence through K4: hymba's
+    windowed and global layers, the encoder, self- and cross-attention)
+    against the same weights on the CPU: the forward's logits, with K4
+    launched once an attention sublayer, then a prefill of 60 tokens and
+    three decode steps, at rtol/atol 1e-4 of the logits."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.params import map_tree
+    cfg = _on_card(replace(get_config(arch, smoke=True), dtype="float32"))
+    params = build_model(cfg, seed=0, device="cpu").params
+    card = build_model(cfg, map_tree(lambda t: t.float().to(cuda_device),
+                                     params))
+    cpu = build_model(cfg, map_tree(lambda t: t.float(), params))
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab, (2, 64)))
+    emb = {}
+    if cfg.is_encdec:
+        emb["frames"] = torch.as_tensor(
+            rng.normal(0, 0.1, (2, 64, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        emb["vis"] = torch.as_tensor(rng.normal(
+            0, 0.1, (2, cfg.n_vis_tokens, cfg.d_model)).astype(np.float32))
+
+    def on(dev, n=64):
+        return {k: (v[:, :n] if k == "frames" else v).to(dev)
+                for k, v in emb.items()}
+
+    before = kattn.launches
+    lg_card = card.logits(card(toks.to(cuda_device), **on(cuda_device)))
+    torch.cuda.synchronize()
+    assert kattn.launches - before == cfg.n_enc_layers + cfg.n_layers * (
+        2 if cfg.is_encdec else 1)
+    torch.testing.assert_close(lg_card.cpu(),
+                               cpu.logits(cpu(toks, **on("cpu"))),
+                               rtol=1e-4, atol=1e-4)
+    cache_c, lg_c = card.prefill(toks[:, :60].to(cuda_device), 64,
+                                 **on(cuda_device, 60))
+    cache_h, lg_h = cpu.prefill(toks[:, :60], 64, **on("cpu", 60))
+    torch.testing.assert_close(lg_c.cpu(), lg_h, rtol=1e-4, atol=1e-4)
+    for pos in range(60, 63):
+        nxt = toks[:, pos:pos + 1]
+        lg_c, cache_c = card.decode_step(cache_c, nxt.to(cuda_device), pos)
+        lg_h, cache_h = cpu.decode_step(cache_h, nxt, pos)
+        torch.testing.assert_close(lg_c.cpu(), lg_h, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "gemma3-12b",
-                                  "dbrx-132b"])
+                                  "dbrx-132b", "hymba-1.5b"])
 def test_serve_engine_graph_matches_eager_on_card(cuda_device, arch):
     """A tiny model (the smoke config, bfloat16) served on the card with the
     decode step as one CUDA graph replay gives the same tokens as the eager
     step for every request; rwkv6's replay runs K5 once a layer and no
     replay runs K4 (decode attention is plain PyTorch).  gemma3's replay
     writes its ring caches at a position read on the device (decoded past
-    its window of 16), dbrx's routes through its MoE sublayers."""
+    its window of 16), dbrx's routes through its MoE sublayers, hymba's
+    writes its SSM state and conv tail in place."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine
@@ -815,6 +909,34 @@ def test_serve_engine_graph_matches_eager_on_card(cuda_device, arch):
     assert "K4" not in launches
     if cfg.family == "ssm":
         assert launches == {"K5": cfg.n_layers}
+
+
+def test_capture_holds_the_garbage_collector_off_on_card(cuda_device):
+    """A dead object that owns a CUDA graph and is only reachable through a
+    reference cycle (an engine and its captured call's closure), freed by
+    Python's collector in the middle of another capture, resets its graph,
+    which a capturing stream does not permit: the capture fails (seen on
+    the card when the qwen3 then rwkv6 cases of
+    `test_lm_on_card_matches_cpu_and_serves` ran back to back).
+    `CapturedCall` therefore holds the automatic collector off while it
+    captures, and only then: the two warm-up calls see it on, the captured
+    call off, and it is on again afterwards."""
+    import gc
+
+    from repro_torch.graphs import CapturedCall
+    x = torch.arange(8.0, device=cuda_device)
+    seen = []
+
+    def fn():
+        seen.append(gc.isenabled())
+        return (x * 2,)
+
+    assert gc.isenabled()
+    call = CapturedCall(fn, cuda_device)
+    assert seen == [True, True, False] and gc.isenabled()
+    out, = call.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 2)
 
 
 # ------------------------------------------------ multi-rank exchange --------

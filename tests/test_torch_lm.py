@@ -206,12 +206,20 @@ def test_prefill_then_decode_matches(pair):
 
 
 def test_unported_families_raise():
-    for arch in ("hymba-1.5b", "seamless-m4t-medium", "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
-    cfg = replace(get_config("qwen3-0.6b", smoke=True), family="hybrid",
-                  ssm_state=16, sliding_window=16, global_layers=(1,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every family of the reference is ported: `list_archs()` names the
+    reference's ten architectures and each config resolves.  What
+    `check_supported` still refuses raises: rwkv6 with another norm_eps
+    (its block normalises with 1e-5), and a family the reference has not."""
+    from repro.configs import list_archs as jlist_archs
+    from repro_torch.configs import list_archs
+    assert list_archs() == jlist_archs() and len(list_archs()) == 10
+    for arch in list_archs():
+        assert get_config(arch).name == arch
+    cfg = replace(get_config("rwkv6-1.6b", smoke=True), norm_eps=1e-6)
+    with pytest.raises(NotImplementedError, match="norm_eps"):
+        build_model(cfg, device="cpu")
+    cfg = replace(get_config("qwen3-0.6b", smoke=True), family="diffusion")
+    with pytest.raises(NotImplementedError, match="family"):
         build_model(cfg, device="cpu")
 
 

@@ -56,20 +56,40 @@ MAX_TIES = 0.25
 class Pair:
     """The reference and the port on the same weights, with the
     reference's prefill of the S tokens and its decode step, jitted (one
-    compilation for every step)."""
+    compilation for every step).  `vectors_only` and `perturb` (a function
+    of the reference's params) choose the weights; `inputs` (a function of
+    the config) gives the model's other inputs as numpy arrays by the
+    reference's batch keys (`frames`, `vis`), kept in `extra`."""
 
-    def __init__(self, arch, dtype):
+    def __init__(self, arch, dtype, *, vectors_only=False, perturb=None,
+                 inputs=None):
         self.arch, self.dtype = arch, dtype
-        self.cfg, self.jmodel, self.params = perturbed_reference(arch, dtype)
+        self.cfg, self.jmodel, self.params = perturbed_reference(
+            arch, dtype, vectors_only=vectors_only)
+        if perturb is not None:
+            self.params = perturb(self.params)
         self.tmodel = port_of(arch, dtype, self.params)
         self.tokens = np.random.default_rng(0).integers(1, self.cfg.vocab,
                                                         (2, S))
+        self.extra = inputs(self.cfg) if inputs is not None else {}
         jm, params = self.jmodel, self.params
         self.cache_r, self.lg_r = jm.prefill(
-            params, {"tokens": jnp.asarray(self.tokens, jnp.int32)}, PAR,
-            S_max=S_MAX)
+            params, self.batch(self.tokens), PAR, S_max=S_MAX)
         self.step = jax.jit(lambda c, t, p: jm.decode_step(params, c, t, p,
                                                            PAR))
+
+    def batch(self, tokens, n=None):
+        """The reference's batch of `tokens`, the extra inputs cut to the
+        first n positions where they follow the tokens (`frames`)."""
+        out = {"tokens": jnp.asarray(tokens, jnp.int32)}
+        for key, a in self.extra.items():
+            out[key] = jnp.asarray(a[:, :n] if key == "frames" else a)
+        return out
+
+    def kw(self, n=None):
+        """The port's keyword arguments of the extra inputs, cut alike."""
+        return {key: torch.as_tensor(a[:, :n] if key == "frames" else a)
+                for key, a in self.extra.items()}
 
 
 def ref_entries(cache_r):
