@@ -54,9 +54,9 @@ position (`serve.engine`); this matches the reference's traced `pos` and
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_rope, attention_full, rms_norm
 from repro_torch.models.transformer import (_attn_sublayer, _ffn_sublayer,
                                             _mlp_sublayer, _n_superblocks,
@@ -140,7 +140,7 @@ def _ring_fill(ring, k_full):
     ring[:, slots] = k_full[:, S - take:].to(ring.dtype)
 
 
-def _store_kv(c, kv, S):
+def _store_kv(c, kv, S, cfg):
     """One superblock's prefill keys and values (kind, k, v) into its
     cache entry c (a vlm's self caches stacked, the i-th self sublayer's
     at index i)."""
@@ -155,7 +155,7 @@ def _store_kv(c, kv, S):
             c["v_glob"][:, :S] = v
         else:
             kc, vc = c["k"], c["v"]
-            if kc.dim() == 5:
+            if cfg.cross_attn_period:
                 kc, vc = kc[si], vc[si]
                 si += 1
             kc[:, :S] = k
@@ -201,7 +201,7 @@ def prefill(params, tokens, cfg, S_max: int, *, frames=None, vis=None):
         for pb, c in zip(params["blocks"], cache["blocks"]):
             h, _, kv = superblock(h, pb, cfg, positions=positions,
                                   memory=memory)
-            _store_kv(c, kv, S)
+            _store_kv(c, kv, S, cfg)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     return cache, logits_fn(params, h[:, -1:], cfg)
 
@@ -237,21 +237,8 @@ def _hybrid_step(h, pb, c, cfg, pos, window):
                        causal=False, window=window, q_offset=pos,
                        kv_len=pos + 1)
     o_attn = o.reshape(B, 1, -1) @ pa["wo"]
-    xi = xn @ ps["in_proj"]                                       # (B, 1, D)
-    conv = torch.cat([c["conv"][:, 1:], xi.to(CDT)], dim=1)       # (B, 4, D)
-    xi = F.silu((conv.to(xi.dtype) * ps["conv_w"][None]).sum(
-        1, keepdim=True) + xi)
-    dt = F.softplus(xi @ ps["dt_proj"])                           # (B, 1, 1)
-    Bm = xi @ ps["B_proj"]
-    Cm = xi @ ps["C_proj"]
-    A = -torch.exp(ps["A_log"].float())
-    a = torch.exp(dt[..., None] * A[None, None])[:, 0]            # (B, D, N)
-    bterm = ((dt[..., None] * Bm[:, :, None, :]) * xi[..., None])[:, 0]
-    h_new = a * c["ssm_h"] + bterm.float()
-    # the reference rounds the state to the model's type before C . h
-    y = torch.einsum("bdn,bn->bd", h_new.to(xi.dtype), Cm[:, 0])
-    y_ssm = (y + xi[:, 0] * ps["D_skip"])[:, None] @ ps["out_proj"]
-    c["ssm_h"].copy_(h_new)
+    y_ssm, conv, ssm_h = ssm_mod.ssm_step(xn, ps, c["conv"], c["ssm_h"])
+    c["ssm_h"].copy_(ssm_h)
     c["conv"].copy_(conv)
     return _mlp_sublayer(h + 0.5 * (o_attn + y_ssm), pb["mlp0"], cfg)
 
@@ -303,7 +290,7 @@ def decode_step(params, cache, tokens, pos, cfg):
                         li += 1
                     elif kind == "attn_global":
                         kc, vc = c["k_glob"], c["v_glob"]
-                    elif c["k"].dim() == 5:     # vlm: stacked self caches
+                    elif cfg.cross_attn_period:     # vlm: stacked caches
                         kc, vc = c["k"][si], c["v"][si]
                         si += 1
                     else:

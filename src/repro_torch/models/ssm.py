@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.params import ParamDef
 
-__all__ = ["ssm_defs", "selective_scan", "ssm_head", "CHUNK"]
+__all__ = ["ssm_defs", "selective_scan", "ssm_head", "ssm_step", "CHUNK"]
 
 CHUNK = 256     # the reference's chunk (tokens) of the selective scan
 
@@ -90,10 +90,9 @@ def selective_scan(a, b, C, chunk: int = CHUNK):
     return torch.cat(ys, dim=1), h
 
 
-def ssm_head(x, p, cfg, h0=None):
+def ssm_head(x, p, cfg):
     """x: (B, S, D) -> (y (B, S, D) after out_proj, h_last (B, D, N)
-    float32).  With `h0` (B, D, N) the state starts there and the tokens
-    are stepped one by one (the reference's decode form)."""
+    float32), the state from 0 (a prefill; a decode steps `ssm_step`)."""
     xi = x @ p["in_proj"]
     xi = F.silu(_causal_conv(xi, p["conv_w"]) + xi)
     dt = F.softplus(xi @ p["dt_proj"])                            # (B, S, 1)
@@ -102,16 +101,27 @@ def ssm_head(x, p, cfg, h0=None):
     A = -torch.exp(p["A_log"].float())                            # (D, N)
     a = torch.exp(dt[..., None] * A[None, None])                  # (B,S,D,N)
     b = (dt[..., None] * Bm[:, :, None, :]) * xi[..., None]       # (B,S,D,N)
-    if h0 is None:
-        y_state, h_last = selective_scan(a.float(), b.float(), Cm.float())
-        y_state = y_state.to(x.dtype)
-    else:
-        h, hs = h0, []
-        for t in range(x.shape[1]):
-            h = a[:, t].float() * h + b[:, t].float()
-            hs.append(h)
-        h_last = h
-        y_state = torch.einsum("bsdn,bsn->bsd",
-                               torch.stack(hs, 1).to(x.dtype), Cm)
-    y = y_state + xi * p["D_skip"]
+    y_state, h_last = selective_scan(a.float(), b.float(), Cm.float())
+    y = y_state.to(x.dtype) + xi * p["D_skip"]
     return y @ p["out_proj"], h_last
+
+
+def ssm_step(x, p, conv, h):
+    """One token of the SSM head, the reference's decode form.  x: (B, 1,
+    D); conv (B, 4, D): the last 4 rows of the input projection (the causal
+    conv's tail, in the cache's type); h (B, D, N) float32 state -> (y (B,
+    1, D) after out_proj, the new tail, the new state).  The state is
+    rounded to x's type before C . h, as the reference's decode does."""
+    xi = x @ p["in_proj"]                                         # (B, 1, D)
+    conv = torch.cat([conv[:, 1:], xi.to(conv.dtype)], dim=1)     # (B, 4, D)
+    xi = F.silu((conv.to(xi.dtype) * p["conv_w"][None]).sum(
+        1, keepdim=True) + xi)
+    dt = F.softplus(xi @ p["dt_proj"])                            # (B, 1, 1)
+    Bm = xi @ p["B_proj"]
+    Cm = xi @ p["C_proj"]
+    A = -torch.exp(p["A_log"].float())
+    a = torch.exp(dt[..., None] * A[None, None])[:, 0]            # (B, D, N)
+    b = ((dt[..., None] * Bm[:, :, None, :]) * xi[..., None])[:, 0]
+    h = a * h + b.float()
+    y = torch.einsum("bdn,bn->bd", h.to(xi.dtype), Cm[:, 0])
+    return (y + xi[:, 0] * p["D_skip"])[:, None] @ p["out_proj"], conv, h

@@ -836,7 +836,9 @@ def test_lm_families_on_card_match_cpu(cuda_device, arch):
     windowed and global layers, the encoder, self- and cross-attention)
     against the same weights on the CPU: the forward's logits, with K4
     launched once an attention sublayer, then a prefill of 60 tokens and
-    three decode steps, at rtol/atol 1e-4 of the logits."""
+    three decode steps, at rtol/atol 1e-4 of the logits.  hymba's SSM
+    conv taps, A_log and D skip are drawn from N(0, 0.3) (the init zeroes
+    the taps, so the decode's conv tail would multiply by zero)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -844,10 +846,15 @@ def test_lm_families_on_card_match_cpu(cuda_device, arch):
     from repro_torch.models.params import map_tree
     cfg = _on_card(replace(get_config(arch, smoke=True), dtype="float32"))
     params = build_model(cfg, seed=0, device="cpu").params
+    rng = np.random.default_rng(0)
+    if cfg.family == "hybrid":
+        for pb in params["blocks"]:
+            for leaf in ("conv_w", "A_log", "D_skip"):
+                t = pb["ssm0"][leaf]
+                t.copy_(torch.as_tensor(rng.normal(0, 0.3, tuple(t.shape))))
     card = build_model(cfg, map_tree(lambda t: t.float().to(cuda_device),
                                      params))
     cpu = build_model(cfg, map_tree(lambda t: t.float(), params))
-    rng = np.random.default_rng(0)
     toks = torch.as_tensor(rng.integers(1, cfg.vocab, (2, 64)))
     emb = {}
     if cfg.is_encdec:

@@ -170,7 +170,16 @@ def test_ssm_head_stepped_from_a_state_matches_reference(dtype):
                                                cfg.ssm_state))
     h0 = h0.astype(np.float32)
     y_r, h_r = jssm.ssm_head(jx, jp, jcfg, h0=jnp.asarray(h0))
-    y_t, h_t = tssm.ssm_head(tx, tp, cfg, h0=torch.as_tensor(h0))
+    # the served step (`ssm_step`, which the decode calls), token by token
+    # from h0 and a zero conv tail (the reference's zero-padded conv), the
+    # tail in the model's type so that float32 rounds nothing
+    conv, h_t, ys = torch.zeros(2, 4, cfg.d_model, dtype=tx.dtype), \
+        torch.as_tensor(h0), []
+    for t in range(tx.shape[1]):
+        y, conv, h_t = tssm.ssm_step(tx[:, t:t + 1], tp, conv, h_t)
+        ys.append(y)
+    y_t = torch.cat(ys, dim=1)
+    assert h_t.dtype == torch.float32
     _ssm_close(y_t, y_r, dtype, f"ssm_head from h0 y {dtype}")
     _ssm_close(h_t, h_r, dtype, f"ssm_head from h0 h_last {dtype}")
 

@@ -15,7 +15,9 @@ bfloat16 with the reference's init (`model.init(key(seed))`), a prompt
 prefilled and decode steps chained on each package's own cache, each
 step's logits against a forward over the sequence so far.  Prints, per
 package, the smallest and largest |decode - forward| as a share of the
-forward's largest |logit|.
+forward's largest |logit|, and the same for the port with a planted fault
+(the SSM state zeroed before each step), which a gate set from these
+figures must see.
 
 Without `--deep`: the smoke config (3 layers, d_model 64), the SSM's
 `conv_w`, `A_log` and `D_skip` drawn from N(0, 0.3) (the init zeroes the
@@ -96,7 +98,9 @@ def reference_drift(cfg, model, params, toks, prompt=PROMPT):
     return out
 
 
-def port_drift(params, toks, deep=False, prompt=PROMPT):
+def port_drift(params, toks, deep=False, prompt=PROMPT, stale=False):
+    """The port's drift; with `stale`, of a planted fault: the SSM state
+    zeroed before each step (not carried), as `chip_smoke.py` plants it."""
     cfg = (replace(get_config(ARCH), **DEEP) if deep
            else get_config(ARCH, smoke=True))
     tree = jax.tree.map(np.asarray, params)
@@ -106,6 +110,9 @@ def port_drift(params, toks, deep=False, prompt=PROMPT):
     out = []
     with torch.no_grad():
         for pos in range(prompt, n):
+            if stale:
+                for c in cache["blocks"]:
+                    c["ssm_h"].zero_()
             lg, cache = model.decode_step(
                 cache, torch.as_tensor(toks[:, pos:pos + 1]), pos)
             want = model.logits(model(torch.as_tensor(toks[:, :pos + 1]))
@@ -134,7 +141,10 @@ def main():
         for name, fn in (("reference", lambda t, p: reference_drift(
                               cfg, model, params, t, p)),
                          ("port", lambda t, p: port_drift(
-                              params, t, args.deep, p))):
+                              params, t, args.deep, p)),
+                         ("port, SSM state not carried (a planted fault)",
+                          lambda t, p: port_drift(params, t, args.deep, p,
+                                                  stale=True))):
             d = [x for toks, p in runs for x in fn(toks, p)]
             print(f"seed {seed} {name} ({cfg.n_layers} layers, d_model "
                   f"{cfg.d_model}): decode against forward, {what}: "
