@@ -6,7 +6,7 @@
     python3 chip_smoke.py --out DIR  # phase 8b's trace and report there
                                      # (default build/obs, gitignored)
 
-Drives the port's two paths on the card.  The FMM path —
+Drives the port's paths on the card.  The FMM path —
 `FMMSession.from_points(x, q, spec)` (planned with the device dual traversal
 and its MAC kernel K3), `.evaluate()` and `.step(new_x)` — on the
 repository's default workload: a sphere-surface (boundary) distribution
@@ -24,7 +24,9 @@ full width with depth cut to LM_CUT layers; and `Model.prefill` +
 seamless-m4t-medium (its encoder, decoder self- and cross-attention through
 K4) at full size and llama-3.2-vision-90b (cross-attention over 1,600 patch
 embeddings through K4) at full width, depth cut to LM_CUT layers; random
-bfloat16 weights from a seeded generator.
+bfloat16 weights from a seeded generator.  And the LM training path —
+`launch.train.run`, the reference's driver — on smollm-360m at full size
+(K4 in every forward, its gradient in every backward) and rwkv6-1.6b (K5).
 
 Phases, in order; any failed check raises and ends the run non-zero:
 
@@ -212,8 +214,37 @@ Phases, in order; any failed check raises and ends the run non-zero:
      with K4 once an attention sublayer (36: 12 encoder, 12 self, 12
      cross; 10: 8 self, 2 cross), each with its profile and K4's device
      time;
- 11. one JSON line listing every ported kernel;
- 12. the last line: {"ok": true, "device": {...}}.
+ 11. LM training, the reference's training tier on the card:
+     (a) the gradients of K4's and K5's autograd Functions (the kernel
+     forward, the PyTorch backward `flash_attention_bwd` / `wkv_bwd`)
+     against autograd through their plain versions (`attention_rounded_ref`,
+     `wkv_ref`) on the same bfloat16 inputs, per tensor max |error| and
+     relative L2 (GRAD_MAX_REL, GRAD_REL_L2): K4 at smollm-360m's (4, 15 /
+     5, 512, 64) and qwen3-0.6b's (4, 16 / 8, 512, 128) causal shapes,
+     gemma3-12b's D = 256 with its window of 1,024 at S = 2,048, and
+     unmasked over 1,600 keys (llama-3.2-vision-90b's cross); K5 at
+     rwkv6-1.6b's (4 x 32, 512, 64) with a random initial state and
+     final-state gradient; each backward timed beside its forward, the
+     plain forward + backward and (K4) SDPA's forward + backward (CUDA
+     events); (b) `launch.train.run` on smollm-360m at full width and depth
+     with the example's full-size settings (batch 4, seq 512, lr 3e-4) for
+     30 of its 300 steps: every loss and grad norm finite, the mean of the
+     last 5 losses at least 0.1 below that of the first 5, K4 launched 32
+     times a step and its backward as often; warm step time, tokens/s,
+     peak memory; 3 steps under the profiler (device busy and idle) and 3
+     split into forward, backward (K4's backward function on its own) and
+     optimizer; (c) restart exactness (the reference's
+     `test_checkpoint_restart_exact`): smollm-360m cut to 2 layers at full
+     width, 12 steps uninterrupted against a run failed at step 7 with a
+     checkpoint every 3 steps (~1.1 GB each, in a temporary directory under
+     build/, deleted afterwards) and resumed from step 6: the last 3 losses
+     at rtol 2e-4; (d) rwkv6-1.6b at full width and depth, batch 2, seq
+     512, 3 steps: finite losses and grad norms, K5 launched 24 times a
+     step and its backward as often, the step time and the backward WKV's
+     share of it; K4's and K5's launches of (b)-(d) count in the kernels'
+     line;
+ 12. one JSON line listing every ported kernel;
+ 13. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -302,6 +333,31 @@ LM_CUT = {"dbrx-132b": 4, "llama4-scout-17b-a16e": 4,
 # that wrong decode reads beyond the limit; phase 10 plants it on the card
 # too.  The other models keep LM_LOGIT_TOL.
 HYMBA_LOGIT_TOL = 0.25
+# phase 11 (a): the gradients of K4's and K5's autograd Functions against
+# autograd through their plain versions (`attention_rounded_ref`, `wkv_ref`)
+# on the same bfloat16 inputs, per tensor: relative L2 and max |error| /
+# max |plain|.  Measured on the card (H100, 700 W): K4 dq / dk 3.3e-3 to
+# 4.0e-3 in relative L2 and up to 6.9e-3 of the largest |plain| (the
+# bfloat16 q, k grads: one rounding here, two in autograd's casts; K4's
+# bfloat16 output enters rowsum(dO O)), dv under 1e-4; K5's bfloat16 dr /
+# dk / dv up to 3.0e-5 and 3.2e-3 (half a bfloat16 unit at their largest
+# values), its float32 dw / du / dstate up to 4.4e-7.  Limits about 2.5x
+# the largest relative L2 and 2x the largest max, K5's max one bfloat16
+# unit (2^-7)
+GRAD_REL_L2 = {"K4": 1e-2, "K5": 1e-4}
+GRAD_MAX_REL = {"K4": 1.5e-2, "K5": 7.8e-3}
+# ... at training shapes: (label, (B, H, Hkv, Sq, Sk, D), causal, window)
+K4_GRAD_CASES = (
+    ("smollm-360m", (4, 15, 5, 512, 512, 64), True, None),
+    ("qwen3-0.6b", (4, 16, 8, 512, 512, 128), True, None),
+    ("gemma3-12b local", (1, 16, 8, 2048, 2048, 256), True, 1024),
+    ("llama-3.2-vision-90b cross", (1, 64, 8, 512, 1600, 128), False, None))
+K5_GRAD_SHAPE = (4 * 32, 512, 64)           # rwkv6-1.6b: (B H, S, D)
+# phase 11 (b)-(d): the reference's training main path and its cuts
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_LR = (
+    "smollm-360m", 30, 4, 512, 3e-4)
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 2, 12, 3, 7
+RWKV_TRAIN_B, RWKV_TRAIN_STEPS = 2, 3
 # frame and patch embeddings, drawn at the reference's tests' scale
 EMBED_SCALE = 0.1
 BITWISE_TILES = 1 << 20      # live tiles in the K1 == K2 bitwise check
@@ -845,6 +901,15 @@ def protocols_and_executor(torch, sess, x, q, idx, d, dev, card) -> None:
                              f"{want} and HSDX relaying the whole LET")
 
 
+def attn_pairs(s_: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs of one head that the causal mask and the window
+    admit (every pair unmasked, sk keys)."""
+    if not causal:
+        return s_ * sk
+    w = min(window or s_, s_)
+    return w * (w + 1) // 2 + (s_ - w) * w
+
+
 def lm_kernel_checks(torch, kattn, krwkv, dev, power) -> dict:
     """Phase 9: K4 and K5 against their plain versions, timed."""
     import torch.nn.functional as F
@@ -861,11 +926,7 @@ def lm_kernel_checks(torch, kattn, krwkv, dev, power) -> dict:
         window admit, or of every pair without a mask (sk keys, default
         s_)."""
         sk = sk or s_
-        if causal:
-            w = min(window or s_, s_)
-            pairs = w * (w + 1) // 2 + (s_ - w) * w
-        else:
-            pairs = s_ * sk
+        pairs = attn_pairs(s_, sk, causal, window)
         ops = 4.0 * d * pairs * b * h                  # QK^T and PV, fma = 2
         nb = nbyte * (2.0 * b * h * s_ * d + 2.0 * b * hk * sk * d)
         peak = PEAK_BF16_FLOPS if nbyte == 2 else PEAK_F32_FLOPS
@@ -2288,6 +2349,370 @@ def dist_exchange(torch, geo, x, q, idx, d, dev, card) -> float:
     return k1_err
 
 
+# ------------------------------------------------------------ phase 11 -----
+@contextmanager
+def patched(module, name: str, value):
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+@contextmanager
+def events_of(torch, module, name: str, acc: list):
+    """Time every call of module.name on the device with CUDA events (no
+    synchronisation): appends (start, end) event pairs to acc; read them
+    with `events_ms` after a synchronisation."""
+    real = getattr(module, name)
+
+    def timed(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(*args, **kw)
+        b.record()
+        acc.append((a, b))
+        return out
+
+    with patched(module, name, timed):
+        yield acc
+
+
+def events_ms(acc: list) -> float:
+    return sum(a.elapsed_time(b) for a, b in acc)
+
+
+def grad_errors(torch, kernel: str, names, got, want) -> None:
+    """Each gradient against its plain counterpart: max |error| and the
+    relative L2 error, held to GRAD_MAX_REL / GRAD_REL_L2."""
+    for name, g, w in zip(names, got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{kernel} d{name}: shape {tuple(g.shape)} "
+                                 f"or non-finite values")
+        g, w = g.float(), w.float()
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        rel = float(torch.linalg.vector_norm(g - w)
+                    / torch.linalg.vector_norm(w).clamp_min(1e-30))
+        print(f"    d{name}: max |err| {err:.3e} (max |plain| {scale:.3e}, "
+              f"{err / max(scale, 1e-30):.3e} of it), relative L2 {rel:.3e}",
+              flush=True)
+        if rel > GRAD_REL_L2[kernel] or err > GRAD_MAX_REL[kernel] * scale:
+            raise AssertionError(f"{kernel} d{name}: relative L2 {rel:.3e} "
+                                 f"(limit {GRAD_REL_L2[kernel]}) or max "
+                                 f"{err:.3e} over {GRAD_MAX_REL[kernel]} x "
+                                 f"{scale:.3e}")
+
+
+def kernel_gradients(torch, kattn, krwkv, dev, power) -> None:
+    """Phase 11 (a): K4's and K5's autograd Functions against autograd
+    through their plain versions, on the card, at training shapes; each
+    backward timed beside its forward (CUDA events)."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(11)
+    bf16 = torch.bfloat16
+
+    def normal(shape, dtype=bf16, scale=1.0):
+        a = (rng.normal(size=shape) * scale).astype(np.float32)
+        return torch.as_tensor(a, device=dev).to(dtype)
+
+    def grads(fn, inputs, outs_grad):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return torch.autograd.grad(outs, leaves, outs_grad)
+
+    for label, (b, h, hk, sq, sk, d), causal, window in K4_GRAD_CASES:
+        q = normal((b, h, sq, d))
+        k, v = normal((b, hk, sk, d)), normal((b, hk, sk, d))
+        do = normal((b, h, sq, d))
+        n0 = kattn.backward_calls
+        got = grads(lambda *t: kattn.flash_attention(
+            *t, causal=causal, window=window), (q, k, v), do)
+        if kattn.backward_calls != n0 + 1:
+            raise AssertionError("K4's backward did not run")
+        want = grads(lambda *t: kattn.attention_rounded_ref(
+            *t, causal=causal, window=window), (q, k, v), do)
+        shape = f"q {(b, h, sq, d)}, k/v {(b, hk, sk, d)}"
+        print(f"  K4 gradient at {label} ({shape}, bf16, "
+              f"{'causal' if causal else 'no mask'}"
+              f"{f', window {window}' if window else ''}) against autograd "
+              f"through attention_rounded_ref:", flush=True)
+        grad_errors(torch, "K4", "qkv", got, want)
+        del got, want
+        o = kattn.flash_attention(q, k, v, causal=causal, window=window)
+        fwd = cuda_ms(torch, lambda: kattn.flash_attention(
+            q, k, v, causal=causal, window=window))
+        bwd = cuda_ms(torch, lambda: kattn.flash_attention_bwd(
+            q, k, v, o, do, causal=causal, window=window), reps=3)
+        plain = cuda_ms(torch, lambda: grads(lambda *t: kattn.
+                                             attention_rounded_ref(
+                                                 *t, causal=causal,
+                                                 window=window),
+                                             (q, k, v), do), reps=3)
+        mask = (None if window is None
+                else kattn._mask(sq, sk, causal, window, dev))
+        lib = cuda_ms(torch, lambda: grads(
+            lambda *t: F.scaled_dot_product_attention(
+                *t, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True), (q, k, v), do), reps=3)
+        # the backward's least work: 5 products of 2 D ops a pair (QK^T
+        # again, dO V^T, P^T dO, dS K, dS^T Q) at the bf16 tensor-core
+        # peak; q, k, v, o, dO read and dq, dk, dv written once, bf16
+        ops = 10.0 * d * attn_pairs(sq, sk, causal, window) * b * h
+        nbytes = 2.0 * (4 * b * h * sq * d + 4 * b * hk * sk * d)
+        bms = max(nbytes / PEAK_BYTES, ops / PEAK_BF16_FLOPS) * 1e3
+        print(f"    K4 forward {fwd:.4f} ms, backward (flash_attention_bwd) "
+              f"{bwd:.4f} ms ({bwd / fwd:.1f}x; bound {bms:.4f} ms, "
+              f"{ops / 1e9:.2f} GFLOP, {100 * bms / bwd:.2f}% of it); plain "
+              f"forward + backward {plain:.4f} ms; "
+              f"scaled_dot_product_attention forward + backward {lib:.4f} "
+              f"ms; power limit {power}", flush=True)
+        del q, k, v, do, o, mask
+        torch.cuda.empty_cache()
+
+    BH, C, D = K5_GRAD_SHAPE
+    r, k, v = (normal((BH, C, D), bf16, 0.5) for _ in range(3))
+    w = torch.as_tensor(rng.uniform(0.8, 1.0, (BH, C, D)).astype(np.float32),
+                        device=dev)
+    u, s0 = normal((BH, D), torch.float32, 0.1), normal(
+        (BH, D, D), torch.float32, 0.1)
+    dy, ds = normal((BH, C, D), bf16), normal((BH, D, D), torch.float32)
+    n0 = krwkv.backward_calls
+    got = grads(krwkv.wkv_chunk, (r, k, v, w, u, s0), (dy, ds))
+    if krwkv.backward_calls != n0 + 1:
+        raise AssertionError("K5's backward did not run")
+    want = grads(krwkv.wkv_ref, (r, k, v, w, u, s0), (dy, ds))
+    print(f"  K5 gradient at rwkv6-1.6b's ({BH}, {C}, {D}) bf16 (float32 w, "
+          f"u, state) against autograd through wkv_ref:", flush=True)
+    grad_errors(torch, "K5", ("r", "k", "v", "w", "u", "state"), got, want)
+    del got, want
+    args = (r, k, v, w, u, s0)
+    fwd = cuda_ms(torch, lambda: krwkv.wkv_chunk(*args))
+    bwd = cuda_ms(torch, lambda: krwkv.wkv_bwd(*args, dy, ds), reps=3)
+    plain = cuda_ms(torch, lambda: grads(krwkv.wkv_ref, args, (dy, ds)),
+                    reps=1)
+    # the backward's least work per (token, head, i, j), float32: the
+    # state again (3), the adjoint update (3), dr, dk, dv (2 each), dw (2);
+    # r, k, v, dy, dr, dk, dv in bf16, w and dw in float32, once each
+    bms, by = bound_ms(BH * C * D * (7 * 2 + 2 * 4) + 3 * 4.0 * BH * D * D,
+                       14.0 * BH * C * D * D)
+    print(f"    K5 forward {fwd:.4f} ms, backward (wkv_bwd) {bwd:.4f} ms "
+          f"({bwd / fwd:.1f}x; bound {bms:.4f} ms ({by}), "
+          f"{100 * bms / bwd:.2f}% of it); plain forward + backward "
+          f"{plain:.4f} ms; power limit {power}", flush=True)
+    del r, k, v, w, u, s0, dy, ds, args
+    torch.cuda.empty_cache()
+
+
+def train_step_split(torch, kattn, cfg, dev, card) -> None:
+    """Where one smollm-360m step's time goes: 3 steps under
+    torch.profiler (device busy and idle shares), then 3 steps with a
+    synchronisation after each part: forward (the loss), backward (K4's
+    backward function timed on its own with CUDA events), optimizer."""
+    from repro_torch.models import init_weights
+    from repro_torch.models import transformer as ttf
+    from repro_torch.train import train_step as tstep
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                             init_opt_state)
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.params import (map_tree, tree_leaves,
+                                           tree_unflatten)
+    params = init_weights(cfg, seed=0, device=dev, trainable=True)
+    opt = init_opt_state(params)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                          warmup=TRAIN_STEPS // 5 + 1)
+    step = tstep.make_train_step(cfg, opt_cfg)
+    data = SyntheticLM(cfg.vocab, TRAIN_S, TRAIN_B, seed=1)
+
+    def batch():
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in data.next_batch().items()}
+
+    state = [params, opt]
+
+    def steps(n):
+        for _ in range(n):
+            p, o, m = step(state[0], state[1], batch())
+            state[:] = [p, o]
+        float(m["loss"])
+
+    steps(2)                                    # warm
+    wall, busy, _ = profile_run(torch, "smollm-360m train, 3 steps",
+                                lambda: steps(3), top=10)
+    parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    k4b = []
+    with events_of(torch, kattn, "flash_attention_bwd", k4b):
+        for _ in range(3):
+            b = batch()
+            params, opt = state
+            (loss, _), t = timed_sync(torch, lambda: ttf.loss_fn(
+                params, b, cfg))
+            parts["forward"] += t
+            leaves = tree_leaves(params)
+            g, t = timed_sync(torch, lambda: torch.autograd.grad(loss,
+                                                                 leaves))
+            if any(x is None for x in g):
+                raise AssertionError("a weight got no gradient")
+            parts["backward"] += t
+            gtree = tree_unflatten(params, g)
+            (p, o, _), t = timed_sync(torch, lambda: adamw_update(
+                gtree, opt, opt_cfg, param_dtype=torch.bfloat16))
+            parts["optimizer"] += t
+            state[:] = [map_tree(lambda x: x.requires_grad_(), p), o]
+    k4_bwd = events_ms(k4b) / 1e3
+    total = sum(parts.values())
+    print(f"  smollm-360m step split (3 steps, a synchronisation after each "
+          f"part; card {card}): forward {parts['forward'] / 3:.4f} s, "
+          f"backward {parts['backward'] / 3:.4f} s (K4's backward function "
+          f"{k4_bwd / 3:.4f} s of device time, {len(k4b) // 3} calls a step),"
+          f" optimizer {parts['optimizer'] / 3:.4f} s; a step "
+          f"{total / 3:.4f} s" + (
+              f"; unsynchronised under the profiler {wall / 3:.4f} s a step,"
+              f" device busy {100 * busy / wall:.1f}%, idle (waiting on the "
+              f"host) {100 * (1 - busy / wall):.1f}%" if busy else ""),
+          flush=True)
+    del state, params, opt, p, o, gtree, loss, g
+    torch.cuda.empty_cache()
+
+
+def lm_training(torch, kattn, krwkv, dev, card) -> dict:
+    """Phase 11 (b)-(d): the reference's training main path,
+    `launch.train.run`, on the card.  Returns the K4 and K5 launches of
+    those runs."""
+    import tempfile
+    from repro_torch.ckpt import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as ltrain
+    launches = {"K4": 0, "K5": 0}
+
+    # (b) smollm-360m at full width and depth, the example's full-size
+    # settings, 30 of its 300 steps
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kattn.launches, n_bwd = 0, kattn.backward_calls
+    t0 = time.perf_counter()
+    out = ltrain.run(TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS,
+                     batch=TRAIN_B, seq=TRAIN_S, ckpt_dir="", lr=TRAIN_LR,
+                     device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4, bwd = kattn.launches, kattn.backward_calls - n_bwd
+    launches["K4"] += k4
+    losses = np.array(out["losses"])
+    first, last = losses[:5].mean(), losses[-5:].mean()
+    warm = statistics.median(out["step_s"][5:])
+    print(f"  {TRAIN_ARCH} ({cfg.n_layers} layers, batch {TRAIN_B}, seq "
+          f"{TRAIN_S}, lr {TRAIN_LR}, {TRAIN_STEPS} steps; the example runs 300): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, mean of the first 5 "
+          f"{first:.4f}, of the last 5 {last:.4f}; grad norms "
+          f"{min(out['grad_norms']):.3f}..{max(out['grad_norms']):.3f}; "
+          f"first step {out['step_s'][0]:.3f} s, warm step (median of "
+          f"steps 5-{TRAIN_STEPS - 1}) {warm:.4f} s, "
+          f"{TRAIN_B * TRAIN_S / warm:.1f} tokens/s; {wall:.2f} s in all; "
+          f"peak memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f}"
+          f" GiB over the {base / 2**30:.2f} GiB allocated before; K4 launches "
+          f"{k4} ({k4 / TRAIN_STEPS:.0f} a step), its backward"
+          f" {bwd} times; card {card}", flush=True)
+    if not (np.isfinite(losses).all()
+            and np.isfinite(out["grad_norms"]).all()):
+        raise AssertionError(f"{TRAIN_ARCH}: non-finite loss or grad norm")
+    if not last <= first - 0.1:
+        raise AssertionError(f"{TRAIN_ARCH}: loss fell from {first:.4f} to "
+                             f"{last:.4f}, less than 0.1")
+    if k4 != cfg.n_layers * TRAIN_STEPS or bwd != k4:
+        raise AssertionError(f"{TRAIN_ARCH}: K4 launched {k4} times, its "
+                             f"backward {bwd}, expected "
+                             f"{cfg.n_layers * TRAIN_STEPS}")
+    torch.cuda.empty_cache()
+    kattn.launches = 0
+    train_step_split(torch, kattn, cfg, dev, card)
+    launches["K4"] += kattn.launches
+
+    # (c) restart exactness: full width cut to 2 layers (a checkpoint of
+    # ~1.1 GB), 12 steps uninterrupted against 7 + a resume from step 6
+    cut = dc_replace(cfg, n_layers=RESTART_LAYERS)
+    print(f"  restart: {TRAIN_ARCH} n_layers cut from {cfg.n_layers} to "
+          f"{RESTART_LAYERS} (full width)", flush=True)
+    kw = dict(smoke=False, steps=RESTART_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+              lr=1e-3, seed=7, device=dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    kattn.launches = 0
+    with patched(ltrain, "get_config", lambda arch, smoke=False: cut), \
+            tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ref = ltrain.run(TRAIN_ARCH, ckpt_dir="", **kw)
+        t0 = time.perf_counter()
+        try:
+            ltrain.run(TRAIN_ARCH, ckpt_dir=tmp, ckpt_every=RESTART_EVERY,
+                       simulate_failure_at=RESTART_FAIL, **kw)
+            raise AssertionError("the simulated failure did not happen")
+        except RuntimeError as e:
+            if "simulated node failure" not in str(e):
+                raise
+        t_fail = time.perf_counter() - t0
+        last_step = latest_step(tmp)
+        size = sum(f.stat().st_size for f in (
+            Path(tmp) / f"step_{last_step:08d}").iterdir())
+        t0 = time.perf_counter()
+        res = ltrain.run(TRAIN_ARCH, ckpt_dir=tmp, ckpt_every=RESTART_EVERY,
+                         **kw)
+        t_res = time.perf_counter() - t0
+    launches["K4"] += kattn.launches
+    a, b = np.array(res["losses"][-3:]), np.array(ref["losses"][-3:])
+    rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    print(f"  restart: failed at step {RESTART_FAIL} after checkpoints every "
+          f"{RESTART_EVERY} steps ({size / 1e9:.3f} GB each, {t_fail:.2f} s "
+          f"with saves), resumed from step {last_step} ({t_res:.2f} s); last "
+          f"3 losses {np.round(a, 6).tolist()} against the uninterrupted "
+          f"{np.round(b, 6).tolist()}, max relative difference {rel:.3e} "
+          f"(limit 2e-4); K4 launches {kattn.launches}; card {card}",
+          flush=True)
+    if last_step != RESTART_FAIL - 1 or not rel <= 2e-4:
+        raise AssertionError(f"restart: resumed from {last_step}, losses "
+                             f"{rel:.3e} apart")
+    torch.cuda.empty_cache()
+
+    # (d) rwkv6-1.6b at full width and depth: K5 forward and backward
+    arch = "rwkv6-1.6b"
+    rcfg = get_config(arch)
+    krwkv.launches, n_bwd = 0, krwkv.backward_calls
+    wb = []
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with events_of(torch, krwkv, "wkv_bwd", wb):
+        out = ltrain.run(arch, smoke=False, steps=RWKV_TRAIN_STEPS,
+                         batch=RWKV_TRAIN_B, seq=TRAIN_S, ckpt_dir="",
+                         lr=TRAIN_LR, device=dev)
+        torch.cuda.synchronize()
+    k5, bwd = krwkv.launches, krwkv.backward_calls - n_bwd
+    launches["K5"] += k5
+    wkv_s = events_ms(wb[-rcfg.n_layers:]) / 1e3       # the last step's
+    step_s = out["step_s"][-1]
+    print(f"  {arch} ({rcfg.n_layers} layers, batch {RWKV_TRAIN_B}, seq "
+          f"{TRAIN_S}, {RWKV_TRAIN_STEPS} steps): losses "
+          f"{np.round(out['losses'], 4).tolist()}, grad norms "
+          f"{np.round(out['grad_norms'], 3).tolist()}; steps "
+          f"{np.round(out['step_s'], 3).tolist()} s; the last step's "
+          f"backward WKV (wkv_bwd, device time) {wkv_s:.4f} s, "
+          f"{100 * wkv_s / step_s:.1f}% of it; peak memory "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB over "
+          f"the {base / 2**30:.2f} GiB allocated before; K5 launches "
+          f"{k5} ({k5 / RWKV_TRAIN_STEPS:.0f} a step), its backward {bwd} "
+          f"times; card {card}", flush=True)
+    if not (np.isfinite(out["losses"]).all()
+            and np.isfinite(out["grad_norms"]).all()):
+        raise AssertionError(f"{arch}: non-finite loss or grad norm")
+    if k5 != rcfg.n_layers * RWKV_TRAIN_STEPS or bwd != k5:
+        raise AssertionError(f"{arch}: K5 launched {k5} times, its backward "
+                             f"{bwd}, expected "
+                             f"{rcfg.n_layers * RWKV_TRAIN_STEPS}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
@@ -2823,6 +3248,16 @@ def main() -> int:
             launches["K4"] += serve_embedded(torch, arch, dev, card)
 
     # ------------------------------------------------------------ 11 -----
+    with phase("LM training: K4's and K5's gradients against their plain "
+               "versions"):
+        print(f"  card {card}", flush=True)
+        kernel_gradients(torch, kattn, krwkv, dev, power)
+    with phase(f"LM training: launch.train.run ({TRAIN_ARCH}, restart, "
+               f"rwkv6-1.6b)"):
+        for name, n in lm_training(torch, kattn, krwkv, dev, card).items():
+            launches[name] += n
+
+    # ------------------------------------------------------------ 12 -----
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

@@ -1,0 +1,2 @@
+from repro_torch.ckpt.checkpoint import (  # noqa: F401
+    latest_step, load_checkpoint, save_checkpoint)

@@ -43,8 +43,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.params import ParamDef, map_tree
 from repro_torch.models.transformer import _n_superblocks, model_defs
 
-__all__ = ["engine_tables_from_numpy", "lm_params_from_numpy", "UP_KEYS",
-           "M2L_KEYS", "M2P_KEYS", "BUCKET_KEYS"]
+__all__ = ["engine_tables_from_numpy", "lm_params_from_numpy", "unstack",
+           "UP_KEYS", "M2L_KEYS", "M2P_KEYS", "BUCKET_KEYS"]
 
 UP_KEYS = ("leaves", "leaf_mask", "leaf_centers", "leaf_idx", "leaf_valid",
            "up_ids", "up_parents", "up_mask", "up_d",
@@ -114,8 +114,7 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
                 raise ValueError(f"lm_params_from_numpy: {key} leaf of shape "
                                  f"{np.shape(a)} is not stacked over {n} "
                                  f"superblocks")
-        flat[key] = [map_tree(lambda a, i=i: np.asarray(a)[i], tree[key])
-                     for i in range(n)]
+        flat[key] = unstack(tree[key], n)
 
     def one(d: ParamDef, a, path: str) -> torch.Tensor:
         a = np.asarray(a)
@@ -126,6 +125,13 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
         return t.to(dev, torch.bfloat16 if bf16 else t.dtype)
 
     return _zip(one, model_defs(cfg), flat)
+
+
+def unstack(tree, n: int) -> list:
+    """A tree whose leaves are stacked on a leading axis of n (the
+    reference's superblock layout) -> a list of n trees, the port's."""
+    return [map_tree(lambda a, i=i: np.asarray(a)[i], tree)
+            for i in range(n)]
 
 
 def _leaves(tree):

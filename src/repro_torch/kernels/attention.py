@@ -30,8 +30,20 @@ keys in the kernel's tiles (the Pallas kernel's online softmax, p rounded
 against the running max), so it differs from the bfloat16 kernel only by
 the order of float32 sums.
 
+The gradient.  The Pallas kernel has no backward kernel (the reference
+trains through plain XLA), so the port has none to port: on the card,
+`flash_attention` wraps K4 in a `torch.autograd.Function` whenever grad
+mode is on and an input requires grad, and its backward is the PyTorch
+function `flash_attention_bwd`, which recomputes P with K4's roundings
+and takes the standard flash-attention adjoint (dV = P^T dO, dS = P (dO
+V^T - rowsum(dO O)), dQ and dK from dS and the scale), summed over each
+GQA group's query heads.  Without grad (serving, its CUDA graphs) the
+wrapper launches K4 exactly as before.  On the CPU, autograd
+differentiates `attention_ref` itself.
+
 `launches` counts kernel launches: the wrapper adds one where it launches
-the kernel, and nowhere else.
+the kernel, and nowhere else.  `backward_calls` counts the Function's
+backward passes (PyTorch work, no kernel of this module).
 """
 from __future__ import annotations
 
@@ -42,16 +54,21 @@ import torch
 
 from repro_torch.kernels.build import library
 
-__all__ = ["flash_attention", "attention_ref", "attention_rounded_ref",
-           "attention_tiled_ref", "HEAD_DIMS", "BLOCK_K", "NEG_INF"]
+__all__ = ["flash_attention", "flash_attention_bwd", "attention_ref",
+           "attention_rounded_ref", "attention_tiled_ref", "HEAD_DIMS",
+           "BLOCK_K", "NEG_INF"]
 
 HEAD_DIMS = (32, 64, 128, 256)  # the head sizes the kernel is built for
 # keys per tile of the bfloat16 kernel, by head size (csrc: Layout<D>::kBK)
 BLOCK_K = {32: 128, 64: 128, 128: 128, 256: 64}
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# float32 bytes of one (query, key) block that the backward may hold at a
+# time; it takes as many (batch, kv-head) groups together as fit
+BWD_BLOCK_BYTES = 1 << 28
 
 launches = 0
+backward_calls = 0
 
 
 def _mask(Sq, Sk, causal, window, device, k0=0):
@@ -178,20 +195,9 @@ def _lib():
     return lib
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: int | None = None):
-    """q (B, H, Sq, D); k/v (B, Hkv, Sk, D) -> (B, H, Sq, D), any lengths,
-    Sk != Sq only with `causal=False` and no window.  CPU tensors run
-    `attention_ref`; CUDA tensors (contiguous, D in `HEAD_DIMS`, bfloat16
-    ones 16-byte aligned for the TMA) launch K4 on the current stream,
-    raising if the launch fails; any other device raises."""
+def _launch(q, k, v, causal, window):
+    """K4 on the current stream: checked CUDA tensors -> o."""
     global launches
-    _check(q, k, v, causal, window)
-    dev = q.device
-    if dev.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
@@ -206,6 +212,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    dev = q.device
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -219,3 +226,88 @@ def flash_attention(q, k, v, *, causal: bool = True,
                            + lib.repro_attention_error_string(err).decode())
     launches += 1
     return out
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
+                        window: int | None = None):
+    """The gradient of K4: q (B, H, Sq, D), k/v (B, Hkv, Sk, D), the
+    forward's output o and its gradient do (B, H, Sq, D) -> (dq, dk, dv) in
+    the inputs' types.  P is recomputed with `attention_rounded_ref`'s
+    roundings (q * scale in the input type, float32 scores, p = exp(s -
+    max) over l = sum p; dV takes p rounded to v's type, as the PV product
+    did); dS = P (dO V^T - rowsum(dO O)), dQ = scale dS K, dK = dS^T (q *
+    scale), dV = P^T dO, each summed over the query heads of a GQA group.
+    Float32 throughout.  It runs over (batch, kv-head) groups, as many at a
+    time as keep one float32 (query, key) block within BWD_BLOCK_BYTES."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = float(torch.tensor(D ** -0.5, dtype=q.dtype))
+    masked = ~_mask(Sq, Sk, causal, window, q.device)
+    n = B * Hkv
+    qg = q.reshape(n, G, Sq, D)
+    og = o.reshape(n, G, Sq, D)
+    dog = do.reshape(n, G, Sq, D)
+    kg, vg = k.reshape(n, Sk, D), v.reshape(n, Sk, D)
+    dq = torch.empty_like(q).reshape(n, G, Sq, D)
+    dk = torch.empty_like(k).reshape(n, Sk, D)
+    dv = torch.empty_like(v).reshape(n, Sk, D)
+    per = max(1, BWD_BLOCK_BYTES // (4 * G * Sq * Sk))
+    for i in range(0, n, per):
+        j = min(i + per, n)
+        qs = (qg[i:j] * scale).float()
+        kf, vf = kg[i:j].float(), vg[i:j].float()
+        dof = dog[i:j].float()
+        s = torch.einsum("ngqd,nkd->ngqk", qs, kf)
+        s.masked_fill_(masked, NEG_INF)
+        p = torch.exp_(s.sub_(s.amax(-1, keepdim=True)))
+        inv_l = p.sum(-1, keepdim=True).clamp_min_(1e-30).reciprocal_()
+        dv[i:j] = torch.einsum("ngqk,ngqd->nkd",
+                               p.to(v.dtype).float() * inv_l, dof)
+        p.mul_(inv_l)                                   # P
+        rows = (dof * og[i:j].float()).sum(-1, keepdim=True)
+        ds = torch.einsum("ngqd,nkd->ngqk", dof, vf).sub_(rows).mul_(p)
+        del p
+        dq[i:j] = torch.einsum("ngqk,nkd->ngqd", ds, kf).mul_(scale)
+        dk[i:j] = torch.einsum("ngqk,ngqd->nkd", ds, qs)
+    return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 forward, `flash_attention_bwd` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o = _launch(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        global backward_calls
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal,
+                                         window=ctx.window)
+        backward_calls += 1
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None):
+    """q (B, H, Sq, D); k/v (B, Hkv, Sk, D) -> (B, H, Sq, D), any lengths,
+    Sk != Sq only with `causal=False` and no window.  CPU tensors run
+    `attention_ref`; CUDA tensors (contiguous, D in `HEAD_DIMS`, bfloat16
+    ones 16-byte aligned for the TMA) launch K4 on the current stream,
+    raising if the launch fails, through the autograd Function when grad
+    mode is on and an input requires grad; any other device raises."""
+    _check(q, k, v, causal, window)
+    dev = q.device
+    if dev.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window)

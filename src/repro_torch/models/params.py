@@ -7,7 +7,9 @@ on a leading axis for its scan over layers; the port runs the layers as a
 Python loop and keeps one tree per superblock, so `stack_defs` returns a
 list of n trees.  `init_params` draws every normal weight from one seeded
 `torch.Generator` on its device, in the order the tree lists them; the
-numbers differ from the reference's `jax.random` draws.
+numbers differ from the reference's `jax.random` draws.  `param_structs`
+gives the same tree as tensors on the meta device (shapes and types, no
+storage), the reference's `param_structs`.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["ParamDef", "stack_defs", "init_params", "map_tree"]
+__all__ = ["ParamDef", "stack_defs", "init_params", "param_structs",
+           "map_tree", "tree_leaves", "tree_unflatten"]
 
 
 @dataclass(frozen=True)
@@ -41,6 +44,20 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in `map_tree`'s order."""
+    out = []
+    map_tree(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree of `like`'s structure holding `leaves` in `tree_leaves`'s
+    order."""
+    it = iter(leaves)
+    return map_tree(lambda _: next(it), like)
+
+
 def init_params(defs, generator: torch.Generator):
     """Materialise a def tree on the generator's device: zeros, ones, or
     normal(0, 1) * scale drawn in float32 and rounded to the def's type."""
@@ -59,3 +76,9 @@ def init_params(defs, generator: torch.Generator):
         return (x * scale).to(dt)
 
     return map_tree(one, defs)
+
+
+def param_structs(defs):
+    """A def tree as empty tensors on the meta device."""
+    return map_tree(lambda d: torch.empty(
+        d.shape, dtype=getattr(torch, d.dtype), device="meta"), defs)

@@ -8,7 +8,13 @@ the nested tree the functional code reads (`model.params`: dicts, with
 conversion such as `.to()`, not at every call.  `build_model(cfg)` draws random
 weights from a seeded `torch.Generator` on the card unless `device` says
 otherwise; `build_model(cfg, params=tree)` wraps given weights, for
-instance the reference's converted by `repro_torch.convert`.
+instance the reference's converted by `repro_torch.convert` or a trained
+tree, detached: a served model keeps no autograd graph.
+
+Training is functional, as in the reference: `init_weights(cfg,
+trainable=True)` draws the same weights as a tree of leaf tensors that
+require grad, and `Model.loss(params, batch)` / `transformer.loss_fn` take
+the tree.
 """
 from __future__ import annotations
 
@@ -19,9 +25,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import decode as decode_mod
 from repro_torch.models import transformer as tf
-from repro_torch.models.params import init_params
+from repro_torch.models.params import init_params, map_tree, param_structs
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "init_weights", "weight_structs"]
 
 
 def _module(tree) -> nn.Module:
@@ -32,7 +38,8 @@ def _module(tree) -> nn.Module:
         elif isinstance(val, list):
             m.add_module(name, nn.ModuleList(_module(v) for v in val))
         else:
-            m.register_parameter(name, nn.Parameter(val, requires_grad=False))
+            m.register_parameter(name, nn.Parameter(val.detach(),
+                                                    requires_grad=False))
     return m
 
 
@@ -75,6 +82,12 @@ class Model(nn.Module):
         return tf.forward_with_aux(self.params, tokens, self.cfg,
                                    frames=frames, vis=vis)
 
+    def loss(self, params, batch):
+        """(loss, {"ce", "aux"}) of a weight tree on a batch (`tokens`,
+        `labels`, and `frames` / `vis` where the family needs them): the
+        reference's `Model.loss`."""
+        return tf.loss_fn(params, batch, self.cfg)
+
     def logits(self, h):
         return tf.logits_fn(self.params, h, self.cfg)
 
@@ -87,11 +100,38 @@ class Model(nn.Module):
                                       self.cfg)
 
 
+def _in_model_type(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 weight in the model's type (float32 for a float32
+    config, where the reference's bfloat16 init weights are promoted by
+    JAX in every product), other types as they are (the MoE router)."""
+    return t.to(getattr(torch, cfg.dtype)) if t.dtype == torch.bfloat16 \
+        else t
+
+
+def weight_structs(cfg: ModelConfig) -> dict:
+    """The weight tree of `cfg` as meta tensors (shapes and the types
+    `init_weights` gives), e.g. the like tree of a checkpoint load."""
+    return map_tree(lambda t: _in_model_type(cfg, t),
+                    param_structs(tf.model_defs(cfg)))
+
+
+def init_weights(cfg: ModelConfig, *, seed: int = 0, device=None,
+                 trainable: bool = False) -> dict:
+    """The random weight tree of `cfg`, drawn from
+    `torch.Generator(device).manual_seed(seed)` (bfloat16 leaves in the
+    model's type); with `trainable`, every leaf requires grad."""
+    tf.check_supported(cfg)
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    params = map_tree(lambda t: _in_model_type(cfg, t),
+                      init_params(tf.model_defs(cfg), gen))
+    return map_tree(lambda t: t.requires_grad_(), params) if trainable \
+        else params
+
+
 def build_model(cfg: ModelConfig, params: dict | None = None, *,
                 seed: int = 0, device=None) -> Model:
-    """A `Model` of `cfg`: the given weight tree, or random weights drawn
-    from `torch.Generator(device).manual_seed(seed)`."""
+    """A `Model` of `cfg`: the given weight tree (detached), or random
+    weights drawn by `init_weights`."""
     if params is None:
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-        params = init_params(tf.model_defs(cfg), gen)
+        params = init_weights(cfg, seed=seed, device=device)
     return Model(cfg, params)

@@ -21,11 +21,17 @@ the sliding window on local and hymba's non-global layers), bidirectional
 in the encoder, and unmasked across to the memory, whose keys and values
 take no RoPE.
 
-Training and sharding are not ported (ROADMAP.md).
+The training loss is the reference's: `loss_fn` = `chunked_xent` over the
+final hidden states (sequence chunks of min(512, S), each chunk's logits
+recomputed in backward) plus 0.01 of the MoE aux loss.  The reference's
+`par` (sharding) and `chunked` (its chunked jnp attention) arguments are
+dropped: the port runs on one card, and K4 serves every length.  Sharding
+is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
@@ -37,7 +43,7 @@ from repro_torch.models.params import ParamDef, stack_defs
 __all__ = ["attn_defs", "mlp_defs", "superblock_defs", "model_defs",
            "padded_vocab", "forward", "forward_with_aux", "superblock",
            "hybrid_block", "encode", "memory_of", "logits_fn",
-           "check_supported"]
+           "chunked_xent", "loss_fn", "check_supported"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -321,3 +327,43 @@ def forward(params, tokens, cfg, *, frames=None, vis=None):
 def logits_fn(params, h, cfg):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w.to(h.dtype)
+
+
+def _xent_sum(hs, ls, w):
+    """Sum over one chunk of logsumexp(logits) - the gold logit, the logits
+    taken in h's type and then in float32, as the reference takes them."""
+    logits = (hs @ w.to(hs.dtype)).float()
+    gold = logits.gather(-1, ls[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def chunked_xent(params, h, labels, cfg, chunk: int = 512):
+    """Mean softmax cross-entropy of h (B, S, D) against labels (B, S),
+    over sequence chunks of min(chunk, S) (S a whole number of them, the
+    reference's assertion): with grad on, each chunk's (B, chunk, V)
+    logits are recomputed in backward (`torch.utils.checkpoint`), so the
+    full logits never live at once."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"chunked_xent: {S} tokens are not a whole number "
+                         f"of chunks of {chunk}")
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    labels = labels.long()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, chunk):
+        args = (h[:, i:i + chunk], labels[:, i:i + chunk], w)
+        total = total + (checkpoint(_xent_sum, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else _xent_sum(*args))
+    return total / (B * S)
+
+
+def loss_fn(params, batch, cfg):
+    """The training loss of a weight tree on a batch (`tokens`, `labels`;
+    `frames` / `vis` where the family needs them): (ce + 0.01 aux, {"ce":
+    ce, "aux": aux}), aux the MoE load-balance and z-loss summed over
+    layers (0 without experts)."""
+    h, aux = forward_with_aux(params, batch["tokens"], cfg,
+                              frames=batch.get("frames"), vis=batch.get("vis"))
+    ce = chunked_xent(params, h, batch["labels"], cfg)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}

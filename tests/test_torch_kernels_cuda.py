@@ -26,7 +26,12 @@ tensor-core kernel also against `attention_tiled_ref`, in its own tile
 order (K4_TILED_ROW_REL, K4_TILED_ROW_MEDIAN below).  K5 at rtol/atol 1e-4 in float32; in
 bfloat16 both round one float32 sum (taken in another order) to the output
 type, so they may land on neighbouring values: rtol 1e-2 / atol 1e-4; two
-K5 launches on the same inputs are bitwise equal.
+K5 launches on the same inputs are bitwise equal.  Training: K4's and K5's
+autograd Functions (the kernel forward, the PyTorch backward) against
+autograd through the plain versions at every head size and mask kind, a
+forward without grad building no graph, and one float32 train step of
+the qwen3 and rwkv6 smoke models on the card against the CPU (their
+limits beside the tests).
 """
 import numpy as np
 import pytest
@@ -1103,3 +1108,176 @@ def test_traced_warm_evaluate_is_one_replay_on_card(cuda_device, fences):
         obs.configure(enabled=False)
         obs.reset()
     _close_to(phi, want, phi_abs)
+
+
+# ------------------------------------------------------------- training ---
+# K4's and K5's autograd Functions (the kernel forward, the PyTorch
+# backward) against autograd through their plain versions on the same card
+# inputs: float32 at 1e-4 of the largest |gradient| (K4's float32 forward
+# against `attention_rounded_ref` at 2e-4, sums in another order);
+# bfloat16 per tensor in relative L2 at chip_smoke.py's GRAD_REL_L2 (K4:
+# the q, k gradients are rounded to bfloat16 once where autograd rounds
+# them after each cast, and K4's bfloat16 output enters rowsum(dO O),
+# 3.3e-3 to 4.0e-3 measured; K5: its gradients rounded to bfloat16 once,
+# 3.0e-5 measured)
+GRAD_BF16_REL_L2 = {"K4": 1e-2, "K5": 1e-4}
+
+
+def _grads(fn, inputs, out_grads):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, leaves, out_grads)
+
+
+def _hold_grads(got, want, dtype, kernel):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        g, w = g.float(), w.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=1e-4 * float(w.abs().max()))
+        else:
+            assert float((g - w).norm() / w.norm()) <= \
+                GRAD_BF16_REL_L2[kernel]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mask", ["causal", "window", "unmasked"])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_k4_autograd_matches_plain_on_card(cuda_device, D, mask, dtype):
+    rng = np.random.default_rng(D)
+    B, H, Hkv, Sq = 2, 4, 2, 200
+    Sk = 333 if mask == "unmasked" else Sq
+    causal, window = mask != "unmasked", 64 if mask == "window" else None
+    q = _normal(rng, (B, H, Sq, D), dtype, cuda_device)
+    k, v = (_normal(rng, (B, Hkv, Sk, D), dtype, cuda_device)
+            for _ in range(2))
+    do = _normal(rng, (B, H, Sq, D), dtype, cuda_device)
+    launches, calls = kattn.launches, kattn.backward_calls
+    got = _grads(lambda *t: kattn.flash_attention(*t, causal=causal,
+                                                  window=window),
+                 (q, k, v), do)
+    torch.cuda.synchronize()
+    assert kattn.launches == launches + 1
+    assert kattn.backward_calls == calls + 1
+    want = _grads(lambda *t: kattn.attention_rounded_ref(
+        *t, causal=causal, window=window), (q, k, v), do)
+    _hold_grads(got, want, dtype, "K4")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_k5_autograd_matches_plain_on_card(cuda_device, D, dtype):
+    rng = np.random.default_rng(D)
+    r, k, v, w, u, s0 = _wkv_inputs(rng, 6, 100, D, dtype, cuda_device,
+                                    random_state=True)
+    dy = _normal(rng, (6, 100, D), dtype, cuda_device)
+    ds = _normal(rng, (6, D, D), torch.float32, cuda_device)
+    launches, calls = krwkv.launches, krwkv.backward_calls
+    got = _grads(krwkv.wkv_chunk, (r, k, v, w, u, s0), (dy, ds))
+    torch.cuda.synchronize()
+    assert krwkv.launches == launches + 1
+    assert krwkv.backward_calls == calls + 1
+    want = _grads(krwkv.wkv_ref, (r, k, v, w, u, s0), (dy, ds))
+    _hold_grads(got, want, dtype, "K5")
+
+
+def test_forward_without_grad_builds_no_graph_on_card(cuda_device):
+    """Serving is untouched: under no_grad, and with grad on over a served
+    (frozen) model, the forward launches K4 once a layer and builds no
+    autograd graph; with trainable weights the Function runs and its
+    backward reaches the weights in front of K4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_weights
+    from repro_torch.models import transformer as ttf
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    model = build_model(cfg, seed=0, device=cuda_device)
+    tokens = torch.randint(1, cfg.vocab, (2, 64), device=cuda_device)
+    for grad in (False, True):
+        launches, calls = kattn.launches, kattn.backward_calls
+        with torch.set_grad_enabled(grad):
+            h = model(tokens)
+        torch.cuda.synchronize()
+        assert kattn.launches == launches + cfg.n_layers
+        assert h.grad_fn is None and not h.requires_grad
+        assert kattn.backward_calls == calls
+    params = init_weights(cfg, seed=0, device=cuda_device, trainable=True)
+    launches, calls = kattn.launches, kattn.backward_calls
+    loss, _ = ttf.loss_fn(params, {"tokens": tokens, "labels": tokens}, cfg)
+    loss.backward()
+    assert kattn.launches == launches + cfg.n_layers
+    assert kattn.backward_calls == calls + cfg.n_layers
+    for pb in params["blocks"]:
+        assert float(pb["attn0"]["wq"].grad.abs().max()) > 0
+    served = build_model(cfg, params)
+    assert not any(p.requires_grad for p in served.parameters())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+def test_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One float32 train step of the smoke model from one init, on the card
+    (K4 or K5 forward, their PyTorch backwards) and on the CPU (autograd
+    through the plain versions): loss and grad norm at rtol 1e-4, every
+    leaf's gradient within 1e-3 of its largest |g| (tests/test_torch_
+    train.py's limit against the reference), and the new master weights
+    at rtol 1e-4.  Adam's first step moves a weight by lr g / (|g| + eps),
+    nearly lr sign(g), so a weight whose (clipped) gradient lies within
+    the two devices' float32 rounding of zero (under 1e-4 of its leaf's
+    largest, or 100 eps) may step otherwise: those are held to 2 lr, the
+    step's bound.  The optimizer alone, fed the CPU's gradients on both
+    devices, gives the same masters at rtol 1e-5."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_weights
+    from repro_torch.models.params import (map_tree, tree_leaves,
+                                           tree_unflatten)
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                             init_opt_state)
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup=1, total_steps=10)
+    init = init_weights(cfg, seed=3, device="cpu")
+    batch = SyntheticLM(cfg.vocab, 64, 4, seed=3).next_batch()
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = map_tree(lambda t: t.to(dev).requires_grad_(), init)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        _, _, grads = value_and_grad(params, b, cfg)
+        launches = (kattn.launches, krwkv.launches)
+        p, opt, m = make_train_step(cfg, opt_cfg)(params, init_opt_state(
+            params), b)
+        if dev != "cpu":
+            n = (kattn.launches - launches[0], krwkv.launches - launches[1])
+            assert n == ((0, cfg.n_layers) if cfg.family == "ssm" else
+                         (cfg.n_layers, 0))
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]),
+                         [t.cpu() for t in tree_leaves(grads)],
+                         [t.cpu() for t in tree_leaves(opt.master)],
+                         [t.cpu() for t in tree_leaves(opt.m)])
+    (l_c, n_c, g_c, ma_c, m_c), (l_d, n_d, g_d, ma_d, _) = (
+        out["cpu"], out[str(cuda_device)])
+    np.testing.assert_allclose(l_d, l_c, rtol=1e-4)
+    np.testing.assert_allclose(n_d, n_c, rtol=1e-4)
+    for a, b in zip(g_d, g_c):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-3 * float(b.abs().max()))
+    for a, b, mm in zip(ma_d, ma_c, m_c):
+        g = mm.abs() / (1 - opt_cfg.b1)                 # the clipped g
+        tiny = (g > 0) & ((g <= 1e-4 * g.max()) | (g <= 100 * opt_cfg.eps))
+        torch.testing.assert_close(a[~tiny], b[~tiny], rtol=1e-4, atol=1e-7)
+        assert bool(((a - b).abs()[tiny] <= 2 * opt_cfg.lr).all())
+    # the optimizer alone on the same gradients
+    masters = []
+    for dev in ("cpu", cuda_device):
+        grads = tree_unflatten(init, [t.to(dev) for t in g_c])
+        opt = init_opt_state(map_tree(lambda t: t.to(dev), init))
+        _, opt, _ = adamw_update(grads, opt, opt_cfg,
+                                 param_dtype=torch.float32)
+        masters.append([t.cpu() for t in tree_leaves(opt.master)])
+    for a, b in zip(*masters):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
