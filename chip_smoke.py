@@ -243,8 +243,37 @@ Phases, in order; any failed check raises and ends the run non-zero:
      step and its backward as often, the step time and the backward WKV's
      share of it; K4's and K5's launches of (b)-(d) count in the kernels'
      line;
- 12. one JSON line listing every ported kernel;
- 13. the last line: {"ok": true, "device": {...}}.
+ 12. the LM sharding tier, ranks stacked on the card: (a) the seven
+     collectives of `core.collectives` on (8,) and (pod 2, data 4)
+     meshes, at tests/test_collectives.py's inputs and at COLL_WORDS
+     random float32 words a rank, bit for bit against NumPy models that
+     add in the same order (the overlapped matmul against the card's own
+     per-chunk products), each timed, and the hierarchical all-reduce's
+     bytes a rank per stage: the pod stage carries 1/|data| of the flat
+     all-reduce's (the padding aside); (b) dbrx-132b's MoE layer at full
+     width (random bfloat16 weights, seed 0), 4 x 1,024 tokens,
+     expert-parallel on a stacked (data 2, model 2) mesh against the
+     per-data-shard dense oracle (the same capacity, the same drops): the
+     outputs within MOE_OUT_TOL of its largest |y|, the aux loss, the
+     routes and the slots dropped equal; with `moe_seq_shard` against the
+     per-(data x model)-shard oracle; a planted fault (the dispatch
+     all-to-all's blocks sent one model rank off) must read beyond the
+     limit; the gradients of x and the four weights through both routes
+     within MOE_GRAD_REL_L2; time and peak memory beside the oracle's and
+     one dense layer's, the all-to-all's bytes a rank; (c) dbrx-132b and
+     llama4-scout-17b-a16e (LM_CUT layers, full width) served by
+     `ServeEngine(par=)` on the (2, 2) mesh with phase 10's requests: K4's
+     launches equal to those without the mesh, the graphed decode under
+     the mesh equal to the eager one, and each request (and a 6-token
+     one) served with its twin (one a data rank) held to a forward under
+     the same mesh by phase 10's rule; (d) smollm-360m's data-parallel
+     train step on a stacked (pod 2, data 2) mesh (batch 4, seq 512),
+     hierarchical and flat, against the single-card step on the same
+     batch (DP_LOSS_RTOL, DP_NORM_RTOL, DP_GRAD_REL_L2, DP_STEP_LR), K4
+     once a layer a data rank, each reduction's time and bytes on the pod
+     axis;
+ 13. one JSON line listing every ported kernel;
+ 14. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -252,6 +281,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -2713,6 +2743,584 @@ def lm_training(torch, kattn, krwkv, dev, card) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 12 -----
+# (a) the collectives at one large shape on stacked meshes: per rank words
+COLL_WORDS = 1 << 20
+# (b) dbrx-132b's MoE layer at full width on a stacked (data 2, model 2)
+# mesh: a batch of 4 x 1,024 tokens, against the per-shard oracle.  On the
+# card (H100, 700 W) the two routes gave the same bits: outputs, aux and
+# every gradient (their batched products differ in batch count only, and
+# each row's sum runs alike).  The limits allow one bfloat16 unit at the
+# largest value (2^-8 of it) on every output and the same relative L2 on
+# each gradient, so a change of product shapes that rounds a row apart
+# still passes while a misrouted block (the planted fault: 1.351 of the
+# largest |y|) cannot
+MOE_B, MOE_S = 4, 1024
+MOE_OUT_TOL = 2.0 ** -8
+MOE_GRAD_REL_L2 = 2.0 ** -8
+# (d) smollm-360m's data-parallel step on a stacked (pod 2, data 2) mesh
+# against the single-card step on the same batch (batch 4 x 512).  On the
+# card (H100, 700 W) both reductions read: the loss 8.7e-8 apart
+# (relative), the grad norm 1.27e-3, each leaf's clipped gradient up to
+# 2.76e-2 in relative L2 (bfloat16 products over batch 1 against batch
+# 4), the updated masters up to 0.020 learning rates apart (Adam's first
+# step moves a weight by about lr sign(g)).  Limits about 2.5x those (the
+# loss at 1e-6, a few float32 units)
+DP_B, DP_S = 4, 512
+DP_LOSS_RTOL, DP_NORM_RTOL, DP_GRAD_REL_L2, DP_STEP_LR = 1e-6, 3e-3, 7e-2, 0.05
+
+
+def np_ring_reduce_scatter(parts):
+    """NumPy model of `ring_reduce_scatter` in its hop order: parts (n, n,
+    ...) float32, rank r's chunk c at parts[r, c]; chunk c summed as
+    ((0 + parts[c+1, c]) + parts[c+2, c]) + ... + parts[c, c]."""
+    n = parts.shape[0]
+    out = []
+    for c in range(n):
+        acc = np.zeros_like(parts[0, 0])
+        for t in range(n - 1):
+            acc = acc + parts[(c + t + 1) % n, c]
+        out.append(acc + parts[c, c])
+    return np.stack(out)
+
+
+def np_ordered_sum(rows):
+    acc = rows[0]
+    for r in rows[1:]:
+        acc = acc + r
+    return acc
+
+
+def np_hsdx(x, grid, stages):
+    """NumPy model of `hsdx_grid_exchange` on a 1-rank-a-coordinate grid:
+    (n, stages, 26, ...), the relay the mean of a stage's payloads added in
+    offset order, times float32(1/26)."""
+    from repro_torch.core.collectives import grid_offsets
+    gx, gy, gz = grid
+    n = gx * gy * gz
+    coords = np.array([(i // (gy * gz), (i // gz) % gy, i % gz)
+                       for i in range(n)])
+    out = []
+    for _ in range(stages):
+        recv = []
+        for off in grid_offsets():
+            src = (coords - np.array(off)) % np.array(grid)
+            recv.append(x[src[:, 0] * gy * gz + src[:, 1] * gz + src[:, 2]])
+        out.append(np.stack(recv, 1))
+        x = np_ordered_sum(recv) * np.float32(1.0 / len(recv))
+    return np.stack(out, 1)
+
+
+def collectives_on_card(torch, dev, card) -> None:
+    """Phase 12 (a): the seven collectives on stacked (8,) and (pod 2,
+    data 4) meshes, at tests/test_collectives.py's inputs and at one large
+    shape (random float32), bit for bit against NumPy models of the same
+    order (the overlapped matmul against the card's own per-chunk
+    products); the hierarchical all-reduce's bytes a rank per stage."""
+    from repro_torch.core import collectives as C
+    from repro_torch.launch.mesh import make_mesh_compat
+    flat = make_mesh_compat((8,), ("proc",), dev)
+    two = make_mesh_compat((2, 4), ("pod", "data"), dev)
+    rng = np.random.default_rng(0)
+    W = COLL_WORDS
+    cases = {
+        "reference test's inputs": dict(
+            x=np.arange(8 * 4 * 3, dtype=np.float32).reshape(8, 4, 3),
+            y=np.arange(8 * 5, dtype=np.float32).reshape(8, 1, 5),
+            z=np.arange(8 * 8 * 2, dtype=np.float32).reshape(8, 8, 2),
+            w=np.arange(3 * 7, dtype=np.float32).reshape(3, 7) / 10,
+            hs=np.eye(8, dtype=np.float32)[:, None, :]),
+        f"large, {W} words a rank": dict(
+            x=rng.normal(size=(8, W // 8, 8)).astype(np.float32),
+            y=rng.normal(size=(8, W + 3)).astype(np.float32),
+            z=rng.normal(size=(8, 8, W // 8)).astype(np.float32),
+            w=rng.normal(size=(512, 512)).astype(np.float32),
+            xm=rng.normal(size=(8, 256, 512)).astype(np.float32),
+            hs=rng.normal(size=(8, W // 16)).astype(np.float32))}
+    for label, c in cases.items():
+        t = {k: torch.as_tensor(v, device=dev) for k, v in c.items()}
+        x, n = c["x"], 8
+        checks, times = [], {}
+
+        def run(name, fn):
+            out, s = timed_sync(torch, fn)
+            times[name] = s
+            return out.cpu().numpy()
+
+        whole = x.reshape(-1, *x.shape[2:])
+        for rev in (False, True):
+            got = run(f"ring_all_gather{' reverse' * rev}",
+                      lambda: C.ring_all_gather(t["x"], flat, "proc",
+                                                reverse=rev))
+            checks.append((f"ring_all_gather reverse={rev}",
+                           np.array_equal(got, np.broadcast_to(
+                               whole, (n,) + whole.shape))))
+        # rank r's buffer: (r + 1) x, its chunk c (r + 1) x[c]
+        parts = x[None] * np.arange(1, n + 1, dtype=np.float32).reshape(
+            (n,) + (1,) * x.ndim)
+        got = run("ring_reduce_scatter", lambda: C.ring_reduce_scatter(
+            torch.as_tensor(parts.reshape(n, -1, *x.shape[2:]), device=dev),
+            flat, "proc"))
+        checks.append(("ring_reduce_scatter", np.array_equal(
+            got, np_ring_reduce_scatter(parts))))
+        y = c["y"]
+        stats, fstats = [], []
+        got = run("hierarchical_all_reduce", lambda: C.hierarchical_all_reduce(
+            t["y"], two, "data", "pod", stats=stats))
+        yy = y.reshape(2, 4, -1)
+        want = np_ordered_sum([np_ordered_sum(list(yy[p])) for p in (0, 1)])
+        checks.append(("hierarchical_all_reduce", np.array_equal(
+            got, np.broadcast_to(want.reshape(y.shape[1:]), y.shape))))
+        got = run("flat all-reduce", lambda: C.hierarchical_all_reduce(
+            t["y"], two, ("pod", "data"), None, stats=fstats))
+        checks.append(("flat all-reduce", np.array_equal(got, np.broadcast_to(
+            np_ordered_sum(list(y)), y.shape))))
+        outer = sum(s["bytes_per_rank"] for s in stats if "pod" in s["axes"])
+        flat_b = fstats[0]["bytes_per_rank"]
+        size = y[0].size
+        print(f"  {label}: hierarchical_all_reduce of {4 * size} B a rank: "
+              + ", ".join(f"{s['stage']} over {'/'.join(s['axes'])} "
+                          f"{s['bytes_per_rank']} B a rank" for s in stats)
+              + f"; the flat all-reduce over pod/data {flat_b} B a rank; the "
+              f"pod axis carries {outer / flat_b:.6f} of it (1/|data| = "
+              f"0.25, the padding to a multiple of 4 words aside)",
+              flush=True)
+        if outer != 4 * -(-size // 4) or flat_b != 4 * size:
+            raise AssertionError(f"pod-axis bytes {outer} against the flat "
+                                 f"{flat_b}")
+        got = run("two_stage_all_to_all", lambda: C.two_stage_all_to_all(
+            t["z"], two, "data", "pod"))
+        checks.append(("two_stage_all_to_all", np.array_equal(
+            got, np.swapaxes(c["z"], 0, 1))))
+        xm = t.get("xm", t["x"])
+        got = run("all_gather_matmul_overlapped",
+                  lambda: C.all_gather_matmul_overlapped(xm, t["w"], flat,
+                                                         "proc"))
+        chunks = torch.cat([xm[s] @ t["w"] for s in range(n)]).cpu().numpy()
+        checks.append(("all_gather_matmul_overlapped", np.array_equal(
+            got, np.broadcast_to(chunks, (n,) + chunks.shape))))
+        f64 = (xm.double().reshape(-1, xm.shape[-1]) @ t["w"].double())
+        print(f"  {label}: all_gather_matmul_overlapped against float64: max "
+              f"|diff| {float((torch.as_tensor(got[0], device=dev) - f64).abs().max()):.3e}",
+              flush=True)
+        got = run("neighbor_exchange", lambda: C.neighbor_exchange(
+            t["x"], flat, "proc", 1))
+        checks.append(("neighbor_exchange", np.array_equal(
+            got, np.roll(x, 1, axis=0))))
+        got = run("hsdx_grid_exchange", lambda: C.hsdx_grid_exchange(
+            t["hs"], flat, "proc", (2, 2, 2), stages=2))
+        checks.append(("hsdx_grid_exchange", np.array_equal(
+            got, np_hsdx(c["hs"], (2, 2, 2), 2))))
+        print(f"  {label}: "
+              + ", ".join(f"{k} {'bit for bit' if ok else 'DIFFERS'}"
+                          for k, ok in checks), flush=True)
+        print(f"  {label}: times (s, a call, stacked on the card): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+              + f"; card {card}", flush=True)
+        bad = [k for k, ok in checks if not ok]
+        if bad:
+            raise AssertionError(f"collectives differ from their NumPy "
+                                 f"models: {bad}")
+
+
+def _moe_oracle(torch, tmoe, x, p, cfg, parts):
+    """`_moe_dense` on each of `parts` slices of the batch's tokens (B, S,
+    D) -> (y, aux mean, routing log)."""
+    D = x.shape[-1]
+    xs = x.reshape(parts, -1, D)
+    with tmoe.routing_log() as log:
+        outs = [tmoe._moe_dense(s[None], p, cfg) for s in xs]
+    y = torch.cat([o[0] for o in outs], 1).reshape(x.shape)
+    return y, sum(o[1] for o in outs) / parts, log
+
+
+def moe_layer_on_card(torch, dev, card) -> None:
+    """Phase 12 (b): dbrx-132b's MoE layer at full width, expert-parallel
+    on a stacked (data 2, model 2) mesh, against the per-shard dense
+    oracle."""
+    from repro_torch.core.dist.comm import StackedComm
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding.parallel import Parallelism
+    cfg = lm_config("dbrx-132b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = init_params(tmoe.moe_defs(cfg), gen)
+    x = torch.randn(MOE_B, MOE_S, cfg.d_model, generator=gen, device=dev,
+                    dtype=torch.float32).to(torch.bfloat16)
+    mesh = make_mesh_compat((2, 2), ("data", "model"), dev)
+    par = Parallelism(mesh=mesh, data_axes=("data",), model_axis="model")
+    T = MOE_B * MOE_S
+    C = tmoe._capacity(T // 2, cfg)
+    print(f"  dbrx-132b MoE layer: d_model {cfg.d_model}, {cfg.n_experts} "
+          f"experts top-{cfg.top_k}, d_ff {cfg.d_ff}, capacity factor "
+          f"{cfg.capacity_factor}; {T} tokens on a stacked (data 2, model 2) "
+          f"mesh, capacity {C} a data rank; card {card}", flush=True)
+
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    for seq in (False, True):
+        pp = dc_replace(par, moe_seq_shard=seq)
+        with torch.no_grad():
+            with tmoe.routing_log() as log:
+                y, aux = tmoe.moe_ffn(x, p, cfg, pp)
+            yo, auxo, olog = _moe_oracle(torch, tmoe, x, p, cfg,
+                                         4 if seq else 2)
+        # rank (d, m): without moe_seq_shard data shard d, else its m-th
+        # slice: the oracle's entry d, or 2 d + m
+        pick = [0, 0, 1, 1] if not seq else [0, 1, 2, 3]
+        same_routes = all(torch.equal(log[r][0], olog[pick[r]][0])
+                          for r in range(4))
+        drop_ep = sum(int((~e[1]).sum()) for e in log)
+        drop_or = sum(int((~olog[pick[r]][1]).sum()) for r in range(4))
+        err, aerr = gap(y, yo), abs(float(aux) - float(auxo))
+        print(f"  moe_seq_shard={seq}: against the per-"
+              f"{'(data x model)-' if seq else 'data-'}shard oracle: outputs "
+              f"within {err:.3e} of its largest |y| (limit {MOE_OUT_TOL}), "
+              f"{int((y != yo).sum())} of {y.numel()} values not bit-equal; "
+              f"aux {float(aux):.6f} vs {float(auxo):.6f}; routes "
+              f"{'equal' if same_routes else 'DIFFER'}; slots dropped "
+              f"{drop_ep} vs {drop_or} (of {4 * len(log[0][1]) * cfg.top_k})",
+              flush=True)
+        if err > MOE_OUT_TOL or not same_routes or drop_ep != drop_or \
+                or aerr > 1e-4 * abs(float(auxo)):
+            raise AssertionError(f"expert-parallel MoE against its oracle "
+                                 f"(moe_seq_shard={seq})")
+
+    # a planted fault: the dispatch all-to-all sends each block one rank
+    # off (block j to model rank j + 1)
+    real = StackedComm.all_to_all
+    calls = []
+
+    def off_by_one(self, buf, axes=None, dim=0):
+        calls.append(axes)
+        if axes is not None and len(calls) == 1:
+            buf = buf.roll(1, dims=1 + dim)
+        return real(self, buf, axes, dim)
+
+    StackedComm.all_to_all = off_by_one
+    try:
+        with torch.no_grad():
+            yf, _ = tmoe.moe_ffn(x, p, cfg, par)
+    finally:
+        StackedComm.all_to_all = real
+    yo, _, _ = _moe_oracle(torch, tmoe, x, p, cfg, 2)
+    planted = gap(yf, yo)
+    print(f"  planted fault (dispatch blocks sent one model rank off): "
+          f"outputs {planted:.3e} of the largest |y| from the oracle "
+          f"(limit {MOE_OUT_TOL})", flush=True)
+    if planted <= MOE_OUT_TOL:
+        raise AssertionError("the planted all-to-all fault reads within the "
+                             "limit")
+    del yf
+
+    # gradients of x and the four weights, through both routes
+    gy = torch.randn(x.shape, generator=gen, device=dev)
+    grads = {}
+    for label, fn in (("stacked", lambda xx, pp: tmoe.moe_ffn(
+            xx, pp, cfg, par)), ("oracle", lambda xx, pp: _moe_oracle(
+            torch, tmoe, xx, pp, cfg, 2)[:2])):
+        xx = x.clone().requires_grad_()
+        pp = {k: v.detach().requires_grad_() for k, v in p.items()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        (y, aux), t_f = timed_sync(torch, lambda: fn(xx, pp))
+        _, t_b = timed_sync(torch, lambda: ((y.float() * gy).sum()
+                                            + aux).backward())
+        peak = torch.cuda.max_memory_allocated(dev)
+        grads[label] = {"x": xx.grad, **{k: v.grad for k, v in pp.items()}}
+        print(f"  {label}: forward {t_f:.4f} s, backward {t_b:.4f} s, peak "
+              f"{peak / 2**30:.3f} GiB allocated (weights "
+              f"{sum(v.numel() * v.element_size() for v in p.values()) / 2**30:.3f} GiB)",
+              flush=True)
+        del y, aux, xx, pp
+    worst = 0.0
+    for k in grads["oracle"]:
+        a, b = grads["stacked"][k].float(), grads["oracle"][k].float()
+        rel = float((a - b).norm() / b.norm())
+        worst = max(worst, rel)
+        print(f"    grad {k}: relative L2 {rel:.3e}, max |diff| "
+              f"{float((a - b).abs().max()):.3e} of max |g| "
+              f"{float(b.abs().max()):.3e}", flush=True)
+    if worst > MOE_GRAD_REL_L2:
+        raise AssertionError(f"expert-parallel gradients {worst} from the "
+                             f"oracle's (limit {MOE_GRAD_REL_L2})")
+    del grads
+
+    # time and peak memory: the stacked route, the oracle, one dense layer
+    for label, fn in (("expert-parallel, stacked (2, 2)",
+                       lambda: tmoe.moe_ffn(x, p, cfg, par)),
+                      ("per-shard oracle", lambda: _moe_oracle(
+                          torch, tmoe, x, p, cfg, 2)),
+                      ("single-card dense layer, one shard of 4,096 tokens",
+                       lambda: tmoe._moe_dense(x, p, cfg))):
+        with torch.no_grad():
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            ms = cuda_ms(torch, fn, reps=3)
+            peak = torch.cuda.max_memory_allocated(dev) - base
+        print(f"  {label}: {ms:.3f} ms, peak {peak / 2**30:.3f} GiB above "
+              f"the weights; card {card}", flush=True)
+    print(f"  all-to-all: a rank sends {cfg.n_experts * C * cfg.d_model * 2}"
+          f" B each way a call ((E, C, D) bfloat16), half of it to the other "
+          f"model rank", flush=True)
+    del p, x, gy
+    torch.cuda.empty_cache()
+
+
+def _twin_tape(par):
+    """A `LogitTape` whose model calls run under `par` and keep row 0."""
+    class Twin(LogitTape):
+        def prefill(self, tokens, S_max, **kw):
+            cache, lg = self._call(self.model.prefill, tokens, S_max, par=par)
+            self.logits.append(lg[:1, -1].float())
+            return cache, lg
+
+        def decode_step(self, cache, tokens, pos, *args):
+            lg, cache = self._call(self.model.decode_step, cache, tokens,
+                                   pos, par)
+            self.logits.append(lg[:1, -1].float())
+            return lg, cache
+    return Twin
+
+
+def greedy_check_par(torch, model, par, prompt, out, tape) -> dict:
+    """`greedy_check` under a mesh of 2 data ranks: the request was served
+    with its twin (each data rank holds one copy: its capacity is that of
+    the request alone), and each step is held to a forward of the twin pair
+    under the same `par`, under phase 10's rule (a step whose routes differ
+    or that dropped a slot is counted, not held)."""
+    from repro_torch.models import moe as tmoe
+    seq, res = list(prompt), dict(tokens=len(out), exempt=0, apart=0,
+                                  unrouted=0, dropped=0, worst=0.0)
+    for i, (t, lg_e) in enumerate(zip(out, tape.logits)):
+        with tmoe.routing_log() as log:
+            h = model(torch.as_tensor([seq, seq], device=model.device),
+                      par=par)
+        fwd = moe_routes(log)
+        eng = [(torch.cat([c[j][0] for c in tape.routes[:i + 1]]),
+                torch.cat([c[j][1] for c in tape.routes[:i + 1]]))
+               for j in range(len(fwd))]
+        if drops(fwd) or drops(eng):
+            res["dropped"] += 1
+        elif not all(torch.equal(a[0], b[0]) for a, b in zip(eng, fwd)):
+            res["unrouted"] += 1
+        else:
+            lg = model.logits(h[:1, -1:])[:, -1].float()
+            worst, near, apart = hold_step(lg_e, lg, torch.as_tensor([t]),
+                                           LM_LOGIT_TOL, f"length {len(seq)}")
+            res["worst"] = max(res["worst"], worst)
+            res["exempt"] += near
+            res["apart"] += apart
+        seq.append(t)
+    return res
+
+
+def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
+    """Phase 12 (c): `ServeEngine(par=)` on a stacked (data 2, model 2)
+    mesh at full width (depth cut as in phase 10).  Returns K4's launches
+    under the mesh."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.sharding.parallel import Parallelism
+    cfg = lm_config(arch)
+    model = build_model(cfg, seed=0, device=dev)
+    mesh = make_mesh_compat((2, 2), ("data", "model"), dev)
+    par = Parallelism(mesh=mesh, data_axes=("data",), model_axis="model",
+                      remat=False)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, int(
+        rng.integers(4, 16)))] for _ in range(LM_REQUESTS)]
+    model.prefill(torch.as_tensor([prompts[0]] * 2, device=dev), LM_SMAX,
+                  par=par)
+    res = {}
+    for label, pp, graph in (("one rank", Parallelism(remat=False), False),
+                             ("mesh", par, False), ("mesh graphed", par,
+                                                    True)):
+        eng = ServeEngine(model, B=LM_SLOTS, S_max=LM_SMAX, graph=graph,
+                          par=pp)
+        rec = LogitRecorder(eng)
+        reqs = [Request(rid=i, prompt=list(p), max_new=LM_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        kattn.launches = 0
+        _, t = timed_sync(torch, lambda: eng.run(max_steps=LM_SMAX))
+        res[label] = ({r.rid: list(r.out) for r in reqs}, t,
+                      kattn.launches, rec.logits, eng)
+        n_tok = LM_REQUESTS * LM_NEW
+        print(f"  {arch} {label}: {n_tok} tokens in {t:.4f} s "
+              f"({n_tok / t:.2f} tok/s{', capture included' * graph}), K4 "
+              f"launches {kattn.launches}; card {card}", flush=True)
+    k4 = {k: v[2] for k, v in res.items()}
+    if k4["mesh"] != k4["one rank"]:
+        raise AssertionError(f"{arch}: K4 launches {k4}")
+    toks_e, _, _, lg_e, _ = res["mesh"]
+    toks_g, _, _, lg_g, eng_g = res["mesh graphed"]
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(lg_g, lg_e))
+    call = eng_g.decode_call
+    print(f"  {arch}: graphed decode under the mesh against the eager one: "
+          f"tokens {'identical' if toks_g == toks_e else 'DIFFER'}, logits of "
+          f"{len(lg_g)} calls within {worst:.3e} of the largest |logit|; "
+          f"capture {call.capture_s:.4f} s, pool "
+          f"{call.pool_bytes / 2**30:.3f} GiB, launches a replay "
+          f"{call.launches}", flush=True)
+    if toks_g != toks_e or len(lg_g) != len(lg_e) or worst > 1e-3:
+        raise AssertionError(f"{arch}: graphed and eager serving under the "
+                             f"mesh differ")
+    del res, eng_g, call
+    # each request served with its twin, held to a forward under the mesh;
+    # a 6-token request too, which no expert's capacity can refuse
+    short = [int(t) for t in np.random.default_rng(0).integers(
+        1, cfg.vocab, 6)]
+    tot = dict(tokens=0, exempt=0, apart=0, unrouted=0, dropped=0,
+               worst=0.0)
+    Twin = _twin_tape(par)
+    for prompt in prompts + [short]:
+        tape = Twin(model)
+        eng = ServeEngine(tape, B=2, S_max=LM_SMAX, graph=False)
+        for rid in (0, 1):
+            eng.submit(Request(rid=rid, prompt=list(prompt), max_new=LM_NEW))
+        outs = {r.rid: r.out for r in eng.run(max_steps=LM_SMAX)}
+        if outs[0] != outs[1]:
+            raise AssertionError(f"{arch}: the twins were served apart")
+        r = greedy_check_par(torch, model, par, prompt, outs[0], tape)
+        tot = {k: max(v, r[k]) if k == "worst" else v + r[k]
+               for k, v in tot.items()}
+    held = tot["tokens"] - tot["unrouted"] - tot["dropped"]
+    print(f"  {arch}: greedy continuations under the mesh, {len(prompts) + 1}"
+          f" requests each served with its twin: {held} of {tot['tokens']} "
+          f"steps held to a forward under the same mesh ({tot['apart']} "
+          f"tokens not its argmax, each at a near tie; {tot['exempt']} near "
+          f"ties), {tot['unrouted']} routed apart, {tot['dropped']} with a "
+          f"dropped slot; logits within {tot['worst']:.3e} of the largest "
+          f"|logit| (limit {LM_LOGIT_TOL})", flush=True)
+    if held <= 0:
+        raise AssertionError(f"{arch}: no step under the mesh was held")
+    # the graphed engine and its captured step form a reference cycle:
+    # collect it, so its graph pool is freed before the next model
+    del model, eng, rec, tape
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k4["mesh"] + k4["mesh graphed"]
+
+
+def dp_training_on_card(torch, kattn, dev, card) -> int:
+    """Phase 12 (d): smollm-360m's data-parallel step on a stacked (pod 2,
+    data 2) mesh, hierarchical and flat, against the single-card step.
+    Returns K4's launches in the mesh steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as tcoll
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import init_weights
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.sharding.parallel import Parallelism
+    from repro_torch.train import train_step as tstep
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    cfg = get_config(TRAIN_ARCH)
+    params = init_weights(cfg, seed=0, device=dev, trainable=True)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+        cfg.vocab, DP_S, DP_B, seed=0).next_batch().items()}
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    mesh = make_mesh_compat((2, 2), ("pod", "data"), dev)
+    runs, launches = {}, 0
+    for label, par in (("single card", Parallelism()),
+                       ("hierarchical", Parallelism(
+                           mesh=mesh, data_axes=("pod", "data"),
+                           pod_axis="pod", hierarchical=True)),
+                       ("flat", Parallelism(
+                           mesh=mesh, data_axes=("pod", "data"),
+                           pod_axis="pod", hierarchical=False))):
+        step = tstep.make_train_step(cfg, opt_cfg, par=par)
+        red = []
+        real = tstep.hierarchical_all_reduce
+
+        def timed_reduce(*a, **kw):
+            out, s = timed_sync(torch, lambda: real(*a, **kw))
+            red.append(s)
+            return out
+
+        tstep.hierarchical_all_reduce = timed_reduce
+        try:
+            kattn.launches = 0
+            opt = init_opt_state(params)
+            torch.cuda.reset_peak_memory_stats(dev)
+            (newp, opt, m), t = timed_sync(torch, lambda: step(
+                params, opt, batch))
+            k4 = kattn.launches
+        finally:
+            tstep.hierarchical_all_reduce = real
+        peak = torch.cuda.max_memory_allocated(dev)
+        runs[label] = (opt, m)
+        if par.mesh is not None:
+            launches += k4
+            pod = sum(s["bytes_per_rank"] for s in step.comm
+                      if "pod" in s["axes"])
+            print(f"  {label} reduction: "
+                  + ", ".join(f"{s['stage']} over {'/'.join(s['axes'])} "
+                              f"{s['bytes_per_rank']} B a rank"
+                              for s in step.comm)
+                  + f"; on the pod axis {pod} B a rank; "
+                  f"{red[0]:.4f} s (stacked on the card)", flush=True)
+            if k4 != cfg.n_layers * par.dp_size():
+                raise AssertionError(f"{label}: K4 launches {k4}")
+        print(f"  {label}: step {t:.4f} s, loss {float(m['loss']):.6f}, "
+              f"grad norm {float(m['grad_norm']):.6f}, K4 launches {k4}, "
+              f"peak {peak / 2**30:.3f} GiB; card {card}", flush=True)
+        del newp
+    one = runs["single card"]
+    for label in ("hierarchical", "flat"):
+        opt, m = runs[label]
+        dl = abs(float(m["loss"]) - float(one[1]["loss"])) / abs(
+            float(one[1]["loss"]))
+        dg = abs(float(m["grad_norm"]) - float(one[1]["grad_norm"])) / \
+            float(one[1]["grad_norm"])
+        g_rel = max(float((a - b).norm() / b.norm()) if b.norm() > 0 else
+                    float(a.norm() > 0) for a, b in zip(
+                        tree_leaves(opt.m), tree_leaves(one[0].m)))
+        w = [(a - b).abs() / opt_cfg.lr for a, b in zip(
+            tree_leaves(opt.master), tree_leaves(one[0].master))]
+        w_max = max(float(d.max()) for d in w)
+        w_far = sum(int((d > 0.1).sum()) for d in w)
+        n_w = sum(d.numel() for d in w)
+        print(f"  {label} against the single-card step: loss {dl:.3e} "
+              f"(relative; limit {DP_LOSS_RTOL}), grad norm {dg:.3e} (limit "
+              f"{DP_NORM_RTOL}), clipped gradient per leaf up to {g_rel:.3e} "
+              f"relative L2 (limit {DP_GRAD_REL_L2}); updated masters up to "
+              f"{w_max:.3f} lr apart (limit {DP_STEP_LR}), {w_far} of {n_w} "
+              f"more than 0.1 lr", flush=True)
+        if dl > DP_LOSS_RTOL or dg > DP_NORM_RTOL \
+                or g_rel > DP_GRAD_REL_L2 or w_max > DP_STEP_LR:
+            raise AssertionError(f"{label} data-parallel step against the "
+                                 f"single-card step")
+    del runs, one, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_sharding(torch, kattn, dev, card) -> int:
+    """Phase 12: the LM sharding tier on ranks stacked on the card.
+    Returns K4's launches."""
+    with phase("LM sharding (a): the collectives on stacked meshes"):
+        collectives_on_card(torch, dev, card)
+    with phase("LM sharding (b): dbrx-132b's MoE layer, expert-parallel"):
+        moe_layer_on_card(torch, dev, card)
+    k4 = 0
+    for arch in ("dbrx-132b", "llama4-scout-17b-a16e"):
+        with phase(f"LM sharding (c): serving {arch} under a (2, 2) mesh"):
+            k4 += serve_under_mesh(torch, arch, kattn, dev, card)
+    with phase(f"LM sharding (d): {TRAIN_ARCH} data-parallel on (pod 2, "
+               f"data 2)"):
+        k4 += dp_training_on_card(torch, kattn, dev, card)
+    return k4
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
@@ -3258,6 +3866,10 @@ def main() -> int:
             launches[name] += n
 
     # ------------------------------------------------------------ 12 -----
+    print(f"  card {card}", flush=True)
+    launches["K4"] += lm_sharding(torch, kattn, dev, card)
+
+    # ------------------------------------------------------------ 13 -----
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

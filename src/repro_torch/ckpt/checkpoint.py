@@ -12,8 +12,15 @@ reference stacks its superblocks, and unstacked on load
 (`convert.unstack`).  bfloat16 leaves are upcast to float32 (npz cannot
 hold bfloat16; exact) and cast back to the like tree's type on load; a
 Python int leaf (the optimizer's step) is stored as an int32 scalar, the
-reference's type.  The reference's `shardings=` (elastic resharding onto
-a mesh) is replaced by `device=`: the port loads onto one device.
+reference's type.
+
+`load_checkpoint(..., shardings=)` is the reference's elastic reshard on
+load: with a tree of `models.params.Sharding`s (`param_shardings(defs,
+mesh)`, None where a leaf stays whole) each leaf lands as the blocks the
+ranks of this process hold on that mesh (`shard_params`: (L, *block)) on
+the mesh's device, whatever mesh shape wrote the checkpoint (the file
+holds whole leaves).  Without it, `device=` (default: the card) takes the
+whole tree.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 
 from repro_torch.convert import unstack
 from repro_torch.device import resolve_device
+from repro_torch.models.params import shard_leaf
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step"]
 
@@ -134,14 +142,49 @@ def _restore(like, key: str, arrays: dict, dev):
     return type(like)(arr)
 
 
-def load_checkpoint(ckpt_dir: str, step: int, like_tree, device=None):
+def _shard(tree, shardings):
+    """Each tensor leaf cut to its blocks where `shardings` has a
+    `Sharding` (the trees of one structure, None for a whole leaf)."""
+    if shardings is None:
+        return tree
+    if _is_namedtuple(tree):
+        return type(tree)(*(_shard(getattr(tree, n), getattr(shardings, n))
+                            for n in tree._fields))
+    if isinstance(tree, dict):
+        return {k: _shard(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shard(v, s) for v, s in zip(tree, shardings)]
+    return shard_leaf(tree, shardings) if isinstance(tree, torch.Tensor) \
+        else tree
+
+
+def _first_mesh(shardings):
+    if shardings is None:
+        return None
+    if isinstance(shardings, dict):
+        shardings = list(shardings.values())
+    if isinstance(shardings, (list, tuple)):
+        for s in shardings:
+            m = _first_mesh(s)
+            if m is not None:
+                return m
+        return None
+    return shardings.mesh
+
+
+def load_checkpoint(ckpt_dir: str, step: int, like_tree, device=None,
+                    shardings=None):
     """Restore step `step` into the structure of `like_tree` (its leaves
     give shapes and types: tensors, on any device, or Python numbers),
-    onto `device` (default: the card).  Returns (tree, extra)."""
-    dev = resolve_device(device)
+    onto `device` (default: the card), or, with `shardings`, each leaf as
+    the blocks this process's ranks hold on the mesh's device (see the
+    module docstring).  Returns (tree, extra)."""
+    mesh = _first_mesh(shardings)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(d, "shard_0.npz")) as npz:
         arrays = dict(npz)
-    return _restore(like_tree, "", arrays, dev), manifest["extra"]
+    tree = _restore(like_tree, "", arrays, dev)
+    return _shard(tree, shardings), manifest["extra"]

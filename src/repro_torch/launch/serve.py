@@ -27,6 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.sharding.parallel import Parallelism
 
 
 def main(argv=None):
@@ -49,7 +50,8 @@ def main(argv=None):
                  f"it through Model.prefill and Model.decode_step")
     dev = resolve_device(args.device)
     model = build_model(cfg, seed=0, device=dev)
-    engine = ServeEngine(model, B=args.slots, S_max=args.s_max)
+    engine = ServeEngine(model, B=args.slots, S_max=args.s_max,
+                         par=Parallelism(remat=False))
     rng = np.random.default_rng(0)
     for rid in range(args.requests):
         plen = int(rng.integers(4, 16))

@@ -15,7 +15,10 @@ never moves to the CPU on its own.
   - failure injection: --simulate-failure-at N raises at step N, so the
     restart path stays tested.
 Weights start from `init_weights(cfg, seed=seed)` (a seeded
-`torch.Generator` on the device); data is `SyntheticLM(seed=seed)`.
+`torch.Generator` on the device); data is `SyntheticLM(seed=seed)`.  The
+step runs under `par` (default: the reference's `Parallelism(remat=
+False)`, no mesh); a `Parallelism` over a stacked mesh makes it data
+parallel (`train.train_step`), the batch split over its data ranks.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import init_weights, weight_structs
 from repro_torch.models.params import map_tree
+from repro_torch.sharding.parallel import Parallelism
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_step import make_train_step
 
@@ -41,7 +45,7 @@ def run(arch: str, smoke: bool, steps: int, batch: int, seq: int,
         ckpt_dir: str, ckpt_every: int = 20, lr: float = 3e-4,
         simulate_failure_at: int | None = None, n_micro: int = 1,
         step_deadline_s: float = 120.0, log_every: int = 5,
-        seed: int = 0, device=None) -> dict:
+        seed: int = 0, device=None, par: Parallelism | None = None) -> dict:
     """Train `arch` for `steps` steps (resuming from `ckpt_dir`'s latest
     step when there is one).  Returns {"losses", "grad_norms",
     "step_s", "stragglers", "final_loss"}, the lists over the steps this
@@ -50,7 +54,8 @@ def run(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     cfg = get_config(arch, smoke=smoke)
     opt_cfg = AdamWConfig(lr=lr, total_steps=max(steps, 10),
                           warmup=min(20, steps // 5 + 1))
-    train_step = make_train_step(cfg, opt_cfg, n_micro=n_micro)
+    par = Parallelism(remat=False) if par is None else par
+    train_step = make_train_step(cfg, opt_cfg, n_micro=n_micro, par=par)
 
     data = SyntheticLM(cfg.vocab, seq, batch, seed=seed)
     start = 0

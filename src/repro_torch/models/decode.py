@@ -50,6 +50,11 @@ writes, the `kv_len` masks) takes as it is, and the MoE sublayer reads
 nothing back to the host, so a CUDA graph of the step replays at any
 position (`serve.engine`); this matches the reference's traced `pos` and
 `dynamic_update_slice`.
+
+`par` (the reference's argument, `NONE` by default) reaches the MoE
+sublayers only: under a mesh with a model axis they run the
+expert-parallel route (`models.moe`), whose stacked collectives read
+nothing back either, so a step under a stacked mesh captures too.
 """
 from __future__ import annotations
 
@@ -64,6 +69,7 @@ from repro_torch.models.transformer import (_attn_sublayer, _ffn_sublayer,
                                             check_supported, embed,
                                             hybrid_block, logits_fn,
                                             memory_of, superblock)
+from repro_torch.sharding.parallel import NONE
 
 __all__ = ["CDT", "init_cache", "prefill", "decode_step"]
 
@@ -163,7 +169,8 @@ def _store_kv(c, kv, S, cfg):
 
 
 # ---------------------------------------------------------------- prefill --
-def prefill(params, tokens, cfg, S_max: int, *, frames=None, vis=None):
+def prefill(params, tokens, cfg, S_max: int, *, frames=None, vis=None,
+            par=NONE):
     """Run the full prompt (B, S), with the frame embeddings (B, S, D) of an
     encdec model or the patch embeddings (B, n_vis_tokens, D) of a vlm;
     return (cache, last-token logits (B, 1, V))."""
@@ -200,7 +207,7 @@ def prefill(params, tokens, cfg, S_max: int, *, frames=None, vis=None):
         h = x
         for pb, c in zip(params["blocks"], cache["blocks"]):
             h, _, kv = superblock(h, pb, cfg, positions=positions,
-                                  memory=memory)
+                                  memory=memory, par=par)
             _store_kv(c, kv, S, cfg)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     return cache, logits_fn(params, h[:, -1:], cfg)
@@ -243,7 +250,7 @@ def _hybrid_step(h, pb, c, cfg, pos, window):
     return _mlp_sublayer(h + 0.5 * (o_attn + y_ssm), pb["mlp0"], cfg)
 
 
-def decode_step(params, cache, tokens, pos, cfg):
+def decode_step(params, cache, tokens, pos, cfg, par=NONE):
     """One token for every sequence.  tokens: (B, 1); pos: the position
     being written, an int or a 0-d int64 tensor on the tokens' device.
     Updates `cache` in place; returns (logits (B, 1, V), cache)."""
@@ -304,6 +311,6 @@ def decode_step(params, cache, tokens, pos, cfg):
                     h, _, _ = _attn_sublayer(h, pb[f"dec_cross{s}"], cfg,
                                              positions=positions,
                                              memory=memory, kv_len=mem_len)
-                h, _ = _ffn_sublayer(h, pb, cfg, s)
+                h, _ = _ffn_sublayer(h, pb, cfg, s, par)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     return logits_fn(params, h, cfg), cache

@@ -26,6 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import decode as decode_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.params import init_params, map_tree, param_structs
+from repro_torch.sharding.parallel import NONE
 
 __all__ = ["Model", "build_model", "init_weights", "weight_structs"]
 
@@ -68,36 +69,38 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.weights.embed.device
 
-    def forward(self, tokens, *, frames=None, vis=None):
+    def forward(self, tokens, *, frames=None, vis=None, par=NONE):
         """Full-sequence forward -> final hidden states (B, S, D).  `frames`
         (B, S, D): an encdec model's frame embeddings; `vis` (B,
         n_vis_tokens, D): a vlm's patch embeddings (the reference's batch
-        keys)."""
+        keys); `par`: the reference's `Parallelism` (read by the MoE
+        sublayers)."""
         return tf.forward(self.params, tokens, self.cfg, frames=frames,
-                          vis=vis)
+                          vis=vis, par=par)
 
-    def forward_with_aux(self, tokens, *, frames=None, vis=None):
+    def forward_with_aux(self, tokens, *, frames=None, vis=None, par=NONE):
         """(final hidden states, the MoE aux loss summed over layers), the
         reference's `forward` pair."""
         return tf.forward_with_aux(self.params, tokens, self.cfg,
-                                   frames=frames, vis=vis)
+                                   frames=frames, vis=vis, par=par)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, par=NONE):
         """(loss, {"ce", "aux"}) of a weight tree on a batch (`tokens`,
         `labels`, and `frames` / `vis` where the family needs them): the
         reference's `Model.loss`."""
-        return tf.loss_fn(params, batch, self.cfg)
+        return tf.loss_fn(params, batch, self.cfg, par)
 
     def logits(self, h):
         return tf.logits_fn(self.params, h, self.cfg)
 
-    def prefill(self, tokens, S_max: int, *, frames=None, vis=None):
+    def prefill(self, tokens, S_max: int, *, frames=None, vis=None,
+                par=NONE):
         return decode_mod.prefill(self.params, tokens, self.cfg, S_max,
-                                  frames=frames, vis=vis)
+                                  frames=frames, vis=vis, par=par)
 
-    def decode_step(self, cache, tokens, pos):
+    def decode_step(self, cache, tokens, pos, par=NONE):
         return decode_mod.decode_step(self.params, cache, tokens, pos,
-                                      self.cfg)
+                                      self.cfg, par)
 
 
 def _in_model_type(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:

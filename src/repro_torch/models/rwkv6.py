@@ -24,29 +24,29 @@ CHUNK = 64
 def rwkv_defs(cfg):
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "ln1": ParamDef((d,), init="ones"),
-        "ln2": ParamDef((d,), init="ones"),
+        "ln1": ParamDef((d,), (None,), init="ones"),
+        "ln2": ParamDef((d,), (None,), init="ones"),
         # time-mix
-        "mu_r": ParamDef((d,), init="zeros"),
-        "mu_k": ParamDef((d,), init="zeros"),
-        "mu_v": ParamDef((d,), init="zeros"),
-        "mu_w": ParamDef((d,), init="zeros"),
-        "mu_g": ParamDef((d,), init="zeros"),
-        "w_r": ParamDef((d, d)),
-        "w_k": ParamDef((d, d)),
-        "w_v": ParamDef((d, d)),
-        "w_w": ParamDef((d, d), scale=1e-2),
-        "w_g": ParamDef((d, d)),
-        "w_o": ParamDef((d, d)),
-        "w_bias": ParamDef((d,), init="zeros"),
-        "u_bonus": ParamDef((d,), init="zeros"),
-        "ln_x": ParamDef((d,), init="ones"),
+        "mu_r": ParamDef((d,), (None,), init="zeros"),
+        "mu_k": ParamDef((d,), (None,), init="zeros"),
+        "mu_v": ParamDef((d,), (None,), init="zeros"),
+        "mu_w": ParamDef((d,), (None,), init="zeros"),
+        "mu_g": ParamDef((d,), (None,), init="zeros"),
+        "w_r": ParamDef((d, d), ("data", "model")),
+        "w_k": ParamDef((d, d), ("data", "model")),
+        "w_v": ParamDef((d, d), ("data", "model")),
+        "w_w": ParamDef((d, d), ("data", "model"), scale=1e-2),
+        "w_g": ParamDef((d, d), ("data", "model")),
+        "w_o": ParamDef((d, d), ("model", "data")),
+        "w_bias": ParamDef((d,), (None,), init="zeros"),
+        "u_bonus": ParamDef((d,), (None,), init="zeros"),
+        "ln_x": ParamDef((d,), (None,), init="ones"),
         # channel-mix
-        "cmu_k": ParamDef((d,), init="zeros"),
-        "cmu_r": ParamDef((d,), init="zeros"),
-        "cw_k": ParamDef((d, f)),
-        "cw_v": ParamDef((f, d)),
-        "cw_r": ParamDef((d, d)),
+        "cmu_k": ParamDef((d,), (None,), init="zeros"),
+        "cmu_r": ParamDef((d,), (None,), init="zeros"),
+        "cw_k": ParamDef((d, f), ("data", "model")),
+        "cw_v": ParamDef((f, d), ("model", "data")),
+        "cw_r": ParamDef((d, d), ("data", "model")),
     }
 
 

@@ -30,14 +30,14 @@ CHUNK = 256     # the reference's chunk (tokens) of the selective scan
 def ssm_defs(cfg):
     d, n = cfg.d_model, cfg.ssm_state
     return {
-        "in_proj": ParamDef((d, d)),
-        "dt_proj": ParamDef((d, 1)),
-        "B_proj": ParamDef((d, n)),
-        "C_proj": ParamDef((d, n)),
-        "A_log": ParamDef((d, n), init="zeros"),
-        "D_skip": ParamDef((d,), init="ones"),
-        "conv_w": ParamDef((4, d), init="zeros"),
-        "out_proj": ParamDef((d, d)),
+        "in_proj": ParamDef((d, d), ("data", "model")),
+        "dt_proj": ParamDef((d, 1), ("data", None)),
+        "B_proj": ParamDef((d, n), ("data", None)),
+        "C_proj": ParamDef((d, n), ("data", None)),
+        "A_log": ParamDef((d, n), ("model", None), init="zeros"),
+        "D_skip": ParamDef((d,), (None,), init="ones"),
+        "conv_w": ParamDef((4, d), (None, "model"), init="zeros"),
+        "out_proj": ParamDef((d, d), ("model", "data")),
     }
 
 

@@ -23,10 +23,15 @@ take no RoPE.
 
 The training loss is the reference's: `loss_fn` = `chunked_xent` over the
 final hidden states (sequence chunks of min(512, S), each chunk's logits
-recomputed in backward) plus 0.01 of the MoE aux loss.  The reference's
-`par` (sharding) and `chunked` (its chunked jnp attention) arguments are
-dropped: the port runs on one card, and K4 serves every length.  Sharding
-is not ported (ROADMAP.md).
+recomputed in backward) plus 0.01 of the MoE aux loss.
+
+`par` (a `sharding.parallel.Parallelism`, `NONE` by default) is the
+reference's: only the MoE sublayer reads it (its expert-parallel route
+under a mesh with a model axis) and `par.constrain`, which returns its
+input (the port has no GSPMD).  Under a stacked mesh every other sublayer
+runs on the whole batch, as the reference's GSPMD program computes it.
+The reference's `chunked` (its chunked jnp attention) is dropped: K4
+serves every length.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_rope, attention_flash,
                                        attention_full, rms_norm, swiglu)
 from repro_torch.models.params import ParamDef, stack_defs
+from repro_torch.sharding.parallel import NONE
 
 __all__ = ["attn_defs", "mlp_defs", "superblock_defs", "model_defs",
            "padded_vocab", "forward", "forward_with_aux", "superblock",
@@ -65,25 +71,25 @@ def check_supported(cfg) -> None:
 def attn_defs(cfg):
     d, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     defs = {
-        "ln": ParamDef((d,), init="ones"),
-        "wq": ParamDef((d, H * hd)),
-        "wk": ParamDef((d, Hkv * hd)),
-        "wv": ParamDef((d, Hkv * hd)),
-        "wo": ParamDef((H * hd, d)),
+        "ln": ParamDef((d,), (None,), init="ones"),
+        "wq": ParamDef((d, H * hd), ("data", "model")),
+        "wk": ParamDef((d, Hkv * hd), ("data", "model")),
+        "wv": ParamDef((d, Hkv * hd), ("data", "model")),
+        "wo": ParamDef((H * hd, d), ("model", "data")),
     }
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((hd,), init="ones")
-        defs["k_norm"] = ParamDef((hd,), init="ones")
+        defs["q_norm"] = ParamDef((hd,), (None,), init="ones")
+        defs["k_norm"] = ParamDef((hd,), (None,), init="ones")
     return defs
 
 
 def mlp_defs(cfg):
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "ln": ParamDef((d,), init="ones"),
-        "w_gate": ParamDef((d, f)),
-        "w_up": ParamDef((d, f)),
-        "w_down": ParamDef((f, d)),
+        "ln": ParamDef((d,), (None,), init="ones"),
+        "w_gate": ParamDef((d, f), ("data", "model")),
+        "w_up": ParamDef((d, f), ("data", "model")),
+        "w_down": ParamDef((f, d), ("model", "data")),
     }
 
 
@@ -104,7 +110,8 @@ def superblock_defs(cfg, decoder=True):
             blocks[f"ssm{s}"] = ssm_mod.ssm_defs(cfg)
         if cfg.n_experts and decoder:
             blocks[f"moe{s}"] = dict(moe_mod.moe_defs(cfg),
-                                     ln=ParamDef((cfg.d_model,), init="ones"))
+                                     ln=ParamDef((cfg.d_model,), (None,),
+                                                 init="ones"))
         else:
             blocks[f"mlp{s}"] = mlp_defs(cfg)
         if cfg.is_encdec and decoder:
@@ -151,16 +158,16 @@ def model_defs(cfg):
     d = cfg.d_model
     vp = padded_vocab(cfg)
     defs = {
-        "embed": ParamDef((vp, d), scale=0.02),
-        "final_ln": ParamDef((d,), init="ones"),
+        "embed": ParamDef((vp, d), ("model", "data"), scale=0.02),
+        "final_ln": ParamDef((d,), (None,), init="ones"),
         "blocks": stack_defs(superblock_defs(cfg), _n_superblocks(cfg)),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((d, vp), scale=0.02)
+        defs["lm_head"] = ParamDef((d, vp), ("data", "model"), scale=0.02)
     if cfg.is_encdec:
         defs["enc_blocks"] = stack_defs(superblock_defs(cfg, decoder=False),
                                         cfg.n_enc_layers)
-        defs["enc_ln"] = ParamDef((d,), init="ones")
+        defs["enc_ln"] = ParamDef((d,), (None,), init="ones")
     return defs
 
 
@@ -202,20 +209,20 @@ def _mlp_sublayer(h, p, cfg):
     return h + swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
-def _moe_sublayer(h, p, cfg):
+def _moe_sublayer(h, p, cfg, par=NONE):
     x = rms_norm(h, p["ln"], cfg.norm_eps)
-    y, aux = moe_mod.moe_ffn(x, p, cfg)
-    return h + y, aux
+    y, aux = moe_mod.moe_ffn(x, p, cfg, par)
+    return h + par.constrain(y, par.dp, None, None), aux
 
 
-def _ffn_sublayer(h, pb, cfg, s):
+def _ffn_sublayer(h, pb, cfg, s, par=NONE):
     """Sublayer s's MLP or expert FFN: (h, aux), aux 0.0 for an MLP."""
     if cfg.n_experts:
-        return _moe_sublayer(h, pb[f"moe{s}"], cfg)
+        return _moe_sublayer(h, pb[f"moe{s}"], cfg, par)
     return _mlp_sublayer(h, pb[f"mlp{s}"], cfg), 0.0
 
 
-def superblock(h, pb, cfg, *, positions, memory=None):
+def superblock(h, pb, cfg, *, positions, memory=None, par=NONE):
     """One attention superblock over a whole sequence: (h, aux, kv), kv one
     (kind, k, v) per self-attention sublayer, in order; `memory` is what
     the cross-attention sublayers read (vlm, encdec)."""
@@ -233,7 +240,7 @@ def superblock(h, pb, cfg, *, positions, memory=None):
         if cfg.is_encdec:
             h, _, _ = _attn_sublayer(h, pb[f"dec_cross{s}"], cfg,
                                      positions=positions, memory=memory)
-        h, aux_s = _ffn_sublayer(h, pb, cfg, s)
+        h, aux_s = _ffn_sublayer(h, pb, cfg, s, par)
         aux = aux + aux_s
     return h, aux, kv
 
@@ -296,11 +303,12 @@ def memory_of(params, cfg, frames=None, vis=None):
     return None
 
 
-def forward_with_aux(params, tokens, cfg, *, frames=None, vis=None):
+def forward_with_aux(params, tokens, cfg, *, frames=None, vis=None,
+                     par=NONE):
     """Full-sequence forward -> (final hidden states (B, S, D), the MoE aux
     loss summed over layers: a float32 0-d tensor, 0 without experts)."""
     check_supported(cfg)
-    h = embed(params, tokens, cfg)
+    h = par.constrain(embed(params, tokens, cfg), par.dp, None, None)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     positions = torch.arange(tokens.shape[1], device=h.device)
     if cfg.family == "ssm":
@@ -314,14 +322,15 @@ def forward_with_aux(params, tokens, cfg, *, frames=None, vis=None):
         memory = memory_of(params, cfg, frames, vis)
         for pb in params["blocks"]:
             h, aux_b, _ = superblock(h, pb, cfg, positions=positions,
-                                     memory=memory)
+                                     memory=memory, par=par)
             aux = aux + aux_b
     return rms_norm(h, params["final_ln"], cfg.norm_eps), aux
 
 
-def forward(params, tokens, cfg, *, frames=None, vis=None):
+def forward(params, tokens, cfg, *, frames=None, vis=None, par=NONE):
     """Full-sequence forward -> final hidden states (B, S, D)."""
-    return forward_with_aux(params, tokens, cfg, frames=frames, vis=vis)[0]
+    return forward_with_aux(params, tokens, cfg, frames=frames, vis=vis,
+                            par=par)[0]
 
 
 def logits_fn(params, h, cfg):
@@ -358,12 +367,13 @@ def chunked_xent(params, h, labels, cfg, chunk: int = 512):
     return total / (B * S)
 
 
-def loss_fn(params, batch, cfg):
+def loss_fn(params, batch, cfg, par=NONE):
     """The training loss of a weight tree on a batch (`tokens`, `labels`;
     `frames` / `vis` where the family needs them): (ce + 0.01 aux, {"ce":
     ce, "aux": aux}), aux the MoE load-balance and z-loss summed over
     layers (0 without experts)."""
     h, aux = forward_with_aux(params, batch["tokens"], cfg,
-                              frames=batch.get("frames"), vis=batch.get("vis"))
+                              frames=batch.get("frames"), vis=batch.get("vis"),
+                              par=par)
     ce = chunked_xent(params, h, batch["labels"], cfg)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}

@@ -20,6 +20,10 @@ MoE layers' caches alike, hymba's SSM state and conv tail), which
 host, so their step captures too.  The greedy choice and its `tolist()`
 stay outside the graph.
 
+`par` (the reference's argument; `NONE` by default) goes to every
+prefill and decode step: under a stacked mesh with a model axis the MoE
+sublayers run expert-parallel, and the step still captures as one graph.
+
 The engine prefills tokens only, as the reference's does, so it refuses
 the encoder-decoder and vlm models, whose prefill also needs frame or patch
 embeddings: they are served through `Model.prefill` and `decode_step`.
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.graphs import CapturedCall
+from repro_torch.sharding.parallel import NONE, Parallelism
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -47,7 +52,7 @@ class Request:
 
 class ServeEngine:
     def __init__(self, model, B: int = 4, S_max: int = 128,
-                 graph: bool | None = None):
+                 graph: bool | None = None, par: Parallelism = NONE):
         cfg = getattr(model, "cfg", None)
         if cfg is not None and (cfg.is_encdec or cfg.family == "vlm"):
             raise ValueError(
@@ -56,7 +61,7 @@ class ServeEngine:
                 f"(as the reference's does): serve it through "
                 f"Model.prefill(tokens, S_max, frames= / vis=) and "
                 f"Model.decode_step")
-        self.model, self.B, self.S_max = model, B, S_max
+        self.model, self.B, self.S_max, self.par = model, B, S_max, par
         self.graph = (model.device.type == "cuda" if graph is None
                       else bool(graph))
         self.queue: list[Request] = []
@@ -87,7 +92,8 @@ class ServeEngine:
         for i, c in ctx.items():    # right-align so decode position is shared
             toks[i, L - len(c):] = c
         cache, logits = self.model.prefill(
-            torch.as_tensor(toks, device=self.model.device), S_max=self.S_max)
+            torch.as_tensor(toks, device=self.model.device), S_max=self.S_max,
+            par=self.par)
         self.cache = self._bind_cache(cache) if self.graph else cache
         self.pos = L
         self._emit(logits)
@@ -109,7 +115,7 @@ class ServeEngine:
                                        for c in cache["blocks"]]}}
             self._static = st
             self.decode_call = CapturedCall(lambda: self.model.decode_step(
-                st["cache"], st["tokens"], st["pos"])[:1], dev)
+                st["cache"], st["tokens"], st["pos"], self.par)[:1], dev)
         static = self._static["cache"]
         for dst, src in zip(static["blocks"], cache["blocks"]):
             for k, buf in dst.items():
@@ -140,8 +146,8 @@ class ServeEngine:
             self._static["pos"].fill_(self.pos)
             logits, = self.decode_call.replay()
         else:
-            logits, self.cache = self.model.decode_step(self.cache,
-                                                        self._next, self.pos)
+            logits, self.cache = self.model.decode_step(
+                self.cache, self._next, self.pos, self.par)
         self.pos += 1
         self._emit(logits)
 

@@ -17,6 +17,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import api as japi
 from repro.core import reference as jref
@@ -42,6 +43,16 @@ RTOL, ATOL = 1e-6, 2e-5
 SPEC = dict(nparts=4, ncrit=48)
 LET_FIELDS = ("center", "radius", "M", "child_start", "n_child",
               "body_start", "n_body", "truncated", "x", "q")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tensors here are small, and more threads
+    only contend with the other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _problem(n=1200, seed=5, qseed=6):
@@ -84,6 +95,21 @@ def pair():
     return x, q, g, r, sweep
 
 
+@pytest.fixture(scope="module")
+def single(pair):
+    """`FMMSession(g, engine=engine).potentials(name)` on the pair's
+    geometry, run once for each (engine, name): the reference comparison
+    and the sweep test share the engine's."""
+    runs = {}
+
+    def get(engine, name):
+        if (engine, name) not in runs:
+            runs[engine, name] = FMMSession(pair[2], device="cpu",
+                                            engine=engine).potentials(name)
+        return runs[engine, name]
+    return get
+
+
 def test_schedule_comm_pure_over_frozen_geometry(pair):
     _, _, g, _, _ = pair
     B = g.bytes_matrix.copy()
@@ -104,13 +130,13 @@ def test_schedule_comm_checks_delivery(pair, monkeypatch):
 
 
 @pytest.mark.parametrize("name", proto.PROTOCOLS)
-def test_comm_and_session_result_match_reference(name, pair):
+def test_comm_and_session_result_match_reference(name, pair, single):
     _, _, g, r, rsweep = pair
     cs = schedule_comm(g, name, grain_bytes=4096)
     jcs = japi.schedule_comm(r, name, grain_bytes=4096)
     assert (cs.stats, cs.loggp_time, cs.n_stages, cs.grain_bytes) == \
         (jcs.stats, jcs.loggp_time, jcs.n_stages, jcs.grain_bytes)
-    res, jres = FMMSession(g, device="cpu").potentials(name), rsweep[name]
+    res, jres = single(True, name), rsweep[name]
     assert res.protocol == jres.protocol == name
     assert res.schedule_stats == jres.schedule_stats
     assert res.loggp_time == jres.loggp_time
@@ -124,10 +150,9 @@ def test_comm_and_session_result_match_reference(name, pair):
 
 @pytest.mark.parametrize("engine", [True, False])
 def test_sweep_is_one_evaluation_bitwise_equal_to_single_protocols(
-        engine, pair, monkeypatch):
+        engine, pair, single, monkeypatch):
     _, _, g, _, _ = pair
-    singles = {name: FMMSession(g, device="cpu", engine=engine)
-               .potentials(name).phi for name in proto.PROTOCOLS}
+    singles = {name: single(engine, name).phi for name in proto.PROTOCOLS}
     sess = FMMSession(g, device="cpu", engine=engine)
     count = _Count(monkeypatch, sess)
     out = sess.sweep()
@@ -207,10 +232,8 @@ def test_reference_dispatch_session_matches_engine_session(monkeypatch):
 
 
 # ------------------------------------------------------- legacy shims ------
-def test_legacy_shims_bitwise_equal_to_layered_path():
-    x, q = _problem(1200)
-    spec = PartitionSpec(**SPEC)
-    geo = plan_geometry(x, q, spec, device="cpu")
+def test_legacy_shims_bitwise_equal_to_layered_path(pair):
+    x, q, geo, _, _ = pair          # _problem(1200) planned with SPEC
     cs = schedule_comm(geo, "hsdx")
     phi = execute_geometry(geo, device="cpu")
     old = run_distributed_fmm(x, q, nparts=4, method="orb", protocol="hsdx",

@@ -91,16 +91,26 @@ def gloo_run(tmp_path_factory):
     out = tmp_path_factory.mktemp("gloo")
     inputs = _inputs()
     np.savez(out / "inputs.npz", **inputs)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _WORKER, str(r), str(WORLD),
-         f"file://{out}/rendezvous", str(out)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(WORLD)]
+    run_side_by_side([[sys.executable, "-c", _WORKER, str(r), str(WORLD),
+                       f"file://{out}/rendezvous", str(out)]
+                      for r in range(WORLD)])
+    return inputs, [dict(np.load(out / f"rank{r}.npz"))
+                    for r in range(WORLD)]
+
+
+def run_side_by_side(cmds, timeout: float = 240, **env):
+    """Run the commands as processes side by side (the gloo workers of
+    one group, and whatever runs beside them), with `src` on PYTHONPATH
+    and one OpenMP thread; fails with the stderr of each that failed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               **env)
+    procs = [subprocess.Popen(c, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
     errs = []
     try:
         for p in procs:
-            _, err = p.communicate(timeout=240)
+            _, err = p.communicate(timeout=timeout)
             if p.returncode:
                 errs.append(err[-3000:])
     finally:
@@ -108,8 +118,6 @@ def gloo_run(tmp_path_factory):
             if p.poll() is None:
                 p.kill()
     assert not errs, "\n".join(errs)
-    return inputs, [dict(np.load(out / f"rank{r}.npz"))
-                    for r in range(WORLD)]
 
 
 def test_workers_load_no_jax_or_reference(gloo_run):

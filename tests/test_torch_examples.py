@@ -1,7 +1,8 @@
 """The port's examples (examples/torch_*.py) run end to end on the CPU, each
 in a fresh process that must load neither JAX nor the JAX package, and
 print what their reference scripts print (examples/quickstart.py,
-fmm_protocols.py, serve_lm.py, train_lm.py), their own asserts included;
+fmm_protocols.py, serve_lm.py, train_lm.py; torch_moe_parallel.py, the
+sharding tier, has no reference script), their own asserts included;
 the trainer with `--smoke` and a few steps, checkpointing into a
 temporary directory."""
 import os
@@ -31,6 +32,9 @@ EXPECT = {
                             "dist bulk", "dist grain", "dist hsdx",
                             "chaos: killed fused.launch"],
     "torch_serve_lm": ["request 5:", "OK — served 6 requests"],
+    "torch_moe_parallel": ["request 1:", "12 of 12 tokens as without",
+                           "data-parallel step: loss",
+                           "OK — served 2 requests"],
     "torch_train_lm": ["[train] step 0 loss", "[train] step 5 loss",
                        "final loss", "over 8 steps (0 straggler steps)"],
 }
@@ -39,7 +43,9 @@ ARGS = {"torch_train_lm": ["--smoke", "--steps", "8"]}
 
 @pytest.mark.parametrize("name", sorted(EXPECT))
 def test_example_runs_on_the_cpu(name, tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one OpenMP thread: the examples are small, and more threads only
+    # contend with the other test processes for the cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     args = ARGS.get(name, [])
     if name == "torch_train_lm":
         args = args + ["--ckpt-dir", str(tmp_path / "ckpt")]

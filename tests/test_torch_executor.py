@@ -45,6 +45,16 @@ RTOL, ATOL = 1e-6, 2e-5
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tensors here are small, and more threads
+    only contend with the other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want):
     got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
     np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
@@ -94,6 +104,20 @@ def geometries():
                      japi.plan_geometry(x, q, japi.PartitionSpec(
                          traversal_backend="host", **spec)))
     return out
+
+
+@pytest.fixture(scope="module")
+def executed(geometries):
+    """`execute_geometry(g, device="cpu")` of a case, run once: the tests
+    that hold it to the reference, to the engine and to the memo's result
+    share it."""
+    runs = {}
+
+    def get(case):
+        if case not in runs:
+            runs[case] = execute_geometry(geometries[case][0], device="cpu")
+        return runs[case]
+    return get
 
 
 # ------------------------------------------------------ per-tree passes ----
@@ -202,9 +226,9 @@ def test_pair_list_passes_match_reference(tree_case):
 
 # ---------------------------------------------------- execute_geometry -----
 @pytest.mark.parametrize("case", list(CASES))
-def test_execute_geometry_matches_reference(case, geometries):
+def test_execute_geometry_matches_reference(case, geometries, executed):
     g, r = geometries[case]
-    got = execute_geometry(g, device="cpu")
+    got = executed(case)
     assert got.shape == (g.n,) and got.dtype == np.float64
     _close(got, japi.execute_geometry(r, use_kernels=False))
     if case == "empty":
@@ -214,10 +238,9 @@ def test_execute_geometry_matches_reference(case, geometries):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_execute_geometry_matches_engine(case, geometries):
+def test_execute_geometry_matches_engine(case, geometries, executed):
     g, _ = geometries[case]
-    _close(execute_geometry(g, device="cpu"),
-           FMMSession(g, device="cpu").evaluate())
+    _close(executed(case), FMMSession(g, device="cpu").evaluate())
 
 
 def test_use_kernels_true_equals_false_on_cpu(geometries):
@@ -251,7 +274,7 @@ def test_executor_without_a_card_raises(geometries):
 
 
 # --------------------------------------------------------- DeviceMemo ------
-def test_memo_uploads_once(geometries):
+def test_memo_uploads_once(geometries, executed):
     g, _ = geometries["orb5"]
     memo = DeviceMemo("cpu")
     first = execute_geometry(g, asarray=memo)
@@ -260,7 +283,7 @@ def test_memo_uploads_once(geometries):
     second = execute_geometry(g, asarray=memo)
     assert memo.misses == misses and memo.hits > hits
     np.testing.assert_array_equal(first, second)
-    np.testing.assert_array_equal(first, execute_geometry(g, device="cpu"))
+    np.testing.assert_array_equal(first, executed("orb5"))
 
 
 def test_hook_returning_host_arrays_raises(geometries):

@@ -31,7 +31,9 @@ autograd Functions (the kernel forward, the PyTorch backward) against
 autograd through the plain versions at every head size and mask kind, a
 forward without grad building no graph, and one float32 train step of
 the qwen3 and rwkv6 smoke models on the card against the CPU (their
-limits beside the tests).
+limits beside the tests).  The sharding tier: dbrx-smoke's expert-parallel
+MoE on a mesh stacked on the card against the same mesh on the CPU, and a
+graphed decode step under that mesh against the eager one.
 """
 import numpy as np
 import pytest
@@ -1281,3 +1283,73 @@ def test_train_step_on_card_matches_cpu(cuda_device, arch):
         masters.append([t.cpu() for t in tree_leaves(opt.master)])
     for a, b in zip(*masters):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+def _stacked_par(device, seq=False):
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.sharding.parallel import Parallelism
+    mesh = make_mesh_compat((2, 2), ("data", "model"), device)
+    return Parallelism(mesh=mesh, data_axes=("data",), model_axis="model",
+                       moe_seq_shard=seq, remat=False)
+
+
+@pytest.mark.parametrize("seq", [False, True])
+def test_expert_parallel_moe_on_card_matches_cpu(cuda_device, seq):
+    """dbrx-smoke's MoE layer (float32) expert-parallel on a (data 2, model
+    2) mesh stacked on the card against the same mesh stacked on the CPU:
+    the same routes and drops (a capacity factor of 0.5 drops slots),
+    outputs, aux and the gradient of x within 1e-5 of their largest
+    values (float32 products in another order)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    for cf in (4.0, 0.5):
+        cfg = replace(get_config("dbrx-132b", smoke=True), dtype="float32",
+                      capacity_factor=cf)
+        p = {k: v.float() for k, v in init_params(
+            moe.moe_defs(cfg), torch.Generator().manual_seed(0)).items()}
+        x = torch.randn(4, 16, cfg.d_model,
+                        generator=torch.Generator().manual_seed(1)) * 0.3
+        out = {}
+        for dev in ("cpu", cuda_device):
+            xx = x.to(dev).detach().requires_grad_()
+            with moe.routing_log() as log:
+                y, aux = moe.moe_ffn(xx, {k: v.to(dev) for k, v in p.items()},
+                                     cfg, _stacked_par(dev, seq))
+            ((y ** 2).sum() + aux).backward()
+            out[str(dev)] = (y.detach().cpu(), float(aux), xx.grad.cpu(),
+                             [(e.cpu(), k.cpu()) for e, k, _ in log])
+        (y_c, a_c, g_c, l_c), (y_d, a_d, g_d, l_d) = out.values()
+        assert len(l_c) == len(l_d) == 4
+        for (e1, k1), (e2, k2) in zip(l_c, l_d):
+            assert torch.equal(e1, e2) and torch.equal(k1, k2)
+        assert (cf == 0.5) == any(bool((~k).any()) for _, k in l_c)
+        torch.testing.assert_close(y_d, y_c, rtol=0,
+                                   atol=1e-5 * float(y_c.abs().max()))
+        np.testing.assert_allclose(a_d, a_c, rtol=1e-5)
+        torch.testing.assert_close(g_d, g_c, rtol=0,
+                                   atol=1e-5 * float(g_c.abs().max()))
+
+
+def test_graphed_decode_under_a_stacked_mesh_on_card(cuda_device):
+    """dbrx-smoke (bfloat16) served on a (data 2, model 2) mesh stacked on
+    the card: the decode step captured as one graph gives the eager step's
+    tokens for every request."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = _on_card(get_config("dbrx-132b", smoke=True))
+    model = build_model(cfg, seed=0, device=cuda_device)
+    par = _stacked_par(cuda_device)
+    outs = []
+    for graph in (False, None):
+        rng = np.random.default_rng(0)
+        eng = ServeEngine(model, B=4, S_max=64, graph=graph, par=par)
+        for rid in range(8):
+            eng.submit(Request(rid=rid, prompt=[int(t) for t in rng.integers(
+                1, cfg.vocab, int(rng.integers(4, 16)))], max_new=8))
+        outs.append({r.rid: r.out for r in eng.run(max_steps=64)})
+    assert eng.graph and eng.decode_call.graph is not None
+    assert sorted(outs[1]) == list(range(8)) and outs[0] == outs[1]
+    assert "K4" not in eng.decode_call.launches
