@@ -59,9 +59,19 @@ Phases, in order; any failed check raises and ends the run non-zero:
      then a within-slack and a beyond-slack step of a card session and a
      CPU session (planned with K3's plain version) at the same tolerance;
   5. the main path at N, gathered (K1) then streaming (K2), with every
-     launch count set to 0 just before and read just after; the two
-     potentials agree, and both match a float64 direct sum on 4,096
-     sampled targets (computed on the card);
+     launch count set to 0 just before and read just after (the cold
+     evaluates tune K1's / K2's launch shapes; those timed launches count
+     apart, in `sweep_launches`); the two potentials agree, and both match
+     a float64 direct sum on 4,096 sampled targets (computed on the card);
+  5b. the K1/K2 launch autotune and its persisted cache on that geometry
+     (the run's cache file is fresh, under build/): cold sweeps into a new
+     file (each candidate's device ms, the choice beside the heuristic's,
+     classes swept, sweep seconds), warm evaluates of both routes under
+     the tuned choices and under the heuristic's (a file seeded with
+     them), the near field bit for bit between the two and the
+     potentials at phase 5's gate, the file read by a fresh process that
+     times nothing, `p2p.cache.read` / `write` armed (one warning, one
+     recorded fallback each) and a truncated file quarantined;
   6. the protocol layer and the per-partition reference executor on the
      main path's geometry (planned once in phase 2): `FMMSession.sweep()`
      of the four protocols with delivery checked (stages, messages, wire
@@ -281,15 +291,16 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
-import gc
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+import weakref
 from contextlib import contextmanager
 from dataclasses import replace as dc_replace
 from pathlib import Path
@@ -756,9 +767,10 @@ def print_comm(label: str, cs) -> None:
 def executor_k1_blocks(torch, kp2p, walked, dev) -> None:
     """K1 against its plain version at the executor's own launch shapes:
     for each (T, S), the remote block with the fewest rows (the smallest
-    grids, where `p2p_launch_params` gives fewer warps a block) and the
-    local block with the most, gathered on the card as `fmm.p2p_apply`
-    gathers them.  These launches are checks, not the path's."""
+    grids) and the local block with the most, gathered on the card as
+    `fmm.p2p_apply` gathers them, at the warps a block its autotune chose
+    for the block's class (read from the cache the executor's calls
+    filled).  These launches are checks, not the path's."""
     f32 = torch.float32
     pick = {}
     for local, tgt, src, b in walked:
@@ -775,11 +787,12 @@ def executor_k1_blocks(torch, kp2p, walked, dev) -> None:
         qs = torch.where(up(b.s_valid), up(src.q, f32)[up(b.s_idx)],
                          torch.zeros((), dtype=f32, device=dev))
         P = qs.shape[0]
-        warps = kp2p.p2p_launch_params(P)
+        warps = kp2p.best_p2p_warps(S, P, T, sample=(qs, xs, xt))
         grid = -(-(-(-P // kp2p.ROWS_PER_WARP)) // warps)
         check_close(f"K1 executor {'local' if local else 'remote'} block "
-                    f"(rows {P}, T {T}, S {S}), {warps} warps a block, "
-                    f"{grid} blocks", kp2p.p2p(qs, xs, xt),
+                    f"(rows {P}, T {T}, S {S}), {warps} warps a block "
+                    f"(heuristic {kp2p.p2p_launch_params(P)}), {grid} blocks",
+                    kp2p.p2p(qs, xs, xt, warps=warps),
                     kp2p.p2p_ref(qs, xs, xt),
                     kp2p.p2p_ref(qs.abs(), xs, xt))
         del xt, xs, qs
@@ -845,6 +858,7 @@ def protocols_and_executor(torch, sess, x, q, idx, d, dev, card) -> None:
           f"{sum(pl.n_m2p for pl in plans)} M2P pairs", flush=True)
     memo = tapi.DeviceMemo(dev)
     times, per_call, misses = [], [], []
+    n_sweeps, sweeps_after = len(kp2p.sweeps), []
     for _ in range(4):
         kp2p.launches = 0
         m0 = memo.misses
@@ -853,11 +867,19 @@ def protocols_and_executor(torch, sess, x, q, idx, d, dev, card) -> None:
         times.append(t)
         per_call.append(kp2p.launches)
         misses.append(memo.misses - m0)
+        sweeps_after.append(len(kp2p.sweeps))
     print(f"  execute_geometry(use_kernels=True, asarray=memo): cold "
           f"{times[0]:.4f} s, warm median {statistics.median(times[1:]):.4f}"
           f" s (runs {', '.join(f'{t:.4f}' for t in times[1:])}); K1 "
           f"launches per call {per_call}; memo uploads per call {misses} "
           f"({len(memo)} tables resident); card {card}", flush=True)
+    swept = kp2p.sweeps[n_sweeps:]
+    print(f"  executor K1 autotune: {len(swept)} shape classes swept in "
+          f"the cold call ({sum(r['wall_s'] for r in swept):.3f} s of sweeps"
+          f"), {len({b.shape for b in blocks})} (rows, T, S) classes among "
+          f"its blocks; sweeps after each call {sweeps_after}", flush=True)
+    if len(set(sweeps_after)) != 1:
+        raise AssertionError("a warm executor call swept K1 again")
     if per_call != [len(blocks)] * 4 or misses[1:] != [0, 0, 0]:
         raise AssertionError("the executor did not launch K1 once per P2P "
                              "block, or uploaded a table again")
@@ -929,6 +951,252 @@ def protocols_and_executor(torch, sess, x, q, idx, d, dev, card) -> None:
             or hsdx.stats["payload_bytes"] != int(B64.sum()):
         raise AssertionError(f"nparts 64 schedules: {got}, expected "
                              f"{want} and HSDX relaying the whole LET")
+
+
+# ------------------------------------------------------------ phase 5b -----
+# A fresh process on the card: reads the tuned file and must time nothing.
+PERSIST_PROBE = """
+import json, sys
+import torch
+from repro_torch import obs
+from repro_torch.kernels import p2p as kp2p
+obs.configure(enabled=True)
+classes = json.loads(sys.argv[1])
+dev = torch.device("cuda", 0)
+got = {}
+for S, n, T in classes["K1"]:
+    sample = (torch.zeros(1, S, device=dev), torch.zeros(1, S, 3, device=dev),
+              torch.zeros(1, T, 3, device=dev))
+    got[f"{S},{n},{T}"] = kp2p.best_p2p_warps(S, n, T, sample=sample)
+def refuse(block_t, warps):
+    raise AssertionError("the stream sweep measured again")
+for sm, rows, wt in classes["K2"]:
+    got[f"stream:{sm},{rows},{wt}"] = list(
+        kp2p.best_stream_params(sm, rows, wt, measure=refuse))
+c = obs.metrics_snapshot()["counters"]
+print(json.dumps({"choices": got,
+                  "decisions": c.get("p2p.autotune.decisions", 0),
+                  "hits": c.get("p2p.autotune.cache_hits", 0),
+                  "timed": kp2p.sweep_launches,
+                  "backend": kp2p.backend_key()}))
+"""
+
+
+def launch_autotune(torch, sess_g, dev, card, tmp: Path) -> None:
+    """Phase 5b: the K1/K2 launch autotune and its persisted cache on the
+    main path's geometry.  Cold sweeps into a fresh file (every candidate's
+    device ms), warm evaluates of both routes under the tuned choices and
+    under the heuristic's (a file seeded with them), the near field of the
+    two bit for bit and the potentials at phase 5's gate, the file read by
+    a fresh process that times nothing, and the cache's faults absorbed."""
+    from repro_torch.core.api import FMMSession
+    from repro_torch.core.engine.p2p import _gather_bucket, stream_payload
+    from repro_torch.core.engine.schedules import (build_p2p_stream_tables,
+                                                   to_numpy)
+    from repro_torch.kernels import p2p as kp2p
+    from repro_torch.kernels import p2p_stream as kstream
+    from repro_torch.resilience import fallback as rfb
+    from repro_torch.resilience import faults as rfaults
+    from repro_torch.resilience import inject_faults
+
+    geo, eng = sess_g.geometry, sess_g.engine
+    n_buckets = len(eng.tables.p2p_buckets)
+    tuned_path, heur_path = tmp / "tuned.json", tmp / "heuristic.json"
+
+    def cold(path):
+        os.environ["REPRO_P2P_CACHE_PATH"] = str(path)
+        kp2p.clear_memory_cache()
+
+    def both_routes():
+        """Cold and 3 warm evaluates of each route (the gathered session of
+        phase 5, a new stream session) -> potentials, times, sessions."""
+        sessions = {"gathered": sess_g,
+                    "stream": FMMSession(geo, device=dev, p2p_stream=True,
+                                         fused=False)}
+        phis, times = {}, {}
+        for route, s in sessions.items():
+            phis[route], t_cold = timed_sync(torch, s.evaluate)
+            times[route] = (t_cold, [timed_sync(torch, s.evaluate)[1]
+                                     for _ in range(3)])
+        return phis, times, sessions
+
+    def gate(label, got, want):
+        diff = np.abs(got - want)
+        atol = 1e-5 * float(np.abs(want).max())
+        print(f"  {label}: max |diff| {diff.max():.3e} (phase 5's gate: "
+              f"rtol 1e-5, atol {atol:.3e}), values differing "
+              f"{int((diff > 0).sum())}", flush=True)
+        if not np.allclose(got, want, rtol=1e-5, atol=atol):
+            raise AssertionError(f"{label}: potentials disagree")
+
+    # -- tuned: cold sweeps into a fresh file -----------------------------
+    cold(tuned_path)
+    k1, k2, n0 = kp2p.launches, kstream.launches, len(kp2p.sweeps)
+    t1, t2 = kp2p.sweep_launches, kstream.sweep_launches
+    phis_t, times_t, sess_t = both_routes()
+    recs = kp2p.sweeps[n0:]
+    if (kp2p.launches - k1, kstream.launches - k2) != (4 * n_buckets, 4):
+        raise AssertionError(f"the sweeps reached the launch counters: K1 "
+                             f"{kp2p.launches - k1}, K2 "
+                             f"{kstream.launches - k2} over 4 evaluates")
+    for r in recs:
+        ms = ", ".join(f"{c}: {v:.4f}" for c, v in r["ms"].items())
+        print(f"  {r['kind']} class {r['key']}: device ms by "
+              f"{'warps' if r['kind'] == 'K1' else '(block_t, warps)'} "
+              f"{{{ms}}}; chosen {r['choice']}, heuristic "
+              f"{r['heuristic']}; sweep {r['wall_s']:.3f} s", flush=True)
+    k1_recs = [r for r in recs if r["kind"] == "K1"]
+    k2_recs = [r for r in recs if r["kind"] == "K2"]
+    classes = {(b["s_idx"].shape[1], b["s_idx"].shape[0], b["t_idx"].shape[1])
+               for b in eng.tables.p2p_buckets}
+    print(f"  swept {len(recs)} shape classes ({len(k1_recs)} K1 of "
+          f"{n_buckets} buckets, {len(k2_recs)} K2) in "
+          f"{sum(r['wall_s'] for r in recs):.3f} s; timed launches K1 "
+          f"{kp2p.sweep_launches - t1}, K2 {kstream.sweep_launches - t2} "
+          f"(none in the launch counters); card {card}", flush=True)
+    if {r["key"] for r in k1_recs} != classes or len(k2_recs) != 1:
+        raise AssertionError("the cold evaluates did not sweep each class "
+                             "once")
+    backend = kp2p.backend_key()
+    saved = json.loads(tuned_path.read_text())["entries"][backend]
+    want = {",".join(map(str, r["key"])): r["choice"] for r in k1_recs}
+    want.update({"stream:" + ",".join(map(str, r["key"])): list(r["choice"])
+                 for r in k2_recs})
+    if saved != want:
+        raise AssertionError(f"the file holds {saved}, not {want}")
+    print(f"  persisted under {backend!r}: {saved}", flush=True)
+
+    # -- heuristic: the same evaluates from a file seeded with its choices
+    st_t = sess_t["stream"].engine.stream_tables()
+    seeded = {",".join(map(str, r["key"])): r["heuristic"] for r in k1_recs}
+    for r in k2_recs:
+        bt = r["heuristic"][0]
+        n_tiles = (st_t["n_tiles"] if bt == st_t["block_t"] else
+                   build_p2p_stream_tables(to_numpy(eng.tables.p2p_buckets),
+                                           bt)["n_tiles"])
+        seeded["stream:" + ",".join(map(str, r["key"]))] = [
+            bt, kstream.stream_launch_params(n_tiles)]
+    heur_path.write_text(json.dumps({"version": 2,
+                                     "entries": {backend: seeded}}))
+    cold(heur_path)
+    n1 = len(kp2p.sweeps)
+    phis_h, times_h, sess_h = both_routes()
+    if len(kp2p.sweeps) != n1:
+        raise AssertionError("the heuristic's seeded file was swept again")
+    for route in ("gathered", "stream"):
+        for label, (t_cold, warm) in (("tuned", times_t[route]),
+                                      ("heuristic", times_h[route])):
+            print(f"  {route} under the {label} choices: evaluate cold "
+                  f"{t_cold:.4f} s, warm median {statistics.median(warm):.4f}"
+                  f" s (runs {', '.join(f'{w:.4f}' for w in warm)}); card "
+                  f"{card}", flush=True)
+
+    # -- numerics: the near field bit for bit, the potentials at the gate
+    same = []
+    for b in eng.tables.p2p_buckets:
+        xt, xs, qs = _gather_bucket(eng.x, eng.q, b["t_idx"], b["s_idx"],
+                                    b["s_valid"])
+        key = ",".join(map(str, (xs.shape[1], xs.shape[0], xt.shape[1])))
+        a = kp2p.p2p(qs, xs, xt, warps=want[key])
+        same.append(torch.equal(a, kp2p.p2p(qs, xs, xt,
+                                            warps=seeded[key])))
+    st_h = sess_h["stream"].engine.stream_tables()
+    if st_t["block_t"] == st_h["block_t"]:
+        payload = stream_payload(eng.x, eng.q, st_t["pad"])
+        outs = [kstream.p2p_stream(st["meta"], payload,
+                                   block_t=st["block_t"], smax=st["smax"],
+                                   warps=st["warps"]) for st in (st_t, st_h)]
+        k2_same = torch.equal(*outs)
+        k2_note = (f"K2 at (block_t, warps) ({st_t['block_t']}, "
+                   f"{st_t['warps']}) against ({st_h['block_t']}, "
+                   f"{st_h['warps']}): bitwise {k2_same}")
+    else:
+        k2_same = True
+        k2_note = (f"K2's block_t {st_t['block_t']} against "
+                   f"{st_h['block_t']}: another tile table, held at the "
+                   f"gate below")
+    print(f"  near field, tuned against heuristic: K1 buckets bitwise "
+          f"{same}; {k2_note}", flush=True)
+    if not (all(same) and k2_same):
+        raise AssertionError("a tuned launch shape changed the bits")
+    for route in ("gathered", "stream"):
+        gate(f"{route} potential, tuned against heuristic", phis_t[route],
+             phis_h[route])
+    del sess_t, sess_h, st_t, st_h
+
+    # -- a fresh process reads the tuned file and times nothing ------------
+    env = dict(os.environ, REPRO_P2P_CACHE_PATH=str(tuned_path),
+               PYTHONPATH=str(ROOT / "src"))
+    arg = json.dumps({"K1": [r["key"] for r in k1_recs],
+                      "K2": [r["key"] for r in k2_recs]})
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", PERSIST_PROBE, arg], env=env,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"persistence probe failed:\n{out.stderr}")
+    probe = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"  fresh process ({time.perf_counter() - t0:.2f} s): "
+          f"{probe['decisions']} decisions, {probe['hits']} cache hits, "
+          f"{probe['timed']} timed launches; choices {probe['choices']}",
+          flush=True)
+    if not (probe["decisions"] == 0 and probe["hits"] == len(want)
+            and probe["timed"] == 0 and probe["choices"] == want
+            and probe["backend"] == backend):
+        raise AssertionError("the fresh process did not serve every class "
+                             "from the file")
+
+    # -- the cache's faults: absorbed, one warning, a recorded fallback ----
+    def faulted(site, path):
+        cold(path)
+        kp2p._PERSIST_BROKEN = False
+        rfb.reset_ledger()
+        rfaults.reset_stats()
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            with inject_faults(site):
+                phi = sess_g.evaluate()
+        msgs = [str(m.message) for m in w
+                if issubclass(m.category, RuntimeWarning)
+                and "p2p autotune cache" in str(m.message)]
+        fb = rfb.ledger_counts()["fallbacks"]
+        print(f"  {site} armed: warnings {len(msgs)}, fallbacks {fb}, "
+              f"fired {rfaults.fired_counts()}, persistence "
+              f"{'off' if kp2p._PERSIST_BROKEN else 'on'}", flush=True)
+        if not (len(msgs) == 1 and fb == {site: 1} and kp2p._PERSIST_BROKEN
+                and rfaults.fired_counts() == {site: 1}):
+            raise AssertionError(f"{site}: not absorbed as the reference "
+                                 f"absorbs it")
+        gate(f"{site} armed, gathered potential", phi, phis_t["gathered"])
+
+    faulted("p2p.cache.read", tuned_path)
+    faulted("p2p.cache.write", tmp / "unwritten.json")
+    if (tmp / "unwritten.json").exists():
+        raise AssertionError("a faulted write left a file")
+
+    trunc = tmp / "truncated.json"
+    trunc.write_text(tuned_path.read_text()[:40])
+    cold(trunc)
+    kp2p._PERSIST_BROKEN = False
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        phi = sess_g.evaluate()
+    msgs = [m for m in w if "corrupt" in str(m.message)]
+    rebuilt = json.loads(trunc.read_text())["entries"][backend]
+    print(f"  truncated file: quarantined to {trunc.name}.corrupt "
+          f"{(tmp / 'truncated.json.corrupt').exists()}, warnings "
+          f"{len(msgs)}, rebuilt with {len(rebuilt)} entries", flush=True)
+    if not (len(msgs) == 1 and (tmp / "truncated.json.corrupt").exists()
+            and set(rebuilt) == {k for k in want if "stream" not in k}):
+        raise AssertionError("the truncated file was not quarantined and "
+                             "rebuilt")
+    gate("after the quarantine, gathered potential", phi,
+         phis_t["gathered"])
+
+    # later phases read the tuned file
+    cold(tuned_path)
+    kp2p._PERSIST_BROKEN = kp2p._QUARANTINED = False
+    rfb.reset_ledger()
+    rfaults.reset_stats()
 
 
 def attn_pairs(s_: int, sk: int, causal: bool, window) -> int:
@@ -1876,11 +2144,16 @@ class LogitRecorder:
 
     def __init__(self, engine):
         self.logits = []
-        real = engine._emit
+        # the wrapper reaches the engine through a weak reference: a bound
+        # `engine._emit` kept in the engine's own attribute would make a
+        # reference cycle, and a dropped engine would keep its graph pool
+        # until the cyclic collector ran
+        logits, real = self.logits, type(engine)._emit
+        ref = weakref.ref(engine)
 
-        def emit(logits):
-            self.logits.append(logits[:, -1].float().clone())
-            real(logits)
+        def emit(lg):
+            logits.append(lg[:, -1].float().clone())
+            real(ref(), lg)
 
         engine._emit = emit
 
@@ -3173,6 +3446,7 @@ def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
     if toks_g != toks_e or len(lg_g) != len(lg_e) or worst > 1e-3:
         raise AssertionError(f"{arch}: graphed and eager serving under the "
                              f"mesh differ")
+    engines = [weakref.ref(v[4]) for v in res.values()]
     del res, eng_g, call
     # each request served with its twin, held to a forward under the mesh;
     # a 6-token request too, which no expert's capacity can refuse
@@ -3202,11 +3476,16 @@ def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
           f"|logit| (limit {LM_LOGIT_TOL})", flush=True)
     if held <= 0:
         raise AssertionError(f"{arch}: no step under the mesh was held")
-    # the graphed engine and its captured step form a reference cycle:
-    # collect it, so its graph pool is freed before the next model
+    # no engine is in a reference cycle: dropped, each goes at once, and
+    # the graphed one's pool with it, without the cyclic collector
+    engines.append(weakref.ref(eng))
     del model, eng, rec, tape
-    gc.collect()
+    if any(r() is not None for r in engines):
+        raise AssertionError(f"{arch}: a dropped ServeEngine is still alive")
     torch.cuda.empty_cache()
+    print(f"  {arch}: engines freed without the collector; "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved after",
+          flush=True)
     return k4["mesh"] + k4["mesh graphed"]
 
 
@@ -3353,6 +3632,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    # the K1/K2 launch autotune starts cold in every run: its cache file
+    # lives in a fresh directory under build/ (gitignored), removed at exit
+    (ROOT / "build").mkdir(exist_ok=True)
+    tune_dir = tempfile.TemporaryDirectory(dir=ROOT / "build",
+                                           prefix="p2p_autotune-")
+    os.environ["REPRO_P2P_CACHE_PATH"] = str(Path(tune_dir.name)
+                                             / "p2p_cache.json")
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
@@ -3666,6 +3952,8 @@ def main() -> int:
     with phase(f"main path, N = {n}"):
         kp2p.launches = 0
         kstream.launches = 0
+        n_sweeps = len(kp2p.sweeps)
+        timed = kp2p.sweep_launches, kstream.sweep_launches
         out = {}
         for label, sess in (("gathered", sess_g), ("stream", sess_s)):
             torch.cuda.synchronize()
@@ -3682,8 +3970,13 @@ def main() -> int:
                   f"{statistics.median(warm):.4f} s "
                   f"(runs {', '.join(f'{w:.4f}' for w in warm)})", flush=True)
         launches.update(K1=kp2p.launches, K2=kstream.launches)
+        swept = kp2p.sweeps[n_sweeps:]
         print(f"  launches on the main path: K1 {launches['K1']}, "
-              f"K2 {launches['K2']}", flush=True)
+              f"K2 {launches['K2']}; the cold evaluates swept "
+              f"{len(swept)} launch shape classes "
+              f"({sum(r['wall_s'] for r in swept):.3f} s, timed launches "
+              f"apart: K1 {kp2p.sweep_launches - timed[0]}, K2 "
+              f"{kstream.sweep_launches - timed[1]})", flush=True)
         for k, v in launches.items():
             if v <= 0:
                 raise AssertionError(f"{k} was not launched on the main path")
@@ -3742,6 +4035,11 @@ def main() -> int:
             if not rel < 3e-3:
                 raise AssertionError(f"{label}: rel-L2 {rel} >= 3e-3")
         del sess_s, out, phi_g, phi_s
+
+    # ------------------------------------------------------------ 5b -----
+    with phase(f"K1/K2 launch autotune and its persisted cache, N = {n}"):
+        launch_autotune(torch, sess_g, dev, card, Path(tune_dir.name))
+        torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- 6 -----
     with phase(f"protocols and the reference executor, N = {n}"):
@@ -3894,6 +4192,7 @@ def main() -> int:
             "library_ms": r.get("library_ms")})
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    tune_dir.cleanup()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

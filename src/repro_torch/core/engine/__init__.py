@@ -41,12 +41,16 @@ records `engine.fused_evaluate` around the replay (the `fused.launch`
 fault seam fires in it, before the replay) and counts
 `engine.fused_launches` and the `p2p.stream.*` counters after it, outside
 the captured call; `step_drift` records `engine.step_drift`; the stream
-tables count `p2p.stream.builds` / `p2p.stream.fallbacks`.  Left out: the
-reference's `engine.donate.*` counters (static buffers replace donation)
-and `p2p.autotune.*` (K1's launch shape is fixed, no autotune).
+tables count `p2p.stream.builds` / `p2p.stream.fallbacks`; the launch
+autotune counts `p2p.autotune.*` as the reference's does (K1's warps a
+block per bucket shape class through `kernels.ops.p2p_auto`, resolved
+before any capture by `fused.bucket_launch_params`; the stream route's
+(block_t, warps) once per engine in `stream_tables`).  Left out: the
+reference's `engine.donate.*` counters (static buffers replace donation).
 """
 from __future__ import annotations
 
+import functools
 import itertools
 
 import numpy as np
@@ -57,7 +61,8 @@ from repro_torch.core.engine import fused as fused_mod
 from repro_torch.core.engine.exe_cache import (GLOBAL_CACHE, CompiledEntry,
                                                ExecutableCache, resolve_cache)
 from repro_torch.core.engine.m2l import far_tail_kernel, m2p_vals_kernel
-from repro_torch.core.engine.p2p import p2p_bucket_vals, p2p_stream_vals
+from repro_torch.core.engine.p2p import (p2p_bucket_vals, p2p_stream_vals,
+                                         stream_payload)
 from repro_torch.core.engine.schedules import (EngineTables,
                                                build_engine_tables,
                                                build_p2p_stream_tables,
@@ -70,7 +75,8 @@ from repro_torch.core.engine.traversal import (partition_drift,
 from repro_torch.core.engine.upward import batched_upward_kernel
 from repro_torch.core.multipole import get_operators
 from repro_torch.device import resolve_device
-from repro_torch.kernels.p2p import heuristic_stream_params
+from repro_torch.kernels.p2p import best_stream_params, measurable
+from repro_torch.kernels.p2p_stream import timed_ms
 from repro_torch.resilience import faults as _faults
 
 __all__ = ["DeviceEngine", "EngineTables", "build_engine_tables",
@@ -252,10 +258,13 @@ class DeviceEngine:
             stream = self.stream_tables()
             flat = fused_mod.flatten_eval_tables(t, stream)
             if stream is not None:
-                impl, launch = "stream", (stream["smax"], stream["block_t"])
-                statics = {k: stream[k] for k in ("pad", "block_t", "smax")}
+                statics = {k: stream[k]
+                           for k in ("pad", "block_t", "smax", "warps")}
+                impl, launch = "stream", (stream["smax"], stream["block_t"],
+                                          stream["warps"])
             else:
-                impl, launch = "gathered", fused_mod.bucket_launch_params(t)
+                impl = "gathered"
+                launch = fused_mod.bucket_launch_params(t, self.x, self.q)
                 statics = None
             fn = fused_mod.build_fused_evaluate(self.ops, t, statics)
             payload = {"x": self.x, "q": self.q}
@@ -329,11 +338,34 @@ class DeviceEngine:
         return phi.cpu().numpy()
 
     # ---------------------------------------------------------- streaming --
+    def _measure_stream(self, block_t: int, warps: int, built: dict) -> float:
+        """Device ms of one K2 launch at candidate (block_t, warps): the
+        `best_stream_params` measure on the card (the reference's
+        `_measure_stream`).  The stream tables depend on block_t, so they
+        are built for each candidate block_t, once, into `built` (the
+        sweep measures each candidate several times); one warm-up launch,
+        then one timed by CUDA events (`p2p_stream.timed_ms`), neither
+        counted in `kernels.p2p_stream.launches`."""
+        if block_t not in built:
+            stream = build_p2p_stream_tables(to_numpy(self.tables.p2p_buckets),
+                                             block_t)
+            built[block_t] = (None if stream is None
+                              else to_device(stream, self.device))
+        stream = built[block_t]
+        if stream is None:
+            return float("inf")
+        payload = stream_payload(self.x, self.q, stream["pad"])
+        return timed_ms(stream["meta"], payload, block_t=block_t,
+                        smax=stream["smax"], warps=warps)
+
     def stream_tables(self) -> dict | None:
         """The unified stream tables on the device (built once), or None on
-        the gathered route.  block_t comes from the reference's heuristic;
-        a geometry whose bucket rows break the contiguity invariant falls
-        back to the gathered buckets, counted in `stream_fallbacks`."""
+        the gathered route.  (block_t, warps) come from the autotune
+        (`kernels.p2p.best_stream_params`): measured by `_measure_stream`
+        on the card, the reference's heuristic block_t on the CPU; K2
+        launches with them.  A geometry whose bucket rows break the
+        contiguity invariant falls back to the gathered buckets, counted in
+        `stream_fallbacks`."""
         if not self.p2p_stream:
             return None
         if self._stream is not None:
@@ -344,21 +376,30 @@ class DeviceEngine:
             return None
         smax = max(b["s_idx"].shape[1] for b in buckets)
         wt_max = max(b["t_idx"].shape[1] for b in buckets)
-        block_t, _ = heuristic_stream_params(smax, wt_max)
-        stream = build_p2p_stream_tables(buckets, block_t)
+        n_rows = sum(len(b["mask"]) for b in buckets)
+        built: dict = {}
+        measure = (functools.partial(self._measure_stream, built=built)
+                   if measurable(self.x) else None)
+        block_t, warps = best_stream_params(smax, n_rows, wt_max,
+                                            measure=measure)
+        stream = built.get(block_t)
+        if stream is None and block_t not in built:
+            stream = build_p2p_stream_tables(buckets, block_t)
+            if stream is not None:
+                stream = to_device(stream, self.device)
         if stream is None:
             self.stream_fallbacks += 1
             obs.counter_add("p2p.stream.fallbacks")
             self.p2p_stream = False
             return None
-        self._stream = to_device(stream, self.device)
+        self._stream = dict(stream, warps=warps)
         obs.counter_add("p2p.stream.builds")
         if obs.enabled():
             obs.event("p2p.stream.tables",
                       {"n_tiles": stream["n_tiles"],
                        "n_live_tiles": stream["n_live_tiles"],
                        "smax": stream["smax"], "block_t": block_t,
-                       "n_buckets": len(buckets)})
+                       "warps": warps, "n_buckets": len(buckets)})
         return self._stream
 
     # ------------------------------------------------------------ phases --

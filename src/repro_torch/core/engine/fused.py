@@ -34,11 +34,12 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.engine.m2l import far_tail_kernel, m2p_vals_kernel
-from repro_torch.core.engine.p2p import p2p_bucket_vals, p2p_stream_vals
+from repro_torch.core.engine.p2p import (_gather_bucket, p2p_bucket_vals,
+                                         p2p_stream_vals)
 from repro_torch.core.engine.traversal import (partition_drift,
                                                restack_payload)
 from repro_torch.core.engine.upward import batched_upward_kernel
-from repro_torch.kernels.p2p import p2p_launch_params
+from repro_torch.kernels.p2p import best_p2p_warps, p2p_launch_params
 
 __all__ = ["flatten_eval_tables", "flatten_step_tables",
            "bucket_launch_params", "build_fused_evaluate",
@@ -81,13 +82,28 @@ def flatten_step_tables(tables, x_ref_pad) -> dict:
             "x_ref_pad": x_ref_pad}
 
 
-def bucket_launch_params(tables) -> tuple:
-    """K1's launch shape (warps a block, `p2p_launch_params`) for each P2P
-    bucket, in bucket order: the counterpart of the reference's per-bucket
-    Pallas block sizes, baked into the captured launches and therefore
-    part of the key."""
-    return tuple(p2p_launch_params(int(b["mask"].shape[0]))
-                 for b in tables.p2p_buckets)
+def bucket_launch_params(tables, x=None, q=None) -> tuple:
+    """K1's launch shape (warps a block) for each P2P bucket, in bucket
+    order: the counterpart of the reference's `bucket_block_ts`, baked
+    into the captured launches and therefore part of the key.  Resolved on
+    the host at build time, before any capture, since a timed sweep cannot
+    run inside one: on the card each bucket's shape class goes through the
+    autotune (`kernels.p2p.best_p2p_warps`) with the bucket's operands
+    gathered from the payload (x, q) as its sample, so the captured
+    `p2p_auto` finds every class cached.  On the CPU (nothing is launched)
+    it is `p2p_launch_params`, as the reference resolves nothing without
+    kernels."""
+    out = []
+    for b in tables.p2p_buckets:
+        n_pairs, ws = b["s_idx"].shape
+        if x is None or x.device.type != "cuda":
+            out.append(p2p_launch_params(int(n_pairs)))
+            continue
+        xt, xs, qs = _gather_bucket(x, q, b["t_idx"], b["s_idx"],
+                                    b["s_valid"])
+        out.append(best_p2p_warps(ws, n_pairs, b["t_idx"].shape[1],
+                                  sample=(qs, xs, xt)))
+    return tuple(out)
 
 
 # ------------------------------------------------------ compiled closures --
@@ -193,6 +209,6 @@ def executable_key(kind: str, digest: str, *, n: int, n_parts: int, p: int,
     the captured call (digest = per-table dtypes and shapes as bound,
     padded dims, statics, the device).  `launch` is K1's per-bucket launch
     shapes on the gathered route (`bucket_launch_params`) and
-    `(smax, block_t)` on the stream route."""
+    `(smax, block_t, warps)` on the stream route."""
     return (kind, digest, int(n), int(n_parts), int(p), theta_bucket(theta),
             str(backend), tuple(launch), str(p2p_impl))

@@ -3,13 +3,17 @@
 The port of `repro.core.engine.p2p`.  `schedules.build_engine_tables` merges
 the plans' P2P blocks across all (receiver, sender) pairs into a handful of
 width-class buckets; `p2p_bucket_vals` gathers one bucket's operands over
-global body ids and runs K1 (`kernels.p2p.p2p`) on them.
+global body ids and runs K1 on them at the warps a block the autotune chose
+for the bucket's shape class (`kernels.ops.p2p_auto`), as the reference's
+buckets go through its `p2p_auto`.
 
 Streaming alternative (`p2p_stream_vals`): ALL width classes as one grid of
 target tiles over the unified stream table
 (`schedules.build_p2p_stream_tables`), the slab gathers done inside K2
 (`kernels.p2p_stream.p2p_stream`) instead of materialising per-bucket
-operands.  `p2p_stream_gathered` is its plain version.
+operands, at the (block_t, warps) the engine's stream tables carry
+(`kernels.p2p.best_stream_params`).  `p2p_stream_gathered` is its plain
+version.
 
 The kernel wrappers pick the kernel for CUDA tensors and the plain version
 for CPU tensors, so this module has one code path for both.  Both entry
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.p2p import p2p
+from repro_torch.kernels.ops import p2p_auto
 from repro_torch.kernels.p2p_stream import p2p_stream, p2p_stream_gathered
 from repro_torch.resilience import faults as _faults
 
@@ -46,7 +50,7 @@ def p2p_bucket_vals(x, q, bucket: dict):
     xt, xs, qs = _gather_bucket(x, q, bucket["t_idx"], bucket["s_idx"],
                                 bucket["s_valid"])
     _faults.fire("kernels.p2p.launch")
-    return p2p(qs, xs, xt) * bucket["mask"][:, None]
+    return p2p_auto(qs, xs, xt) * bucket["mask"][:, None]
 
 
 def stream_payload(x, q, pad: int):
@@ -60,11 +64,12 @@ def stream_payload(x, q, pad: int):
 
 
 def p2p_stream_vals(x, q, stream: dict):
-    """Evaluate the unified stream table (device `meta`) -> (Ti, block_t)
-    f32 values.  Lanes past a tile's target count (0.0 from the kernel,
+    """Evaluate the unified stream table (device `meta`; statics `pad`,
+    `block_t`, `smax` and `warps`, None for K2's heuristic) -> (Ti,
+    block_t) f32 values.  Lanes past a tile's target count (0.0 from the kernel,
     sums from the plain version) are dropped by the caller's accumulation
     through `out_valid`."""
     payload = stream_payload(x, q, stream["pad"])
     _faults.fire("kernels.p2p.launch")
     return p2p_stream(stream["meta"], payload, block_t=stream["block_t"],
-                      smax=stream["smax"])
+                      smax=stream["smax"], warps=stream.get("warps"))

@@ -19,12 +19,13 @@ Where the port differs from the reference:
     a `torch.Tensor` on the executor's device; `device_hook` raises
     `TypeError` otherwise, since a hook that hands back host arrays would
     upload every table again on every call.
-  - Near field.  On a CUDA device every P2P block is one K1 launch
-    (`kernels.p2p.p2p`, float32 contiguous blocks); `use_kernels=False`
-    there raises, since the device alone picks the path.  On the CPU,
-    `use_kernels` True or None runs the K1 wrapper, which takes its plain
-    version for CPU tensors, and False runs the plain `_p2p_vals` (row
-    chunks, as `kernels.p2p.p2p_ref`).
+  - Near field.  On a CUDA device every P2P block is one K1 launch at the
+    warps a block autotuned for its shape class (`kernels.ops.p2p_auto`,
+    as the reference's blocks go through its `p2p_auto`; float32
+    contiguous blocks); `use_kernels=False` there raises, since the device
+    alone picks the path.  On the CPU, `use_kernels` True or None runs
+    `p2p_auto`, which takes K1's plain version for CPU tensors, and False
+    runs the plain `_p2p_vals` (row chunks, as `kernels.p2p.p2p_ref`).
   - Accumulation.  Potentials are summed in float64 with `index_add_` on the
     executor's device (the reference sums on the host with `np.add.at`).
     The passes return float64 tensors on that device; `execute_fmm_plan`,
@@ -45,7 +46,8 @@ from repro_torch.core.plan import (FMMPlan, InteractionPlan, TreeSchedules,
                                    build_tree_schedules)
 from repro_torch.core.tree import Tree, build_tree
 from repro_torch.device import resolve_device
-from repro_torch.kernels.p2p import p2p, p2p_ref
+from repro_torch.kernels.ops import p2p_auto
+from repro_torch.kernels.p2p import p2p_ref
 
 __all__ = ["fmm_potential", "evaluate", "execute_fmm_plan", "direct_potential",
            "upward_pass", "downward_pass", "m2l_pass", "m2l_apply", "p2p_pass",
@@ -282,7 +284,7 @@ def p2p_apply(tgt_tree, src_tree, plan: InteractionPlan,
         xs = xs_all[s_idx]
         qs = torch.where(aa(blk.s_valid), qs_all[s_idx], zero)
         if kernels:
-            vals = p2p(qs, xs, xt) * mask[:, None]
+            vals = p2p_auto(qs, xs, xt) * mask[:, None]
         else:
             vals = _p2p_vals(xt, xs, qs, mask)
         _accumulate(phi, t_idx, aa(blk.t_valid), vals)

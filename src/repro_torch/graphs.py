@@ -12,9 +12,11 @@ one call is captured into a `torch.cuda.CUDAGraph` that copies its results
 into them.  `replay()` then runs every kernel of that call in one launch.
 A failed warm-up or capture raises; nothing falls back to eager calls.
 Python's cyclic garbage collector is run before the capture and held off
-during it: a dead object that owns a graph (an engine and its captured
-call form a cycle) freed in the middle of a capture resets that graph,
-a CUDA call a capturing stream does not permit, and the capture fails.
+during it: a dead object that owns a graph and sits in a reference cycle
+(none of the port's own does; a caller's may) freed in the middle of a
+capture resets that graph, a CUDA call a capturing stream does not
+permit, and the capture fails.  `fn` should not close over the object
+that holds its `CapturedCall`, or that object is such a cycle.
 
 On the CPU nothing is captured, because the caller asked for the CPU:
 `replay()` calls `fn` over the same static buffers.

@@ -17,7 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build", "library", "nvcc_path"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build", "digest", "library",
+           "nvcc_path"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -46,14 +47,20 @@ def nvcc_path() -> str:
                        "kernels are built from source at first use")
 
 
-def _target(source: str) -> Path:
+def digest(source: str) -> str:
+    """The 16 hex digits that name a source's library: a digest of the
+    source, the shared headers and the flags."""
     h = hashlib.sha256()
     h.update((CSRC / source).read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.name.encode())
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def _target(source: str) -> Path:
+    return BUILD_DIR / f"{Path(source).stem}-{digest(source)}.so"
 
 
 def build(sources=SOURCES) -> dict:

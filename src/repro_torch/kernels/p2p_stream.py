@@ -34,7 +34,8 @@ note in the source).
 runs K1's plain version on them.
 
 `launches` counts kernel launches: the wrapper adds one where it launches
-the kernel, and nowhere else.
+the kernel, and nowhere else.  The autotune's timed launches (`timed_ms`)
+count in `sweep_launches` instead.
 """
 from __future__ import annotations
 
@@ -44,14 +45,15 @@ import functools
 import torch
 
 from repro_torch.kernels.build import library
-from repro_torch.kernels.p2p import p2p_ref, warps_per_block
+from repro_torch.kernels.p2p import WARP_CANDIDATES, p2p_ref, warps_per_block
 
 __all__ = ["p2p_stream", "p2p_stream_gathered", "stream_launch_params",
-           "stream_slabs"]
+           "stream_slabs", "timed_ms"]
 
 TILES_PER_WARP = 8              # REPRO_P2P_TILES of csrc/p2p_stream.cu
 
 launches = 0
+sweep_launches = 0              # the autotune's timed launches (`timed_ms`)
 
 _ELEMS_PER_CHUNK = 1 << 26      # (tiles x block_t x smax) pairs per step
 
@@ -124,22 +126,11 @@ def stream_launch_params(n_tiles: int) -> int:
     return warps_per_block(-(-n_tiles // TILES_PER_WARP), 4)
 
 
-def p2p_stream(meta, payload, *, block_t: int, smax: int):
-    """meta (Ti, 4) int32, payload (4, F) float32 -> (Ti, block_t) float32.
-    CPU tensors run `p2p_stream_gathered`; CUDA tensors launch K2 on the
-    current stream with `stream_launch_params(Ti)` warps per block, raising
-    if the launch fails; any other device raises.  On the card lanes at or
-    past a tile's tgt_len are 0.0 (the plain version computes them; see the
-    module note)."""
-    global launches
-    _check(meta, payload, block_t, smax)
+def _launch(meta, payload, block_t: int, smax: int, warps: int):
+    """Launch K2 on the current stream with `warps` warps per block, on
+    checked contiguous CUDA tensors; returns the (Ti, block_t) output.
+    Raises if the launch fails.  Counts nothing."""
     dev = payload.device
-    if dev.type == "cpu":
-        return p2p_stream_gathered(meta, payload, block_t=block_t, smax=smax)
-    if dev.type != "cuda":
-        raise ValueError(f"p2p_stream: unsupported device {dev}")
-    if not (meta.is_contiguous() and payload.is_contiguous()):
-        raise ValueError("p2p_stream: meta and payload must be contiguous")
     Ti = meta.shape[0]
     out = torch.empty(Ti, block_t, dtype=torch.float32, device=dev)
     if Ti == 0:
@@ -151,10 +142,59 @@ def p2p_stream(meta, payload, *, block_t: int, smax: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_p2p_stream(meta.data_ptr(), payload.data_ptr(),
                                    out.data_ptr(), Ti, payload.shape[1],
-                                   block_t, smax, stream_launch_params(Ti),
-                                   stream)
+                                   block_t, smax, int(warps), stream)
     if err != 0:
         raise RuntimeError("p2p_stream kernel launch failed: "
                            + lib.repro_p2p_stream_error_string(err).decode())
-    launches += 1
     return out
+
+
+def _check_cuda(meta, payload) -> None:
+    if payload.device.type != "cuda":
+        raise ValueError(f"p2p_stream: unsupported device {payload.device}")
+    if not (meta.is_contiguous() and payload.is_contiguous()):
+        raise ValueError("p2p_stream: meta and payload must be contiguous")
+
+
+def p2p_stream(meta, payload, *, block_t: int, smax: int,
+               warps: int | None = None):
+    """meta (Ti, 4) int32, payload (4, F) float32 -> (Ti, block_t) float32.
+    CPU tensors run `p2p_stream_gathered`; CUDA tensors launch K2 on the
+    current stream with `warps` warps per block (`stream_launch_params(Ti)`
+    when None; the engine passes the autotune's choice), raising if the
+    launch fails; any other device raises.  On the card lanes at or past a
+    tile's tgt_len are 0.0 (the plain version computes them; see the
+    module note)."""
+    global launches
+    _check(meta, payload, block_t, smax)
+    if payload.device.type == "cpu":
+        return p2p_stream_gathered(meta, payload, block_t=block_t, smax=smax)
+    _check_cuda(meta, payload)
+    if warps is None:
+        warps = stream_launch_params(meta.shape[0])
+    elif warps not in WARP_CANDIDATES:
+        raise ValueError(f"p2p_stream: warps must be one of "
+                         f"{WARP_CANDIDATES}, got {warps}")
+    out = _launch(meta, payload, block_t, smax, warps)
+    if meta.shape[0]:
+        launches += 1
+    return out
+
+
+def timed_ms(meta, payload, *, block_t: int, smax: int, warps: int) -> float:
+    """Device ms of one K2 launch at `warps` on the card, by CUDA events,
+    after one warm-up launch: the measure of K2's autotune sweep
+    (`kernels.p2p.best_stream_params`).  Neither launch counts in
+    `launches`; both count in `sweep_launches`."""
+    global sweep_launches
+    _check(meta, payload, block_t, smax)
+    _check_cuda(meta, payload)
+    _launch(meta, payload, block_t, smax, warps)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    _launch(meta, payload, block_t, smax, warps)
+    b.record()
+    b.synchronize()
+    sweep_launches += 2
+    return a.elapsed_time(b)

@@ -24,13 +24,12 @@ Sites (`SITES`) and where they fire in the port:
   fused.launch       engine.DeviceEngine._evaluate_fused, before the replay
                      — raises `InjectedResourceExhausted`, which is a
                      `torch.cuda.OutOfMemoryError`
-
-  p2p.cache.read, p2p.cache.write — the reference's autotune disk cache
-                     (`repro.kernels.p2p`), which the port does not have
-                     (K1's launch shape is fixed).  They stay in `SITES` so
-                     spec strings and report keys match the reference;
-                     arming either raises ValueError ("not ported"), so a
-                     chaos test cannot silently test nothing.
+  p2p.cache.read     kernels.p2p._load_persisted, before the autotune cache
+                     file is opened
+  p2p.cache.write    kernels.p2p._save_persisted, before the read-merge-write
+                     of a measured choice (both absorbed where they fire:
+                     one warning, the fallback `disk_cache -> in_memory`
+                     recorded, the autotune goes on in memory)
 
 Activation: the `inject_faults(...)` context manager, or `REPRO_FAULTS=`
 in the environment (comma-separated `site[:count[:prob]]`, e.g.
@@ -56,7 +55,7 @@ import torch
 
 from repro_torch import obs
 
-__all__ = ["SITES", "NOT_PORTED", "InjectedFault",
+__all__ = ["SITES", "InjectedFault",
            "InjectedResourceExhausted", "inject_faults", "fire", "arm",
            "disarm", "active_plan", "fired_counts", "fired_total",
            "reset_stats", "parse_spec"]
@@ -71,9 +70,6 @@ SITES = (
     "dist.build_program",
     "fused.launch",
 )
-
-# sites of the reference whose seam the port does not have
-NOT_PORTED = ("p2p.cache.read", "p2p.cache.write")
 
 
 class InjectedFault(RuntimeError):
@@ -121,11 +117,6 @@ class FaultPlan:
         if unknown:
             raise ValueError(f"unknown fault site(s) {unknown}; "
                              f"registered sites: {list(SITES)}")
-        unported = sorted(set(spec) & set(NOT_PORTED))
-        if unported:
-            raise ValueError(f"fault site(s) {unported} not ported: the "
-                             "port has no autotune disk cache, so the seam "
-                             "would never fire")
         self._rng = random.Random(seed)
         self._sites = {}
         for site, cfg in spec.items():
@@ -202,8 +193,7 @@ def reset_stats() -> None:
 def parse_spec(text: str) -> dict:
     """Parse the REPRO_FAULTS grammar: comma-separated `site[:count[:prob]]`.
     `count` of `*` means unlimited.  Returns an `inject_faults`-shaped spec
-    dict; raises ValueError on unknown or unported sites and malformed
-    entries."""
+    dict; raises ValueError on unknown sites and malformed entries."""
     spec: dict = {}
     for item in text.split(","):
         item = item.strip()

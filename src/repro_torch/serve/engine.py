@@ -114,8 +114,14 @@ class ServeEngine:
                                         for k, v in c.items()}
                                        for c in cache["blocks"]]}}
             self._static = st
-            self.decode_call = CapturedCall(lambda: self.model.decode_step(
-                st["cache"], st["tokens"], st["pos"], self.par)[:1], dev)
+            # the step closes over the model, `par` and the static buffers,
+            # never over the engine: a closure holding `self` would make
+            # the engine and its captured call a reference cycle, and a
+            # dropped engine would keep the graph's pool until the cyclic
+            # collector ran
+            model, par = self.model, self.par
+            self.decode_call = CapturedCall(lambda: model.decode_step(
+                st["cache"], st["tokens"], st["pos"], par)[:1], dev)
         static = self._static["cache"]
         for dst, src in zip(static["blocks"], cache["blocks"]):
             for k, buf in dst.items():

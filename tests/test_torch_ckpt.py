@@ -285,3 +285,55 @@ def test_train_step_matches_reference(step_pair, n_micro):
     for got, master in zip(tree_leaves(tp), tree_leaves(to.master)):
         assert got.requires_grad and got.is_leaf
         assert torch.equal(got.detach(), master)
+
+
+# ------------------------------------------------------- rwkv6's curve -----
+@pytest.mark.parametrize("dtype,rtol,gnorm_rtol", [("float32", 1e-5, 1e-3),
+                                                   ("bfloat16", 1e-3, None)])
+def test_rwkv6_training_curve_matches_reference(dtype, rtol, gnorm_rtol):
+    """rwkv6-smoke trained 10 steps by both packages' train steps under the
+    schedule of the card's 3-step rwkv6-1.6b run (`launch.train.run` with
+    steps 3: lr 3e-4, warmup 1 of total_steps 10, so the first update
+    takes the full rate), batch 2 x 64 of `SyntheticLM(seed=0)`, from the
+    reference's own init carried across by `convert` (its `w_w` at init
+    scale; float32 cast from it for the float32 case).  Each step's loss
+    at rtol 1e-5 in float32 (measured: 1.7e-7) and 1e-3 in bfloat16
+    (measured: 1.7e-4); the grad norm at rtol 1e-3 in float32 (measured:
+    7.5e-5; it is 103 at the first step, then 4-12).  bfloat16 grad norms
+    are not held: the two packages round the bf16 gradients apart, 5% at
+    step 3 and up to 38% by step 10, while the losses stay within 1.7e-4.
+    The port follows the reference's curve step by step, so the card's
+    rise (PERF.md section 7) is not a departure of the port at this
+    size."""
+    from dataclasses import replace
+    from repro.configs import get_config as jget_config
+    from repro.models import build_model as jbuild_model
+    from repro_torch.models.params import map_tree
+    steps, B, S = 10, 2, 64
+    jcfg = replace(jget_config("rwkv6-1.6b", smoke=True), dtype=dtype)
+    tcfg = replace(get_config("rwkv6-1.6b", smoke=True), dtype=dtype)
+    jmodel = jbuild_model(jcfg)
+    params = jmodel.init(jax.random.key(0))
+    if dtype == "float32":
+        params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+    ptree = map_tree(lambda t: t.detach().clone().requires_grad_(),
+                     lm_params_from_numpy(tcfg, jax.tree.map(np.asarray,
+                                                             params), "cpu"))
+    kw = dict(lr=3e-4, warmup=1, total_steps=10)
+    jstep = jax.jit(jmake_train_step(jmodel, PAR, jopt.AdamWConfig(**kw)))
+    step = make_train_step(tcfg, topt.AdamWConfig(**kw))
+    jo, to = jopt.init_opt_state(params), topt.init_opt_state(ptree)
+    jdata, data = JSyntheticLM(jcfg.vocab, S, B), SyntheticLM(tcfg.vocab, S, B)
+    want, got = [], []
+    for _ in range(steps):
+        params, jo, jm = jstep(params, jo, {k: jnp.asarray(v) for k, v in
+                                            jdata.next_batch().items()})
+        ptree, to, tm = step(ptree, to, {k: torch.as_tensor(v) for k, v in
+                                         data.next_batch().items()})
+        want.append((float(jm["loss"]), float(jm["grad_norm"])))
+        got.append((float(tm["loss"]), float(tm["grad_norm"])))
+    want, got = np.array(want), np.array(got)
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=rtol)
+    if gnorm_rtol is not None:
+        np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=gnorm_rtol)

@@ -309,3 +309,34 @@ def test_fused_default_off_on_cpu():
     sess.evaluate()
     entry = sess.engine._entries["evaluate"]
     assert entry.call.graph is None and entry.launches == {}
+
+
+def test_dropped_compiled_session_frees_its_entry_without_the_collector():
+    """A compiled entry holds no reference back to its engine or session
+    (its call closes over the fused function and its own static buffers),
+    so with the cyclic collector off a session and its engine go when
+    dropped, and the entry with them once no cache holds it."""
+    import gc
+    import weakref
+    x, q = _problem(n=300)
+    spec = PartitionSpec(nparts=3, ncrit=48)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        cache = ExecutableCache()
+        sess = FMMSession.from_points(x, q, spec, device="cpu", fused=True,
+                                      exe_cache=cache)
+        sess.evaluate()
+        sess.evaluate()
+        (key,) = cache.keys()
+        entry = cache.get_or_compile(key, None)
+        refs = (weakref.ref(sess), weakref.ref(sess.engine),
+                weakref.ref(entry.call), weakref.ref(entry.inputs["x"]))
+        del sess, entry
+        assert [r() for r in refs[:2]] == [None, None]
+        assert refs[2]() is not None            # the cache still holds it
+        cache.clear()
+        assert [r() for r in refs] == [None] * 4
+    finally:
+        if collecting:
+            gc.enable()

@@ -31,10 +31,17 @@ autograd Functions (the kernel forward, the PyTorch backward) against
 autograd through the plain versions at every head size and mask kind, a
 forward without grad building no graph, and one float32 train step of
 the qwen3 and rwkv6 smoke models on the card against the CPU (their
-limits beside the tests).  The sharding tier: dbrx-smoke's expert-parallel
+limits beside the tests).  The launch autotune: a K1 sweep persists under
+the card's key and hits after, timed launches never count in `launches`,
+every warps candidate gives the heuristic's bits, the stream route's
+sweep, and a graphed session replaying the warps its cache file names
+(the file under pytest's tmp directory for every test here).  The sharding tier: dbrx-smoke's expert-parallel
 MoE on a mesh stacked on the card against the same mesh on the CPU, and a
 graphed decode step under that mesh against the eager one.
 """
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -59,6 +66,22 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _autotune_cache_here(tmp_path_factory):
+    """The engines here autotune K1 / K2 on the card: their cache file goes
+    under pytest's tmp directory, never the user's home."""
+    old = os.environ.get("REPRO_P2P_CACHE_PATH")
+    os.environ["REPRO_P2P_CACHE_PATH"] = str(
+        tmp_path_factory.mktemp("autotune") / "p2p_cache.json")
+    kp2p.clear_memory_cache()
+    yield
+    if old is None:
+        os.environ.pop("REPRO_P2P_CACHE_PATH", None)
+    else:
+        os.environ["REPRO_P2P_CACHE_PATH"] = old
+    kp2p.clear_memory_cache()
 
 
 def _p2p_inputs(P, S, T, seed=0):
@@ -825,6 +848,157 @@ def test_fused_evaluate_on_card_replays_and_matches_eager(cuda_device,
     phi_g, phi_e = graphed.evaluate(), eager.evaluate()
     tol = 2e-5 + 1e-6 * np.abs(phi_e) + 1e-7 * absum
     assert np.all(np.abs(phi_g - phi_e) <= tol)
+
+
+# ------------------------------------------------------- launch autotune --
+@pytest.fixture
+def cold_autotune(tmp_path, monkeypatch):
+    """A fresh cache file and empty in-memory caches, as a new process on a
+    card that never tuned; the previous state comes back afterwards."""
+    path = tmp_path / "cache.json"
+    monkeypatch.setenv("REPRO_P2P_CACHE_PATH", str(path))
+    monkeypatch.delenv("REPRO_P2P_CACHE", raising=False)
+    monkeypatch.setattr(kp2p, "_WARPS_CACHE", {})
+    monkeypatch.setattr(kp2p, "_STREAM_CACHE", {})
+    monkeypatch.setattr(kp2p, "_PERSIST_LOADED", False)
+    monkeypatch.setattr(kp2p, "_PERSIST_BROKEN", False)
+    return path
+
+
+def test_k1_autotune_sweeps_persists_and_hits_on_card(cuda_device,
+                                                      cold_autotune):
+    """The first lookup of a shape class times every warps candidate on its
+    sample (none of it in `launches`), keeps one of them and writes it under
+    the card's key; a second lookup is a hit; a fresh process reads the
+    file and times nothing."""
+    from repro_torch import obs
+    from repro_torch.kernels.ops import p2p_auto
+    q, xs, xt = (t.to(cuda_device) for t in _p2p_inputs(3000, 64, 64))
+    obs.configure(enabled=True)
+    try:
+        launches, swept, n_rec = (kp2p.launches, kp2p.sweep_launches,
+                                  len(kp2p.sweeps))
+        w = kp2p.best_p2p_warps(64, 3000, 64, sample=(q, xs, xt))
+        torch.cuda.synchronize()
+        assert w in kp2p.WARP_CANDIDATES and kp2p.launches == launches
+        assert kp2p.sweep_launches == swept + 4 * len(kp2p.WARP_CANDIDATES)
+        (rec,) = kp2p.sweeps[n_rec:]
+        assert sorted(rec["ms"]) == list(kp2p.WARP_CANDIDATES)
+        assert rec["choice"] == w == min(rec["ms"], key=rec["ms"].get)
+        data = json.loads(cold_autotune.read_text())
+        assert data["entries"][kp2p.backend_key()]["64,3000,64"] == w
+        hits = obs.metrics_snapshot()["counters"].get(
+            "p2p.autotune.cache_hits", 0)
+        out = p2p_auto(q, xs, xt)           # a hit, then one counted launch
+        assert kp2p.launches == launches + 1
+        assert kp2p.sweep_launches == swept + 4 * len(kp2p.WARP_CANDIDATES)
+        assert obs.metrics_snapshot()["counters"][
+            "p2p.autotune.cache_hits"] == hits + 1
+        torch.testing.assert_close(out, kp2p.p2p_ref(q, xs, xt), rtol=RTOL,
+                                   atol=ATOL)
+        kp2p.clear_memory_cache()           # a fresh process
+        assert kp2p.best_p2p_warps(64, 3000, 64, sample=(q, xs, xt)) == w
+        assert kp2p.sweep_launches == swept + 4 * len(kp2p.WARP_CANDIDATES)
+    finally:
+        obs.configure(enabled=False)
+        obs.reset()
+
+
+@pytest.mark.parametrize("S,T", [(64, 64), (37, 200)])
+def test_k1_every_warps_candidate_is_bitwise_the_heuristic_on_card(
+        cuda_device, S, T):
+    """A row's sum runs in one ascending order whatever the warps a block,
+    so every launch shape the autotune may pick gives the heuristic's
+    bits."""
+    q, xs, xt = (t.to(cuda_device) for t in _k1_zero_patterns(777, S, T))
+    want = kp2p.p2p(q, xs, xt)
+    for w in kp2p.WARP_CANDIDATES:
+        assert torch.equal(kp2p.p2p(q, xs, xt, warps=w), want), w
+    with pytest.raises(ValueError, match="warps"):
+        kp2p.p2p(q, xs, xt, warps=3)
+
+
+def test_stream_autotune_on_card_counts_apart_and_matches(cuda_device,
+                                                          cold_autotune):
+    """The stream route's first evaluate sweeps (block_t, warps) through
+    `_measure_stream`: K2's `launches` grows by the evaluate's one launch
+    only, the sweep's go to `sweep_launches`; the choice is persisted and
+    K2's output at the chosen warps equals the heuristic launch's bits on
+    every lane (the table is the same at one block_t; warps change only
+    which warp takes a tile)."""
+    from repro_torch.core.api import FMMSession
+    x = make_distribution("sphere", 3000, seed=42)
+    q = np.random.default_rng(0).uniform(-1, 1, 3000)
+    geo = plan_geometry(x, q, PartitionSpec(nparts=4), device="cpu")
+    k2, swept = kstream.launches, kstream.sweep_launches
+    sess = FMMSession(geo, device=cuda_device, p2p_stream=True, fused=False)
+    phi = sess.evaluate()
+    torch.cuda.synchronize()
+    assert kstream.launches == k2 + 1 and kstream.sweep_launches > swept
+    stream = sess.engine.stream_tables()
+    bt, w = stream["block_t"], stream["warps"]
+    assert w in kp2p.WARP_CANDIDATES and bt % 128 == 0
+    entries = json.loads(cold_autotune.read_text())["entries"]
+    (value,) = entries[kp2p.backend_key()].values()
+    assert value == [bt, w]
+    payload = stream_payload(sess.engine.x, sess.engine.q, stream["pad"])
+    got = kstream.p2p_stream(stream["meta"], payload, block_t=bt,
+                             smax=stream["smax"], warps=w)
+    assert torch.equal(got, kstream.p2p_stream(stream["meta"], payload,
+                                               block_t=bt,
+                                               smax=stream["smax"]))
+    cpu = FMMSession(geo, device="cpu", p2p_stream=True).evaluate()
+    phi_abs = FMMSession(plan_geometry(x, np.abs(q), PartitionSpec(nparts=4),
+                                       device="cpu"), device="cpu").evaluate()
+    tol = 1e-4 + 1e-5 * np.abs(cpu) + 1e-6 * phi_abs   # the engine test's
+    assert np.all(np.abs(phi - cpu) <= tol)
+
+
+def test_graphed_session_after_a_sweep_replays_tuned_warps_on_card(
+        cuda_device, cold_autotune, monkeypatch):
+    """A compiled session resolves K1's warps per bucket through the
+    autotune before its capture.  Built after an eager session's sweep, its
+    key carries the swept choices and building it times nothing; built
+    from a file that names warps 2 for every bucket class, its key carries
+    2s.  Its replays equal the eager session's at the compiled-vs-eager
+    gate."""
+    from repro_torch.core.api import FMMSession
+    from repro_torch.core.engine import ExecutableCache
+    n = 20000
+    x = make_distribution("sphere", n, seed=42)
+    q = np.random.default_rng(0).uniform(-1, 1, n)
+    spec = PartitionSpec(nparts=8)
+    geo = plan_geometry(x, q, spec, device="cpu")
+    phi_abs = FMMSession(plan_geometry(x, np.abs(q), spec, device="cpu"),
+                         device="cpu").evaluate()
+    buckets = build_engine_tables(geo).p2p_buckets
+    keys = [(b["s_idx"].shape[1], b["s_idx"].shape[0], b["t_idx"].shape[1])
+            for b in buckets]
+    eager = FMMSession(geo, device=cuda_device, fused=False)
+    b = eager.evaluate()                          # sweeps every class
+    tuned = tuple(kp2p._WARPS_CACHE[k] for k in keys)
+    tol = 2e-5 + 1e-6 * np.abs(b) + 1e-7 * phi_abs
+
+    def graphed_key(want):
+        swept = kp2p.sweep_launches
+        graphed = FMMSession(geo, device=cuda_device,
+                             exe_cache=ExecutableCache())
+        graphed.evaluate()
+        assert graphed.engine._entries["evaluate"].key[7] == want
+        assert kp2p.sweep_launches == swept       # nothing timed again
+        before = kp2p.launches
+        a = graphed.evaluate()                    # a replay
+        torch.cuda.synchronize()
+        assert kp2p.launches == before + len(buckets)
+        assert np.all(np.abs(a - b) <= tol), float(np.abs(a - b).max())
+
+    graphed_key(tuned)
+    seeded = cold_autotune.with_name("seeded.json")
+    seeded.write_text(json.dumps({"version": 2, "entries": {
+        kp2p.backend_key(): {",".join(map(str, k)): 2 for k in keys}}}))
+    monkeypatch.setenv("REPRO_P2P_CACHE_PATH", str(seeded))
+    kp2p.clear_memory_cache()
+    graphed_key((2,) * len(buckets))
 
 
 def _on_card(cfg):

@@ -34,7 +34,8 @@ def test_stream_caller_drops_lanes_past_tgt_len(monkeypatch, small_geometry,
                       p2p_stream=True).evaluate()
     calls = []
 
-    def lanes_past_tgt_len_overwritten(meta, payload, *, block_t, smax):
+    def lanes_past_tgt_len_overwritten(meta, payload, *, block_t, smax,
+                                       warps=None):
         out = kstream.p2p_stream_gathered(meta, payload, block_t=block_t,
                                           smax=smax)
         lane = torch.arange(block_t)

@@ -1,10 +1,10 @@
 """The port's resilience tier (repro_torch.resilience) and the session's
 degradation ladder, held against the reference's (repro.resilience).
 
-The first part ports tests/test_resilience.py, apart from its three tests
-of the autotune disk cache (`p2p.cache.read` / `p2p.cache.write`), which
-the port does not have: arming those sites raises here instead.  Each site
-the port arms is fired exactly once against a session whose knobs make
+The first part ports tests/test_resilience.py, apart from its tests of
+the autotune disk cache (`p2p.cache.read` / `p2p.cache.write`), which
+tests/test_torch_autotune.py ports beside the rest of the autotune.  Each
+site is fired exactly once against a session whose knobs make
 that seam load-bearing, and the test asserts the precise consequence: the
 potential still lands within the engine-parity tolerance (rtol 1e-6 /
 atol 2e-5, tests/test_engine.py's) of the clean one via a counted ladder
@@ -346,23 +346,9 @@ def test_transient_capture_fault_is_retried_then_one_capture():
     assert cache.misses == 1 and len(cache) == 1
 
 
-# ------------------------------------------------------ unported sites ----
-@pytest.mark.parametrize("site", res_faults.NOT_PORTED)
-def test_cache_sites_not_ported_refuse_to_arm(site):
-    """The autotune disk cache's seams have no place in the port: arming
-    them raises, so a chaos test cannot silently test nothing."""
-    with pytest.raises(ValueError, match="not ported"):
-        with inject_faults(site):
-            pass
-    with pytest.raises(ValueError, match="not ported"):
-        res_faults.parse_spec(f"{site}:1")
-    assert res_faults.active_plan() is None
-
-
 def test_sites_and_ladder_match_reference():
     assert res_faults.SITES == jfaults.SITES
     assert res_fb.LADDER == jfb.LADDER
-    assert set(res_faults.NOT_PORTED) < set(res_faults.SITES)
 
 
 # ----------------------------------------------------------- validation ---

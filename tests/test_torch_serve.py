@@ -175,3 +175,33 @@ def test_static_buffer_step_serves_like_the_eager_step(arch):
     assert sorted(outs[1]) == list(range(N_REQ)) and outs[0] == outs[1]
     assert max(len(r.prompt) for r in _requests(Request, cfg.vocab)) + 12 \
         > (cfg.sliding_window or 0)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+def test_dropped_graphed_engine_is_freed_without_the_collector(arch):
+    """A `ServeEngine(graph=True)` whose decode step has been built (after
+    a prefill and one step) is freed as soon as it is dropped, with the
+    cyclic collector off: its captured call closes over the model, `par`
+    and the static buffers, never over the engine, so on the card the
+    graph's pool goes with the engine."""
+    import gc
+    import weakref
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, seed=0, device="cpu")
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        eng = ServeEngine(model, B=2, S_max=S_MAX, graph=True)
+        eng.submit(Request(rid=0, prompt=[3, 5, 7], max_new=4))
+        assert eng._admit_and_prefill()
+        eng.step()
+        assert eng.decode_call is not None
+        refs = (weakref.ref(eng), weakref.ref(eng.decode_call),
+                weakref.ref(eng._static["tokens"]))
+        del eng
+        assert [r() for r in refs] == [None, None, None]
+    finally:
+        if collecting:
+            gc.enable()
