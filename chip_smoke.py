@@ -282,8 +282,26 @@ Phases, in order; any failed check raises and ends the run non-zero:
      batch (DP_LOSS_RTOL, DP_NORM_RTOL, DP_GRAD_REL_L2, DP_STEP_LR), K4
      once a layer a data rank, each reduction's time and bytes on the pod
      axis;
- 13. one JSON line listing every ported kernel;
- 14. the last line: {"ok": true, "device": {...}}.
+ 13. the dry run against one rank's steps on the card: for each of
+     DRYRUN_CELLS (smollm-360m train_4k: 16 x 4,096 tokens in 2 micro-
+     batches, K4 and its backward; rwkv6-1.6b prefill_32k: 2 x 32,768
+     tokens, K5; qwen3-0.6b decode_32k: batch 8, one step over an S_max of
+     32,768), the rank of the (16, 16) layout: `launch.dryrun.lower_cell`
+     on meta (its seconds, the artifact's per-rank figures, the roofline's
+     terms on the H100 SXM constants), then the same rank's program on
+     the card (`launch.dryrun.rank_program`, seeded random weights and
+     inputs) under the same walker (`analysis.hlo_walk`): dot FLOPs,
+     result bytes, read bytes and the kernels' launches, operations and
+     bytes equal on meta and on the card, and the walker's predicted peak
+     (less the arguments) within DRYRUN_PEAK_TOL of
+     `torch.cuda.max_memory_allocated()` after `reset_peak_memory_stats()`
+     less the bytes resident before a warm step; the step's time by CUDA
+     events beside the roofline's bound.  A cell whose prediction exceeds
+     the card's free memory has its rank batch halved until it fits, and
+     the cut is printed and held instead; K4's and K5's launches count in
+     the kernels' line;
+ 14. one JSON line listing every ported kernel;
+ 15. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -401,6 +419,11 @@ RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 2, 12, 3, 7
 RWKV_TRAIN_B, RWKV_TRAIN_STEPS = 2, 3
 # frame and patch embeddings, drawn at the reference's tests' scale
 EMBED_SCALE = 0.1
+# phase 13: the dry run's cells held against one rank's steps on the card,
+# and how far the walker's predicted peak may lie from the allocator's
+DRYRUN_CELLS = (("smollm-360m", "train_4k"), ("rwkv6-1.6b", "prefill_32k"),
+                ("qwen3-0.6b", "decode_32k"))
+DRYRUN_PEAK_TOL = 0.10
 BITWISE_TILES = 1 << 20      # live tiles in the K1 == K2 bitwise check
 MOVER = 1                    # the partition the beyond-slack step shifts
 MOVER_SHIFT = np.array([0.15, -0.1, 0.2])
@@ -3600,6 +3623,121 @@ def lm_sharding(torch, kattn, dev, card) -> int:
     return k4
 
 
+def dryrun_on_card(torch, kattn, krwkv, dev, card) -> dict:
+    """Phase 13: each of DRYRUN_CELLS dry-run on meta, then the same
+    rank's step on the card under the same walker; returns the K4 / K5
+    launches of the card's steps."""
+    from repro_torch.analysis.hlo_walk import Walker
+    from repro_torch.analysis.roofline import H100_SXM, roofline_from_artifact
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh, parallelism_for
+    from repro_torch.train.train_step import _data_ranks
+
+    launches = {"K4": 0, "K5": 0}
+    for arch, shape_name in DRYRUN_CELLS:
+        cfg, shape = get_config(arch), SHAPES[shape_name]
+        t0 = time.perf_counter()
+        rec, _ = dryrun.lower_cell(arch, shape_name, multi_pod=False)
+        t_cell = time.perf_counter() - t0
+        port, m = rec["port"], rec["memory"]
+        rl = roofline_from_artifact(rec, rec["walked"], chip=H100_SXM)
+        print(f"  {arch} {shape_name}: lower_cell on meta {t_cell:.2f} s "
+              f"(lower {rec['lower_s']} s, meta run {rec['compile_s']} s); "
+              f"rank batch {port['rank_batch']}"
+              f"{', n_micro ' + str(rec['n_micro']) if 'n_micro' in rec else ''}"
+              f"; per rank: dot FLOPs {rec['walked']['dot_flops']:.6e}, "
+              f"result bytes {rec['walked']['result_bytes']:.6e}, "
+              f"collective bytes {rec['collectives']['total_bytes']}, "
+              f"arguments {m['argument_size_in_bytes']} B under the "
+              f"reference's shardings, {port['held_bytes']} B held by the "
+              f"port, temp {m['temp_size_in_bytes']} B, peak "
+              f"{port['peak_bytes']} B (fits 80 GB: {port['fits_80gb']})",
+              flush=True)
+        print(f"    roofline ({H100_SXM.name}): compute {rl['compute_s']:.6f}"
+              f" s, memory {rl['memory_s']:.6f} s, collective "
+              f"{rl['collective_s']:.6f} s, bound {rl['bound_s']:.6f} s "
+              f"({rl['dominant']}), useful ratio {rl['useful_ratio']:.3f}",
+              flush=True)
+        mesh = make_production_mesh(device="meta")
+        _, local, _ = _data_ranks(parallelism_for(mesh), cfg)
+        B, n_micro = port["rank_batch"], rec.get("n_micro", 1)
+        pred = port["step"]
+        held = port["held_bytes"]
+        free = torch.cuda.mem_get_info(dev)[0]
+        while pred["port"]["stacked"]["peak_bytes"] > 0.95 * free and B > 1:
+            B //= 2
+            n_micro = min(n_micro, B)
+            w_m, _, held = dryrun.walk_program(*dryrun.rank_program(
+                cfg, shape, local, n_micro=n_micro, B=B))
+            pred = w_m.result()
+            print(f"    cut: the prediction exceeds the card's free "
+                  f"{free} B; rank batch {B}, n_micro {n_micro}: peak "
+                  f"{pred['port']['stacked']['peak_bytes']} B", flush=True)
+        args, run = dryrun.rank_program(cfg, shape, local, n_micro=n_micro,
+                                        B=B, device=dev, seed=0)
+        k0 = (kattn.launches, krwkv.launches)
+        w_c, t_walk, held_c = dryrun.walk_program(args, run, dev.type)
+        got = w_c.result()
+        launches["K4"] += kattn.launches - k0[0]
+        launches["K5"] += krwkv.launches - k0[1]
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        k0 = (kattn.launches, krwkv.launches)
+        ev0.record()
+        out = run()
+        ev1.record()
+        torch.cuda.synchronize(dev)
+        measured = torch.cuda.max_memory_allocated(dev) - base
+        launches["K4"] += kattn.launches - k0[0]
+        launches["K5"] += krwkv.launches - k0[1]
+        del out
+        step_ms = ev0.elapsed_time(ev1)
+        predicted = pred["port"]["stacked"]["peak_bytes"] - held
+        rs = roofline_from_artifact(rec, pred, chip=H100_SXM)
+        print(f"    card {card}: walked run {t_walk:.2f} s; dot FLOPs "
+              f"{got['dot_flops']:.6e} (meta {pred['dot_flops']:.6e}), "
+              f"result bytes {got['result_bytes']:.6e} (meta "
+              f"{pred['result_bytes']:.6e}), read bytes "
+              f"{got['port']['read_bytes']:.6e} (meta "
+              f"{pred['port']['read_bytes']:.6e}); kernels "
+              f"{json.dumps(got['port']['kernels'])}", flush=True)
+        print(f"    peak above the arguments: predicted {predicted} B, "
+              f"measured {measured} B (max_memory_allocated - resident "
+              f"{base} B; the walker on the card "
+              f"{got['port']['stacked']['peak_bytes'] - held_c} B), "
+              f"{100 * (predicted - measured) / max(measured, 1):+.2f}%; "
+              f"arguments {held} B (meta) / {held_c} B (card)", flush=True)
+        print(f"    step {step_ms:.3f} ms by CUDA events against the step's "
+              f"roofline bound {rs['bound_s'] * 1e3:.3f} ms ({rs['dominant']}"
+              f"; {100 * rs['bound_s'] * 1e3 / step_ms:.2f}% of it), the "
+              f"cell's bound with its gradient reduction "
+              f"{rl['bound_s'] * 1e3:.3f} ms; card {card}", flush=True)
+        for key in ("dot_flops", "result_bytes"):
+            if got[key] != pred[key]:
+                raise AssertionError(f"{arch} {shape_name}: {key} on the "
+                                     f"card {got[key]} != meta {pred[key]}")
+        if got["port"]["read_bytes"] != pred["port"]["read_bytes"] or \
+                got["port"]["kernels"] != pred["port"]["kernels"] or \
+                got["collective_bytes"] != pred["collective_bytes"] or \
+                held_c != held:
+            raise AssertionError(f"{arch} {shape_name}: read bytes, kernels, "
+                                 f"collectives or arguments differ between "
+                                 f"the card and meta")
+        if abs(predicted - measured) > DRYRUN_PEAK_TOL * measured:
+            raise AssertionError(f"{arch} {shape_name}: predicted peak "
+                                 f"{predicted} B is more than "
+                                 f"{DRYRUN_PEAK_TOL:.0%} from the measured "
+                                 f"{measured} B")
+        del args, run, w_c
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
@@ -4168,6 +4306,14 @@ def main() -> int:
     launches["K4"] += lm_sharding(torch, kattn, dev, card)
 
     # ------------------------------------------------------------ 13 -----
+    torch.cuda.empty_cache()
+    with phase("the dry run against one rank's steps on the card"):
+        print(f"  card {card}", flush=True)
+        for name, n in dryrun_on_card(torch, kattn, krwkv, dev,
+                                      card).items():
+            launches[name] += n
+
+    # ------------------------------------------------------------ 14 -----
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

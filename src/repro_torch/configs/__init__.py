@@ -14,10 +14,11 @@ from importlib import import_module
 
 from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
                                       active_param_count, cell_enabled,
-                                      param_count)
+                                      input_specs, param_count)
 
 __all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "param_count",
-           "active_param_count", "cell_enabled", "get_config", "list_archs"]
+           "active_param_count", "cell_enabled", "input_specs", "get_config",
+           "get_shape", "list_archs"]
 
 _ARCH_MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
@@ -40,3 +41,7 @@ def list_archs() -> list[str]:
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     mod = import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]

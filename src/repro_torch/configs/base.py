@@ -2,15 +2,19 @@
 
 The port's own copy of the reference's `repro.configs.base` (which imports
 JAX): every architecture is a `ModelConfig`, every workload shape a
-`ShapeConfig`.  `input_specs` (allocation-free stand-ins for a dry run) is
-not ported.
+`ShapeConfig`.  `input_specs` gives allocation-free stand-ins for every
+model input of a cell, the reference's `ShapeDtypeStruct`s as tensors on
+the `meta` device (shapes and types, no storage), for the dry run
+(`launch.dryrun`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 __all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "cell_enabled",
-           "param_count", "active_param_count"]
+           "input_specs", "param_count", "active_param_count"]
 
 
 @dataclass(frozen=True)
@@ -85,6 +89,29 @@ def cell_enabled(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
     if shape.name == "long_500k" and not cfg.subquadratic:
         return False, "pure full-attention arch: 512k decode skipped (DESIGN.md)"
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta-tensor stand-ins for every model input of the cell (no
+    allocation): the reference's names, shapes and types."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": spec((B, S), i32)}
+        if shape.kind == "train":
+            batch["labels"] = spec((B, S), i32)
+        if cfg.is_encdec:   # audio frontend stub: precomputed frame embeddings
+            batch["frames"] = spec((B, S, cfg.d_model), bf16)
+        if cfg.family == "vlm":  # vision frontend stub: patch embeddings
+            batch["vis"] = spec((B, cfg.n_vis_tokens, cfg.d_model), bf16)
+        return batch
+    if shape.kind == "decode":
+        return {"tokens": spec((B, 1), i32), "pos": spec((), i32)}
+    raise ValueError(shape.kind)
 
 
 def param_count(cfg: ModelConfig) -> int:

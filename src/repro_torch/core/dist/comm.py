@@ -53,7 +53,14 @@ data-parallel train step use these, on the same (L, ...) buffers:
   ppermute(buf, perm, axes)      : along the group's indices.
 
 Every sum adds the members' values one at a time in group order, so a
-stacked and a group run give the same bits.  The stacked collectives are
+stacked and a group run give the same bits.
+
+While a walker of `analysis.hlo_walk` is active (the dry run, and its
+check on the card), every collective call records itself there: its
+category (all-reduce, reduce-scatter, all-gather, all-to-all,
+collective-permute), the bytes of one rank's result (the reference's
+convention) and whether its group crosses the pod axis.  Without a walker
+this costs one `None` check; counters and results are the same.  The stacked collectives are
 reshapes, transposes, indexed copies and sums of the (D, ...) buffers, so
 autograd runs through them; the group ones are not differentiable and
 refuse a buffer that requires grad in grad mode.
@@ -63,6 +70,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.analysis import hlo_walk as _walk
 
 __all__ = ["StackedComm", "GroupComm"]
 
@@ -143,6 +152,14 @@ class _NamedMesh:
         return self.psum(buf, axes) / self.axis_size(axes)
 
 
+def _note(comm, method: str, axes, out: torch.Tensor, whole: bool = False):
+    """Record one collective in the active walker: one rank's result bytes
+    (`whole`: every rank gets all of `out`)."""
+    n = out.numel() * out.element_size()
+    _walk.ACTIVE.collective(comm, method, axes,
+                            n if whole else n // len(comm.local_ranks))
+
+
 def _ordered_sum(parts):
     """parts[0] + parts[1] + ... in that order."""
     acc = parts[0]
@@ -190,7 +207,10 @@ class StackedComm(_NamedMesh):
         ks = self._axes(axes)
         w = self._along(buf, ks)
         s = _ordered_sum(w.unbind(1))
-        return self._back(s.unsqueeze(1).expand_as(w), ks)
+        out = self._back(s.unsqueeze(1).expand_as(w), ks)
+        if _walk.ACTIVE is not None:
+            _note(self, "psum", axes, out)
+        return out
 
     def psum_scatter(self, buf: torch.Tensor, axes, dim: int = 0,
                      tiled: bool = False) -> torch.Tensor:
@@ -199,9 +219,11 @@ class StackedComm(_NamedMesh):
         G = w.shape[1]
         w = w.reshape(w.shape[0], G, G, -1, *w.shape[3:])
         s = _ordered_sum(w.unbind(1))                  # (O, G, c, ...)
-        if tiled:
-            return self._back(s, ks).movedim(1, 1 + dim)
-        return self._back(s.squeeze(2), ks)
+        out = (self._back(s, ks).movedim(1, 1 + dim) if tiled
+               else self._back(s.squeeze(2), ks))
+        if _walk.ACTIVE is not None:
+            _note(self, "psum_scatter", axes, out)
+        return out
 
     def all_gather(self, t: torch.Tensor, axes=None, dim: int = 0,
                    tiled: bool = False) -> torch.Tensor:
@@ -210,14 +232,19 @@ class StackedComm(_NamedMesh):
         new per-rank dim `dim` (or concatenated along it, `tiled`)."""
         self._check(t)
         if axes is None:
+            if _walk.ACTIVE is not None:
+                _note(self, "all_gather", None, t, whole=True)
             return t
         ks = self._axes(axes)
         w = self._along(t, ks)                          # (O, G, *X)
         per = w.movedim(1, 1 + dim)                     # a member's result
         if tiled:
             per = per.flatten(1 + dim, 2 + dim)
-        return self._back(per.unsqueeze(1).expand(-1, w.shape[1],
-                                                  *per.shape[1:]), ks)
+        out = self._back(per.unsqueeze(1).expand(-1, w.shape[1],
+                                                 *per.shape[1:]), ks)
+        if _walk.ACTIVE is not None:
+            _note(self, "all_gather", axes, out)
+        return out
 
     def _a2a_axes(self, buf: torch.Tensor, axes, dim: int) -> torch.Tensor:
         ks = self._axes(axes)
@@ -235,9 +262,11 @@ class StackedComm(_NamedMesh):
     def all_to_all(self, buf: torch.Tensor, axes=None,
                    dim: int = 0) -> torch.Tensor:
         self._check(buf)
-        if axes is not None:
-            return self._a2a_axes(buf, axes, dim)
-        return buf.transpose(0, 1).contiguous()
+        out = (self._a2a_axes(buf, axes, dim) if axes is not None
+               else buf.transpose(0, 1).contiguous())
+        if _walk.ACTIVE is not None:
+            _note(self, "all_to_all", axes, out)
+        return out
 
     def ppermute(self, buf: torch.Tensor, perm, axes=None) -> torch.Tensor:
         self._check(buf)
@@ -255,17 +284,20 @@ class StackedComm(_NamedMesh):
             src, hit = self._perms[key]
             got = w.index_select(1, src)
             hit = hit.reshape(1, -1, *([1] * (w.dim() - 2)))
-            return self._back(torch.where(hit, got, torch.zeros_like(got)),
-                              ks)
-        out = torch.zeros_like(buf)
-        if perm:
-            key = (tuple(perm), buf.device)
-            idx = self._perms.get(key)
-            if idx is None:
-                idx = torch.tensor(perm, dtype=torch.int64,
-                                   device=buf.device).T
-                self._perms[key] = idx
-            out[idx[1]] = buf[idx[0]]
+            out = self._back(torch.where(hit, got, torch.zeros_like(got)),
+                             ks)
+        else:
+            out = torch.zeros_like(buf)
+            if perm:
+                key = (tuple(perm), buf.device)
+                idx = self._perms.get(key)
+                if idx is None:
+                    idx = torch.tensor(perm, dtype=torch.int64,
+                                       device=buf.device).T
+                    self._perms[key] = idx
+                out[idx[1]] = buf[idx[0]]
+        if _walk.ACTIVE is not None:
+            _note(self, "ppermute", axes, out)
         return out
 
 
@@ -311,17 +343,27 @@ class GroupComm(_NamedMesh):
     def all_to_all(self, buf: torch.Tensor, axes=None,
                    dim: int = 0) -> torch.Tensor:
         if axes is not None:
-            return self._all_to_all_axes(buf, axes, dim)
-        self._check(buf)
-        send = buf.contiguous()
-        out = torch.empty_like(send)
-        self._dist.all_to_all_single(out.view(-1), send.view(-1),
-                                     group=self.group)
+            out = self._all_to_all_axes(buf, axes, dim)
+        else:
+            self._check(buf)
+            send = buf.contiguous()
+            out = torch.empty_like(send)
+            self._dist.all_to_all_single(out.view(-1), send.view(-1),
+                                         group=self.group)
+        if _walk.ACTIVE is not None:
+            _note(self, "all_to_all", axes, out)
         return out
 
     def ppermute(self, buf: torch.Tensor, perm, axes=None) -> torch.Tensor:
         if axes is not None:
-            return self._ppermute_axes(buf, perm, axes)
+            out = self._ppermute_axes(buf, perm, axes)
+        else:
+            out = self._ppermute_rows(buf, perm)
+        if _walk.ACTIVE is not None:
+            _note(self, "ppermute", axes, out)
+        return out
+
+    def _ppermute_rows(self, buf: torch.Tensor, perm) -> torch.Tensor:
         self._check(buf)
         send = buf.contiguous()
         out = torch.zeros_like(send)
@@ -383,13 +425,19 @@ class GroupComm(_NamedMesh):
         return out
 
     def psum(self, buf: torch.Tensor, axes) -> torch.Tensor:
-        return _ordered_sum(self._gather(buf, axes))[None]
+        out = _ordered_sum(self._gather(buf, axes))[None]
+        if _walk.ACTIVE is not None:
+            _note(self, "psum", axes, out)
+        return out
 
     def psum_scatter(self, buf: torch.Tensor, axes, dim: int = 0,
                      tiled: bool = False) -> torch.Tensor:
         recv = self._a2a_parts(buf, axes, dim)
         s = _ordered_sum(recv)
-        return (s if tiled else s.squeeze(dim))[None]
+        out = (s if tiled else s.squeeze(dim))[None]
+        if _walk.ACTIVE is not None:
+            _note(self, "psum_scatter", axes, out)
+        return out
 
     def all_gather(self, t: torch.Tensor, axes=None, dim: int = 0,
                    tiled: bool = False) -> torch.Tensor:
@@ -397,10 +445,14 @@ class GroupComm(_NamedMesh):
         `axes`: every member's buffer on a new per-rank dim `dim` (or
         concatenated along it, `tiled`)."""
         if axes is None:
-            return self._all_gather_rows(t)
-        parts = self._gather(t, axes)
-        out = torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
-        return out[None]
+            out = self._all_gather_rows(t)
+        else:
+            parts = self._gather(t, axes)
+            out = (torch.cat(parts, dim) if tiled
+                   else torch.stack(parts, dim))[None]
+        if _walk.ACTIVE is not None:
+            _note(self, "all_gather", axes, out, whole=axes is None)
+        return out
 
     def _a2a_parts(self, buf: torch.Tensor, axes, dim: int) -> list:
         """Chunk j of `dim` to member j; the chunks received, in group

@@ -41,6 +41,17 @@ GQA group's query heads.  Without grad (serving, its CUDA graphs) the
 wrapper launches K4 exactly as before.  On the CPU, autograd
 differentiates `attention_ref` itself.
 
+The dry run (`launch.dryrun`) runs the models on the `meta` device.  There
+the wrapper computes nothing: it makes the launch's checks and returns an
+empty output of its shape and type, through the autograd Function as on
+the card, so `flash_attention_bwd` runs on meta as it is.  Each launch,
+and each meta stand-in for one, reports to the active walker
+(`analysis.hlo_walk`) under "K4": the operations of the (query, key) pairs
+the mask admits (`admitted_pairs`; 4 D a pair, QK^T and PV, an fma counted
+as 2), q, k and v read once and the output written once (`PERF.md` §6's
+bound), and the reference's dot FLOPs, 4 B H Sq Sk D: its attention is
+plain XLA dots over every pair.
+
 `launches` counts kernel launches: the wrapper adds one where it launches
 the kernel, and nowhere else.  `backward_calls` counts the Function's
 backward passes (PyTorch work, no kernel of this module).
@@ -52,11 +63,12 @@ import functools
 
 import torch
 
+from repro_torch.analysis import hlo_walk
 from repro_torch.kernels.build import library
 
 __all__ = ["flash_attention", "flash_attention_bwd", "attention_ref",
-           "attention_rounded_ref", "attention_tiled_ref", "HEAD_DIMS",
-           "BLOCK_K", "NEG_INF"]
+           "attention_rounded_ref", "attention_tiled_ref", "admitted_pairs",
+           "HEAD_DIMS", "BLOCK_K", "NEG_INF"]
 
 HEAD_DIMS = (32, 64, 128, 256)  # the head sizes the kernel is built for
 # keys per tile of the bfloat16 kernel, by head size (csrc: Layout<D>::kBK)
@@ -181,6 +193,35 @@ def _check(q, k, v, causal, window):
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
 
 
+def admitted_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """(query, key) pairs of one head that the causal mask and the window
+    admit (every pair unmasked, Sk keys)."""
+    if not causal:
+        return Sq * Sk
+    w = min(window or Sq, Sq)
+    return w * (w + 1) // 2 + (Sq - w) * w
+
+
+def _report(q, k, causal, window) -> None:
+    """One launch of K4 for the active walker (see the module docstring)."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    nbyte = q.element_size()
+    hlo_walk.report_kernel(
+        "K4", operations=4.0 * D * admitted_pairs(Sq, Sk, causal, window)
+        * B * H, read_bytes=nbyte * (B * H * Sq * D + 2.0 * B * Hkv * Sk * D),
+        write_bytes=nbyte * B * H * Sq * D,
+        dot_flops=4.0 * B * H * Sq * Sk * D)
+
+
+def _misaligned(t) -> int:
+    """Bytes past a 16-byte boundary where t's data starts (on meta, from
+    its storage offset: the allocator's blocks are 512-byte aligned)."""
+    if t.device.type == "meta":
+        return t.storage_offset() * t.element_size() % 16
+    return t.data_ptr() % 16
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = library("attention.cu")
@@ -196,7 +237,8 @@ def _lib():
 
 
 def _launch(q, k, v, causal, window):
-    """K4 on the current stream: checked CUDA tensors -> o."""
+    """K4 on the current stream: checked CUDA tensors -> o (meta tensors:
+    an empty o, the launch reported; nothing runs)."""
     global launches
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
@@ -206,11 +248,14 @@ def _launch(q, k, v, causal, window):
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
+            if _misaligned(t):
                 raise ValueError(f"flash_attention: {name} must be 16-byte "
                                  f"aligned in bfloat16 (TMA)")
     out = torch.empty_like(q)
     if out.numel() == 0:
+        return out
+    if q.device.type == "meta":
+        _report(q, k, causal, window)
         return out
     dev = q.device
     lib = _lib()
@@ -225,6 +270,7 @@ def _launch(q, k, v, causal, window):
         raise RuntimeError("attention kernel launch failed: "
                            + lib.repro_attention_error_string(err).decode())
     launches += 1
+    _report(q, k, causal, window)
     return out
 
 
@@ -300,12 +346,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     `attention_ref`; CUDA tensors (contiguous, D in `HEAD_DIMS`, bfloat16
     ones 16-byte aligned for the TMA) launch K4 on the current stream,
     raising if the launch fails, through the autograd Function when grad
-    mode is on and an input requires grad; any other device raises."""
+    mode is on and an input requires grad; meta tensors take the same
+    route and compute nothing (the dry run's); any other device raises."""
     _check(q, k, v, causal, window)
     dev = q.device
     if dev.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {dev}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

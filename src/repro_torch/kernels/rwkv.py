@@ -28,6 +28,19 @@ token by token (never by dividing by w).  Without grad (serving, its CUDA
 graphs) the wrapper launches K5 exactly as before.  On the CPU, autograd
 differentiates `wkv_ref` itself.
 
+The dry run (`launch.dryrun`) runs the models on the `meta` device.  There
+the wrapper prepares its inputs as on the card and returns empty outputs of
+the launch's shapes and types, through the autograd Function as on the
+card (`wkv_bwd` runs on meta as it is), and computes nothing.  Each launch,
+and each meta stand-in for one, reports to the active walker
+(`analysis.hlo_walk`) under "K5": 5 operations per (token, head, i, j),
+r, k, v, w read and y written once per (token, head, channel) and the
+state read and written once (`PERF.md` §6's bound), and the dot FLOPs of
+the reference's chunkwise `wkv_chunked` over chunks of c = min(64, C): per
+batch-head and token 4 D^2 + 4 c D + 2 D (the inter-chunk product, the
+intra-chunk scores and their product with v, the bonus term, the state
+update).
+
 `launches` counts kernel launches: the wrapper adds one where it launches
 the kernel, and nowhere else.  `backward_calls` counts the Function's
 backward passes (PyTorch work, no kernel of this module).
@@ -39,6 +52,7 @@ import functools
 
 import torch
 
+from repro_torch.analysis import hlo_walk
 from repro_torch.kernels.build import library
 
 __all__ = ["wkv_chunk", "rwkv6_wkv", "wkv_ref", "wkv_bwd",
@@ -46,6 +60,7 @@ __all__ = ["wkv_chunk", "rwkv6_wkv", "wkv_ref", "wkv_bwd",
 
 HEAD_DIMS = (32, 64, 128)       # the head sizes the kernel is built for
 _SMS = 132                      # streaming multiprocessors of an H100
+REF_CHUNK = 64                  # the reference's wkv_chunked chunk
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -108,8 +123,22 @@ def wkv_launch_params(BH: int, C: int, D: int) -> tuple:
 
 def _aligned(t):
     """t, or a copy of it if its data is not 16-byte aligned (the kernel
-    reads r, k, v and w 16 bytes at a time)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    reads r, k, v and w 16 bytes at a time; on meta the offset into its
+    storage tells, the allocator's blocks being 512-byte aligned)."""
+    off = (t.storage_offset() * t.element_size() if t.device.type == "meta"
+           else t.data_ptr())
+    return t if off % 16 == 0 else t.clone()
+
+
+def _report(r) -> None:
+    """One launch of K5 for the active walker (see the module docstring)."""
+    BH, C, D = r.shape
+    nbyte, c = r.element_size(), min(REF_CHUNK, C)
+    hlo_walk.report_kernel(
+        "K5", operations=5.0 * BH * C * D * D,
+        read_bytes=BH * C * D * (3.0 * nbyte + 4) + 4.0 * BH * D * D,
+        write_bytes=BH * C * D * float(nbyte) + 4.0 * BH * D * D,
+        dot_flops=BH * C * (4.0 * D * D + 4.0 * c * D + 2.0 * D))
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,12 +154,16 @@ def _lib():
 
 def _launch(r, k, v, w, u, state):
     """K5 on the current stream over prepared CUDA tensors (r/k/v
-    contiguous and aligned, w, u and state float32) -> (y, new state)."""
+    contiguous and aligned, w, u and state float32) -> (y, new state)
+    (meta tensors: empty outputs, the launch reported; nothing runs)."""
     global launches
     BH, C, D = r.shape
     G, JC, JL, TC = wkv_launch_params(BH, C, D)
     y = torch.empty_like(r)
     s1 = torch.empty_like(state)
+    if r.device.type == "meta":
+        _report(r)
+        return y, s1
     dev = r.device
     lib = _lib()
     with torch.cuda.device(dev):
@@ -143,6 +176,7 @@ def _launch(r, k, v, w, u, state):
         raise RuntimeError("wkv kernel launch failed: "
                            + lib.repro_wkv_error_string(err).decode())
     launches += 1
+    _report(r)
     return y, s1
 
 
@@ -217,14 +251,15 @@ def wkv_chunk(r, k, v, w, u, state):
     new state (BH, D, D) float32).  CPU tensors run `wkv_ref`; CUDA tensors
     (D in `HEAD_DIMS`; w, u and state are taken as float32) launch K5 on the
     current stream, raising if the launch fails, through the autograd
-    Function when grad mode is on and an input requires grad; any other
+    Function when grad mode is on and an input requires grad; meta tensors
+    take the same route and compute nothing (the dry run's); any other
     device raises."""
     _check(r, k, v, w, u, state)
     dev = r.device
     if dev.type == "cpu":
         y, s1 = wkv_ref(r, k, v, w, u, state)
         return y, s1.float()
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"wkv: unsupported device {dev}")
     r, k, v = (_aligned(t.contiguous()) for t in (r, k, v))
     w = _aligned(w.float().contiguous())

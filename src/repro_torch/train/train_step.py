@@ -49,7 +49,7 @@ from repro_torch.models.params import map_tree, tree_leaves, tree_unflatten
 from repro_torch.sharding.parallel import NONE, Parallelism
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
-__all__ = ["make_train_step", "value_and_grad"]
+__all__ = ["make_train_step", "value_and_grad", "reduction_axes"]
 
 
 def value_and_grad(params, batch, cfg, par=NONE):
@@ -109,6 +109,18 @@ def _data_ranks(par: Parallelism, cfg):
     return red, local, True
 
 
+def reduction_axes(par: Parallelism) -> tuple:
+    """(inner, outer) axes of the gradient reduction: the inner data axes
+    then the pod axis with `par.hierarchical` and a pod axis among the data
+    axes, else (every data axis, None), one flat all-reduce."""
+    dp = tuple(par.data_axes)
+    pod = par.pod_axis if par.pod_axis in dp else None
+    inner = tuple(a for a in dp if a != pod)
+    if par.hierarchical and pod is not None and len(inner) > 0:
+        return (inner[0] if len(inner) == 1 else inner), pod
+    return dp, None
+
+
 def make_train_step(model_or_cfg, opt_cfg: AdamWConfig = AdamWConfig(),
                     n_micro: int = 1, par: Parallelism = NONE):
     """train_step(params, opt_state, batch) -> (params, opt_state,
@@ -123,13 +135,7 @@ def make_train_step(model_or_cfg, opt_cfg: AdamWConfig = AdamWConfig(),
     parallel = par.mesh is not None and par.dp_size() > 1
     if parallel:
         red, local, stacked = _data_ranks(par, cfg)
-        dp = tuple(par.data_axes)
-        pod = par.pod_axis if par.pod_axis in dp else None
-        inner = tuple(a for a in dp if a != pod)
-        hier = par.hierarchical and pod is not None and len(inner) > 0
-        # hierarchical: inner data axes, then the pod axis; else flat
-        inner, outer = ((inner[0] if len(inner) == 1 else inner, pod)
-                        if hier else (dp, None))
+        inner, outer = reduction_axes(par)
 
     def reduced(params, batch):
         n_dp = par.dp_size()

@@ -37,7 +37,10 @@ every warps candidate gives the heuristic's bits, the stream route's
 sweep, and a graphed session replaying the warps its cache file names
 (the file under pytest's tmp directory for every test here).  The sharding tier: dbrx-smoke's expert-parallel
 MoE on a mesh stacked on the card against the same mesh on the CPU, and a
-graphed decode step under that mesh against the eager one.
+graphed decode step under that mesh against the eager one.  The dry run:
+K4's (forward, backward, D = 256, windowed, unmasked) and K5's (with and
+without its backward) meta stand-ins report what the walker
+(`analysis.hlo_walk`) counts of the same calls on the card, exactly.
 """
 import json
 import os
@@ -1527,3 +1530,92 @@ def test_graphed_decode_under_a_stacked_mesh_on_card(cuda_device):
     assert eng.graph and eng.decode_call.graph is not None
     assert sorted(outs[1]) == list(range(8)) and outs[0] == outs[1]
     assert "K4" not in eng.decode_call.launches
+
+
+# ---- the dry run's meta stand-ins against the same calls on the card ----
+def _walked(device_type, fn, inputs):
+    """Run fn on leaves of `inputs` under a walker of `device_type`: its
+    result and its peak above the inputs."""
+    from repro_torch.analysis.hlo_walk import Walker
+    leaves = [t.detach().clone().requires_grad_(t.requires_grad)
+              for t in inputs]
+    with Walker(device_type) as w:
+        held = w.track(leaves)
+        fn(*leaves)
+    return w.result(), w.peak_raw - held
+
+
+def _meta_like(ts):
+    return [torch.empty(t.shape, dtype=t.dtype, device="meta",
+                        requires_grad=t.requires_grad) for t in ts]
+
+
+@pytest.mark.parametrize("case", ["forward", "backward", "d256", "window",
+                                  "unmasked"])
+def test_k4_meta_report_matches_card_walk(cuda_device, case):
+    """K4's meta stand-in reports what the walker counts of the same call
+    on the card (its launch, forward and backward): dot FLOPs, bytes
+    written and read, the kernel's launches, operations and bytes, and
+    the peak of live bytes."""
+    rng = np.random.default_rng(7)
+    B, H, Hkv, S, D = 2, 8, 2, 384, 128
+    Sk, causal, window = S, True, None
+    D = 256 if case == "d256" else D
+    window = 128 if case == "window" else None
+    if case == "unmasked":
+        Sk, causal = 640, False
+    grad = case == "backward"
+    bf = torch.bfloat16
+    q = _normal(rng, (B, H, S, D), bf, cuda_device).requires_grad_(grad)
+    k, v = (_normal(rng, (B, Hkv, Sk, D), bf, cuda_device)
+            .requires_grad_(grad) for _ in range(2))
+    do = _normal(rng, (B, H, S, D), bf, cuda_device)
+
+    def call(do):
+        def fn(q, k, v):
+            o = kattn.flash_attention(q, k, v, causal=causal, window=window)
+            if grad:
+                torch.autograd.grad(o, [q, k, v], do)
+        return fn
+
+    launches = kattn.launches
+    card, card_peak = _walked("cuda", call(do), (q, k, v))
+    assert kattn.launches == launches + 1
+    meta, meta_peak = _walked("meta", call(_meta_like([do])[0]),
+                              _meta_like((q, k, v)))
+    assert kattn.launches == launches + 1
+    assert card["port"]["kernels"]["K4"]["launches"] == 1
+    for key in ("dot_flops", "result_bytes"):
+        assert meta[key] == card[key], key
+    assert meta["port"]["kernels"] == card["port"]["kernels"]
+    assert meta["port"]["read_bytes"] == card["port"]["read_bytes"]
+    assert meta_peak == card_peak
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_k5_meta_report_matches_card_walk(cuda_device, grad):
+    rng = np.random.default_rng(8)
+    ins = _wkv_inputs(rng, 8, 160, 64, torch.bfloat16, cuda_device,
+                      random_state=True)
+    ins = [t.requires_grad_(grad) for t in ins]
+    dy = _normal(rng, (8, 160, 64), torch.bfloat16, cuda_device)
+    ds = _normal(rng, (8, 64, 64), torch.float32, cuda_device)
+
+    def call(dy, ds):
+        def fn(*args):
+            y, s1 = krwkv.wkv_chunk(*args)
+            if grad:
+                torch.autograd.grad((y, s1), list(args), (dy, ds))
+        return fn
+
+    launches = krwkv.launches
+    card, card_peak = _walked("cuda", call(dy, ds), ins)
+    assert krwkv.launches == launches + 1
+    meta, meta_peak = _walked("meta", call(*_meta_like((dy, ds))),
+                              _meta_like(ins))
+    assert card["port"]["kernels"]["K5"]["launches"] == 1
+    for key in ("dot_flops", "result_bytes"):
+        assert meta[key] == card[key], key
+    assert meta["port"]["kernels"] == card["port"]["kernels"]
+    assert meta["port"]["read_bytes"] == card["port"]["read_bytes"]
+    assert meta_peak == card_peak
