@@ -3646,7 +3646,8 @@ def dryrun_on_card(torch, kattn, krwkv, dev, card) -> dict:
               f"(lower {rec['lower_s']} s, meta run {rec['compile_s']} s); "
               f"rank batch {port['rank_batch']}"
               f"{', n_micro ' + str(rec['n_micro']) if 'n_micro' in rec else ''}"
-              f"; per rank: dot FLOPs {rec['walked']['dot_flops']:.6e}, "
+              f"; per rank: dot FLOPs {rec['walked']['dot_flops']:.6e} "
+              f"(as the card runs them {port['dot_flops_card']:.6e}), "
               f"result bytes {rec['walked']['result_bytes']:.6e}, "
               f"collective bytes {rec['collectives']['total_bytes']}, "
               f"arguments {m['argument_size_in_bytes']} B under the "
@@ -3701,6 +3702,8 @@ def dryrun_on_card(torch, kattn, krwkv, dev, card) -> dict:
         rs = roofline_from_artifact(rec, pred, chip=H100_SXM)
         print(f"    card {card}: walked run {t_walk:.2f} s; dot FLOPs "
               f"{got['dot_flops']:.6e} (meta {pred['dot_flops']:.6e}), "
+              f"as the card runs them {got['port']['dot_flops_card']:.6e} "
+              f"(meta {pred['port']['dot_flops_card']:.6e}), "
               f"result bytes {got['result_bytes']:.6e} (meta "
               f"{pred['result_bytes']:.6e}), read bytes "
               f"{got['port']['read_bytes']:.6e} (meta "
@@ -3722,12 +3725,15 @@ def dryrun_on_card(torch, kattn, krwkv, dev, card) -> dict:
                 raise AssertionError(f"{arch} {shape_name}: {key} on the "
                                      f"card {got[key]} != meta {pred[key]}")
         if got["port"]["read_bytes"] != pred["port"]["read_bytes"] or \
+                got["port"]["dot_flops_card"] != \
+                pred["port"]["dot_flops_card"] or \
                 got["port"]["kernels"] != pred["port"]["kernels"] or \
                 got["collective_bytes"] != pred["collective_bytes"] or \
                 held_c != held:
-            raise AssertionError(f"{arch} {shape_name}: read bytes, kernels, "
-                                 f"collectives or arguments differ between "
-                                 f"the card and meta")
+            raise AssertionError(f"{arch} {shape_name}: read bytes, the "
+                                 f"card's dot FLOPs, kernels, collectives "
+                                 f"or arguments differ between the card "
+                                 f"and meta")
         if abs(predicted - measured) > DRYRUN_PEAK_TOL * measured:
             raise AssertionError(f"{arch} {shape_name}: predicted peak "
                                  f"{predicted} B is more than "

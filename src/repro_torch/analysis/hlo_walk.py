@@ -11,8 +11,10 @@ manager, counts what that program dispatches:
   dot_flops      2 * prod(result) * contracted over every product that
                  reaches the dispatcher (`mm`, `bmm`, `addmm`, `baddbmm`,
                  `addbmm`, `mv`, `addmv`, `dot`; `einsum` and `matmul`
-                 arrive as these), plus what the hand-written kernels
-                 report (K4, K5: their `kernels` entry, below);
+                 arrive as these), plus the reference's dot FLOPs for
+                 what the hand-written kernels compute (K4: every
+                 (query, key) pair; K5: the chunkwise products), so that
+                 the figure keeps the reference's convention;
   result_bytes   the bytes each op writes: a new output's bytes, the
                  written part of an in-place or out= op (the source of an
                  indexed write), the kernels' outputs; views, reshapes that
@@ -32,7 +34,11 @@ instead (`analysis/check_counters.py`).
 
 The port's own figures go under `port` in `result()`: per kernel its
 launches, the operations its mask admits and its bytes (inputs read once,
-outputs written once, the formulas of `PERF.md` §6's bounds); `read_bytes`
+outputs written once, the formulas of `PERF.md` §6's bounds);
+`dot_flops_card`, the products as the card runs them (`dot_flops` with
+each kernel's operations in place of the reference's dots, so K4 counts
+only the pairs its mask admits), which the roofline's H100 compute term
+reads; `read_bytes`
 (the tensors each counted op reads); and `peak_bytes`, the most bytes live
 at once on the walked device.  Peak bytes follow storage lifetimes: an op's
 output on a storage none of its inputs holds adds that storage's bytes
@@ -57,32 +63,33 @@ differs).
 Stacked ranks.  Where one process runs several ranks' work on stacked
 (L, ...) buffers (the expert-parallel MoE over a model axis,
 `models/moe.py`; a gradient reduction over stacked data ranks), the code
-opens `stacked(L)` around it.  `result()` gives per-rank figures: what
-runs outside such a scope counts as it is, what runs inside counts 1/L of
-it, and so do the backwards of the autograd nodes made inside (the scope
-marks them, and the walker reads the node the engine is running); a
-storage allocated there adds 1/L of its bytes to the per-rank live bytes.
+opens `obs.cost.stacked(L)` around it.  `result()` gives per-rank figures:
+what runs outside such a scope counts as it is, what runs inside counts
+1/L of it, and so do the backwards of the autograd nodes made inside
+(the scope marks them, and the walker reads the node the engine is
+running); a storage allocated there adds 1/L of its bytes to the per-rank
+live bytes.
 Collective records are per rank already and are never divided.  The
 totals as run are `result()["port"]["stacked"]`.
 
-`ACTIVE` is the walker in force (None outside one); the communicators and
-the kernels' wrappers check it and report to it, and cost one `None` check
-without a walker.
+While it runs the walker is `obs.cost.ACTIVE`, the hook that the
+communicators, the kernels' wrappers and the stacked scopes report
+through; without a walker they cost one `None` check.
 """
 from __future__ import annotations
 
 import weakref
 from collections import defaultdict
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager
 
 import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["Walker", "ACTIVE", "stacked", "report_kernel", "crosses_pod",
-           "CATEGORY", "BLOCK"]
+from repro_torch.analysis.hlo import collective_bytes
+from repro_torch.obs import cost
 
-ACTIVE = None
+__all__ = ["Walker", "crosses_pod", "CATEGORY", "BLOCK"]
 
 # the reference's five categories, by the communicators' method names
 CATEGORY = {"psum": "all-reduce", "psum_scatter": "reduce-scatter",
@@ -149,10 +156,12 @@ def _schema(func):
 
 
 class _Counts:
-    __slots__ = ("dot_flops", "result_bytes", "read_bytes", "kernels")
+    __slots__ = ("dot_flops", "card_flops", "result_bytes", "read_bytes",
+                 "kernels")
 
     def __init__(self):
         self.dot_flops = 0.0
+        self.card_flops = 0.0
         self.result_bytes = 0.0
         self.read_bytes = 0.0
         self.kernels = defaultdict(lambda: {"launches": 0.0,
@@ -160,6 +169,7 @@ class _Counts:
 
     def as_dict(self) -> dict:
         return {"dot_flops": self.dot_flops,
+                "dot_flops_card": self.card_flops,
                 "result_bytes": self.result_bytes,
                 "read_bytes": self.read_bytes,
                 "kernels": {k: dict(v) for k, v in sorted(
@@ -210,7 +220,7 @@ class _FusedRmsNorm(torch.autograd.Function):
 
 
 def _fused_counts(reads, writes) -> None:
-    w = ACTIVE
+    w = cost.ACTIVE
     if w is not None:
         w._add(w._ranks(),
                result_bytes=sum(_nbytes(t) for t in writes if t is not None),
@@ -254,16 +264,14 @@ class Walker(TorchDispatchMode):
 
     # ---- context -------------------------------------------------------
     def __enter__(self):
-        global ACTIVE
-        self._prev, ACTIVE = ACTIVE, self
+        self._prev, cost.ACTIVE = cost.ACTIVE, self
         self._decomp = _CardDecomp() if self.device_type == "meta" else None
         if self._decomp is not None:
             self._decomp.__enter__()
         return super().__enter__()
 
     def __exit__(self, *exc):
-        global ACTIVE
-        ACTIVE = self._prev
+        cost.ACTIVE = self._prev
         out = super().__exit__(*exc)
         if self._decomp is not None:
             self._decomp.__exit__(*exc)
@@ -356,7 +364,8 @@ class Walker(TorchDispatchMode):
             written += sum(_nbytes(t) for t in fresh)
             if written:
                 read = sum(_nbytes(t) for t in ins if self._on_device(t))
-        self._add(L, dot_flops=flops, result_bytes=written, read_bytes=read)
+        self._add(L, dot_flops=flops, card_flops=flops, result_bytes=written,
+                  read_bytes=read)
         for t in fresh:
             if self._on_device(t):
                 self._alloc(t, L)
@@ -367,6 +376,7 @@ class Walker(TorchDispatchMode):
                write_bytes: float, dot_flops: float) -> None:
         L = self._ranks()
         self._add(L, dot_flops=float(dot_flops),
+                  card_flops=float(operations),
                   result_bytes=float(write_bytes),
                   read_bytes=float(read_bytes))
         for c, div in ((self.raw, 1), (self.rank, L)):
@@ -386,7 +396,9 @@ class Walker(TorchDispatchMode):
                              "inter_pod": self._pods[key]})
 
     @contextmanager
-    def _stacked(self, L: int):
+    def stacked(self, L: int):
+        """A scope of L stacked ranks (see the module docstring); opened
+        through `obs.cost.stacked`."""
         if self._L > 1 or int(L) <= 1:          # nested, or one rank
             yield
             return
@@ -403,29 +415,25 @@ class Walker(TorchDispatchMode):
         read bytes and peak bytes (tracked arguments included) per rank,
         and the same figures as run (`port.stacked`, with the stacked rank
         counts seen)."""
-        coll_b, coll_n = defaultdict(float), defaultdict(float)
-        inter = intra = 0.0
-        for r in self.records:
-            coll_b[r["category"]] += r["bytes"]
-            coll_n[r["category"]] += 1
-            if r["inter_pod"]:
-                inter += r["bytes"]
-            else:
-                intra += r["bytes"]
+        coll = collective_bytes(self.records)
+        inter = sum(r["bytes"] for r in self.records if r["inter_pod"])
         rank, raw = self.rank.as_dict(), self.raw.as_dict()
         return {
-            "collective_bytes": dict(coll_b),
-            "collective_counts": dict(coll_n),
-            "total_collective_bytes": sum(coll_b.values()),
-            "inter_pod_bytes": inter, "intra_pod_bytes": intra,
+            "collective_bytes": coll["bytes"],
+            "collective_counts": coll["counts"],
+            "total_collective_bytes": coll["total_bytes"],
+            "inter_pod_bytes": inter,
+            "intra_pod_bytes": coll["total_bytes"] - inter,
             "dot_flops": rank["dot_flops"],
             "result_bytes": rank["result_bytes"],
             "port": {
                 "kernels": rank["kernels"],
+                "dot_flops_card": rank["dot_flops_card"],
                 "read_bytes": rank["read_bytes"],
                 "peak_bytes": int(round(self.peak_rank)),
                 "stacked": {"ranks": sorted(self.ranks_seen),
                             "dot_flops": raw["dot_flops"],
+                            "dot_flops_card": raw["dot_flops_card"],
                             "result_bytes": raw["result_bytes"],
                             "read_bytes": raw["read_bytes"],
                             "peak_bytes": int(self.peak_raw),
@@ -449,23 +457,6 @@ def _source_bytes(packet, args, kwargs) -> int:
     self_, dim, idx = args[0], args[1], args[2]
     per = self_.numel() // max(self_.shape[dim], 1)
     return idx.numel() * per * self_.element_size()
-
-
-def stacked(L: int):
-    """Open a scope of L stacked ranks in the active walker (see the module
-    docstring); a no-op without one."""
-    w = ACTIVE
-    if w is None:
-        return nullcontext()
-    return w._stacked(L)
-
-
-def report_kernel(name: str, **counts) -> None:
-    """A hand-written kernel's launch (or its meta stand-in), reported to
-    the active walker; nothing without one."""
-    w = ACTIVE
-    if w is not None:
-        w.kernel(name, **counts)
 
 
 def _pod_size(mesh) -> int | None:

@@ -81,7 +81,7 @@ def dryrun_table(recs, pod):
     return "\n".join(lines)
 
 
-def roofline_table(recs, chip=H100_SXM, advice=ADVICE):
+def roofline_table(recs, chip=H100_SXM):
     lines = [
         "| arch | shape | compute ms | memory ms | collective ms | dominant | "
         "roofline frac | useful ratio | what would move the dominant term |",
@@ -102,7 +102,7 @@ def roofline_table(recs, chip=H100_SXM, advice=ADVICE):
     for r, rr in rows:
         fam = get_config(r["arch"]).family
         fam_key = "moe" if fam == "moe" else "dense"
-        hint = advice.get((fam_key, rr["dominant"]),
+        hint = ADVICE.get((fam_key, rr["dominant"]),
                           "overlap/shard the dominant mover")
         lines.append(
             f"| {rr['arch']} | {rr['shape']} | {rr['compute_s']*1e3:.2f} | "
@@ -112,7 +112,7 @@ def roofline_table(recs, chip=H100_SXM, advice=ADVICE):
     return "\n".join(lines)
 
 
-def placement_table(recs, chip=H100_SXM):
+def placement_table(recs):
     """Per (arch, shape), one rank in the (16, 16) / (2, 16, 16) layouts:
     argument GB under the reference's shardings, GB the port holds, the
     port's peak GB, whether the peak fits 80 GB, and the (16, 16) rank's
@@ -135,7 +135,7 @@ def placement_table(recs, chip=H100_SXM):
         one = by.get("1pod")
         terms = "–"
         if one is not None:
-            rr = roofline_from_artifact(one, one["walked"], chip=chip)
+            rr = roofline_from_artifact(one, one["walked"])
             terms = (f"{rr['compute_s']*1e3:.1f} / {rr['memory_s']*1e3:.1f}"
                      f" / {rr['collective_s']*1e3:.1f}")
         lines.append(

@@ -6,10 +6,16 @@
     collective term = collective_bytes_per_rank / (links * link_bw)
 
 The formula is the reference's, unchanged.  FLOPs: the walked dot FLOPs of
-the rank's program (`analysis.hlo_walk`; the kernels K4 and K5 report the
-reference's dot FLOPs for what they compute).  Memory bytes: 2x the walked
-result bytes (reads ~ writes).  Collective bytes: the per-rank result bytes
-of the communicators' collectives.
+the rank's program (`analysis.hlo_walk`).  Those come in two conventions.
+`dot_flops` is the reference's: K4 and K5 report the reference's dots for
+what they compute, and the reference's attention is plain dots over every
+(query, key) pair.  `port.dot_flops_card` is the card's: each kernel's own
+operations in their place, so K4 counts only the pairs that its causal
+mask and window admit.  A `Chip` with `card_flops` (the H100) reads the
+card's figure where the artifact or the walk has one; the v5e constants
+read the reference's.  Memory bytes: 2x the walked result bytes (reads ~
+writes).  Collective bytes: the per-rank result bytes of the
+communicators' collectives.
 
 The card's constants are a frozen `Chip`.  `H100_SXM` is the default: one
 NVIDIA H100 SXM5 80GB at its full 700 W (NVIDIA H100 Tensor Core GPU data
@@ -40,10 +46,13 @@ class Chip:
     hbm_bw: float               # B/s
     link_bw: float              # B/s per link, one direction
     n_links: int
+    card_flops: bool            # the kernels' own FLOPs, not the reference's
 
 
-H100_SXM = Chip("NVIDIA H100 SXM5 80GB (700 W)", 989e12, 3.35e12, 25e9, 18)
-V5E = Chip("TPU v5e (the reference's constants)", 197e12, 819e9, 50e9, 3)
+H100_SXM = Chip("NVIDIA H100 SXM5 80GB (700 W)", 989e12, 3.35e12, 25e9, 18,
+                True)
+V5E = Chip("TPU v5e (the reference's constants)", 197e12, 819e9, 50e9, 3,
+           False)
 
 
 @dataclass
@@ -94,6 +103,9 @@ def roofline_from_artifact(rec: dict, walked: dict | None = None,
         flops_dev = rec.get("flops") or 0.0
         mem_dev = rec.get("bytes_accessed") or 0.0
         coll_dev = rec["collectives"]["total_bytes"]
+    if chip.card_flops:
+        src = walked if walked is not None and "port" in walked else rec
+        flops_dev = src.get("port", {}).get("dot_flops_card", flops_dev)
     r = Roofline(
         compute_s=flops_dev / chip.peak_flops,
         memory_s=mem_dev / chip.hbm_bw,

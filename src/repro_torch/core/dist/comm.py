@@ -55,7 +55,7 @@ data-parallel train step use these, on the same (L, ...) buffers:
 Every sum adds the members' values one at a time in group order, so a
 stacked and a group run give the same bits.
 
-While a walker of `analysis.hlo_walk` is active (the dry run, and its
+While a cost walker is active (`obs.cost.ACTIVE`: the dry run, and its
 check on the card), every collective call records itself there: its
 category (all-reduce, reduce-scatter, all-gather, all-to-all,
 collective-permute), the bytes of one rank's result (the reference's
@@ -71,7 +71,7 @@ import math
 
 import torch
 
-from repro_torch.analysis import hlo_walk as _walk
+from repro_torch.obs import cost as _cost
 
 __all__ = ["StackedComm", "GroupComm"]
 
@@ -156,7 +156,7 @@ def _note(comm, method: str, axes, out: torch.Tensor, whole: bool = False):
     """Record one collective in the active walker: one rank's result bytes
     (`whole`: every rank gets all of `out`)."""
     n = out.numel() * out.element_size()
-    _walk.ACTIVE.collective(comm, method, axes,
+    _cost.record_collective(comm, method, axes,
                             n if whole else n // len(comm.local_ranks))
 
 
@@ -208,7 +208,7 @@ class StackedComm(_NamedMesh):
         w = self._along(buf, ks)
         s = _ordered_sum(w.unbind(1))
         out = self._back(s.unsqueeze(1).expand_as(w), ks)
-        if _walk.ACTIVE is not None:
+        if _cost.ACTIVE is not None:
             _note(self, "psum", axes, out)
         return out
 
@@ -221,7 +221,7 @@ class StackedComm(_NamedMesh):
         s = _ordered_sum(w.unbind(1))                  # (O, G, c, ...)
         out = (self._back(s, ks).movedim(1, 1 + dim) if tiled
                else self._back(s.squeeze(2), ks))
-        if _walk.ACTIVE is not None:
+        if _cost.ACTIVE is not None:
             _note(self, "psum_scatter", axes, out)
         return out
 
@@ -232,7 +232,7 @@ class StackedComm(_NamedMesh):
         new per-rank dim `dim` (or concatenated along it, `tiled`)."""
         self._check(t)
         if axes is None:
-            if _walk.ACTIVE is not None:
+            if _cost.ACTIVE is not None:
                 _note(self, "all_gather", None, t, whole=True)
             return t
         ks = self._axes(axes)
@@ -242,7 +242,7 @@ class StackedComm(_NamedMesh):
             per = per.flatten(1 + dim, 2 + dim)
         out = self._back(per.unsqueeze(1).expand(-1, w.shape[1],
                                                  *per.shape[1:]), ks)
-        if _walk.ACTIVE is not None:
+        if _cost.ACTIVE is not None:
             _note(self, "all_gather", axes, out)
         return out
 
@@ -264,7 +264,7 @@ class StackedComm(_NamedMesh):
         self._check(buf)
         out = (self._a2a_axes(buf, axes, dim) if axes is not None
                else buf.transpose(0, 1).contiguous())
-        if _walk.ACTIVE is not None:
+        if _cost.ACTIVE is not None:
             _note(self, "all_to_all", axes, out)
         return out
 
@@ -296,7 +296,7 @@ class StackedComm(_NamedMesh):
                                        device=buf.device).T
                     self._perms[key] = idx
                 out[idx[1]] = buf[idx[0]]
-        if _walk.ACTIVE is not None:
+        if _cost.ACTIVE is not None:
             _note(self, "ppermute", axes, out)
         return out
 
@@ -350,7 +350,7 @@ class GroupComm(_NamedMesh):
             out = torch.empty_like(send)
             self._dist.all_to_all_single(out.view(-1), send.view(-1),
                                          group=self.group)
-        if _walk.ACTIVE is not None:
+        if _cost.ACTIVE is not None:
             _note(self, "all_to_all", axes, out)
         return out
 
@@ -359,7 +359,7 @@ class GroupComm(_NamedMesh):
             out = self._ppermute_axes(buf, perm, axes)
         else:
             out = self._ppermute_rows(buf, perm)
-        if _walk.ACTIVE is not None:
+        if _cost.ACTIVE is not None:
             _note(self, "ppermute", axes, out)
         return out
 
@@ -426,7 +426,7 @@ class GroupComm(_NamedMesh):
 
     def psum(self, buf: torch.Tensor, axes) -> torch.Tensor:
         out = _ordered_sum(self._gather(buf, axes))[None]
-        if _walk.ACTIVE is not None:
+        if _cost.ACTIVE is not None:
             _note(self, "psum", axes, out)
         return out
 
@@ -435,7 +435,7 @@ class GroupComm(_NamedMesh):
         recv = self._a2a_parts(buf, axes, dim)
         s = _ordered_sum(recv)
         out = (s if tiled else s.squeeze(dim))[None]
-        if _walk.ACTIVE is not None:
+        if _cost.ACTIVE is not None:
             _note(self, "psum_scatter", axes, out)
         return out
 
@@ -450,7 +450,7 @@ class GroupComm(_NamedMesh):
             parts = self._gather(t, axes)
             out = (torch.cat(parts, dim) if tiled
                    else torch.stack(parts, dim))[None]
-        if _walk.ACTIVE is not None:
+        if _cost.ACTIVE is not None:
             _note(self, "all_gather", axes, out, whole=axes is None)
         return out
 

@@ -46,7 +46,7 @@ the wrapper computes nothing: it makes the launch's checks and returns an
 empty output of its shape and type, through the autograd Function as on
 the card, so `flash_attention_bwd` runs on meta as it is.  Each launch,
 and each meta stand-in for one, reports to the active walker
-(`analysis.hlo_walk`) under "K4": the operations of the (query, key) pairs
+(`obs.cost`) under "K4": the operations of the (query, key) pairs
 the mask admits (`admitted_pairs`; 4 D a pair, QK^T and PV, an fma counted
 as 2), q, k and v read once and the output written once (`PERF.md` §6's
 bound), and the reference's dot FLOPs, 4 B H Sq Sk D: its attention is
@@ -63,8 +63,8 @@ import functools
 
 import torch
 
-from repro_torch.analysis import hlo_walk
 from repro_torch.kernels.build import library
+from repro_torch.obs import cost
 
 __all__ = ["flash_attention", "flash_attention_bwd", "attention_ref",
            "attention_rounded_ref", "attention_tiled_ref", "admitted_pairs",
@@ -207,7 +207,7 @@ def _report(q, k, causal, window) -> None:
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     nbyte = q.element_size()
-    hlo_walk.report_kernel(
+    cost.report_kernel(
         "K4", operations=4.0 * D * admitted_pairs(Sq, Sk, causal, window)
         * B * H, read_bytes=nbyte * (B * H * Sq * D + 2.0 * B * Hkv * Sk * D),
         write_bytes=nbyte * B * H * Sq * D,
@@ -255,7 +255,8 @@ def _launch(q, k, v, causal, window):
     if out.numel() == 0:
         return out
     if q.device.type == "meta":
-        _report(q, k, causal, window)
+        if cost.ACTIVE is not None:
+            _report(q, k, causal, window)
         return out
     dev = q.device
     lib = _lib()
@@ -270,7 +271,8 @@ def _launch(q, k, v, causal, window):
         raise RuntimeError("attention kernel launch failed: "
                            + lib.repro_attention_error_string(err).decode())
     launches += 1
-    _report(q, k, causal, window)
+    if cost.ACTIVE is not None:
+        _report(q, k, causal, window)
     return out
 
 

@@ -33,7 +33,7 @@ the wrapper prepares its inputs as on the card and returns empty outputs of
 the launch's shapes and types, through the autograd Function as on the
 card (`wkv_bwd` runs on meta as it is), and computes nothing.  Each launch,
 and each meta stand-in for one, reports to the active walker
-(`analysis.hlo_walk`) under "K5": 5 operations per (token, head, i, j),
+(`obs.cost`) under "K5": 5 operations per (token, head, i, j),
 r, k, v, w read and y written once per (token, head, channel) and the
 state read and written once (`PERF.md` §6's bound), and the dot FLOPs of
 the reference's chunkwise `wkv_chunked` over chunks of c = min(64, C): per
@@ -52,8 +52,8 @@ import functools
 
 import torch
 
-from repro_torch.analysis import hlo_walk
 from repro_torch.kernels.build import library
+from repro_torch.obs import cost
 
 __all__ = ["wkv_chunk", "rwkv6_wkv", "wkv_ref", "wkv_bwd",
            "wkv_launch_params", "HEAD_DIMS"]
@@ -134,7 +134,7 @@ def _report(r) -> None:
     """One launch of K5 for the active walker (see the module docstring)."""
     BH, C, D = r.shape
     nbyte, c = r.element_size(), min(REF_CHUNK, C)
-    hlo_walk.report_kernel(
+    cost.report_kernel(
         "K5", operations=5.0 * BH * C * D * D,
         read_bytes=BH * C * D * (3.0 * nbyte + 4) + 4.0 * BH * D * D,
         write_bytes=BH * C * D * float(nbyte) + 4.0 * BH * D * D,
@@ -162,7 +162,8 @@ def _launch(r, k, v, w, u, state):
     y = torch.empty_like(r)
     s1 = torch.empty_like(state)
     if r.device.type == "meta":
-        _report(r)
+        if cost.ACTIVE is not None:
+            _report(r)
         return y, s1
     dev = r.device
     lib = _lib()
@@ -176,7 +177,8 @@ def _launch(r, k, v, w, u, state):
         raise RuntimeError("wkv kernel launch failed: "
                            + lib.repro_wkv_error_string(err).decode())
     launches += 1
-    _report(r)
+    if cost.ACTIVE is not None:
+        _report(r)
     return y, s1
 
 

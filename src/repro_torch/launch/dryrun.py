@@ -64,7 +64,9 @@ the port's actual placement (`held_bytes`: every leaf whole, since the
 port has no GSPMD to keep dense weights, caches and activations sharded,
 `Parallelism.constrain` returning its input; a stacked data rank holds
 whole parameters), its peak (`peak_bytes`, against one 80 GB card:
-`fits_80gb`), the kernels' launches, operations and bytes, the step's and
+`fits_80gb`), the kernels' launches, operations and bytes, the dot FLOPs
+as the card runs them (`dot_flops_card`: the kernels' operations in place
+of the reference's dots, what the H100 roofline reads), the step's and
 the reduction's walks, and the stacked totals.  `save_artifact` writes no
 `.hlo.gz`: there is no HLO.  Failures are recorded as artifacts too.
 """
@@ -80,7 +82,7 @@ import traceback
 import torch
 
 from repro_torch.analysis.hlo import collective_bytes
-from repro_torch.analysis.hlo_walk import Walker, stacked
+from repro_torch.analysis.hlo_walk import Walker
 from repro_torch.configs import (SHAPES, cell_enabled, get_config,
                                  input_specs, list_archs)
 from repro_torch.configs.base import active_param_count, param_count
@@ -91,6 +93,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.params import (Sharding, map_tree, param_shardings,
                                        param_structs, tree_leaves)
 from repro_torch.models.registry import Model, init_weights, weight_structs
+from repro_torch.obs import cost
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_step import (_data_ranks, make_train_step,
                                           reduction_axes)
@@ -268,7 +271,7 @@ def _reduction(par, red, params) -> tuple:
     numel = sum(p.numel() for p in tree_leaves(params)) + 1
     stats: list = []
     with Walker("meta") as w:
-        with stacked(red.n_ranks):
+        with cost.stacked(red.n_ranks):
             buf = torch.empty((red.n_ranks, numel), dtype=torch.float32,
                               device="meta")
             out = hierarchical_all_reduce(buf, red, inner, outer,
@@ -388,6 +391,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
             "peak_bytes": int(peak),
             "fits_80gb": bool(peak <= CARD_BYTES),
             "kernels": kernels,
+            "dot_flops_card": step["port"]["dot_flops_card"] + (
+                red_walk["port"]["dot_flops_card"] if red_walk else 0.0),
             "read_bytes": read_bytes,
             "step": step,
             "reduction": (None if red_walk is None else

@@ -38,9 +38,9 @@ sublayers captures as one CUDA graph, under a stacked mesh too.  The router prod
 float32 as written: with `torch.backends.cuda.matmul.allow_tf32` left False
 (PyTorch's default) it is not rounded to TF32 on the card.
 
-On a stacked mesh the route runs inside `analysis.hlo_walk.stacked(L)`
-(L the mesh's ranks), so that the dry run's walker, when one is active,
-counts its work per rank (a no-op otherwise).
+On a stacked mesh the route runs inside `obs.cost.stacked(L)` (L the
+mesh's ranks), which tells an active cost walker that L ranks' work runs
+here (a no-op otherwise).
 
 `routing_log()` records, while it is open, each routing's expert choices,
 kept slots and top-k margins (one entry a `_moe_dense` call, one a rank
@@ -55,9 +55,9 @@ from contextlib import contextmanager
 import torch
 import torch.nn.functional as F
 
-from repro_torch.analysis import hlo_walk
 from repro_torch.core.dist.comm import StackedComm
 from repro_torch.models.params import ParamDef, Sharding
+from repro_torch.obs import cost
 from repro_torch.sharding.parallel import NONE
 
 __all__ = ["moe_defs", "moe_ffn", "routing_log"]
@@ -189,7 +189,7 @@ def _rank_blocks(mesh, w, specs):
 
 def _moe_shard_map(x, p, cfg, par):
     if isinstance(par.mesh, StackedComm):
-        with hlo_walk.stacked(par.mesh.n_ranks):
+        with cost.stacked(par.mesh.n_ranks):
             return _moe_ranks(x, p, cfg, par)
     return _moe_ranks(x, p, cfg, par)
 

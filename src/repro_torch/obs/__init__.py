@@ -43,6 +43,10 @@ Spans and counters sit outside every captured callable (`graphs.py`): a
 captured function's Python runs at capture only, never on a replay, so
 they would record the capture and miss every replay.
 
+`obs.cost` is apart from both: the hook through which kernels,
+communicators and stacked-rank code report their cost to a per-rank walker
+(`analysis.hlo_walk`) while one runs.
+
 `configure(enabled=False)` detaches the tracer but leaves recorded history
 readable via `get_tracer()`; `reset()` clears spans, events and metrics
 (the test-isolation hook).

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch.analysis import hlo, hlo_walk, report, roofline
+from repro_torch.obs import cost
 from repro_torch.configs import get_config
 from repro_torch.kernels import attention as kattn
 from repro_torch.kernels import rwkv as krwkv
@@ -45,7 +46,7 @@ def test_walker_exact_on_seven_trip_loop():
     mesh = make_mesh_compat((2, 4), ("data", "model"), "meta")
     a, w = meta(8, 128, 512), meta(8, 512, 128)
     with hlo_walk.Walker() as walk:
-        with hlo_walk.stacked(8):
+        with cost.stacked(8):
             c = a
             for _ in range(7):
                 c = mesh.all_gather(torch.bmm(c, w), "model", dim=1,
@@ -113,7 +114,7 @@ def test_stacked_scope_counts_per_rank_with_its_backward():
     wt = meta(8, 8, grad=True)
     with hlo_walk.Walker() as w:
         h = torch.matmul(x.reshape(32, 8), wt)            # outside: whole
-        with hlo_walk.stacked(4):
+        with cost.stacked(4):
             y = torch.bmm(h.reshape(4, 8, 8), h.reshape(4, 8, 8))
             s = y.sum()
         g = torch.autograd.grad(s * 2, [x, wt])
@@ -155,11 +156,17 @@ def test_k4_meta_report(case):
     assert kern == {"launches": 1, "operations": 4.0 * D * pairs * B * H,
                     "bytes": 2.0 * (2 * B * H * S * D + 2 * B * Hkv * Sk * D)}
     ref_dots = 4.0 * B * H * S * Sk * D
+    res = w.result()
     if not grad:
-        assert w.result()["dot_flops"] == ref_dots
+        assert res["dot_flops"] == ref_dots
+        assert res["port"]["dot_flops_card"] == kern["operations"]
     else:   # the PyTorch backward's products over all pairs: S = QK^T
         # again, dV, dP = dO V^T, dQ, dK, each half the forward's two
-        assert w.result()["dot_flops"] == ref_dots + 2.5 * ref_dots
+        assert res["dot_flops"] == ref_dots + 2.5 * ref_dots
+        assert res["port"]["dot_flops_card"] == kern["operations"] \
+            + 2.5 * ref_dots
+    if causal:      # the card computes only the admitted pairs
+        assert res["port"]["dot_flops_card"] < res["dot_flops"]
     with pytest.raises(ValueError, match="head dim"):
         kattn.flash_attention(meta(1, 2, 8, 16, dtype=bf),
                               meta(1, 2, 8, 16, dtype=bf),
@@ -189,6 +196,7 @@ def test_k5_meta_report(grad):
     if not grad:
         assert w.result()["dot_flops"] == BH * C * (4.0 * D * D
                                                     + 4.0 * c * D + 2 * D)
+        assert w.result()["port"]["dot_flops_card"] == kern["operations"]
 
 
 def test_rms_norm_on_meta_is_counted_as_the_card_dispatches_it():
@@ -276,7 +284,7 @@ def test_moe_collectives_match_their_formulas():
     assert hlo.collective_bytes(w.records)["total_bytes"] == sum(
         want.values())
     # the walker gone, the communicator records nothing
-    assert hlo_walk.ACTIVE is None
+    assert cost.ACTIVE is None
     mesh.psum(torch.ones(8, 2), "pod")
 
 
@@ -330,7 +338,9 @@ def test_roofline_with_v5e_constants_matches_reference(artifacts):
                                                   chip=roofline.V5E)
             assert got == jroofline.roofline_from_artifact(r, walked)
         h = roofline.roofline_from_artifact(r, r["walked"])
-        assert h["compute_s"] == r["walked"]["dot_flops"] / 989e12
+        assert h["compute_s"] == r["port"]["dot_flops_card"] / 989e12
+        assert roofline.roofline_from_artifact(r, None)["compute_s"] == \
+            h["compute_s"]
         assert h["memory_s"] == 2 * r["walked"]["result_bytes"] / 3.35e12
         assert roofline.model_flops_per_step(r) == \
             jroofline.model_flops_per_step(r)

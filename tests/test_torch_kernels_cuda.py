@@ -1589,6 +1589,7 @@ def test_k4_meta_report_matches_card_walk(cuda_device, case):
         assert meta[key] == card[key], key
     assert meta["port"]["kernels"] == card["port"]["kernels"]
     assert meta["port"]["read_bytes"] == card["port"]["read_bytes"]
+    assert meta["port"]["dot_flops_card"] == card["port"]["dot_flops_card"]
     assert meta_peak == card_peak
 
 
@@ -1618,4 +1619,5 @@ def test_k5_meta_report_matches_card_walk(cuda_device, grad):
         assert meta[key] == card[key], key
     assert meta["port"]["kernels"] == card["port"]["kernels"]
     assert meta["port"]["read_bytes"] == card["port"]["read_bytes"]
+    assert meta["port"]["dot_flops_card"] == card["port"]["dot_flops_card"]
     assert meta_peak == card_peak
