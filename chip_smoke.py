@@ -309,6 +309,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import os
 import re
@@ -424,6 +425,19 @@ EMBED_SCALE = 0.1
 DRYRUN_CELLS = (("smollm-360m", "train_4k"), ("rwkv6-1.6b", "prefill_32k"),
                 ("qwen3-0.6b", "decode_32k"))
 DRYRUN_PEAK_TOL = 0.10
+# the meta walks of DRYRUN_CELLS need the CPU only: a process started at
+# the beginning of the run makes them while the card works (`dryrun_meta`)
+DRYRUN_META = """
+import json, sys, time
+sys.path.insert(0, "src")
+from repro_torch.launch import dryrun
+out = {}
+for arch, shape in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    rec, _ = dryrun.lower_cell(arch, shape, multi_pod=False)
+    out[arch + "/" + shape] = dict(rec, cell_s=time.perf_counter() - t0)
+json.dump(out, open(sys.argv[2], "w"))
+"""
 BITWISE_TILES = 1 << 20      # live tiles in the K1 == K2 bitwise check
 MOVER = 1                    # the partition the beyond-slack step shifts
 MOVER_SHIFT = np.array([0.15, -0.1, 0.2])
@@ -3232,12 +3246,14 @@ def _moe_oracle(torch, tmoe, x, p, cfg, parts):
 
 def moe_layer_on_card(torch, dev, card) -> None:
     """Phase 12 (b): dbrx-132b's MoE layer at full width, expert-parallel
-    on a stacked (data 2, model 2) mesh, against the per-shard dense
-    oracle."""
+    on a stacked (data 2, model 2) mesh (each model rank its expert block
+    and a copy of the router), against the per-shard dense oracle."""
     from repro_torch.core.dist.comm import StackedComm
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models import moe as tmoe
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import (init_params, shard_params,
+                                           unshard_params)
+    from repro_torch.models.tp import model_shardings
     from repro_torch.sharding.parallel import Parallelism
     cfg = lm_config("dbrx-132b")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3246,6 +3262,8 @@ def moe_layer_on_card(torch, dev, card) -> None:
                     dtype=torch.float32).to(torch.bfloat16)
     mesh = make_mesh_compat((2, 2), ("data", "model"), dev)
     par = Parallelism(mesh=mesh, data_axes=("data",), model_axis="model")
+    sh = model_shardings(tmoe.moe_defs(cfg), cfg, mesh)
+    pb = shard_params(p, sh)
     T = MOE_B * MOE_S
     C = tmoe._capacity(T // 2, cfg)
     print(f"  dbrx-132b MoE layer: d_model {cfg.d_model}, {cfg.n_experts} "
@@ -3261,7 +3279,7 @@ def moe_layer_on_card(torch, dev, card) -> None:
         pp = dc_replace(par, moe_seq_shard=seq)
         with torch.no_grad():
             with tmoe.routing_log() as log:
-                y, aux = tmoe.moe_ffn(x, p, cfg, pp)
+                y, aux = tmoe.moe_ffn(x, pb, cfg, pp)
             yo, auxo, olog = _moe_oracle(torch, tmoe, x, p, cfg,
                                          4 if seq else 2)
         # rank (d, m): without moe_seq_shard data shard d, else its m-th
@@ -3299,7 +3317,7 @@ def moe_layer_on_card(torch, dev, card) -> None:
     StackedComm.all_to_all = off_by_one
     try:
         with torch.no_grad():
-            yf, _ = tmoe.moe_ffn(x, p, cfg, par)
+            yf, _ = tmoe.moe_ffn(x, pb, cfg, par)
     finally:
         StackedComm.all_to_all = real
     yo, _, _ = _moe_oracle(torch, tmoe, x, p, cfg, 2)
@@ -3315,17 +3333,19 @@ def moe_layer_on_card(torch, dev, card) -> None:
     # gradients of x and the four weights, through both routes
     gy = torch.randn(x.shape, generator=gen, device=dev)
     grads = {}
-    for label, fn in (("stacked", lambda xx, pp: tmoe.moe_ffn(
-            xx, pp, cfg, par)), ("oracle", lambda xx, pp: _moe_oracle(
-            torch, tmoe, xx, pp, cfg, 2)[:2])):
+    for label, fn, w in (("stacked", lambda xx, pp: tmoe.moe_ffn(
+            xx, pp, cfg, par), pb), ("oracle", lambda xx, pp: _moe_oracle(
+            torch, tmoe, xx, pp, cfg, 2)[:2], p)):
         xx = x.clone().requires_grad_()
-        pp = {k: v.detach().requires_grad_() for k, v in p.items()}
+        pp = {k: v.detach().requires_grad_() for k, v in w.items()}
         torch.cuda.reset_peak_memory_stats(dev)
         (y, aux), t_f = timed_sync(torch, lambda: fn(xx, pp))
         _, t_b = timed_sync(torch, lambda: ((y.float() * gy).sum()
                                             + aux).backward())
         peak = torch.cuda.max_memory_allocated(dev)
-        grads[label] = {"x": xx.grad, **{k: v.grad for k, v in pp.items()}}
+        g = {k: v.grad for k, v in pp.items()}
+        grads[label] = {"x": xx.grad, **(unshard_params(g, sh)
+                                         if w is pb else g)}
         print(f"  {label}: forward {t_f:.4f} s, backward {t_b:.4f} s, peak "
               f"{peak / 2**30:.3f} GiB allocated (weights "
               f"{sum(v.numel() * v.element_size() for v in p.values()) / 2**30:.3f} GiB)",
@@ -3346,7 +3366,7 @@ def moe_layer_on_card(torch, dev, card) -> None:
 
     # time and peak memory: the stacked route, the oracle, one dense layer
     for label, fn in (("expert-parallel, stacked (2, 2)",
-                       lambda: tmoe.moe_ffn(x, p, cfg, par)),
+                       lambda: tmoe.moe_ffn(x, pb, cfg, par)),
                       ("per-shard oracle", lambda: _moe_oracle(
                           torch, tmoe, x, p, cfg, 2)),
                       ("single-card dense layer, one shard of 4,096 tokens",
@@ -3363,7 +3383,7 @@ def moe_layer_on_card(torch, dev, card) -> None:
     print(f"  all-to-all: a rank sends {cfg.n_experts * C * cfg.d_model * 2}"
           f" B each way a call ((E, C, D) bfloat16), half of it to the other "
           f"model rank", flush=True)
-    del p, x, gy
+    del p, pb, x, gy
     torch.cuda.empty_cache()
 
 
@@ -3405,7 +3425,7 @@ def greedy_check_par(torch, model, par, prompt, out, tape) -> dict:
         elif not all(torch.equal(a[0], b[0]) for a, b in zip(eng, fwd)):
             res["unrouted"] += 1
         else:
-            lg = model.logits(h[:1, -1:])[:, -1].float()
+            lg = model.logits(h[:, -1:], par)[:1, -1].float()
             worst, near, apart = hold_step(lg_e, lg, torch.as_tensor([t]),
                                            LM_LOGIT_TOL, f"length {len(seq)}")
             res["worst"] = max(res["worst"], worst)
@@ -3417,10 +3437,11 @@ def greedy_check_par(torch, model, par, prompt, out, tape) -> dict:
 
 def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
     """Phase 12 (c): `ServeEngine(par=)` on a stacked (data 2, model 2)
-    mesh at full width (depth cut as in phase 10).  Returns K4's launches
-    under the mesh."""
+    mesh at full width (depth cut as in phase 10), the weights as the
+    model ranks' blocks.  Returns K4's launches under the mesh."""
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models import build_model
+    from repro_torch.models.tp import shard_model
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.sharding.parallel import Parallelism
     cfg = lm_config(arch)
@@ -3428,16 +3449,18 @@ def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
     mesh = make_mesh_compat((2, 2), ("data", "model"), dev)
     par = Parallelism(mesh=mesh, data_axes=("data",), model_axis="model",
                       remat=False)
+    ranked = build_model(cfg, shard_model(model.params, cfg, mesh))
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab, int(
         rng.integers(4, 16)))] for _ in range(LM_REQUESTS)]
-    model.prefill(torch.as_tensor([prompts[0]] * 2, device=dev), LM_SMAX,
-                  par=par)
+    ranked.prefill(torch.as_tensor([prompts[0]] * 2, device=dev), LM_SMAX,
+                   par=par)
     res = {}
-    for label, pp, graph in (("one rank", Parallelism(remat=False), False),
-                             ("mesh", par, False), ("mesh graphed", par,
-                                                    True)):
-        eng = ServeEngine(model, B=LM_SLOTS, S_max=LM_SMAX, graph=graph,
+    for label, m, pp, graph in (
+            ("one rank", model, Parallelism(remat=False), False),
+            ("mesh", ranked, par, False), ("mesh graphed", ranked, par,
+                                           True)):
+        eng = ServeEngine(m, B=LM_SLOTS, S_max=LM_SMAX, graph=graph,
                           par=pp)
         rec = LogitRecorder(eng)
         reqs = [Request(rid=i, prompt=list(p), max_new=LM_NEW)
@@ -3452,8 +3475,9 @@ def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
         print(f"  {arch} {label}: {n_tok} tokens in {t:.4f} s "
               f"({n_tok / t:.2f} tok/s{', capture included' * graph}), K4 "
               f"launches {kattn.launches}; card {card}", flush=True)
+    # every one of the 4 ranks holds query heads: K4 once a rank
     k4 = {k: v[2] for k, v in res.items()}
-    if k4["mesh"] != k4["one rank"]:
+    if k4["mesh"] != k4["one rank"] * mesh.n_ranks:
         raise AssertionError(f"{arch}: K4 launches {k4}")
     toks_e, _, _, lg_e, _ = res["mesh"]
     toks_g, _, _, lg_g, eng_g = res["mesh graphed"]
@@ -3479,14 +3503,14 @@ def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
                worst=0.0)
     Twin = _twin_tape(par)
     for prompt in prompts + [short]:
-        tape = Twin(model)
+        tape = Twin(ranked)
         eng = ServeEngine(tape, B=2, S_max=LM_SMAX, graph=False)
         for rid in (0, 1):
             eng.submit(Request(rid=rid, prompt=list(prompt), max_new=LM_NEW))
         outs = {r.rid: r.out for r in eng.run(max_steps=LM_SMAX)}
         if outs[0] != outs[1]:
             raise AssertionError(f"{arch}: the twins were served apart")
-        r = greedy_check_par(torch, model, par, prompt, outs[0], tape)
+        r = greedy_check_par(torch, ranked, par, prompt, outs[0], tape)
         tot = {k: max(v, r[k]) if k == "worst" else v + r[k]
                for k, v in tot.items()}
     held = tot["tokens"] - tot["unrouted"] - tot["dropped"]
@@ -3502,7 +3526,7 @@ def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
     # no engine is in a reference cycle: dropped, each goes at once, and
     # the graphed one's pool with it, without the cyclic collector
     engines.append(weakref.ref(eng))
-    del model, eng, rec, tape
+    del model, ranked, eng, rec, tape
     if any(r() is not None for r in engines):
         raise AssertionError(f"{arch}: a dropped ServeEngine is still alive")
     torch.cuda.empty_cache()
@@ -3570,7 +3594,9 @@ def dp_training_on_card(torch, kattn, dev, card) -> int:
                               for s in step.comm)
                   + f"; on the pod axis {pod} B a rank; "
                   f"{red[0]:.4f} s (stacked on the card)", flush=True)
-            if k4 != cfg.n_layers * par.dp_size():
+            # K4 once a layer a data rank, and again in each layer's
+            # recompute (Parallelism's remat, on by default)
+            if k4 != cfg.n_layers * par.dp_size() * (1 + par.remat):
                 raise AssertionError(f"{label}: K4 launches {k4}")
         print(f"  {label}: step {t:.4f} s, loss {float(m['loss']):.6f}, "
               f"grad norm {float(m['grad_norm']):.6f}, K4 launches {k4}, "
@@ -3623,10 +3649,325 @@ def lm_sharding(torch, kattn, dev, card) -> int:
     return k4
 
 
-def dryrun_on_card(torch, kattn, krwkv, dev, card) -> dict:
-    """Phase 13: each of DRYRUN_CELLS dry-run on meta, then the same
-    rank's step on the card under the same walker; returns the K4 / K5
-    launches of the card's steps."""
+# ------------------------------------------------------------ phase 14 -----
+# the LM tier on the model ranks' blocks (`models.tp`), ranks stacked on
+# the card: (a) serving on (data 1, model 4), (b) smollm-360m's training
+# step on (model 4), (c) dbrx-132b at LM_CUT layers on (data 2, model 2)
+TP_RANKS = 4
+TP_SERVE_ARCHS = ("qwen3-0.6b", "phi4-mini-3.8b")
+# (b) against the single-card step: phase 12 (d)'s limits on the grad
+# norm, the clipped gradients and the updated masters; not its loss limit
+# (1e-6), which holds where each rank sums the same row products: model
+# ranks round bfloat16 partial products and add them in another order.
+# On the card (H100, 700 W) the loss read 4.195e-5 apart (relative), the
+# grad norm 1.717e-4, the masters 0.020 lr; the loss limit is about 12x
+# that reading
+TP_LOSS_RTOL = 5e-4
+# (c) dbrx-132b's expert-parallel MoE layer at full width on the same mesh
+# and tokens held its outputs and every gradient above the weights at a
+# peak of 16.31 GiB (PR 25, phase 12 (b), the stacked route that cut its
+# blocks out of whole leaves and all-gathered them over 'data')
+PR25_MOE_PEAK_GIB = 16.31
+
+
+def _mesh_par(torch, shape, axes, dev, remat=False):
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.sharding.parallel import Parallelism
+    mesh = make_mesh_compat(shape, axes, dev)
+    return Parallelism(mesh=mesh, data_axes=tuple(a for a in axes
+                                                  if a != "model"),
+                       model_axis="model", remat=remat)
+
+
+def _gib(tree) -> float:
+    from repro_torch.models.params import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(tree)) / 2**30
+
+
+def tp_serving(torch, arch: str, kattn, dev, card) -> int:
+    """Phase 14 (a): `ServeEngine(par=)` on a stacked (data 1, model 4)
+    mesh at full width, the weights as the model ranks' blocks, against
+    the unsharded engine on phase 10's requests: the batched run eager and
+    graphed (K4's launches, tokens/s), the graphed decode against the
+    eager one (tokens equal, logits within 1e-3, phase 12 (c)'s rule), and
+    each request served alone held to the unsharded engine step by step by
+    phase 10's rule (`hold_step` at LM_LOGIT_TOL).  Returns K4's launches
+    under the mesh."""
+    from repro_torch.models import build_model, tp as tpm
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.sharding.parallel import Parallelism
+    cfg = lm_config(arch)
+    par = _mesh_par(torch, (1, TP_RANKS), ("data", "model"), dev)
+    model = build_model(cfg, seed=0, device=dev)
+    ranked = build_model(cfg, tpm.shard_model(model.params, cfg, par.mesh))
+    plan = tpm.plan(cfg, par)
+    print(f"  {arch}: {cfg.n_heads} query heads over {cfg.n_kv_heads} KV "
+          f"heads on {TP_RANKS} model ranks: (query, KV) heads a rank "
+          f"{list(zip(plan.hq, plan.hkv))}; weights {_gib(model.params):.3f}"
+          f" GiB whole, {_gib(ranked.params) / TP_RANKS:.3f} GiB held a "
+          f"rank", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, int(
+        rng.integers(4, 16)))] for _ in range(LM_REQUESTS)]
+    one = Parallelism(remat=False)
+    ranked.prefill(torch.as_tensor([prompts[0]], device=dev), LM_SMAX,
+                   par=par)                                 # warm
+    res = {}
+    for label, m, pp, graph in (("one card", model, one, False),
+                                ("model 4", ranked, par, False),
+                                ("model 4 graphed", ranked, par, True)):
+        eng = ServeEngine(m, B=LM_SLOTS, S_max=LM_SMAX, graph=graph,
+                          par=pp)
+        rec = LogitRecorder(eng)
+        reqs = [Request(rid=i, prompt=list(q), max_new=LM_NEW)
+                for i, q in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        kattn.launches = 0
+        _, t = timed_sync(torch, lambda: eng.run(max_steps=LM_SMAX))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        res[label] = ({r.rid: list(r.out) for r in reqs}, kattn.launches,
+                      rec.logits)
+        cache = _gib(eng.cache) if eng.cache is not None else 0.0
+        n_tok = LM_REQUESTS * LM_NEW
+        rate = n_tok / t
+        per = cache / (TP_RANKS if pp is par else 1)
+        print(f"  {arch} {label}: {n_tok} tokens in {t:.4f} s ({rate:.2f} "
+              f"tok/s{', capture included' * graph}), K4 launches "
+              f"{kattn.launches}; cache {per:.4f} GiB a rank, peak "
+              f"{peak / 2**30:.3f} GiB above the weights (all ranks); card "
+              f"{card}", flush=True)
+        del eng, rec
+    k4 = {k: v[1] for k, v in res.items()}
+    if k4["model 4"] != k4["one card"] * sum(1 for h in plan.hq if h):
+        raise AssertionError(f"{arch}: K4 launches {k4}")
+    toks_e, _, lg_e = res["model 4"]
+    toks_g, _, lg_g = res["model 4 graphed"]
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(lg_g, lg_e))
+    print(f"  {arch}: graphed decode on the model ranks against the eager "
+          f"one: tokens {'identical' if toks_g == toks_e else 'DIFFER'}, "
+          f"logits of {len(lg_g)} calls within {worst:.3e} of the largest "
+          f"|logit|", flush=True)
+    if toks_g != toks_e or len(lg_g) != len(lg_e) or worst > 1e-3:
+        raise AssertionError(f"{arch}: graphed and eager serving on the "
+                             f"model ranks differ")
+    # each request alone: the model ranks' engine step by step against the
+    # unsharded engine
+    tot = dict(steps=0, near=0, apart=0, worst=0.0)
+    for prompt in prompts:
+        tapes = []
+        for m, pp in ((ranked, par), (model, one)):
+            tape = LogitTape(m)
+            eng = ServeEngine(tape, B=1, S_max=LM_SMAX, graph=False, par=pp)
+            eng.submit(Request(rid=0, prompt=list(prompt), max_new=LM_NEW))
+            tapes.append((tape, eng.run(max_steps=LM_SMAX)[0].out))
+        (t_tp, out_tp), (t_one, out_one) = tapes
+        for i, (lg_a, lg_b, tok) in enumerate(zip(t_tp.logits, t_one.logits,
+                                                  out_tp)):
+            worst, near, apart = hold_step(
+                lg_a, lg_b, torch.as_tensor([tok]), LM_LOGIT_TOL,
+                f"{arch} request of {len(prompt)} tokens, step {i}")
+            tot["steps"] += 1
+            tot["near"] += near
+            tot["apart"] += apart
+            tot["worst"] = max(tot["worst"], worst)
+            if tok != out_one[i]:       # a near tie took them apart
+                break
+    print(f"  {arch}: {LM_REQUESTS} requests served alone on the model "
+          f"ranks against the unsharded engine: {tot['steps']} steps held, "
+          f"logits within {tot['worst']:.3e} of the largest |logit| (limit "
+          f"{LM_LOGIT_TOL}), {tot['near']} near ties, {tot['apart']} tokens "
+          f"apart at one", flush=True)
+    del model, ranked
+    torch.cuda.empty_cache()
+    return k4["model 4"] + k4["model 4 graphed"]
+
+
+def tp_training(torch, kattn, dev, card) -> int:
+    """Phase 14 (b): smollm-360m's training step at full size (batch 4 x
+    512) on a stacked (model 4) mesh (15 query heads over 5 KV heads: the
+    KV groups dealt 2 + 1 + 1 + 1), remat off and on, against the
+    single-card step with phase 12 (d)'s limits (the loss at TP_LOSS_RTOL),
+    and remat on against off at the same limits.  Returns K4's launches on
+    the mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_weights, tp as tpm
+    from repro_torch.models.params import map_tree, tree_leaves
+    from repro_torch.sharding.parallel import Parallelism
+    from repro_torch.train import train_step as tstep
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    cfg = get_config(TRAIN_ARCH)
+    params = init_weights(cfg, seed=0, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+        cfg.vocab, DP_S, DP_B, seed=0).next_batch().items()}
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    par = _mesh_par(torch, (TP_RANKS,), ("model",), dev)
+    plan = tpm.plan(cfg, par)
+    print(f"  {TRAIN_ARCH}: (query, KV) heads a rank "
+          f"{list(zip(plan.hq, plan.hkv))}, batch {DP_B} x {DP_S}", flush=True)
+    runs, launches = {}, 0
+    for label, pp in (("single card", Parallelism(remat=False)),
+                      ("model 4, remat off", par),
+                      ("model 4, remat on", dc_replace(par, remat=True))):
+        tree = params if pp.mesh is None else tpm.shard_model(
+            params, cfg, pp.mesh)
+        tree = map_tree(lambda t: t.detach().requires_grad_(), tree)
+        step = tstep.make_train_step(cfg, opt_cfg, par=pp)
+        for warm in (True, False):
+            opt = init_opt_state(tree)
+            kattn.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            (newp, opt, m), t = timed_sync(torch, lambda: step(tree, opt,
+                                                               batch))
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            del newp
+        k4 = kattn.launches
+        ranks = 1 if pp.mesh is None else TP_RANKS
+        if pp.mesh is not None:
+            launches += k4
+            want = cfg.n_layers * sum(1 for h in plan.hq if h) * (
+                1 + pp.remat)
+            if k4 != want:
+                raise AssertionError(f"{label}: K4 launches {k4}, not {want}")
+            opt = opt._replace(m=tpm.unshard_model(opt.m, cfg, pp.mesh),
+                               master=tpm.unshard_model(opt.master, cfg,
+                                                        pp.mesh))
+        runs[label] = (opt, m)
+        print(f"  {label}: warm step {t:.4f} s, loss {float(m['loss']):.6f},"
+              f" grad norm {float(m['grad_norm']):.6f}, K4 launches {k4}, "
+              f"peak {peak / 2**30:.3f} GiB above the weights and batch "
+              f"({peak / ranks / 2**30:.3f} GiB a rank), weights "
+              f"{_gib(tree) / ranks:.3f} GiB a rank; card {card}", flush=True)
+        del tree, step, opt
+        torch.cuda.empty_cache()
+    for label, ref in (("model 4, remat off", "single card"),
+                       ("model 4, remat on", "single card"),
+                       ("model 4, remat on", "model 4, remat off")):
+        (oa, ma), (ob, mb) = runs[label], runs[ref]
+        dl = abs(float(ma["loss"]) - float(mb["loss"])) / abs(
+            float(mb["loss"]))
+        dg = abs(float(ma["grad_norm"]) - float(mb["grad_norm"])) / \
+            float(mb["grad_norm"])
+        g_rel = max(float((a - b).norm() / b.norm()) if b.norm() > 0 else
+                    float(a.norm() > 0) for a, b in zip(
+                        tree_leaves(oa.m), tree_leaves(ob.m)))
+        w_max = max(float(((a - b).abs() / opt_cfg.lr).max()) for a, b in
+                    zip(tree_leaves(oa.master), tree_leaves(ob.master)))
+        print(f"  {label} against {ref}: loss {dl:.3e} (relative; limit "
+              f"{TP_LOSS_RTOL}), grad norm {dg:.3e} (limit {DP_NORM_RTOL}), "
+              f"clipped gradient per leaf up to {g_rel:.3e} relative L2 "
+              f"(limit {DP_GRAD_REL_L2}), updated masters up to {w_max:.3f} "
+              f"lr apart (limit {DP_STEP_LR})", flush=True)
+        if dl > TP_LOSS_RTOL or dg > DP_NORM_RTOL or g_rel > DP_GRAD_REL_L2 \
+                or w_max > DP_STEP_LR:
+            raise AssertionError(f"{label} against {ref}")
+    del runs, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tp_moe_model(torch, kattn, dev, card) -> int:
+    """Phase 14 (c): dbrx-132b at LM_CUT layers, full width, on a stacked
+    (data 2, model 2) mesh, its dense leaves and its experts both held as
+    the model ranks' blocks: the final hidden states of MOE_B x MOE_S
+    tokens held to the per-shard oracle of phase 12 (b) (the unsharded
+    model on each data shard, whose capacity is a data rank's) on every
+    position whose causal prefix every MoE sublayer routed and kept alike
+    in both, at LM_LOGIT_TOL of the largest |h|; the peak above the
+    weights beside PR 25's MoE layer.  Returns K4's launches on the
+    mesh."""
+    from repro_torch.models import build_model, moe as tmoe, tp as tpm
+    cfg = lm_config("dbrx-132b")
+    par = _mesh_par(torch, (2, 2), ("data", "model"), dev)
+    model = build_model(cfg, seed=0, device=dev)
+    ranked = build_model(cfg, tpm.shard_model(model.params, cfg, par.mesh))
+    w_all = _gib(ranked.params)
+    print(f"  dbrx-132b: weights {_gib(model.params):.3f} GiB whole, "
+          f"{w_all / 2:.3f} GiB a model rank (the data ranks share them)",
+          flush=True)
+    g = torch.Generator(device=dev).manual_seed(3)
+    tok = torch.randint(1, cfg.vocab, (MOE_B, MOE_S), generator=g,
+                        device=dev)
+    with torch.no_grad():
+        ranked(tok[:2, :64], par=par)                        # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        kattn.launches = 0
+        with tmoe.routing_log() as log:
+            h, t = timed_sync(torch, lambda: ranked(tok, par=par))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        k4 = kattn.launches
+        with tmoe.routing_log() as olog:
+            ho = torch.cat([model(tok[2 * d:2 * d + 2]) for d in range(2)])
+    L, T = par.mesh.n_ranks, MOE_B * MOE_S // 2
+    if k4 != cfg.n_layers * L or len(log) != cfg.n_layers * L:
+        raise AssertionError(f"dbrx-132b: K4 {k4}, routings {len(log)}")
+    # rank (d, m) routes data shard d: the oracle's call d of each layer
+    same = torch.ones(2, T, dtype=torch.bool, device=dev)
+    for layer in range(cfg.n_layers):
+        for r in range(L):
+            d = r // 2
+            e, keep, _ = log[layer * L + r]
+            eo, keepo, _ = olog[d * cfg.n_layers + layer]
+            same[d] &= ((e.sort(-1).values == eo.sort(-1).values).all(-1)
+                        & (keep == keepo).all(-1))
+    same = same.reshape(MOE_B, MOE_S).cummin(dim=1).values    # the prefix
+    held = int(same.sum())
+    err = float(((h.float() - ho.float()).abs() * same[..., None]).max()
+                / ho.float().abs().max())
+    print(f"  dbrx-132b on (data 2, model 2): forward of {MOE_B} x {MOE_S} "
+          f"tokens {t:.4f} s, K4 launches {k4}; {held} of {MOE_B * MOE_S} "
+          f"positions routed alike along their prefix, there within "
+          f"{err:.3e} of the largest |h| (limit {LM_LOGIT_TOL}); peak "
+          f"{peak / 2**30:.3f} GiB above the weights (PR 25's MoE layer "
+          f"alone: {PR25_MOE_PEAK_GIB} GiB); card {card}", flush=True)
+    if held < MOE_B or err > LM_LOGIT_TOL or not torch.isfinite(h).all():
+        raise AssertionError("dbrx-132b on the model ranks against the "
+                             "per-shard oracle")
+    del model, ranked, h, ho
+    torch.cuda.empty_cache()
+    return k4
+
+
+def lm_tensor_parallel(torch, kattn, dev, card) -> int:
+    """Phase 14: the LM tier on the model ranks' blocks.  Returns K4's
+    launches on the meshes."""
+    k4 = 0
+    for arch in TP_SERVE_ARCHS:
+        with phase(f"LM tensor parallel (a): serving {arch} on (data 1, "
+                   f"model {TP_RANKS})"):
+            k4 += tp_serving(torch, arch, kattn, dev, card)
+    with phase(f"LM tensor parallel (b): {TRAIN_ARCH} training on (model "
+               f"{TP_RANKS})"):
+        k4 += tp_training(torch, kattn, dev, card)
+    with phase("LM tensor parallel (c): dbrx-132b on (data 2, model 2)"):
+        k4 += tp_moe_model(torch, kattn, dev, card)
+    return k4
+
+
+def dryrun_meta(tmp: Path):
+    """Start the meta walks of DRYRUN_CELLS in a process of their own
+    (CPU only): (the process, the file it writes)."""
+    out = tmp / "dryrun_meta.json"
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_META,
+                             json.dumps(DRYRUN_CELLS), str(out)], cwd=ROOT,
+                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    return proc, out
+
+
+def dryrun_on_card(torch, kattn, krwkv, dev, card, meta=None) -> dict:
+    """Phase 13: each of DRYRUN_CELLS dry-run on meta (read from `meta`,
+    `dryrun_meta`'s process and file, when given), then the same rank's
+    step on the card under the same walker; returns the K4 / K5 launches
+    of the card's steps."""
     from repro_torch.analysis.hlo_walk import Walker
     from repro_torch.analysis.roofline import H100_SXM, roofline_from_artifact
     from repro_torch.configs import SHAPES, get_config
@@ -3635,11 +3976,24 @@ def dryrun_on_card(torch, kattn, krwkv, dev, card) -> dict:
     from repro_torch.train.train_step import _data_ranks
 
     launches = {"K4": 0, "K5": 0}
+    recs = {}
+    if meta is not None:
+        proc, path = meta
+        t0 = time.perf_counter()
+        if proc.wait() != 0:
+            raise AssertionError(f"the meta walks' process exited "
+                                 f"{proc.returncode}")
+        recs = json.loads(path.read_text())
+        print(f"  meta walks made beside the earlier phases; waited "
+              f"{time.perf_counter() - t0:.2f} s for them", flush=True)
     for arch, shape_name in DRYRUN_CELLS:
         cfg, shape = get_config(arch), SHAPES[shape_name]
-        t0 = time.perf_counter()
-        rec, _ = dryrun.lower_cell(arch, shape_name, multi_pod=False)
-        t_cell = time.perf_counter() - t0
+        rec = recs.get(f"{arch}/{shape_name}")
+        if rec is None:
+            t0 = time.perf_counter()
+            rec, _ = dryrun.lower_cell(arch, shape_name, multi_pod=False)
+            rec["cell_s"] = time.perf_counter() - t0
+        t_cell = rec["cell_s"]
         port, m = rec["port"], rec["memory"]
         rl = roofline_from_artifact(rec, rec["walked"], chip=H100_SXM)
         print(f"  {arch} {shape_name}: lower_cell on meta {t_cell:.2f} s "
@@ -3698,7 +4052,8 @@ def dryrun_on_card(torch, kattn, krwkv, dev, card) -> dict:
         launches["K5"] += krwkv.launches - k0[1]
         del out
         step_ms = ev0.elapsed_time(ev1)
-        predicted = pred["port"]["stacked"]["peak_bytes"] - held
+        predicted = pred["port"]["stacked"]["peak_bytes"] - \
+            pred["port"]["stacked"]["held_bytes"]
         rs = roofline_from_artifact(rec, pred, chip=H100_SXM)
         print(f"    card {card}: walked run {t_walk:.2f} s; dot FLOPs "
               f"{got['dot_flops']:.6e} (meta {pred['dot_flops']:.6e}), "
@@ -3712,7 +4067,7 @@ def dryrun_on_card(torch, kattn, krwkv, dev, card) -> dict:
         print(f"    peak above the arguments: predicted {predicted} B, "
               f"measured {measured} B (max_memory_allocated - resident "
               f"{base} B; the walker on the card "
-              f"{got['port']['stacked']['peak_bytes'] - held_c} B), "
+              f"{got['port']['stacked']['peak_bytes'] - got['port']['stacked']['held_bytes']} B), "
               f"{100 * (predicted - measured) / max(measured, 1):+.2f}%; "
               f"arguments {held} B (meta) / {held_c} B (card)", flush=True)
         print(f"    step {step_ms:.3f} ms by CUDA events against the step's "
@@ -3786,6 +4141,11 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
+
+    # phase 13's meta walks, beside everything up to it (stopped at exit
+    # if a phase before 13 fails)
+    dryrun_walks = dryrun_meta(Path(tune_dir.name))
+    atexit.register(dryrun_walks[0].kill)
 
     # ------------------------------------------------------------- 1 -----
     power = card.split(",")[-1].strip()
@@ -4315,11 +4675,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("the dry run against one rank's steps on the card"):
         print(f"  card {card}", flush=True)
-        for name, n in dryrun_on_card(torch, kattn, krwkv, dev,
-                                      card).items():
+        for name, n in dryrun_on_card(torch, kattn, krwkv, dev, card,
+                                      dryrun_walks).items():
             launches[name] += n
 
     # ------------------------------------------------------------ 14 -----
+    torch.cuda.empty_cache()
+    print(f"  card {card}", flush=True)
+    launches["K4"] += lm_tensor_parallel(torch, kattn, dev, card)
+
+    # ------------------------------------------------------------ 15 -----
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

@@ -5,9 +5,10 @@ for the CPU).
     PYTHONPATH=src python examples/torch_moe_parallel.py [--device cpu]
 
 Four ranks live in this process: the batch splits over the 2 data ranks,
-the experts over the 2 model ranks, and each MoE sublayer dispatches its
-tokens to the experts' ranks by an all-to-all (`models.moe`,
-`core.dist.comm`).  `ServeEngine(par=)` answers 2 requests, beside the
+the weights over the 2 model ranks (`models.tp.shard_model`: each model
+rank holds its heads, its vocabulary rows and its experts), and each MoE
+sublayer dispatches its tokens to the experts' ranks by an all-to-all
+(`models.moe`, `core.dist.comm`).  `ServeEngine(par=)` answers 2 requests, beside the
 same model without a mesh (nothing drops: on the CPU both routes run the
 same float operations, so the tokens must be the same; on the card their
 batched products may round apart at a near tie, so it prints how many
@@ -23,7 +24,8 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_mesh_compat
 from repro_torch.models import build_model, init_weights
-from repro_torch.models.params import tree_leaves
+from repro_torch.models.params import map_tree, tree_leaves
+from repro_torch.models.tp import shard_model
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.sharding.parallel import Parallelism
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -44,9 +46,11 @@ def main():
           f"experts, {cfg.n_experts // par.tp_size()} a model rank")
 
     model = build_model(cfg, seed=0, device=dev)
+    ranked = build_model(cfg, shard_model(model.params, cfg, mesh))
     served = {}
-    for name, p in (("mesh", par), ("one rank", Parallelism(remat=False))):
-        engine = ServeEngine(model, B=2, S_max=32, par=p)
+    for name, m, p in (("mesh", ranked, par),
+                       ("one rank", model, Parallelism(remat=False))):
+        engine = ServeEngine(m, B=2, S_max=32, par=p)
         for rid, prompt in enumerate(([5, 17, 42, 7], [99, 3, 250, 11, 8])):
             engine.submit(Request(rid=rid, prompt=prompt, max_new=6))
         served[name] = {r.rid: r.out for r in engine.run(max_steps=16)}
@@ -62,8 +66,10 @@ def main():
     g = torch.Generator(device=dev).manual_seed(1)
     seq = torch.randint(1, cfg.vocab, (4, 33), generator=g, device=dev)
     batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    blocks = map_tree(lambda t: t.detach().requires_grad_(),
+                      shard_model(params, cfg, mesh))
     step = make_train_step(cfg, AdamWConfig(), par=par)
-    _, opt, m = step(params, init_opt_state(params), batch)
+    _, opt, m = step(blocks, init_opt_state(blocks), batch)
     shards = [value_and_grad(params, {k: v[2 * j:2 * j + 2]
                                       for k, v in batch.items()}, cfg)[0]
               for j in range(2)]

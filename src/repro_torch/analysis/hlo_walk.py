@@ -70,7 +70,9 @@ what runs outside such a scope counts as it is, what runs inside counts
 running); a storage allocated there adds 1/L of its bytes to the per-rank
 live bytes.
 Collective records are per rank already and are never divided.  The
-totals as run are `result()["port"]["stacked"]`.
+totals as run are `result()["port"]["stacked"]`.  `track(tree, L)` counts
+arguments that L stacked ranks hold alike (their weight blocks, optimizer
+state and caches): 1/L of their bytes a rank.
 
 While it runs the walker is `obs.cost.ACTIVE`, the hook that the
 communicators, the kernels' wrappers and the stacked scopes report
@@ -80,7 +82,7 @@ from __future__ import annotations
 
 import weakref
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -258,6 +260,7 @@ class Walker(TorchDispatchMode):
         self._live: dict = {}
         self.live_raw = self.peak_raw = 0
         self.live_rank = self.peak_rank = 0.0
+        self.held_raw, self.held_rank = 0, 0.0     # tracked arguments
         self._L = 1                 # the open stacked scope's ranks
         self.ranks_seen: set = set()
         self._prev = None
@@ -276,6 +279,12 @@ class Walker(TorchDispatchMode):
         if self._decomp is not None:
             self._decomp.__exit__(*exc)
         return out
+
+    def recompute_context(self):
+        """What a checkpoint's recompute needs (`obs.cost.
+        checkpoint_contexts`): on meta the card's `rms_norm`, since a
+        recompute runs with the torch-function modes cleared."""
+        return _CardDecomp() if self.device_type == "meta" else nullcontext()
 
     def _ranks(self) -> int:
         """The stacked ranks the current op runs for: the open scope's, or
@@ -309,11 +318,12 @@ class Walker(TorchDispatchMode):
             self.live_raw -= n[0]
             self.live_rank -= n[1]
 
-    def track(self, tree) -> int:
+    def track(self, tree, L: int = 1) -> int:
         """Count the storages of the tensors in `tree` (nested dicts,
-        lists, tuples) as live: the step's arguments.  Returns the bytes
-        added."""
-        before = self.live_raw
+        lists, tuples) as live: the step's arguments, held for L stacked
+        ranks (each rank's share 1/L).  Returns one rank's bytes added;
+        `held_raw` / `held_rank` sum what every call added."""
+        before, before_raw = self.live_rank, self.live_raw
         stack = [tree]
         while stack:
             x = stack.pop()
@@ -322,8 +332,10 @@ class Walker(TorchDispatchMode):
             elif isinstance(x, (list, tuple)):
                 stack.extend(x)
             elif isinstance(x, torch.Tensor) and self._on_device(x):
-                self._alloc(x)
-        return self.live_raw - before
+                self._alloc(x, L)
+        self.held_raw += self.live_raw - before_raw
+        self.held_rank += self.live_rank - before
+        return int(round(self.live_rank - before))
 
     # ---- counting ------------------------------------------------------
     def _add(self, L: int, **counts) -> None:
@@ -431,7 +443,9 @@ class Walker(TorchDispatchMode):
                 "dot_flops_card": rank["dot_flops_card"],
                 "read_bytes": rank["read_bytes"],
                 "peak_bytes": int(round(self.peak_rank)),
+                "held_bytes": int(round(self.held_rank)),
                 "stacked": {"ranks": sorted(self.ranks_seen),
+                            "held_bytes": int(self.held_raw),
                             "dot_flops": raw["dot_flops"],
                             "dot_flops_card": raw["dot_flops_card"],
                             "result_bytes": raw["result_bytes"],

@@ -30,7 +30,10 @@ and a float32 router, a vlm one `attn0` .. `attn3`, `cross4` and an MLP
 each, a hymba one `attn0`, `ssm0` and `mlp0`, an encdec decoder layer
 `attn0`, `dec_cross0` and `mlp0`), bfloat16 goes through float32 (exact),
 float32 stays float32, and the weights keep the reference's `x @ W`
-orientation, W shaped (d_in, d_out).
+orientation, W shaped (d_in, d_out).  With `par=` (a `Parallelism` whose
+mesh has a model axis) the tree comes as the rank blocks the models run
+on under it (`models.tp.shard_model`: each local model rank's heads,
+d_ff columns, vocabulary rows and experts, stacked).
 """
 from __future__ import annotations
 
@@ -98,11 +101,13 @@ def engine_tables_from_numpy(arrays: dict, device) -> EngineTables:
     return tables.to(device)
 
 
-def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
+def lm_params_from_numpy(cfg, tree: dict, device=None, par=None) -> dict:
     """The reference's parameter tree of `cfg` (nested dicts of NumPy
     arrays, block leaves stacked on a leading superblock axis) -> the port's
-    weight tree on `device` (default: the card).  Every leaf keeps its type
-    (bfloat16 or float32); a missing, extra or misshapen leaf raises."""
+    weight tree on `device` (default: the card), as the rank blocks of
+    `par`'s model axis when `par` has one (module docstring).  Every leaf
+    keeps its type (bfloat16 or float32); a missing, extra or misshapen
+    leaf raises."""
     dev = resolve_device(device)
     flat = dict(tree)
     for key, n in (("blocks", _n_superblocks(cfg)),
@@ -124,7 +129,11 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
         t = torch.from_numpy(a.astype(np.float32) if bf16 else np.array(a))
         return t.to(dev, torch.bfloat16 if bf16 else t.dtype)
 
-    return _zip(one, model_defs(cfg), flat)
+    whole = _zip(one, model_defs(cfg), flat)
+    if par is None or par.mesh is None or par.model_axis is None:
+        return whole
+    from repro_torch.models.tp import shard_model
+    return shard_model(whole, cfg, par.mesh, par.model_axis)
 
 
 def unstack(tree, n: int) -> list:

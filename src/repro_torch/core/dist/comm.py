@@ -60,10 +60,27 @@ check on the card), every collective call records itself there: its
 category (all-reduce, reduce-scatter, all-gather, all-to-all,
 collective-permute), the bytes of one rank's result (the reference's
 convention) and whether its group crosses the pod axis.  Without a walker
-this costs one `None` check; counters and results are the same.  The stacked collectives are
-reshapes, transposes, indexed copies and sums of the (D, ...) buffers, so
-autograd runs through them; the group ones are not differentiable and
-refuse a buffer that requires grad in grad mode.
+this costs one `None` check; counters and results are the same.
+
+The collectives along named axes are differentiable on both communicators,
+with the same backward: one `torch.autograd.Function` (`_Collective`)
+runs the forward and, in backward, the adjoint collective on the
+cotangents of the ranks this process holds: psum's is psum, all-gather's
+reduce-scatter (`psum_scatter`, tiled alike), reduce-scatter's
+all-gather, and all-to-all's the same all-to-all (it is its own inverse).
+So a backward is the SPMD one, rank by rank, and a stacked and a group
+run give the same bits backward too.  Two more Functions mark a tensor
+parallel region (Megatron's f and g): `copy_into(buf, axes)`, forward the
+identity and backward a psum of the cotangents, where each rank holds a
+copy of one value and its consumers on each rank see only their part of
+it; and `reduce_from(buf, axes)`, forward a psum and backward the
+identity, where each rank's partial result is summed into one value every
+rank holds.  `scale_grad(buf, s)` is the identity with its cotangent
+scaled by s (an output each rank of a group computes alike, as
+`shard_map` transposes an output its specs replicate).  The exchange
+engine's `all_to_all` / `all_gather` without axes and `ppermute` stay
+plain: on a stacked mesh autograd runs through their reshapes and copies,
+and a group mesh's are not differentiable.
 """
 from __future__ import annotations
 
@@ -73,7 +90,78 @@ import torch
 
 from repro_torch.obs import cost as _cost
 
-__all__ = ["StackedComm", "GroupComm"]
+__all__ = ["StackedComm", "GroupComm", "scale_grad"]
+
+# the collective whose backward a collective's is (module docstring)
+_ADJOINT = {"psum": "psum", "all_gather": "psum_scatter",
+            "psum_scatter": "all_gather", "all_to_all": "all_to_all"}
+
+
+def _wants_grad(buf: torch.Tensor) -> bool:
+    return buf.requires_grad and torch.is_grad_enabled()
+
+
+class _Collective(torch.autograd.Function):
+    """A collective along named axes; backward, its adjoint collective
+    on the cotangents (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, buf, mesh, kind, axes, dim, tiled):
+        ctx.args = (mesh, kind, axes, dim, tiled)
+        return mesh._collective(kind, buf, axes, dim, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, kind, axes, dim, tiled = ctx.args
+        with _cost.stacked(len(mesh.local_ranks)):
+            out = mesh._collective(_ADJOINT[kind], g.contiguous(), axes,
+                                   dim, tiled)
+        return out, None, None, None, None, None
+
+
+class _CopyInto(torch.autograd.Function):
+    """Megatron's f: forward the identity, backward a psum."""
+
+    @staticmethod
+    def forward(ctx, buf, mesh, axes):
+        ctx.args = (mesh, axes)
+        return buf.view_as(buf)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        with _cost.stacked(len(mesh.local_ranks)):
+            return (mesh._collective("psum", g.contiguous(), axes, 0,
+                                     False), None, None)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's g: forward a psum, backward the identity."""
+
+    @staticmethod
+    def forward(ctx, buf, mesh, axes):
+        return mesh._collective("psum", buf, axes, 0, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, buf, s):
+        ctx.s = s
+        return buf.view_as(buf)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _cost.stacked(g.shape[0] if g.dim() else 1):
+            return g * ctx.s, None
+
+
+def scale_grad(buf: torch.Tensor, s: float) -> torch.Tensor:
+    """`buf` forward; its cotangent times `s` backward."""
+    return _ScaleGrad.apply(buf, s) if _wants_grad(buf) else buf
 
 
 class _NamedMesh:
@@ -151,6 +239,45 @@ class _NamedMesh:
     def pmean(self, buf: torch.Tensor, axes) -> torch.Tensor:
         return self.psum(buf, axes) / self.axis_size(axes)
 
+    # ---- along named axes: differentiable (module docstring) -----------
+    def _run(self, kind, buf, axes, dim=0, tiled=False):
+        if _wants_grad(buf):
+            return _Collective.apply(buf, self, kind, axes, dim, tiled)
+        return self._collective(kind, buf, axes, dim, tiled)
+
+    def _collective(self, kind, buf, axes, dim, tiled):
+        if kind == "psum":
+            out = self._psum(buf, axes)
+        elif kind == "psum_scatter":
+            out = self._psum_scatter(buf, axes, dim, tiled)
+        elif kind == "all_gather":
+            out = self._all_gather_axes(buf, axes, dim, tiled)
+        else:
+            out = self._all_to_all_axes(buf, axes, dim)
+        if _cost.ACTIVE is not None:
+            _note(self, kind, axes, out)
+        return out
+
+    def psum(self, buf: torch.Tensor, axes) -> torch.Tensor:
+        return self._run("psum", buf, axes)
+
+    def psum_scatter(self, buf: torch.Tensor, axes, dim: int = 0,
+                     tiled: bool = False) -> torch.Tensor:
+        return self._run("psum_scatter", buf, axes, dim, tiled)
+
+    def copy_into(self, buf: torch.Tensor, axes) -> torch.Tensor:
+        """Megatron's f along `axes`: `buf` forward, a psum of the
+        cotangents backward."""
+        return _CopyInto.apply(buf, self, axes) if _wants_grad(buf) \
+            else buf
+
+    def reduce_from(self, buf: torch.Tensor, axes) -> torch.Tensor:
+        """Megatron's g along `axes`: a psum forward, the cotangent as
+        it is backward."""
+        if _wants_grad(buf):
+            return _ReduceFrom.apply(buf, self, axes)
+        return self._collective("psum", buf, axes, 0, False)
+
 
 def _note(comm, method: str, axes, out: torch.Tensor, whole: bool = False):
     """Record one collective in the active walker: one rank's result bytes
@@ -203,27 +330,21 @@ class StackedComm(_NamedMesh):
         v = v.permute(*inv, *range(nd, nd + len(rest)))
         return v.reshape(self.n_ranks, *rest)
 
-    def psum(self, buf: torch.Tensor, axes) -> torch.Tensor:
+    def _psum(self, buf: torch.Tensor, axes) -> torch.Tensor:
         ks = self._axes(axes)
         w = self._along(buf, ks)
         s = _ordered_sum(w.unbind(1))
-        out = self._back(s.unsqueeze(1).expand_as(w), ks)
-        if _cost.ACTIVE is not None:
-            _note(self, "psum", axes, out)
-        return out
+        return self._back(s.unsqueeze(1).expand_as(w), ks)
 
-    def psum_scatter(self, buf: torch.Tensor, axes, dim: int = 0,
-                     tiled: bool = False) -> torch.Tensor:
+    def _psum_scatter(self, buf: torch.Tensor, axes, dim: int = 0,
+                      tiled: bool = False) -> torch.Tensor:
         ks = self._axes(axes)
         w = self._along(buf, ks).movedim(2 + dim, 2)   # (O, G, n, ...)
         G = w.shape[1]
         w = w.reshape(w.shape[0], G, G, -1, *w.shape[3:])
         s = _ordered_sum(w.unbind(1))                  # (O, G, c, ...)
-        out = (self._back(s, ks).movedim(1, 1 + dim) if tiled
-               else self._back(s.squeeze(2), ks))
-        if _cost.ACTIVE is not None:
-            _note(self, "psum_scatter", axes, out)
-        return out
+        return (self._back(s, ks).movedim(1, 1 + dim) if tiled
+                else self._back(s.squeeze(2), ks))
 
     def all_gather(self, t: torch.Tensor, axes=None, dim: int = 0,
                    tiled: bool = False) -> torch.Tensor:
@@ -235,18 +356,20 @@ class StackedComm(_NamedMesh):
             if _cost.ACTIVE is not None:
                 _note(self, "all_gather", None, t, whole=True)
             return t
+        return self._run("all_gather", t, axes, dim, tiled)
+
+    def _all_gather_axes(self, t: torch.Tensor, axes, dim: int,
+                         tiled: bool) -> torch.Tensor:
         ks = self._axes(axes)
         w = self._along(t, ks)                          # (O, G, *X)
         per = w.movedim(1, 1 + dim)                     # a member's result
         if tiled:
             per = per.flatten(1 + dim, 2 + dim)
-        out = self._back(per.unsqueeze(1).expand(-1, w.shape[1],
-                                                 *per.shape[1:]), ks)
-        if _cost.ACTIVE is not None:
-            _note(self, "all_gather", axes, out)
-        return out
+        return self._back(per.unsqueeze(1).expand(-1, w.shape[1],
+                                                  *per.shape[1:]), ks)
 
-    def _a2a_axes(self, buf: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    def _all_to_all_axes(self, buf: torch.Tensor, axes,
+                         dim: int) -> torch.Tensor:
         ks = self._axes(axes)
         w = self._along(buf, ks).movedim(2 + dim, 2)   # (O, Gsrc, n, ...)
         G = w.shape[1]
@@ -262,8 +385,9 @@ class StackedComm(_NamedMesh):
     def all_to_all(self, buf: torch.Tensor, axes=None,
                    dim: int = 0) -> torch.Tensor:
         self._check(buf)
-        out = (self._a2a_axes(buf, axes, dim) if axes is not None
-               else buf.transpose(0, 1).contiguous())
+        if axes is not None:
+            return self._run("all_to_all", buf, axes, dim)
+        out = buf.transpose(0, 1).contiguous()
         if _cost.ACTIVE is not None:
             _note(self, "all_to_all", axes, out)
         return out
@@ -343,13 +467,12 @@ class GroupComm(_NamedMesh):
     def all_to_all(self, buf: torch.Tensor, axes=None,
                    dim: int = 0) -> torch.Tensor:
         if axes is not None:
-            out = self._all_to_all_axes(buf, axes, dim)
-        else:
-            self._check(buf)
-            send = buf.contiguous()
-            out = torch.empty_like(send)
-            self._dist.all_to_all_single(out.view(-1), send.view(-1),
-                                         group=self.group)
+            return self._run("all_to_all", buf, axes, dim)
+        self._check(buf)
+        send = buf.contiguous()
+        out = torch.empty_like(send)
+        self._dist.all_to_all_single(out.view(-1), send.view(-1),
+                                     group=self.group)
         if _cost.ACTIVE is not None:
             _note(self, "all_to_all", axes, out)
         return out
@@ -392,11 +515,6 @@ class GroupComm(_NamedMesh):
         """(my group's process group, its members in group order, the
         position of each member in the process group's rank order)."""
         self._check(buf)
-        if buf.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "the collectives of a torch.distributed mesh are not "
-                "differentiable; gradients run through the stacked mesh "
-                "only (ROADMAP.md)")
         ks = self._axes(axes)
         if ks not in self._groups:
             # every process makes every slice's group, in the same order
@@ -424,35 +542,31 @@ class GroupComm(_NamedMesh):
             out[i] = parts[pos]
         return out
 
-    def psum(self, buf: torch.Tensor, axes) -> torch.Tensor:
-        out = _ordered_sum(self._gather(buf, axes))[None]
-        if _cost.ACTIVE is not None:
-            _note(self, "psum", axes, out)
-        return out
+    def _psum(self, buf: torch.Tensor, axes) -> torch.Tensor:
+        return _ordered_sum(self._gather(buf, axes))[None]
 
-    def psum_scatter(self, buf: torch.Tensor, axes, dim: int = 0,
-                     tiled: bool = False) -> torch.Tensor:
+    def _psum_scatter(self, buf: torch.Tensor, axes, dim: int = 0,
+                      tiled: bool = False) -> torch.Tensor:
         recv = self._a2a_parts(buf, axes, dim)
         s = _ordered_sum(recv)
-        out = (s if tiled else s.squeeze(dim))[None]
-        if _cost.ACTIVE is not None:
-            _note(self, "psum_scatter", axes, out)
-        return out
+        return (s if tiled else s.squeeze(dim))[None]
 
     def all_gather(self, t: torch.Tensor, axes=None, dim: int = 0,
                    tiled: bool = False) -> torch.Tensor:
         """Without `axes`: (1, ...) -> (D, ...), every rank's row.  Along
         `axes`: every member's buffer on a new per-rank dim `dim` (or
         concatenated along it, `tiled`)."""
-        if axes is None:
-            out = self._all_gather_rows(t)
-        else:
-            parts = self._gather(t, axes)
-            out = (torch.cat(parts, dim) if tiled
-                   else torch.stack(parts, dim))[None]
+        if axes is not None:
+            return self._run("all_gather", t, axes, dim, tiled)
+        out = self._all_gather_rows(t)
         if _cost.ACTIVE is not None:
-            _note(self, "all_gather", axes, out, whole=axes is None)
+            _note(self, "all_gather", axes, out, whole=True)
         return out
+
+    def _all_gather_axes(self, t, axes, dim, tiled):
+        parts = self._gather(t, axes)
+        return (torch.cat(parts, dim) if tiled
+                else torch.stack(parts, dim))[None]
 
     def _a2a_parts(self, buf: torch.Tensor, axes, dim: int) -> list:
         """Chunk j of `dim` to member j; the chunks received, in group

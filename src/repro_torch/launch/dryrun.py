@@ -24,22 +24,29 @@ device="meta")`, (16, 16) ('data', 'model') or (2, 16, 16) ('pod', 'data',
   train    global_batch / dp_size sequences in `_micro_batches` micro-
            batches (the reference's arithmetic), under the `Parallelism`
            of one data rank that the train step's `_data_ranks` builds:
-           no mesh for a dense model, and for experts the model axis as a
-           stacked `StackedComm` on meta.  The gradient reduction runs in a
-           walk of its own: `hierarchical_all_reduce` (or, `--flat`, one
-           all-reduce over the data axes) on a meta (dp_size, numel) float32
-           buffer of the stacked data ranks, its `stats` kept;
+           for the families `models.tp` covers (dense, moe, encdec, vlm)
+           the model axis as a stacked `StackedComm` of 16 ranks on meta,
+           each holding its weight blocks; no mesh for rwkv6 and hymba.
+           The gradient reduction runs in a walk of its own:
+           `hierarchical_all_reduce` (or, `--flat`, one all-reduce over
+           the data axes) on a meta (dp_size, numel) float32 buffer of the
+           stacked data ranks, numel a model rank's gradient, its `stats`
+           kept;
   prefill, B / dp_size sequences where dp_size divides the batch, else the
-  decode   whole batch (the reference replicates it then); S_max is
-           seq_len + 128 for a prefill and seq_len for a decode step, whose
-           cache comes from `decode.init_cache(..., device="meta")`.
+  decode   whole batch (the reference replicates it then), under the same
+           local `Parallelism`; S_max is seq_len + 128 for a prefill and
+           seq_len for a decode step, whose cache comes from
+           `decode.init_cache(..., device="meta", par)` (the model ranks'
+           key/value heads).
 
 The 16 or 32 data ranks are never summed into a per-rank figure.  Where
-ranks are stacked (the experts' model axis, the reduction's data ranks),
-the walker counts the stacked total and derives one rank's share: the work
-inside the stacked scope (and the backward of what it made) and the bytes
-it allocates count 1/L each, L the stacked ranks; each collective's bytes
-are one rank's result already.  `port.stacked` keeps the totals as run.
+ranks are stacked (the model axis, the reduction's data ranks), the walker
+counts the stacked total and derives one rank's share: the work inside
+the stacked scope (and the backward of what it made), the bytes it
+allocates and the stacked arguments (weight blocks, optimizer state,
+caches: `Walker.track(..., L)`) count 1/L each, L the stacked ranks; each
+collective's bytes are one rank's result already.  `port.stacked` keeps
+the totals as run.
 
 Artifact keys are the reference's, so its `report` and `roofline` read a
 port artifact unchanged:
@@ -60,10 +67,10 @@ port artifact unchanged:
   walked      `weighted_analysis`'s keys, per rank.
 
 The port's own figures are under `port`: the bytes the rank holds under
-the port's actual placement (`held_bytes`: every leaf whole, since the
-port has no GSPMD to keep dense weights, caches and activations sharded,
-`Parallelism.constrain` returning its input; a stacked data rank holds
-whole parameters), its peak (`peak_bytes`, against one 80 GB card:
+the port's placement (`held_bytes`, split in `held` into parameters,
+optimizer state, batch and caches: the blocks of the 'model' entries of
+the reference's specs, `models.tp`, the 'data' entries whole; rwkv6 and
+hymba every leaf whole), its peak (`peak_bytes`, against one 80 GB card:
 `fits_80gb`), the kernels' launches, operations and bytes, the dot FLOPs
 as the card runs them (`dot_flops_card`: the kernels' operations in place
 of the reference's dots, what the H100 roofline reads), the step's and
@@ -89,6 +96,7 @@ from repro_torch.configs.base import active_param_count, param_count
 from repro_torch.core.collectives import hierarchical_all_reduce
 from repro_torch.launch.mesh import make_production_mesh, parallelism_for
 from repro_torch.models import decode as decode_mod
+from repro_torch.models import tp as tp_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.params import (Sharding, map_tree, param_shardings,
                                        param_structs, tree_leaves)
@@ -221,18 +229,20 @@ def rank_program(cfg, shape, par, *, n_micro: int = 1, B: int | None = None,
     meta = dev.type == "meta"
     gen = None if meta else torch.Generator(device=dev).manual_seed(seed)
     train = shape.kind == "train"
-    if meta:
-        params = weight_structs(cfg)
-        if train:
-            params = map_tree(lambda t: t.requires_grad_(), params)
-    else:
-        params = init_weights(cfg, seed=seed, device=dev, trainable=train)
+    tp = tp_mod.plan(cfg, par)
+    params = weight_structs(cfg) if meta else init_weights(cfg, seed=seed,
+                                                           device=dev)
+    if tp is not None:
+        params = tp_mod.shard_model(params, cfg, par.mesh, par.model_axis)
+    if train:
+        params = map_tree(lambda t: t.requires_grad_(), params)
     batch = _inputs(cfg, shape, B, dev, gen)
     if train:
         opt = init_opt_state(params)
         step = make_train_step(cfg, AdamWConfig(), n_micro=n_micro, par=par)
-        return ({"params": params, "opt": list(opt[:3]), "batch": batch},
-                lambda: step(params, opt, batch))
+        return _ranked({"params": params, "opt": list(opt[:3]),
+                        "batch": batch}, lambda: step(params, opt, batch),
+                       tp)
     model = Model(cfg, params)
     if shape.kind == "prefill":
         S_max = shape.seq_len + 128
@@ -242,33 +252,53 @@ def rank_program(cfg, shape, par, *, n_micro: int = 1, B: int | None = None,
                 return model.prefill(batch["tokens"], S_max,
                                      frames=batch.get("frames"),
                                      vis=batch.get("vis"), par=par)
-        return {"params": model.params, "batch": batch}, run
-    cache = decode_mod.init_cache(cfg, B, shape.seq_len, dev)
+        return _ranked({"params": model.params, "batch": batch}, run, tp)
+    cache = decode_mod.init_cache(cfg, B, shape.seq_len, dev, par)
 
     def run():
         with torch.no_grad():
             return model.decode_step(cache, batch["tokens"], batch["pos"],
                                      par=par)
-    return {"params": model.params, "batch": batch, "cache": cache}, run
+    return _ranked({"params": model.params, "batch": batch, "cache": cache},
+                   run, tp)
+
+
+def _ranked(args, run, tp):
+    """`run` marked with the stacked ranks that hold the arguments other
+    than the batch (`walk_program` counts 1/L of them a rank)."""
+    run.ranks = tp.L if tp is not None and tp.stacked else 1
+    return args, run
+
+
+def held_parts(args, run) -> dict:
+    """One rank's bytes of each argument (the batch whole, the rest 1/L
+    of the stacked ranks')."""
+    L = getattr(run, "ranks", 1)
+    return {k: _whole_bytes(v) / (1 if k == "batch" else L)
+            for k, v in args.items()}
 
 
 def walk_program(args, run, device_type: str = "meta") -> tuple:
-    """Run a rank program under a walker: (the walker, seconds, the bytes
-    of the tracked arguments).  The step's outputs are dropped."""
+    """Run a rank program under a walker: (the walker, seconds, one rank's
+    bytes of the arguments, `held_parts` summed).  The step's outputs are
+    dropped."""
     t0 = time.perf_counter()
+    L = getattr(run, "ranks", 1)
     with Walker(device_type) as w:
-        held = w.track(args)
+        w.track(args["batch"])
+        w.track({k: v for k, v in args.items() if k != "batch"}, L)
         out = run()
         del out
+    held = int(round(sum(held_parts(args, run).values())))
     return w, time.perf_counter() - t0, held
 
 
-def _reduction(par, red, params) -> tuple:
+def _reduction(par, red, params, L: int = 1) -> tuple:
     """The gradient reduction of the stacked data ranks on a meta (dp,
-    numel) float32 buffer (the gradients and the loss): (walker,
-    stages)."""
+    numel) float32 buffer (one model rank's gradients, of `params` held
+    by L stacked ranks, and the loss): (walker, stages)."""
     inner, outer = reduction_axes(par)
-    numel = sum(p.numel() for p in tree_leaves(params)) + 1
+    numel = sum(p.numel() for p in tree_leaves(params)) // L + 1
     stats: list = []
     with Walker("meta") as w:
         with cost.stacked(red.n_ranks):
@@ -334,7 +364,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     else:
         S_max = shape.seq_len + (128 if shape.kind == "prefill" else 0)
         shardable = shape.global_batch % dp == 0
-        gcache = decode_mod.init_cache(cfg, shape.global_batch, S_max, "meta")
+        gcache = decode_mod.init_cache(cfg, shape.global_batch, S_max,
+                                       "meta")
         cache_bytes = _sharded_bytes(gcache, cache_shardings(
             cfg, mesh, par, gcache, shardable))
         logits = torch.empty((shape.global_batch, 1, tf.padded_vocab(cfg)),
@@ -352,7 +383,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     t_red = 0.0
     if shape.kind == "train":
         t1 = time.perf_counter()
-        w_red, stages = _reduction(par, red, args["params"])
+        w_red, stages = _reduction(par, red, args["params"],
+                                   getattr(run, "ranks", 1))
         red_walk = w_red.result()
         records += w_red.records
         t_red = time.perf_counter() - t1
@@ -387,7 +419,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
             "model_ranks_stacked": (local.mesh.n_ranks
                                     if local.mesh is not None else 1),
             "held_bytes": int(held),
-            "held": {k: _whole_bytes(v) for k, v in args.items()},
+            "held": {k: int(round(v)) for k, v in held_parts(
+                args, run).items()},
             "peak_bytes": int(peak),
             "fits_80gb": bool(peak <= CARD_BYTES),
             "kernels": kernels,
@@ -399,9 +432,10 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                           dict(red_walk, stages=[dict(s, axes=list(s["axes"]))
                                                  for s in stages])),
             "stacked": step["port"]["stacked"],
-            "per_rank": "one data rank's program; stacked model-axis ranks "
-                        "(experts) and the reduction's stacked data ranks "
-                        "count 1/L each (analysis.hlo_walk)",
+            "per_rank": "one data rank's program; its stacked model-axis "
+                        "ranks (the weight blocks of models.tp) and the "
+                        "reduction's stacked data ranks count 1/L each "
+                        "(analysis.hlo_walk)",
         },
     }
     return result, None

@@ -14,6 +14,9 @@ engine prefills tokens only, as the reference's does, so it refuses
 seamless-m4t-medium and llama-3.2-vision-90b, whose prefill needs frame or
 patch embeddings (serve them through `Model.prefill` and `decode_step`).
 Weights are random, drawn from a generator seeded with 0.
+`--model-ranks N` serves them tensor parallel on N model ranks stacked on
+the device (a (data 1, model N) mesh; the engine's `par=`, the weights as
+`models.tp.shard_model`'s blocks).
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_mesh_compat
 from repro_torch.models import build_model
+from repro_torch.models.tp import shard_model
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.sharding.parallel import Parallelism
 
@@ -41,6 +46,9 @@ def main(argv=None):
     ap.add_argument("--s-max", type=int, default=128)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--model-ranks", type=int, default=1,
+                    help="model ranks stacked on the device (tensor "
+                         "parallel; 1: no mesh)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -50,8 +58,14 @@ def main(argv=None):
                  f"it through Model.prefill and Model.decode_step")
     dev = resolve_device(args.device)
     model = build_model(cfg, seed=0, device=dev)
-    engine = ServeEngine(model, B=args.slots, S_max=args.s_max,
-                         par=Parallelism(remat=False))
+    par = Parallelism(remat=False)
+    if args.model_ranks > 1:
+        mesh = make_mesh_compat((1, args.model_ranks), ("data", "model"),
+                                dev)
+        par = Parallelism(mesh=mesh, data_axes=("data",),
+                          model_axis="model", remat=False)
+        model = build_model(cfg, shard_model(model.params, cfg, mesh))
+    engine = ServeEngine(model, B=args.slots, S_max=args.s_max, par=par)
     rng = np.random.default_rng(0)
     for rid in range(args.requests):
         plen = int(rng.integers(4, 16))

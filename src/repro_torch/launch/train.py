@@ -17,8 +17,12 @@ never moves to the CPU on its own.
 Weights start from `init_weights(cfg, seed=seed)` (a seeded
 `torch.Generator` on the device); data is `SyntheticLM(seed=seed)`.  The
 step runs under `par` (default: the reference's `Parallelism(remat=
-False)`, no mesh); a `Parallelism` over a stacked mesh makes it data
-parallel (`train.train_step`), the batch split over its data ranks.
+False)`, no mesh); a `Parallelism` over a mesh makes it data parallel
+over its data axes (`train.train_step`, the batch split over its data
+ranks) and tensor parallel over its model axis: the weights, the
+optimizer state and the checkpoints are then the model ranks' blocks
+(`models.tp.shard_model`).  `--model-ranks N` stacks N model ranks on
+the device (a (data 1, model N) mesh, remat on).
 """
 from __future__ import annotations
 
@@ -32,7 +36,9 @@ from repro_torch.ckpt import latest_step, load_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_mesh_compat
 from repro_torch.models import init_weights, weight_structs
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.params import map_tree
 from repro_torch.sharding.parallel import Parallelism
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -57,11 +63,17 @@ def run(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     par = Parallelism(remat=False) if par is None else par
     train_step = make_train_step(cfg, opt_cfg, n_micro=n_micro, par=par)
 
+    def placed(tree):
+        """A whole tree as the blocks `par`'s model axis runs on."""
+        if tp_mod.plan(cfg, par) is None:
+            return tree
+        return tp_mod.shard_model(tree, cfg, par.mesh, par.model_axis)
+
     data = SyntheticLM(cfg.vocab, seq, batch, seed=seed)
     start = 0
     last = latest_step(ckpt_dir) if ckpt_dir else None
     if last is not None:
-        like = weight_structs(cfg)
+        like = placed(weight_structs(cfg))
         like = {"params": like, "opt": init_opt_state(like)}
         state, extra = load_checkpoint(ckpt_dir, last, like, device=dev)
         params = map_tree(lambda p: p.requires_grad_(), state["params"])
@@ -70,7 +82,8 @@ def run(arch: str, smoke: bool, steps: int, batch: int, seq: int,
         start = last
         print(f"[train] resumed from step {start}")
     else:
-        params = init_weights(cfg, seed=seed, device=dev, trainable=True)
+        params = map_tree(lambda t: t.requires_grad_(), placed(
+            init_weights(cfg, seed=seed, device=dev)))
         opt_state = init_opt_state(params)
 
     losses, gnorms, times, stragglers = [], [], [], 0
@@ -120,10 +133,20 @@ def main(argv=None):
     ap.add_argument("--simulate-failure-at", type=int, default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--model-ranks", type=int, default=1,
+                    help="model ranks stacked on the device (tensor "
+                         "parallel; 1: no mesh)")
     args = ap.parse_args(argv)
+    par = None
+    if args.model_ranks > 1:
+        mesh = make_mesh_compat((1, args.model_ranks), ("data", "model"),
+                                resolve_device(args.device))
+        par = Parallelism(mesh=mesh, data_axes=("data",),
+                          model_axis="model")
     out = run(args.arch, args.smoke, args.steps, args.batch, args.seq,
               args.ckpt_dir, args.ckpt_every, args.lr,
-              args.simulate_failure_at, args.n_micro, device=args.device)
+              args.simulate_failure_at, args.n_micro, device=args.device,
+              par=par)
     print(json.dumps({"final_loss": out["final_loss"],
                       "stragglers": out["stragglers"]}))
 

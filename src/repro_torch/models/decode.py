@@ -51,10 +51,19 @@ nothing back to the host, so a CUDA graph of the step replays at any
 position (`serve.engine`); this matches the reference's traced `pos` and
 `dynamic_update_slice`.
 
-`par` (the reference's argument, `NONE` by default) reaches the MoE
-sublayers only: under a mesh with a model axis they run the
-expert-parallel route (`models.moe`), whose stacked collectives read
-nothing back either, so a step under a stacked mesh captures too.
+`par` (the reference's argument, `NONE` by default): under a mesh with a
+model axis of more than one rank the dense, moe, encdec and vlm families
+run the rank program of `models.tp` on the weight blocks
+(`tp.shard_model`).  Each attention cache leaf then holds each local
+rank's key/value heads on a leading rank axis, (L, ..., B_l, S_max,
+Hkv_pad, hd) (L the ranks this process holds, B_l a rank's data shard,
+Hkv_pad the widest rank's heads; a rank's own are the first of them,
+zeros after), and `memory` the batch as the model takes it.  The logits
+are the whole vocabulary's (all-gathered), so the greedy choice reads
+them as before.  Every collective of the program is a stacked or group
+communicator's, which reads nothing back to the host, so a decode step
+under a stacked mesh still captures as one CUDA graph.  rwkv6 and hymba
+keep their whole-leaf caches.
 """
 from __future__ import annotations
 
@@ -62,6 +71,7 @@ import torch
 
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.layers import apply_rope, attention_full, rms_norm
 from repro_torch.models.transformer import (_attn_sublayer, _ffn_sublayer,
                                             _mlp_sublayer, _n_superblocks,
@@ -76,12 +86,22 @@ __all__ = ["CDT", "init_cache", "prefill", "decode_step"]
 CDT = torch.bfloat16
 
 
-def init_cache(cfg, B: int, S_max: int, device) -> dict:
+def init_cache(cfg, B: int, S_max: int, device, par=NONE) -> dict:
+    """Zeroed caches for a batch of B (stacked: the whole batch; group:
+    the rank's shard) of up to S_max positions; under a model axis, each
+    attention leaf per local rank (module docstring)."""
     check_supported(cfg)
     hd, D, Hkv = cfg.hd, cfg.d_model, cfg.n_kv_heads
+    tp = tp_mod.plan(cfg, par)
+    lead = ()
+    if tp is not None:
+        lead, B, Hkv = (tp.L,), B // tp.n_dp, max(tp.hkv)
 
     def z(*shape, dtype=CDT):
         return torch.zeros(shape, dtype=dtype, device=device)
+
+    def zk(*shape):
+        return z(*lead, *shape)
 
     if cfg.family == "ssm":
         def per():
@@ -97,23 +117,25 @@ def init_cache(cfg, B: int, S_max: int, device) -> dict:
         n_self = cfg.cross_attn_period - 1
 
         def per():
-            return {"k": z(n_self, B, S_max, Hkv, hd),
-                    "v": z(n_self, B, S_max, Hkv, hd)}
+            return {"k": zk(n_self, B, S_max, Hkv, hd),
+                    "v": zk(n_self, B, S_max, Hkv, hd)}
     elif cfg.swa_period:
         nl, w = cfg.swa_period - 1, cfg.sliding_window
 
         def per():
-            return {"k_loc": z(nl, B, w, Hkv, hd), "v_loc": z(nl, B, w, Hkv, hd),
-                    "k_glob": z(B, S_max, Hkv, hd),
-                    "v_glob": z(B, S_max, Hkv, hd)}
+            return {"k_loc": zk(nl, B, w, Hkv, hd),
+                    "v_loc": zk(nl, B, w, Hkv, hd),
+                    "k_glob": zk(B, S_max, Hkv, hd),
+                    "v_glob": zk(B, S_max, Hkv, hd)}
     else:
         def per():
-            return {"k": z(B, S_max, Hkv, hd), "v": z(B, S_max, Hkv, hd)}
+            return {"k": zk(B, S_max, Hkv, hd), "v": zk(B, S_max, Hkv, hd)}
     cache = {"blocks": [per() for _ in range(_n_superblocks(cfg))]}
+    Bm = B * (tp.n_dp if tp is not None else 1)
     if cfg.family == "vlm":
-        cache["memory"] = z(B, cfg.n_vis_tokens, D)
+        cache["memory"] = z(Bm, cfg.n_vis_tokens, D)
     if cfg.is_encdec:
-        cache["memory"] = z(B, S_max, D)
+        cache["memory"] = z(Bm, S_max, D)
         cache["memory_len"] = z(dtype=torch.long)
     return cache
 
@@ -146,10 +168,20 @@ def _ring_fill(ring, k_full):
     ring[:, slots] = k_full[:, S - take:].to(ring.dtype)
 
 
-def _store_kv(c, kv, S, cfg):
+def _store_kv(c, kv, S, cfg, tp=None):
     """One superblock's prefill keys and values (kind, k, v) into its
     cache entry c (a vlm's self caches stacked, the i-th self sublayer's
-    at index i)."""
+    at index i).  With `tp`, k and v are per-rank lists written into each
+    rank's cache (its heads first; nothing for a rank with no query
+    head)."""
+    if tp is not None:
+        for i in range(tp.L):
+            one = [(kind, k[i], v[i]) for kind, k, v in kv]
+            if one and one[0][1] is not None:
+                n = one[0][1].shape[2]
+                _store_kv({key: t[i].narrow(-2, 0, n)
+                           for key, t in c.items()}, one, S, cfg)
+        return
     li = si = 0
     for kind, k, v in kv:
         if kind == "attn_local":
@@ -183,6 +215,11 @@ def prefill(params, tokens, cfg, S_max: int, *, frames=None, vis=None,
         raise ValueError(f"prefill: frames {tuple(frames.shape)} for a "
                          f"prompt of ({B}, {S}) tokens (the encoder reads "
                          f"the prompt's positions)")
+    tp = tp_mod.plan(cfg, par)
+    if tp is not None:
+        with tp.scope():
+            return _prefill_ranks(params, tokens, cfg, S_max, frames, vis,
+                                  par, tp)
     x = embed(params, tokens, cfg)
     cache = init_cache(cfg, B, S_max, x.device)
     positions = torch.arange(S, device=x.device)
@@ -211,6 +248,67 @@ def prefill(params, tokens, cfg, S_max: int, *, frames=None, vis=None,
             _store_kv(c, kv, S, cfg)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     return cache, logits_fn(params, h[:, -1:], cfg)
+
+
+def _prefill_ranks(params, tokens, cfg, S_max, frames, vis, par, tp):
+    """`prefill` as the rank program of `models.tp`."""
+    B, S = tokens.shape
+    h = tp_mod.embed(params, tp.enter(tokens), cfg, tp)
+    cache = init_cache(cfg, B, S_max, h.device, par)
+    positions = torch.arange(S, device=h.device)
+    memory = memory_of(params, cfg, frames, vis, tp)
+    if memory is not None:
+        cache["memory"][:, :memory.shape[2]] = tp.leave(memory)
+    if cfg.is_encdec:
+        cache["memory_len"].fill_(S)
+    for pb, c in zip(params["blocks"], cache["blocks"]):
+        h, _, kv = superblock(h, pb, cfg, positions=positions,
+                              memory=memory, par=par, tp=tp)
+        _store_kv(c, kv, S, cfg, tp)
+    h = tp.norm(h, params["final_ln"], cfg.norm_eps)
+    return cache, tp.leave(tp_mod.logits(params, h[:, :, -1:], cfg, tp))
+
+
+def _decode_ranks(params, cache, tokens, pos, cfg, par, tp):
+    """`decode_step` as the rank program of `models.tp`."""
+    h = tp_mod.embed(params, tp.enter(tokens), cfg, tp)
+    positions = pos.reshape(1)
+    memory, mem_len = cache.get("memory"), None
+    if memory is not None:
+        mem_len = cache.get("memory_len", memory.shape[1])
+        memory = tp.enter(memory.to(h.dtype))
+    for pb, c in zip(params["blocks"], cache["blocks"]):
+        li = si = 0
+        for s in range(_period(cfg)):
+            kind = _sublayer_kind(cfg, s)
+            if kind == "cross":
+                h, _, _ = tp_mod.attn_sublayer(
+                    h, pb[f"cross{s}"], cfg, tp, positions=positions,
+                    memory=memory, kv_len=mem_len)
+            else:
+                at, kv_len = positions, pos + 1
+                if kind == "attn_local":        # ring slot pos % window
+                    w = cfg.sliding_window
+                    kc, vc = c["k_loc"][:, li], c["v_loc"][:, li]
+                    at, kv_len = positions % w, torch.clamp(kv_len, max=w)
+                    li += 1
+                elif kind == "attn_global":
+                    kc, vc = c["k_glob"], c["v_glob"]
+                elif cfg.cross_attn_period:     # vlm: stacked caches
+                    kc, vc = c["k"][:, si], c["v"][:, si]
+                    si += 1
+                else:
+                    kc, vc = c["k"], c["v"]
+                h, _, _ = tp_mod.attn_sublayer(
+                    h, pb[f"attn{s}"], cfg, tp, positions=positions,
+                    cache=(kc, vc, at, kv_len))
+            if cfg.is_encdec:
+                h, _, _ = tp_mod.attn_sublayer(
+                    h, pb[f"dec_cross{s}"], cfg, tp, positions=positions,
+                    memory=memory, kv_len=mem_len)
+            h, _ = _ffn_sublayer(h, pb, cfg, s, par, tp)
+    h = tp.norm(h, params["final_ln"], cfg.norm_eps)
+    return tp.leave(tp_mod.logits(params, h, cfg, tp)), cache
 
 
 def _prefill_recurrent(params, x, cfg, cache):
@@ -256,9 +354,13 @@ def decode_step(params, cache, tokens, pos, cfg, par=NONE):
     Updates `cache` in place; returns (logits (B, 1, V), cache)."""
     check_supported(cfg)
     B = tokens.shape[0]
-    h = embed(params, tokens, cfg)
     if not isinstance(pos, torch.Tensor):
-        pos = torch.full((), pos, dtype=torch.long, device=h.device)
+        pos = torch.full((), pos, dtype=torch.long, device=tokens.device)
+    tp = tp_mod.plan(cfg, par)
+    if tp is not None:
+        with tp.scope():
+            return _decode_ranks(params, cache, tokens, pos, cfg, par, tp)
+    h = embed(params, tokens, cfg)
     if cfg.family == "ssm":
         for pb, c in zip(params["blocks"], cache["blocks"]):
             h, new_c = rwkv_mod.rwkv_block(

@@ -11,25 +11,32 @@ come back weighted by their gates.  The reference calls expert dispatch a
 sparse data exchange: on one rank it is this scatter and gather.
 
 Under a `Parallelism` whose mesh has a model axis of more than one rank,
-`moe_ffn` takes the reference's expert-parallel route (`_moe_shard_map`)
-step by step, as a rank program over the ranks this process holds
-(`core.dist.comm`: every rank of a stacked mesh, or this process's one
-rank of a group mesh): tokens split over the data axes and replicated
-over the model axis; each rank routes its tokens with the capacity of its
-own token count (`_capacity`) into an (E, C, D) buffer; its experts'
-weights (E / n_model of them, the model axis's block) are all-gathered
-over the data axes (the FSDP shards: `w_gate` / `w_up` on dim 1, `w_down`
-on dim 2); the buffer goes to the experts' ranks by an all-to-all over
-the model axis in the reference's destination-major layout, the rank's
-experts run as one batched product over (E / n_model, n_model * C, D),
-the rows come back by the reverse all-to-all and are combined.  With
-`moe_seq_shard` and T % n_model == 0 each model rank routes only its
+the MoE sublayer takes the reference's expert-parallel route
+(`_moe_shard_map`) as a step of the rank program of `models.tp`, over
+the ranks this process holds (`core.dist.comm`: every rank of a stacked
+mesh, or this process's one rank of a group mesh).  Each rank holds only
+its expert block, (E / n_model) experts whole on the 'data' axes
+(`tp.model_shardings`: the 'model' entries of the reference's specs; the
+'data' ones, the FSDP shards the reference all-gathers, stay whole, so
+nothing is gathered), and a copy of the router.  The tokens of a rank
+are its data shard, replicated over the model axis; each rank routes its
+tokens with the capacity of its own token count (`_capacity`) into an
+(E, C, D) buffer; the buffer goes to the experts' ranks by an all-to-all
+over the model axis in the reference's destination-major layout, the
+rank's experts run as one batched product over (E / n_model, n_model *
+C, D), the rows come back by the reverse all-to-all and are combined.
+With `moe_seq_shard` and T % n_model == 0 each model rank routes only its
 slice of the tokens, and the outputs are all-gathered over the model
 axis; the aux loss is averaged over the model axis then, and over the
-data axes always.  On a stacked mesh the input and weights are whole and
-the output is the whole (B, S, D) array; on a group mesh the input is
-this rank's data shard, the weights whole (each rank cuts its block), and
-the output its shard.  The stacked route is differentiable end to end.
+data axes always.  Every model rank ends with the same output, so, as
+`shard_map` transposes a replicated output, the output's and the aux
+loss's cotangents are divided by n_model, and the input and the router
+enter through `copy_into` (their gradients psummed over the model axis):
+a rank's backward then gives its expert block's gradient and the whole
+router gradient.  The all-to-alls, the all-gather and the means are the
+communicators' differentiable collectives, on a stacked and a group mesh
+alike.  `moe_ffn` keeps its batch convention (stacked: the whole (B, S,
+D); group: the rank's shard), with the weights as blocks.
 
 Nothing here reads the device from the host (no `.item()`, `nonzero` or
 boolean index; the one-hot compares with `arange(E)`; the stacked
@@ -45,7 +52,9 @@ here (a no-op otherwise).
 `routing_log()` records, while it is open, each routing's expert choices,
 kept slots and top-k margins (one entry a `_moe_dense` call, one a rank
 of the expert-parallel route), so a caller can tell whether two runs
-routed alike, dropped nothing, or met a near tie.
+routed alike, dropped nothing, or met a near tie.  A routing recomputed in
+backward (a superblock under `torch.utils.checkpoint`) is not recorded
+again.
 """
 from __future__ import annotations
 
@@ -55,14 +64,21 @@ from contextlib import contextmanager
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.dist.comm import StackedComm
-from repro_torch.models.params import ParamDef, Sharding
-from repro_torch.obs import cost
+from repro_torch.core.dist.comm import scale_grad
+from repro_torch.models.params import ParamDef
 from repro_torch.sharding.parallel import NONE
 
-__all__ = ["moe_defs", "moe_ffn", "routing_log"]
+__all__ = ["moe_defs", "moe_ffn", "moe_ranks", "routing_log"]
 
 _log: list | None = None
+
+
+def _record(eidx, keep, margin_fn) -> None:
+    """Append a routing to the open log, unless it is a recompute in
+    backward."""
+    if _log is not None and torch._C._current_autograd_node() is None:
+        with torch.no_grad():
+            _log.append((eidx, keep, margin_fn()))
 
 
 @contextmanager
@@ -164,8 +180,7 @@ def _moe_dense(x, p, cfg):
     C = _capacity(x2d.shape[0], cfg)
     gate, eidx, pos, keep, aux = _route(x2d, p["router"], cfg.n_experts,
                                         cfg.top_k, C)
-    if _log is not None:
-        _log.append((eidx, keep, _margin(x2d, p["router"], cfg.top_k)))
+    _record(eidx, keep, lambda: _margin(x2d, p["router"], cfg.top_k))
     buf = _dispatch(x2d, eidx, pos, keep, cfg.n_experts, C)
     y_buf = _expert_ffn(buf, p["w_gate"], p["w_up"], p["w_down"])
     y = _combine(y_buf, gate, eidx, pos, keep)
@@ -174,62 +189,40 @@ def _moe_dense(x, p, cfg):
 
 def moe_ffn(x, p, cfg, par=NONE):
     """x: (B, S, D) -> (y, aux_loss): `_moe_dense` without a mesh, a model
-    axis, or with one model rank; else the expert-parallel route."""
+    axis, or with one model rank; else the expert-parallel route on the
+    rank blocks `p` (`tp.shard_model`'s), x and y the batch (stacked: whole;
+    group: the rank's shard)."""
     if par.mesh is None or par.model_axis is None or par.tp_size() == 1:
         return _moe_dense(x, p, cfg)
     return _moe_shard_map(x, p, cfg, par)
 
 
-def _rank_blocks(mesh, w, specs):
-    """(L, *block) of a whole leaf: each local rank's block under `specs`
-    (the reference's shard_map in_specs), views stacked."""
-    sh = Sharding(mesh, specs)
-    return torch.stack([sh.block(w, r) for r in mesh.local_ranks])
-
-
 def _moe_shard_map(x, p, cfg, par):
-    if isinstance(par.mesh, StackedComm):
-        with cost.stacked(par.mesh.n_ranks):
-            return _moe_ranks(x, p, cfg, par)
-    return _moe_ranks(x, p, cfg, par)
+    from repro_torch.models import tp as tp_mod
+    tp = tp_mod.plan(cfg, par)
+    with tp.scope():
+        y, aux = moe_ranks(tp.enter(x), p, cfg, par, tp)
+        return tp.leave(y), tp.leave_mean(aux)
 
 
-def _moe_ranks(x, p, cfg, par):
-    mesh = par.mesh
-    n_model = mesh.shape[par.model_axis]
+def moe_ranks(xl, p, cfg, par, tp):
+    """The expert-parallel route (module docstring) on each local rank's
+    tokens xl (L, B_l, S, D) -> (y (L, B_l, S, D), aux (L,))."""
+    mesh, model = tp.mesh, tp.axis
+    n_model = tp.M
     assert cfg.n_experts % n_model == 0, (cfg.n_experts, n_model)
-    dp, model = tuple(par.data_axes), par.model_axis
-    E, D = cfg.n_experts, x.shape[-1]
+    dp = tuple(par.data_axes)
+    E, D = cfg.n_experts, xl.shape[-1]
     E_loc = E // n_model
-    stacked = isinstance(mesh, StackedComm)
-    # the tokens of each local rank: its data shard (B_loc, S, D),
-    # REPLICATED over the model axis
-    if stacked:
-        n_dp = par.dp_size()
-        if x.shape[0] % n_dp:
-            raise ValueError(f"moe_ffn: a batch of {x.shape[0]} does not "
-                             f"split over {n_dp} data ranks")
-        shards = x.reshape(n_dp, -1, *x.shape[1:])
-        # (host indices: nothing is copied from the host, so a CUDA graph
-        # can capture this)
-        xl = torch.stack([shards[j] for j in (mesh.axis_index(dp) if dp
-                                              else [0] * mesh.n_ranks)])
-    else:
-        xl = x[None]
+    xl = tp.f(xl)
+    router = tp.f(tp.stack_rows(p["router"]).float())
     L, B_loc, S = xl.shape[:3]
     T_full = B_loc * S
-    # expert weights enter un-gathered on their FSDP (data) dim: the
-    # rank's block of the reference's in_specs, all-gathered below
-    fsdp = dp if dp else None
-    w_gate = _rank_blocks(mesh, p["w_gate"], (model, fsdp, None))
-    w_up = _rank_blocks(mesh, p["w_up"], (model, fsdp, None))
-    w_down = _rank_blocks(mesh, p["w_down"], (model, None, fsdp))
-    router = p["router"].float()
     # without sequence sharding every model rank routes the SAME tokens,
     # so dispatch and a2a bytes are replicated n_model times; slicing
     # tokens over the model axis first removes the redundancy
     seq_shard = par.moe_seq_shard and T_full % n_model == 0
-    me = mesh.axis_index(model)
+    me = tp.midx
     Tl = T_full // n_model if seq_shard else T_full
     C = _capacity(Tl, cfg)
     sends, meta, auxs = [], [], []
@@ -237,25 +230,19 @@ def _moe_ranks(x, p, cfg, par):
         x2d = xl[i].reshape(-1, D)
         if seq_shard:
             x2d = x2d[me[i] * Tl:(me[i] + 1) * Tl]
-        gate, eidx, pos, keep, aux = _route(x2d, router, E, cfg.top_k, C)
-        if _log is not None:
-            _log.append((eidx, keep, _margin(x2d, router, cfg.top_k)))
+        gate, eidx, pos, keep, aux = _route(x2d, router[i], E, cfg.top_k, C)
+        _record(eidx, keep, lambda: _margin(x2d, router[i], cfg.top_k))
         buf = _dispatch(x2d, eidx, pos, keep, E, C)            # (E, C, D)
         sends.append(buf.reshape(n_model, E_loc * C, D))
         meta.append((gate, eidx, pos, keep))
         auxs.append(aux)
-    # FSDP gather of the expert weights over the data axes (ZeRO-3)
-    for ax in dp:
-        w_gate = mesh.all_gather(w_gate, ax, dim=1, tiled=True)
-        w_up = mesh.all_gather(w_up, ax, dim=1, tiled=True)
-        w_down = mesh.all_gather(w_down, ax, dim=2, tiled=True)
     # a2a over the model axis, destination-major: expert rows contiguous
     # per rank
     recv = mesh.all_to_all(torch.stack(sends), model)
     recv = recv.reshape(L, n_model, E_loc, C, D).transpose(1, 2) \
                .reshape(L, E_loc, n_model * C, D)
-    y = torch.stack([_expert_ffn(recv[i], w_gate[i], w_up[i], w_down[i])
-                     for i in range(L)])                  # (L, E_loc, nC, D)
+    y = torch.stack([_expert_ffn(recv[i], *(p[k][r] for k in (
+        "w_gate", "w_up", "w_down"))) for i, r in enumerate(tp.rows)])
     y4 = y.reshape(L, E_loc, n_model, C, D).transpose(1, 2) \
           .reshape(L, n_model, E_loc * C, D)
     back = mesh.all_to_all(y4, model).reshape(L, E, C, D)
@@ -268,11 +255,5 @@ def _moe_ranks(x, p, cfg, par):
     # aux identical across model (replicated routing); average over data
     for ax in dp:
         aux = mesh.pmean(aux, ax)
-    out = out.reshape(L, B_loc, S, D)
-    if not stacked:
-        return out[0], aux[0]
-    # every model rank holds its data shard's output: take, for each data
-    # shard in order, the first rank that holds it
-    shard = mesh.axis_index(dp) if dp else [0] * L
-    first = [shard.index(j) for j in range(par.dp_size())]
-    return torch.stack([out[i] for i in first]).reshape(x.shape), aux[0]
+    out = scale_grad(out.reshape(L, B_loc, S, D), 1.0 / n_model)
+    return out, scale_grad(aux, 1.0 / n_model)

@@ -18,10 +18,17 @@ leading axis (all D ranks of a stacked mesh: one copy; this process's rank
 of a group mesh), and `unshard_params` reassembles the whole leaves.  A
 spec entry names a mesh axis, a tuple of them (the leaf's dim split over
 their product, row-major), or None (not split); a rank whose coordinate
-on an axis no entry names holds the same block as its peers there.  The
-models read whole leaves (the port has no GSPMD to keep them sharded
-between layers): the expert-parallel MoE cuts its blocks itself
-(`models.moe`), and sharded leaves are for checkpoints and memory.
+on an axis no entry names holds the same block as its peers there.  These
+are the reference's full specs, for checkpoints and memory figures.
+
+The models run on the port's own placement, `ModelBlocks`
+(`models.tp.model_shardings`): only the 'model' entries are cut, each
+model rank's block padded to one width (an uneven dim rounds up, as
+XLA pads it), the 'data' entries left whole, and a leaf no 'model' entry
+names held whole by every model rank.  Its blocks are stacked one per
+model rank this process holds: every model rank of a stacked mesh (the
+data ranks of a stacked mesh share them), this process's one of a group
+mesh.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["ParamDef", "Sharding", "stack_defs", "init_params",
+__all__ = ["ParamDef", "Sharding", "ModelBlocks", "stack_defs",
+           "init_params",
            "param_structs", "param_shardings", "shard_params",
            "unshard_params", "map_tree", "tree_leaves", "tree_unflatten"]
 
@@ -94,6 +102,82 @@ class Sharding:
                 i = i * self.mesh.shape[a] + c[a]
             out.append(i * (n // k))
         return tuple(out)
+
+
+@dataclass(frozen=True)
+class ModelBlocks:
+    """A leaf's blocks over a mesh's model axis (module docstring).
+    `dim` is the dim the model ranks split (None: every model rank holds
+    the whole leaf); model rank m holds [starts[m], stops[m]) of it,
+    zero-padded to `width`.  `reduce` says how a rank's gradient of its
+    block becomes the leaf's: None (it is already), "model" (a psum over
+    the model axis: a replicated leaf each rank reads only a part of, as
+    q_norm / k_norm), "sharers" (a psum over the model ranks that hold the
+    same range: a key or value head held by several ranks)."""
+    mesh: object
+    axis: str
+    dim: int | None = None
+    starts: tuple = ()
+    stops: tuple = ()
+    width: int = 0
+    reduce: str | None = None
+
+    @property
+    def n_model(self) -> int:
+        return self.mesh.shape[self.axis]
+
+    def model_rows(self) -> list:
+        """The model ranks whose blocks this process holds, in order."""
+        if len(self.mesh.local_ranks) == self.mesh.n_ranks:
+            return list(range(self.n_model))
+        k = self.mesh.axis_names.index(self.axis)
+        return [self.mesh.coords(self.mesh.local_ranks[0])[k]]
+
+    def live(self, m: int) -> int:
+        return 0 if self.dim is None else self.stops[m] - self.starts[m]
+
+    def block_shape(self, shape) -> tuple:
+        if self.dim is None:
+            return tuple(shape)
+        return tuple(self.width if d == self.dim else n
+                     for d, n in enumerate(shape))
+
+    def block(self, t, m: int):
+        """Model rank m's block of the whole leaf t (a new tensor)."""
+        if self.dim is None:
+            return t.clone()
+        out = t.new_zeros(self.block_shape(t.shape))
+        n = self.live(m)
+        if n:
+            out.narrow(self.dim, 0, n).copy_(
+                t.narrow(self.dim, self.starts[m], n))
+        return out
+
+    def shard(self, t) -> torch.Tensor:
+        """(M, *block): this process's model ranks' blocks, stacked."""
+        return torch.stack([self.block(t, m) for m in self.model_rows()])
+
+    def unshard(self, blocks) -> torch.Tensor:
+        """The whole leaf from (M, *block) (gathered over the model axis
+        on a group mesh)."""
+        rows = self.model_rows()
+        if len(rows) != blocks.shape[0]:
+            raise ValueError(f"blocks {tuple(blocks.shape)} for model "
+                             f"ranks {rows}")
+        if len(rows) < self.n_model:                    # a group rank
+            blocks = self.mesh.all_gather(blocks, self.axis, dim=0,
+                                          tiled=True)[0]
+        if self.dim is None:
+            return blocks[0].clone()
+        shape = list(blocks.shape[1:])
+        shape[self.dim] = max(self.stops)
+        out = blocks.new_zeros(shape)
+        for m in range(self.n_model):
+            n = self.live(m)
+            if n:
+                out.narrow(self.dim, self.starts[m], n).copy_(
+                    blocks[m].narrow(self.dim, 0, n))
+        return out
 
 
 def stack_defs(defs, n: int) -> list:
@@ -177,10 +261,14 @@ def _zip_tree(fn, tree, other):
 
 def shard_leaf(t: torch.Tensor, sh: Sharding | None) -> torch.Tensor:
     """The blocks of `t` that this process's ranks hold, stacked (L, ...),
-    on the mesh's device; `t` as it is without a sharding."""
+    on the mesh's device (`ModelBlocks`: on the leaf's, so a meta mesh
+    can place weights on the card, as the dry run's check does); `t` as it
+    is without a sharding."""
     if sh is None:
         return t
     dev = sh.mesh.device
+    if isinstance(sh, ModelBlocks):
+        return sh.shard(t)
     return torch.stack([sh.block(t, r) for r in sh.mesh.local_ranks]).to(dev)
 
 
@@ -195,6 +283,8 @@ def unshard_leaf(t: torch.Tensor, sh: Sharding | None) -> torch.Tensor:
     block (gathered over a group mesh) written where it starts."""
     if sh is None:
         return t
+    if isinstance(sh, ModelBlocks):
+        return sh.unshard(t)
     mesh = sh.mesh
     if t.shape[0] != len(mesh.local_ranks):
         raise ValueError(f"blocks {tuple(t.shape)} for "

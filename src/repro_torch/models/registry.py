@@ -15,6 +15,10 @@ Training is functional, as in the reference: `init_weights(cfg,
 trainable=True)` draws the same weights as a tree of leaf tensors that
 require grad, and `Model.loss(params, batch)` / `transformer.loss_fn` take
 the tree.
+
+Under a `Parallelism` with a model axis of more than one rank the entry
+points take `par=` and the weights as the model ranks' blocks
+(`build_model(cfg, tp.shard_model(params, cfg, mesh))`, `models.tp`).
 """
 from __future__ import annotations
 
@@ -73,8 +77,8 @@ class Model(nn.Module):
         """Full-sequence forward -> final hidden states (B, S, D).  `frames`
         (B, S, D): an encdec model's frame embeddings; `vis` (B,
         n_vis_tokens, D): a vlm's patch embeddings (the reference's batch
-        keys); `par`: the reference's `Parallelism` (read by the MoE
-        sublayers)."""
+        keys); `par`: the reference's `Parallelism` (its model axis runs
+        the model's blocks, `models.tp`)."""
         return tf.forward(self.params, tokens, self.cfg, frames=frames,
                           vis=vis, par=par)
 
@@ -90,8 +94,8 @@ class Model(nn.Module):
         reference's `Model.loss`."""
         return tf.loss_fn(params, batch, self.cfg, par)
 
-    def logits(self, h):
-        return tf.logits_fn(self.params, h, self.cfg)
+    def logits(self, h, par=NONE):
+        return tf.logits_fn(self.params, h, self.cfg, par)
 
     def prefill(self, tokens, S_max: int, *, frames=None, vis=None,
                 par=NONE):

@@ -1,0 +1,560 @@
+"""Tensor parallelism over the model axis: the LM tier's rank program.
+
+The reference shards its weights by their `ParamDef.spec` and lets GSPMD
+keep each rank's block between layers.  The port has no GSPMD, so it runs
+what GSPMD would have made of the 'model' entries, Megatron's tensor
+parallelism, as an SPMD program over the ranks a process holds (every rank
+of a stacked mesh, or its one rank of a `torch.distributed` group):
+
+  attention  the query, key and value projections column-parallel over
+             heads, each rank's heads attended by K4 (`attention_flash`,
+             or `attention_full` in a decode step), the output projection
+             row-parallel, then one all-reduce over 'model';
+  MLP        w_gate / w_up column-parallel over d_ff, w_down row-parallel,
+             one all-reduce;
+  MoE        the expert-parallel route (`models.moe`) on the rank's expert
+             block, the router replicated;
+  vocabulary the embedding's rows and the logits' columns over 'model':
+             each rank looks up the tokens its rows hold (zeros for the
+             rest) and an all-reduce adds them; the loss all-gathers the
+             row maxima and all-reduces the sums of exponentials and the
+             gold logits; serving all-gathers the logits.
+
+Heads are placed by one rule (`head_placement`) that gives every rank
+whole key/value heads and one group size, so K4 runs on (H_local,
+Hkv_local) unchanged: with tp >= Hkv the ranks are dealt to the KV groups
+as evenly as possible, else the KV groups to the ranks; then each group's
+query heads to its ranks as evenly as possible.  A rank may hold no query
+head (smollm at tp 16): it launches nothing for the sublayer and adds
+zeros.  A KV head its group's ranks share is held by each of them.
+Other 'model' dims split evenly, an uneven one rounded up.
+
+Layout.  Weights are `ModelBlocks` blocks (`models.params`) stacked one
+per model rank this process holds: (M, *block) on a stacked mesh, whose
+data ranks share them, (1, *block) on a group rank.  Inside a model the
+residual stream is one copy a rank, (L, B_l, S, D), L the local ranks and
+B_l the rank's data shard of the batch.  The model's entry points take
+and give the batch as before (stacked: the whole batch; group: the rank's
+shard): `enter` cuts each rank's rows out, `leave` takes the first rank of
+each data shard.  Their backwards keep the SPMD convention: `leave` hands
+every rank its rows' cotangent, `enter` takes one rank's gradient a shard
+(every model rank's is the same).
+
+Gradients follow Megatron (`core.dist.comm`): `copy_into` (f) before each
+column-parallel product, `reduce_from` (g) after each row-parallel one, so
+a rank's backward gives exactly its own block's gradient, and a
+replicated leaf (norms, the router) the same whole gradient on every rank.
+Two kinds of leaf need more, applied by `sync_grads` to a gradient tree:
+q_norm / k_norm (each rank reads them on its own heads: a psum over
+'model') and key/value heads several ranks hold (a psum over the ranks
+that hold one).  The global gradient norm counts each element once
+(`grad_sq_sum`).  The MoE's outputs are the same on every model rank,
+so their cotangents are divided by the model ranks (`shard_map`'s rule)
+and the router and the input psum theirs back.
+
+Covered: dense, moe, encdec and vlm.  rwkv6 (ssm) and hymba (hybrid) run
+as before on whole leaves under a model axis (`plan` returns None for
+them), their SSM heads not yet split.  On a stacked mesh the program runs
+inside `obs.cost.stacked(L)`, so a cost walker counts one rank's share.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.dist.comm import StackedComm
+from repro_torch.models import layers as lay
+from repro_torch.models.params import ModelBlocks, ParamDef, map_tree
+
+__all__ = ["COVERED", "head_placement", "model_shardings", "plan", "TP",
+           "shard_model", "unshard_model", "sync_grads", "grad_sq_sum",
+           "n_holders"]
+
+COVERED = ("dense", "moe", "encdec", "vlm")
+ATTN_KEYS = ("wq", "wk", "wv", "wo")
+
+
+# ============================================================ placement ====
+def head_placement(H: int, Hkv: int, tp: int) -> list:
+    """Per model rank, (q0, q1, k0, k1): its query heads [q0, q1) and
+    key/value heads [k0, k1) (module docstring)."""
+    if H % Hkv:
+        raise ValueError(f"{H} query heads over {Hkv} KV heads")
+    G = H // Hkv
+    out = []
+    if tp >= Hkv:
+        base, extra = divmod(tp, Hkv)
+        for g in range(Hkv):
+            n = base + (g < extra)
+            qb, qe = divmod(G, n)
+            q = g * G
+            for j in range(n):
+                w = qb + (j < qe)
+                out.append((q, q + w, g, g + 1))
+                q += w
+    else:
+        base, extra = divmod(Hkv, tp)
+        g = 0
+        for r in range(tp):
+            n = base + (r < extra)
+            out.append((g * G, (g + n) * G, g, g + n))
+            g += n
+    return out
+
+
+def _even(n: int, M: int) -> tuple:
+    """(starts, stops, width): n split over M ranks in blocks of
+    ceil(n / M), the last ones shorter or empty."""
+    b = -(-n // M)
+    starts = tuple(min(m * b, n) for m in range(M))
+    stops = tuple(min((m + 1) * b, n) for m in range(M))
+    return starts, stops, b
+
+
+def _head_blocks(mesh, axis, heads, hd, which, dim, reduce=None):
+    lo, hi = (0, 1) if which == "q" else (2, 3)
+    starts = tuple(h[lo] * hd for h in heads)
+    stops = tuple(h[hi] * hd for h in heads)
+    width = max(b - a for a, b in zip(starts, stops))
+    return ModelBlocks(mesh, axis, dim, starts, stops, width, reduce)
+
+
+def model_shardings(defs, cfg, mesh, axis: str = "model"):
+    """Per leaf of a def tree, its `ModelBlocks` over `mesh`'s `axis`;
+    None for every leaf of a family `COVERED` does not name (rwkv6, hymba:
+    whole leaves)."""
+    if cfg.family not in COVERED:
+        return map_tree(lambda d: None, defs)
+    M = mesh.shape[axis]
+    heads = head_placement(cfg.n_heads, cfg.n_kv_heads, M)
+    shared = M > cfg.n_kv_heads
+    hd = cfg.hd
+
+    def leaf(d: ParamDef, name: str, attn: bool):
+        if attn and name in ATTN_KEYS:
+            if name == "wq":
+                return _head_blocks(mesh, axis, heads, hd, "q", 1)
+            if name == "wo":
+                return _head_blocks(mesh, axis, heads, hd, "q", 0)
+            return _head_blocks(mesh, axis, heads, hd, "k", 1,
+                                "sharers" if shared else None)
+        if "model" in d.spec:
+            dim = d.spec.index("model")
+            starts, stops, width = _even(d.shape[dim], M)
+            return ModelBlocks(mesh, axis, dim, starts, stops, width)
+        return ModelBlocks(mesh, axis, reduce="model" if attn and name in (
+            "q_norm", "k_norm") else None)
+
+    def walk(t):
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        attn = "wq" in t
+        return {k: (walk(v) if not isinstance(v, ParamDef)
+                    else leaf(v, k, attn)) for k, v in t.items()}
+
+    return walk(defs)
+
+
+def shard_model(params, cfg, mesh, axis: str = "model"):
+    """A whole weight tree -> its blocks on `mesh` (`model_shardings`):
+    (M, *block) leaves on the mesh's device; whole leaves for rwkv6 and
+    hymba."""
+    from repro_torch.models.params import shard_params
+    from repro_torch.models.transformer import model_defs
+    return shard_params(params, model_shardings(model_defs(cfg), cfg, mesh,
+                                                axis))
+
+
+def unshard_model(blocks, cfg, mesh, axis: str = "model"):
+    """The whole weight tree from `shard_model`'s blocks."""
+    from repro_torch.models.params import unshard_params
+    from repro_torch.models.transformer import model_defs
+    return unshard_params(blocks, model_shardings(model_defs(cfg), cfg, mesh,
+                                                  axis))
+
+
+# ========================================================= rank program ====
+class _Enter(torch.autograd.Function):
+    """(B, ...) -> (L, B_l, ...): each local rank's data shard; backward,
+    one rank's gradient a shard."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp, ctx.shape = tp, x.shape
+        shards = x.reshape(tp.n_dp, -1, *x.shape[1:])
+        return torch.stack([shards[j] for j in tp.didx])
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        return (torch.stack([g[i] for i in tp.first]).reshape(ctx.shape),
+                None)
+
+
+class _Leave(torch.autograd.Function):
+    """(L, B_l, ...) -> (B, ...): the first rank of each data shard;
+    backward, every rank its shard's cotangent."""
+
+    @staticmethod
+    def forward(ctx, y, tp):
+        ctx.tp = tp
+        out = torch.stack([y[i] for i in tp.first])
+        return out.reshape(-1, *y.shape[2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        gs = g.reshape(tp.n_dp, -1, *g.shape[1:])
+        return torch.stack([gs[j] for j in tp.didx]), None
+
+
+class _LeaveMean(torch.autograd.Function):
+    """(L,) per-rank scalars -> their mean over the data shards (the
+    first rank of each); backward, every rank 1 / n_dp of the
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, v, tp):
+        ctx.tp, ctx.shape = tp, v.shape
+        acc = v[tp.first[0]]
+        for i in tp.first[1:]:
+            acc = acc + v[i]
+        return acc / tp.n_dp
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g / ctx.tp.n_dp).expand(ctx.shape).contiguous(), None
+
+
+class TP:
+    """The rank program of `cfg` under `par` (module docstring): the mesh,
+    the local ranks' model and data coordinates, and each one's heads,
+    d_ff columns and vocabulary rows."""
+
+    def __init__(self, cfg, par):
+        mesh, axis = par.mesh, par.model_axis
+        self.cfg, self.mesh, self.axis = cfg, mesh, axis
+        self.M = mesh.shape[axis]
+        self.stacked = isinstance(mesh, StackedComm)
+        self.L = len(mesh.local_ranks)
+        self.midx = mesh.axis_index(axis)
+        self.rows = list(self.midx) if self.stacked else [0] * self.L
+        dp = tuple(par.data_axes)
+        if self.stacked:
+            self.n_dp = par.dp_size()
+            self.didx = mesh.axis_index(dp) if dp else [0] * self.L
+            self.first = [self.didx.index(j) for j in range(self.n_dp)]
+        else:
+            self.n_dp, self.didx, self.first = 1, [0], [0]
+        heads = [head_placement(cfg.n_heads, cfg.n_kv_heads, self.M)[m]
+                 for m in self.midx]
+        self.hq = [q1 - q0 for q0, q1, _, _ in heads]
+        self.hkv = [k1 - k0 for _, _, k0, k1 in heads]
+        ff = _even(cfg.d_ff, self.M)
+        self.ff = [ff[1][m] - ff[0][m] for m in self.midx]
+        from repro_torch.models.transformer import padded_vocab
+        vs, ve, self.v_width = _even(padded_vocab(cfg), self.M)
+        self.vocab = [(vs[m], ve[m] - vs[m]) for m in self.midx]
+
+    # ---- entering and leaving the program ---------------------------------
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The batch (stacked: whole; group: the rank's shard) -> (L, B_l,
+        ...)."""
+        if not self.stacked:
+            return x[None]
+        if x.shape[0] % self.n_dp:
+            raise ValueError(f"a batch of {x.shape[0]} does not split over "
+                             f"{self.n_dp} data ranks")
+        return _Enter.apply(x, self)
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        return _Leave.apply(y, self) if self.stacked else y[0]
+
+    def leave_mean(self, v: torch.Tensor) -> torch.Tensor:
+        return _LeaveMean.apply(v, self) if self.stacked else v[0]
+
+    def scope(self):
+        """`obs.cost.stacked(L)` on a stacked mesh (a cost walker counts
+        one rank's share); a no-op on a group rank."""
+        from repro_torch.obs import cost
+        return cost.stacked(self.L if self.stacked else 1)
+
+    # ---- collectives and rows ---------------------------------------------
+    def f(self, x):
+        return self.mesh.copy_into(x, self.axis)
+
+    def g(self, x):
+        return self.mesh.reduce_from(x, self.axis)
+
+    def stack_rows(self, leaf: torch.Tensor) -> torch.Tensor:
+        """(L, ...): each local rank's row of a (M, ...) leaf."""
+        if self.rows == list(range(leaf.shape[0])):
+            return leaf
+        return torch.stack([leaf[r] for r in self.rows])
+
+    def norm(self, h, gamma, eps):
+        """rms_norm of each rank's rows with its own copy of gamma."""
+        g = self.stack_rows(gamma)
+        return lay.rms_norm(h, g.reshape(self.L, *([1] * (h.dim() - 2)),
+                                         g.shape[-1]), eps)
+
+
+def plan(cfg, par):
+    """The `TP` of `cfg` under `par`, or None where the model runs on
+    whole leaves: no mesh, no model axis, one model rank, or a family
+    `COVERED` does not name."""
+    if par.mesh is None or par.model_axis is None or par.tp_size() == 1 \
+            or cfg.family not in COVERED:
+        return None
+    return TP(cfg, par)
+
+
+# ============================================================ sublayers ====
+def _nothing(x, src):
+    """Zeros (B, S, D) that depend on x (and src), for a rank with no
+    query head: it computes nothing, yet its backward runs the same
+    collectives as its peers'."""
+    z = x.narrow(-1, 0, 0).sum(-1, keepdim=True)
+    if src is not None:
+        z = z + src.narrow(-1, 0, 0).sum((-2, -1))[:, None, None]
+    return z.expand(*x.shape)
+
+
+def attn_sublayer(h, p, cfg, tp, *, positions, causal=True, window=None,
+                  memory=None, kv_len=None, cache=None):
+    """Pre-norm attention with residual on each rank's heads (module
+    docstring): h (L, B, S, D); memory (L, B, Sm, D) for cross-attention.
+    `kv_len` without `cache`: a decode step's query over the memory
+    (`attention_full`).  `cache` = (kc, vc, at, kv_len): a decode step's
+    self-attention, k / v written into the rank caches (L, B, S_max,
+    Hkv_pad, hd) at `at` and attended over their first kv_len rows.
+    Returns (h, ks, vs): per rank its keys and values (B, Sk, Hkv_l, hd),
+    None where it has no query head."""
+    L, B, S, D = h.shape
+    hd, eps = cfg.hd, cfg.norm_eps
+    x = tp.f(tp.norm(h, p["ln"], eps))
+    src = x if memory is None else tp.f(memory)
+    ys, ks, vs = [], [], []
+    for i in range(L):
+        r, nq, nk = tp.rows[i], tp.hq[i], tp.hkv[i]
+        if nq == 0:
+            ys.append(_nothing(x[i], None if memory is None else src[i]))
+            ks.append(None)
+            vs.append(None)
+            continue
+        q = (x[i] @ p["wq"][r].narrow(1, 0, nq * hd)).reshape(B, S, nq, hd)
+        k = (src[i] @ p["wk"][r].narrow(1, 0, nk * hd)).reshape(
+            B, -1, nk, hd)
+        v = (src[i] @ p["wv"][r].narrow(1, 0, nk * hd)).reshape(
+            B, -1, nk, hd)
+        if cfg.qk_norm:
+            q = lay.rms_norm(q, p["q_norm"][r], eps)
+            k = lay.rms_norm(k, p["k_norm"][r], eps)
+        if memory is None:
+            q = lay.apply_rope(q, positions, cfg.rope_theta)
+            k = lay.apply_rope(k, positions, cfg.rope_theta)
+        if cache is not None:
+            kc, vc, at, kvl = cache
+            kci, vci = kc[i].narrow(2, 0, nk), vc[i].narrow(2, 0, nk)
+            kci.index_copy_(1, at, k.to(kci.dtype))
+            vci.index_copy_(1, at, v.to(vci.dtype))
+            o = lay.attention_full(q, kci.to(q.dtype), vci.to(q.dtype),
+                                   causal=False, kv_len=kvl)
+        elif kv_len is not None:
+            o = lay.attention_full(q, k, v, causal=False, kv_len=kv_len)
+        elif memory is not None:
+            o = lay.attention_flash(q, k, v, causal=False)
+        else:
+            o = lay.attention_flash(q, k, v, causal=causal, window=window)
+        ys.append(o.reshape(B, S, nq * hd) @ p["wo"][r].narrow(0, 0,
+                                                               nq * hd))
+        ks.append(k)
+        vs.append(v)
+    return h + tp.g(torch.stack(ys)), ks, vs
+
+
+def mlp_sublayer(h, p, cfg, tp):
+    """Pre-norm SwiGLU with residual on each rank's d_ff columns."""
+    x = tp.f(tp.norm(h, p["ln"], cfg.norm_eps))
+    ys = []
+    for i in range(tp.L):
+        r, n = tp.rows[i], tp.ff[i]
+        if n == 0:
+            ys.append(_nothing(x[i], None))
+            continue
+        ys.append(lay.swiglu(x[i], p["w_gate"][r].narrow(1, 0, n),
+                             p["w_up"][r].narrow(1, 0, n),
+                             p["w_down"][r].narrow(0, 0, n)))
+    return h + tp.g(torch.stack(ys))
+
+
+def embed(params, tokens, cfg, tp):
+    """(L, B, S) token ids -> (L, B, S, D): each rank's rows of the
+    vocabulary looked up, the rest zero, summed over 'model'."""
+    dt = getattr(torch, cfg.dtype)
+    parts = []
+    for i in range(tp.L):
+        v0, n = tp.vocab[i]
+        t = tokens[i].long() - v0
+        ok = (t >= 0) & (t < n)
+        e = params["embed"][tp.rows[i]][t.clamp(0, max(n - 1, 0))].to(dt)
+        parts.append(torch.where(ok[..., None], e, torch.zeros((), dtype=dt,
+                                                               device=e.device)))
+    return tp.g(torch.stack(parts))
+
+
+def _head_rows(params, cfg, tp, i):
+    """Rank i's (D, V_l) block of the output projection."""
+    r, (_, n) = tp.rows[i], tp.vocab[i]
+    if cfg.tie_embeddings:
+        return params["embed"][r].narrow(0, 0, n).T
+    return params["lm_head"][r].narrow(1, 0, n)
+
+
+def logits(params, h, cfg, tp):
+    """Final hidden states (L, B, S, D) -> the whole logits (L, B, S, vp),
+    each rank's columns all-gathered over 'model'."""
+    x = tp.f(h)
+    parts = []
+    for i in range(tp.L):
+        y = x[i] @ _head_rows(params, cfg, tp, i).to(x.dtype)
+        pad = tp.v_width - y.shape[-1]
+        parts.append(torch.nn.functional.pad(y, (0, pad)) if pad else y)
+    return _gather_cols(tp, torch.stack(parts))
+
+
+def _gather_cols(tp, y):
+    """(L, ..., V_pad) rank columns -> (L, ..., vp): all-gathered over
+    'model' in rank order, each rank's padding dropped."""
+    g = tp.mesh.all_gather(y.movedim(-1, 1), tp.axis, dim=0, tiled=True)
+    g = g.movedim(1, -1)                                 # (L, ..., M*V_pad)
+    from repro_torch.models.transformer import padded_vocab
+    if tp.v_width * tp.M == padded_vocab(tp.cfg):
+        return g
+    starts, stops, w = _even(padded_vocab(tp.cfg), tp.M)
+    return torch.cat([g[..., m * w:m * w + stops[m] - starts[m]]
+                      for m in range(tp.M)], -1)
+
+
+def _xent_ranks(hs, ls, *ws, tp):
+    """One chunk's per-rank sums of logsumexp - gold (L,): each rank's
+    logits (B, c, V_l) in h's type then float32; the row max all-gathered
+    (no gradient), the sums of exponentials and the gold logits reduced
+    over 'model'."""
+    lg = [(hs[i] @ w.to(hs.dtype)).float() for i, w in enumerate(ws)]
+    mx = torch.stack([t.detach().amax(-1) for t in lg])        # (L, B, c)
+    m = tp.mesh.all_gather(mx, tp.axis).amax(1)                # (L, B, c)
+    se, gold = [], []
+    for i, t in enumerate(lg):
+        v0, n = tp.vocab[i]
+        se.append(torch.exp(t - m[i][..., None]).sum(-1))
+        lab = ls[i] - v0
+        ok = (lab >= 0) & (lab < n)
+        gl = t.gather(-1, lab.clamp(0, max(n - 1, 0))[..., None])[..., 0]
+        gold.append(torch.where(ok, gl, torch.zeros_like(gl)))
+    s = tp.g(torch.stack(se))
+    gold = tp.g(torch.stack(gold))
+    return (torch.log(s) + m - gold).sum((1, 2))
+
+
+def chunked_xent(params, h, labels, cfg, tp, chunk: int = 512):
+    """Per-rank mean cross-entropy (L,) of h (L, B, S, D) against labels
+    (L, B, S), vocabulary-parallel, over sequence chunks of min(chunk, S)
+    as `transformer.chunked_xent` (each chunk recomputed in backward)."""
+    from torch.utils.checkpoint import checkpoint
+    L, B, S, _ = h.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"chunked_xent: {S} tokens are not a whole number "
+                         f"of chunks of {chunk}")
+    x = tp.f(h)
+    ws = [_head_rows(params, cfg, tp, i) for i in range(L)]
+    labels = labels.long()
+    total = torch.zeros(L, dtype=torch.float32, device=h.device)
+
+    def one(hs, ls, *w):
+        return _xent_ranks(hs, ls, *w, tp=tp)
+
+    for a in range(0, S, chunk):
+        args = (x[:, :, a:a + chunk], labels[:, :, a:a + chunk], *ws)
+        total = total + (checkpoint(one, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else one(*args))
+    return total / (B * S)
+
+
+# ============================================================ gradients ====
+def _sharer_sum(g, sh: ModelBlocks, comm, axis):
+    """Each rank's (M_l, *block) gradient of a shared head block summed
+    over the ranks that hold the same heads: scattered into the leaf's
+    whole width, psummed over 'model', and read back."""
+    rows = sh.model_rows()
+    whole = max(sh.stops)
+    buf = g.new_zeros(g.shape[0], *[whole if d == sh.dim else n
+                                    for d, n in enumerate(g.shape[1:])])
+    for i, m in enumerate(rows):
+        n = sh.live(m)
+        buf[i].narrow(sh.dim, sh.starts[m], n).copy_(
+            g[i].narrow(sh.dim, 0, n))
+    s = comm.psum(buf, axis)
+    out = torch.zeros_like(g)
+    for i, m in enumerate(rows):
+        n = sh.live(m)
+        out[i].narrow(sh.dim, 0, n).copy_(s[i].narrow(sh.dim, sh.starts[m],
+                                                      n))
+    return out
+
+
+def _model_comm(sh: ModelBlocks):
+    """The communicator of a gradient's (M_l, ...) rows: on a stacked
+    mesh a model-axis-only one (the data ranks share rows)."""
+    mesh = sh.mesh
+    if isinstance(mesh, StackedComm):
+        if mesh.axis_names == (sh.axis,):
+            return mesh
+        return StackedComm(sh.n_model, mesh.device, axis_names=(sh.axis,))
+    return mesh
+
+
+def sync_grads(grads, shardings):
+    """A block gradient tree made whole per rank (module docstring):
+    q_norm / k_norm psummed over 'model', shared key/value heads over
+    their holders; every other leaf as it is."""
+    def one(g, sh):
+        if not isinstance(sh, ModelBlocks) or sh.reduce is None:
+            return g
+        comm = _model_comm(sh)
+        if sh.reduce == "model":
+            return comm.psum(g, sh.axis)
+        return _sharer_sum(g, sh, comm, sh.axis)
+
+    from repro_torch.models.params import _zip_tree
+    with torch.no_grad():
+        return _zip_tree(one, grads, shardings)
+
+
+def n_holders(sh: ModelBlocks, m: int) -> int:
+    """How many model ranks hold model rank m's range of a leaf."""
+    if sh.dim is None:
+        return sh.n_model
+    return sum(1 for a, b in zip(sh.starts, sh.stops)
+               if (a, b) == (sh.starts[m], sh.stops[m]))
+
+
+def grad_sq_sum(grads, shardings) -> torch.Tensor:
+    """The squared global norm of a block gradient tree, each element of
+    the whole gradient counted once: per rank, its blocks' squares
+    weighted by 1 / (the model ranks that hold them), in leaf order, then
+    psummed over 'model' (a 0-d float32 tensor)."""
+    from repro_torch.models.params import tree_leaves
+    gl, sl = tree_leaves(grads), tree_leaves(shardings)
+    sh0 = next(s for s in sl if isinstance(s, ModelBlocks))
+    per = []
+    with torch.no_grad():
+        for i, m in enumerate(sh0.model_rows()):
+            acc = torch.zeros((), dtype=torch.float32, device=gl[0].device)
+            for g, sh in zip(gl, sl):
+                sq = g[i].float().square().sum()
+                k = n_holders(sh, m)
+                acc = acc + (sq / k if k > 1 else sq)
+            per.append(acc)
+        tot = _model_comm(sh0).psum(torch.stack(per), sh0.axis)
+    return tot[0]

@@ -26,12 +26,18 @@ final hidden states (sequence chunks of min(512, S), each chunk's logits
 recomputed in backward) plus 0.01 of the MoE aux loss.
 
 `par` (a `sharding.parallel.Parallelism`, `NONE` by default) is the
-reference's: only the MoE sublayer reads it (its expert-parallel route
-under a mesh with a model axis) and `par.constrain`, which returns its
-input (the port has no GSPMD).  Under a stacked mesh every other sublayer
-runs on the whole batch, as the reference's GSPMD program computes it.
-The reference's `chunked` (its chunked jnp attention) is dropped: K4
-serves every length.
+reference's.  Under a mesh with a model axis of more than one rank the
+dense, moe, encdec and vlm families run on the blocks a rank holds
+(`models.tp`: heads, d_ff columns, vocabulary rows, experts; the weight
+tree is `tp.shard_model`'s), as one SPMD program over the ranks this
+process holds; rwkv6 and hymba read whole leaves and run the whole batch
+as before.  `par.constrain` returns its input (the port has no GSPMD).
+With `par.remat` (the default) and grad enabled, each superblock (the
+rwkv6 block, the hymba layer, the encoder block) runs under
+`torch.utils.checkpoint` (non-reentrant), as the reference's
+`jax.checkpoint`: its activations are recomputed in backward, which
+launches its K4 / K5 calls again.  The reference's `chunked` (its chunked
+jnp attention) is dropped: K4 serves every length.
 """
 from __future__ import annotations
 
@@ -41,9 +47,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.layers import (apply_rope, attention_flash,
                                        attention_full, rms_norm, swiglu)
 from repro_torch.models.params import ParamDef, stack_defs
+from repro_torch.obs import cost
 from repro_torch.sharding.parallel import NONE
 
 __all__ = ["attn_defs", "mlp_defs", "superblock_defs", "model_defs",
@@ -173,7 +181,7 @@ def model_defs(cfg):
 
 # =========================================================== sub-layers =====
 def _attn_sublayer(h, p, cfg, *, positions, causal=True, window=None,
-                   memory=None, kv_len=None):
+                   memory=None, kv_len=None, tp=None):
     """Pre-norm attention with residual, through K4: causal self-attention
     (within `window` keys when given), bidirectional (`causal=False`), or
     cross-attention over `memory` (B, Sm, D), whose keys take no RoPE and
@@ -181,7 +189,12 @@ def _attn_sublayer(h, p, cfg, *, positions, causal=True, window=None,
     memory, its first kv_len rows live) it runs `attention_full`, as the
     decode attention does.  Returns (h, k, v): the new residual stream and
     the layer's keys and values (B, Sk, Hkv, hd), which prefill stores in
-    the cache."""
+    the cache.  With `tp` each rank's heads (`tp.attn_sublayer`; h (L, B,
+    S, D), k and v per-rank lists)."""
+    if tp is not None:
+        return tp_mod.attn_sublayer(h, p, cfg, tp, positions=positions,
+                                    causal=causal, window=window,
+                                    memory=memory, kv_len=kv_len)
     B, S, _ = h.shape
     hd, H, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     x = rms_norm(h, p["ln"], cfg.norm_eps)
@@ -204,45 +217,67 @@ def _attn_sublayer(h, p, cfg, *, positions, causal=True, window=None,
     return h + o.reshape(B, S, H * hd) @ p["wo"], k, v
 
 
-def _mlp_sublayer(h, p, cfg):
+def _mlp_sublayer(h, p, cfg, tp=None):
+    if tp is not None:
+        return tp_mod.mlp_sublayer(h, p, cfg, tp)
     x = rms_norm(h, p["ln"], cfg.norm_eps)
     return h + swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
-def _moe_sublayer(h, p, cfg, par=NONE):
+def _moe_sublayer(h, p, cfg, par=NONE, tp=None):
+    if tp is not None:
+        x = tp.norm(h, p["ln"], cfg.norm_eps)
+        y, aux = moe_mod.moe_ranks(x, p, cfg, par, tp)
+        return h + y, aux
     x = rms_norm(h, p["ln"], cfg.norm_eps)
     y, aux = moe_mod.moe_ffn(x, p, cfg, par)
     return h + par.constrain(y, par.dp, None, None), aux
 
 
-def _ffn_sublayer(h, pb, cfg, s, par=NONE):
+def _ffn_sublayer(h, pb, cfg, s, par=NONE, tp=None):
     """Sublayer s's MLP or expert FFN: (h, aux), aux 0.0 for an MLP."""
     if cfg.n_experts:
-        return _moe_sublayer(h, pb[f"moe{s}"], cfg, par)
-    return _mlp_sublayer(h, pb[f"mlp{s}"], cfg), 0.0
+        return _moe_sublayer(h, pb[f"moe{s}"], cfg, par, tp)
+    return _mlp_sublayer(h, pb[f"mlp{s}"], cfg, tp), 0.0
 
 
-def superblock(h, pb, cfg, *, positions, memory=None, par=NONE):
+def superblock(h, pb, cfg, *, positions, memory=None, par=NONE, tp=None):
     """One attention superblock over a whole sequence: (h, aux, kv), kv one
     (kind, k, v) per self-attention sublayer, in order; `memory` is what
-    the cross-attention sublayers read (vlm, encdec)."""
+    the cross-attention sublayers read (vlm, encdec).  With `tp`, on each
+    rank's blocks (h (L, B, S, D), aux (L,) with experts)."""
     aux, kv = 0.0, []
     for s in range(_period(cfg)):
         kind = _sublayer_kind(cfg, s)
         if kind == "cross":
             h, _, _ = _attn_sublayer(h, pb[f"cross{s}"], cfg,
-                                     positions=positions, memory=memory)
+                                     positions=positions, memory=memory,
+                                     tp=tp)
         else:
             window = cfg.sliding_window if kind == "attn_local" else None
             h, k, v = _attn_sublayer(h, pb[f"attn{s}"], cfg,
-                                     positions=positions, window=window)
+                                     positions=positions, window=window,
+                                     tp=tp)
             kv.append((kind, k, v))
         if cfg.is_encdec:
             h, _, _ = _attn_sublayer(h, pb[f"dec_cross{s}"], cfg,
-                                     positions=positions, memory=memory)
-        h, aux_s = _ffn_sublayer(h, pb, cfg, s, par)
+                                     positions=positions, memory=memory,
+                                     tp=tp)
+        h, aux_s = _ffn_sublayer(h, pb, cfg, s, par, tp)
         aux = aux + aux_s
     return h, aux, kv
+
+
+def _remat(par) -> bool:
+    """Whether superblocks run under `torch.utils.checkpoint`."""
+    return bool(par.remat) and torch.is_grad_enabled()
+
+
+def _maybe_remat(on: bool, fn, *args, **kw):
+    if on:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=cost.checkpoint_contexts, **kw)
+    return fn(*args, **kw)
 
 
 def hybrid_block(h, pb, cfg, *, positions, window):
@@ -274,33 +309,59 @@ def embed(params, tokens, cfg):
     return params["embed"][tokens].to(getattr(torch, cfg.dtype))
 
 
-def encode(params, frames, cfg):
-    """The encoder over frame embeddings (B, S, D): bidirectional
-    self-attention (through K4) and an MLP a layer, then `enc_ln`."""
+def _enc_block(m, pb, cfg, positions, tp=None):
+    m, _, _ = _attn_sublayer(m, pb["attn0"], cfg, positions=positions,
+                             causal=False, tp=tp)
+    return _mlp_sublayer(m, pb["mlp0"], cfg, tp)
+
+
+def encode(params, frames, cfg, tp=None, remat=False):
+    """The encoder over frame embeddings (B, S, D) (with `tp`, each rank's
+    copy (L, B, S, D)): bidirectional self-attention (through K4) and an
+    MLP a layer (each under checkpoint with `remat`), then `enc_ln`."""
     m = frames.to(getattr(torch, cfg.dtype))
-    positions = torch.arange(m.shape[1], device=m.device)
+    positions = torch.arange(m.shape[-2], device=m.device)
     for pb in params["enc_blocks"]:
-        m, _, _ = _attn_sublayer(m, pb["attn0"], cfg, positions=positions,
-                                 causal=False)
-        m = _mlp_sublayer(m, pb["mlp0"], cfg)
+        m = _maybe_remat(remat, _enc_block, m, pb, cfg, positions, tp)
+    if tp is not None:
+        return tp.norm(m, params["enc_ln"], cfg.norm_eps)
     return rms_norm(m, params["enc_ln"], cfg.norm_eps)
 
 
-def memory_of(params, cfg, frames=None, vis=None):
+def memory_of(params, cfg, frames=None, vis=None, tp=None, remat=False):
     """What the cross-attention sublayers read: the encoder's output over
     `frames` (encdec), the patch embeddings `vis` (vlm), else None; raises
-    where the family needs one that was not given."""
+    where the family needs one that was not given.  With `tp`, each rank's
+    copy (L, B, Sm, D)."""
     if cfg.is_encdec:
         if frames is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
                              f"`frames`, the frame embeddings (B, S, D)")
-        return encode(params, frames, cfg)
+        return encode(params, frames if tp is None else tp.enter(frames),
+                      cfg, tp, remat)
     if cfg.family == "vlm":
         if vis is None:
             raise ValueError(f"{cfg.name}: a vlm needs `vis`, the patch "
                              f"embeddings (B, n_vis_tokens, D)")
-        return vis.to(getattr(torch, cfg.dtype))
+        vis = vis.to(getattr(torch, cfg.dtype))
+        return vis if tp is None else tp.enter(vis)
     return None
+
+
+def _forward_ranks(params, tokens, cfg, frames, vis, par, tp):
+    """The rank program's forward: (final hidden states (L, B_l, S, D),
+    aux (L,))."""
+    remat = _remat(par)
+    h = tp_mod.embed(params, tp.enter(tokens), cfg, tp)
+    aux = torch.zeros(tp.L, dtype=torch.float32, device=h.device)
+    positions = torch.arange(tokens.shape[1], device=h.device)
+    memory = memory_of(params, cfg, frames, vis, tp, remat)
+    for pb in params["blocks"]:
+        h, aux_b, _ = _maybe_remat(remat, superblock, h, pb, cfg,
+                                   positions=positions, memory=memory,
+                                   par=par, tp=tp)
+        aux = aux + aux_b
+    return tp.norm(h, params["final_ln"], cfg.norm_eps), aux
 
 
 def forward_with_aux(params, tokens, cfg, *, frames=None, vis=None,
@@ -308,21 +369,30 @@ def forward_with_aux(params, tokens, cfg, *, frames=None, vis=None,
     """Full-sequence forward -> (final hidden states (B, S, D), the MoE aux
     loss summed over layers: a float32 0-d tensor, 0 without experts)."""
     check_supported(cfg)
+    tp = tp_mod.plan(cfg, par)
+    if tp is not None:
+        with tp.scope():
+            h, aux = _forward_ranks(params, tokens, cfg, frames, vis, par,
+                                    tp)
+            return tp.leave(h), tp.leave_mean(aux)
+    remat = _remat(par)
     h = par.constrain(embed(params, tokens, cfg), par.dp, None, None)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     positions = torch.arange(tokens.shape[1], device=h.device)
     if cfg.family == "ssm":
         for pb in params["blocks"]:
-            h, _ = rwkv_mod.rwkv_block(h, pb["rwkv"], cfg)
+            h, _ = _maybe_remat(remat, rwkv_mod.rwkv_block, h, pb["rwkv"],
+                                cfg)
     elif cfg.family == "hybrid":
         for i, pb in enumerate(params["blocks"]):
-            h, _ = hybrid_block(h, pb, cfg, positions=positions,
-                                window=_window(cfg, i))
+            h, _ = _maybe_remat(remat, hybrid_block, h, pb, cfg,
+                                positions=positions, window=_window(cfg, i))
     else:
-        memory = memory_of(params, cfg, frames, vis)
+        memory = memory_of(params, cfg, frames, vis, remat=remat)
         for pb in params["blocks"]:
-            h, aux_b, _ = superblock(h, pb, cfg, positions=positions,
-                                     memory=memory, par=par)
+            h, aux_b, _ = _maybe_remat(remat, superblock, h, pb, cfg,
+                                       positions=positions, memory=memory,
+                                       par=par)
             aux = aux + aux_b
     return rms_norm(h, params["final_ln"], cfg.norm_eps), aux
 
@@ -333,7 +403,13 @@ def forward(params, tokens, cfg, *, frames=None, vis=None, par=NONE):
                             par=par)[0]
 
 
-def logits_fn(params, h, cfg):
+def logits_fn(params, h, cfg, par=NONE):
+    """Final hidden states (B, S, D) -> logits (B, S, padded vocab); under
+    a model axis from the vocabulary blocks, all-gathered."""
+    tp = tp_mod.plan(cfg, par)
+    if tp is not None:
+        with tp.scope():
+            return tp.leave(tp_mod.logits(params, tp.enter(h), cfg, tp))
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w.to(h.dtype)
 
@@ -372,6 +448,17 @@ def loss_fn(params, batch, cfg, par=NONE):
     `frames` / `vis` where the family needs them): (ce + 0.01 aux, {"ce":
     ce, "aux": aux}), aux the MoE load-balance and z-loss summed over
     layers (0 without experts)."""
+    tp = tp_mod.plan(cfg, par)
+    if tp is not None:
+        check_supported(cfg)
+        with tp.scope():
+            h, aux = _forward_ranks(params, batch["tokens"], cfg,
+                                    batch.get("frames"), batch.get("vis"),
+                                    par, tp)
+            ce = tp_mod.chunked_xent(params, h, tp.enter(batch["labels"]),
+                                     cfg, tp)
+            return tp.leave_mean(ce + 0.01 * aux), {
+                "ce": tp.leave_mean(ce), "aux": tp.leave_mean(aux)}
     h, aux = forward_with_aux(params, batch["tokens"], cfg,
                               frames=batch.get("frames"), vis=batch.get("vis"),
                               par=par)

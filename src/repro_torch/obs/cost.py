@@ -12,7 +12,11 @@ this module depends on nothing of the analysis.  The reports:
                      axes and one rank's result bytes;
   stacked(L)         a scope in which one process runs L ranks' work on
                      stacked (L, ...) buffers, so that the walker can give
-                     one rank's share.
+                     one rank's share;
+  checkpoint_contexts  the (forward, recompute) contexts of a
+                     `torch.utils.checkpoint` call: a recompute runs with
+                     the torch-function modes cleared, so the walker hands
+                     back the ones it needs there.
 
 Without a walker each costs one `None` check.  A call site that builds its
 report from shapes tests `ACTIVE is not None` first, so that it does no
@@ -22,7 +26,8 @@ from __future__ import annotations
 
 from contextlib import nullcontext
 
-__all__ = ["ACTIVE", "stacked", "report_kernel", "record_collective"]
+__all__ = ["ACTIVE", "stacked", "report_kernel", "record_collective",
+           "checkpoint_contexts"]
 
 ACTIVE = None
 
@@ -48,3 +53,11 @@ def record_collective(mesh, method: str, axes, per_rank_bytes) -> None:
     w = ACTIVE
     if w is not None:
         w.collective(mesh, method, axes, per_rank_bytes)
+
+
+def checkpoint_contexts():
+    """`context_fn` of a non-reentrant `torch.utils.checkpoint`: (a no-op,
+    the active walker's recompute context); two no-ops without one."""
+    w = ACTIVE
+    return nullcontext(), (w.recompute_context() if w is not None
+                           else nullcontext())

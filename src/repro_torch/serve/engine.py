@@ -20,9 +20,10 @@ MoE layers' caches alike, hymba's SSM state and conv tail), which
 host, so their step captures too.  The greedy choice and its `tolist()`
 stay outside the graph.
 
-`par` (the reference's argument; `NONE` by default) goes to every
-prefill and decode step: under a stacked mesh with a model axis the MoE
-sublayers run expert-parallel, and the step still captures as one graph.
+`par` (the reference's argument and default, `Parallelism(remat=
+False)`) goes to every prefill and decode step: under a mesh with a model
+axis the model runs on the model ranks' blocks (`models.tp`; the engine's
+model holds them), and the step still captures as one graph.
 
 The engine prefills tokens only, as the reference's does, so it refuses
 the encoder-decoder and vlm models, whose prefill also needs frame or patch
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.graphs import CapturedCall
-from repro_torch.sharding.parallel import NONE, Parallelism
+from repro_torch.sharding.parallel import Parallelism
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -52,7 +53,8 @@ class Request:
 
 class ServeEngine:
     def __init__(self, model, B: int = 4, S_max: int = 128,
-                 graph: bool | None = None, par: Parallelism = NONE):
+                 graph: bool | None = None,
+                 par: Parallelism = Parallelism(remat=False)):
         cfg = getattr(model, "cfg", None)
         if cfg is not None and (cfg.is_encdec or cfg.family == "vlm"):
             raise ValueError(

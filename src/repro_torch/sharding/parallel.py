@@ -18,13 +18,28 @@ byte count each stage carries.
 The mesh is a `core.dist.comm` communicator (`launch.mesh`): ranks stacked
 in one process on one device, or one rank per `torch.distributed`
 process.  The reference hands layout hints to GSPMD (`constrain`); the
-port has no GSPMD, so every collective is explicit (the MoE's all-to-all
-and FSDP gather, the train step's gradient reduction) and `constrain`
-returns its input.  `remat`, `q_chunk` and `kv_chunk` are kept for parity
-and read by nothing: K4 serves every length and the port does not remat
-by layer.  `use_pallas` is never read in the reference either (ROADMAP.md,
-faults of the reference); K4 and K5 serve attention and WKV whatever it
-says.
+port has no GSPMD, so every collective is explicit and `constrain`
+returns its input.  What reads the fields:
+
+  model_axis  `models.tp` (through `transformer`, `decode`, `moe`): with
+              more than one rank on it, the dense, moe, encdec and vlm
+              families run on the weight blocks of the 'model' entries of
+              the reference's specs (`tp.shard_model`), Megatron-style,
+              with one all-reduce over it per sublayer, the MoE's
+              all-to-alls, and the vocabulary's all-reduces and
+              all-gathers; rwkv6 and hymba read whole leaves;
+  data_axes   the batch split of the stacked route (`tp.TP`), the MoE's
+              aux mean and the train step's gradient reduction;
+  remat       `transformer` (forward and loss): with grad enabled, each
+              superblock under `torch.utils.checkpoint`, as the
+              reference's `jax.checkpoint` (the serving entry points pass
+              `Parallelism(remat=False)`, as the reference's engine does);
+  hierarchical, pod_axis  the train step's reduction.
+
+`q_chunk` and `kv_chunk` are kept for parity and read by nothing: K4
+serves every length.  `use_pallas` is never read in the reference either
+(ROADMAP.md, faults of the reference); K4 and K5 serve attention and WKV
+whatever it says.
 """
 from __future__ import annotations
 

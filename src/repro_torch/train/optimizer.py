@@ -72,16 +72,20 @@ def lr_schedule(cfg: AdamWConfig, step: int) -> float:
 
 
 def adamw_update(grads, opt: OptState, cfg: AdamWConfig,
-                 param_dtype=torch.bfloat16):
+                 param_dtype=torch.bfloat16, gnorm=None):
     """Returns (new_params, new_opt_state, metrics): the gradients clipped
     to a global norm of cfg.clip_norm, Adam moments with bias correction,
     decoupled weight decay (master - lr (update + wd master)), and the
     params cast from the new masters to `param_dtype` (new tensors, not
     requiring grad).  metrics: grad_norm (before clipping, a 0-d tensor)
-    and lr.  The state's tensors are updated in place."""
+    and lr.  The state's tensors are updated in place.  `gnorm` replaces
+    the tree's own norm (a tree of rank blocks, whose whole gradient's
+    norm the caller computes)."""
     with torch.no_grad():
         g = [t.float() for t in tree_leaves(grads)]
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        if gnorm is None:
+            gnorm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(g)))
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         step = opt.step + 1

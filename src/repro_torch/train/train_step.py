@@ -23,18 +23,26 @@ axes), else one flat all-reduce over the data axes.  Divided by the
 number of data ranks, that is the gradient of the whole batch's mean
 loss; AdamW then applies once, identically on every rank.
 
-Each data rank's forward runs the expert-parallel MoE over its own model
-ranks (a mesh of the model axis alone): its capacity is that of its slice,
-as in the reference's route, and neither the FSDP gather nor the aux
-loss's mean over the data axes runs inside it, since the gradient
-reduction already averages over the data ranks (a rank is not counted
-twice).  On a stacked mesh the data ranks run one after another in this
-process; on a group mesh each process is one rank and holds its slice of
-the batch.  A group mesh with experts spread over a model axis of more
-than one rank is not ported for training (its collectives are not
-differentiable): it raises.  `train_step.comm` holds the last step's
-reduction stages (`hierarchical_all_reduce`'s stats: the bytes a rank
-puts into each stage, and over which axes).
+Each data rank's forward runs the rank program of its model ranks (a
+mesh of the model axis alone; `models.tp`): the weights are the blocks a
+model rank holds (`tp.shard_model`), the same on every data rank, and the
+expert-parallel MoE's capacity is that of the data rank's slice, as in
+the reference's route; the aux loss's mean over the data axes does not
+run inside it, since the gradient reduction already averages over the
+data ranks (a rank is not counted twice).  A rank's gradient is its own
+blocks' (`value_and_grad` applies `tp.sync_grads`: q_norm / k_norm summed
+over the model axis, a key/value head several ranks hold summed over
+them), so a model-sharded leaf's gradient is reduced over the data axes
+only, and a replicated leaf (norms, the router) has the same gradient on
+every model rank.  The clipping norm counts each element of the whole
+gradient once (`tp.grad_sq_sum`, psummed over the model axis).  On a
+stacked mesh the data ranks run one after another in this process, each
+over its model ranks stacked, inside `obs.cost.stacked`; on a group mesh
+each process is one rank and holds its slice of the batch and its blocks,
+and the model axis's collectives are the group's (differentiable,
+`core.dist.comm`).  `train_step.comm` holds the last step's reduction
+stages (`hierarchical_all_reduce`'s stats: the bytes a rank puts into
+each stage, and over which axes).
 """
 from __future__ import annotations
 
@@ -44,8 +52,10 @@ import torch
 
 from repro_torch.core.collectives import hierarchical_all_reduce
 from repro_torch.core.dist.comm import StackedComm
+from repro_torch.models import tp as tp_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.params import map_tree, tree_leaves, tree_unflatten
+from repro_torch.obs import cost
 from repro_torch.sharding.parallel import NONE, Parallelism
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
@@ -61,7 +71,19 @@ def value_and_grad(params, batch, cfg, par=NONE):
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
-    return loss.detach(), parts, tree_unflatten(params, grads)
+    grads = tree_unflatten(params, grads)
+    sh = _tp_shardings(cfg, par)
+    if sh is not None:
+        grads = tp_mod.sync_grads(grads, sh)
+    return loss.detach(), parts, grads
+
+
+def _tp_shardings(cfg, par):
+    """The weight blocks' placement where `par` runs `cfg` on them."""
+    if tp_mod.plan(cfg, par) is None:
+        return None
+    return tp_mod.model_shardings(tf.model_defs(cfg), cfg, par.mesh,
+                                  par.model_axis)
 
 
 def _accumulated(params, batch, cfg, n_micro, par):
@@ -92,16 +114,13 @@ def _data_ranks(par: Parallelism, cfg):
     """(the mesh the gradients are reduced over, the `Parallelism` of one
     data rank's forward, whether the data ranks are stacked here)."""
     mesh, dp = par.mesh, tuple(par.data_axes)
-    experts = bool(cfg.n_experts) and par.tp_size() > 1
+    model = tp_mod.plan(cfg, par) is not None
     local = replace(par, mesh=None, data_axes=(), pod_axis=None)
     if not isinstance(mesh, StackedComm):
-        if experts:
-            raise NotImplementedError(
-                "training with experts spread over the model axis of a "
-                "torch.distributed mesh is not ported (ROADMAP.md): use "
-                "a stacked mesh")
+        if model:
+            local = replace(local, mesh=mesh)
         return mesh, local, False
-    if experts:
+    if model:
         local = replace(local, mesh=StackedComm(
             par.tp_size(), mesh.device, axis_names=(par.model_axis,)))
     red = StackedComm(par.dp_size(), mesh.device, axis_names=dp,
@@ -133,9 +152,13 @@ def make_train_step(model_or_cfg, opt_cfg: AdamWConfig = AdamWConfig(),
     cfg = getattr(model_or_cfg, "cfg", model_or_cfg)
     dtype = getattr(torch, cfg.dtype)
     parallel = par.mesh is not None and par.dp_size() > 1
+    local = par
     if parallel:
         red, local, stacked = _data_ranks(par, cfg)
         inner, outer = reduction_axes(par)
+    shardings = _tp_shardings(cfg, local)
+    tp = tp_mod.plan(cfg, local)
+    ranks = tp.L if tp is not None and tp.stacked else 1
 
     def reduced(params, batch):
         n_dp = par.dp_size()
@@ -167,13 +190,17 @@ def make_train_step(model_or_cfg, opt_cfg: AdamWConfig = AdamWConfig(),
         return flat[-1], tree_unflatten(params, out)
 
     def train_step(params, opt_state, batch):
-        if parallel:
-            loss, grads = reduced(params, batch)
-        else:
-            loss, grads = _accumulated(params, batch, cfg, n_micro, par)
-        new_params, new_opt, metrics = adamw_update(grads, opt_state, opt_cfg,
-                                                    param_dtype=dtype)
-        new_params = map_tree(lambda p: p.requires_grad_(), new_params)
+        with cost.stacked(ranks):
+            if parallel:
+                loss, grads = reduced(params, batch)
+            else:
+                loss, grads = _accumulated(params, batch, cfg, n_micro, par)
+            gnorm = None
+            if shardings is not None:
+                gnorm = torch.sqrt(tp_mod.grad_sq_sum(grads, shardings))
+            new_params, new_opt, metrics = adamw_update(
+                grads, opt_state, opt_cfg, param_dtype=dtype, gnorm=gnorm)
+            new_params = map_tree(lambda p: p.requires_grad_(), new_params)
         return new_params, new_opt, dict(metrics, loss=loss)
 
     train_step.comm = []

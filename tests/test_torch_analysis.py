@@ -31,6 +31,8 @@ from repro_torch.launch.mesh import make_mesh_compat, parallelism_for
 from repro_torch.models import decode as decode_mod
 from repro_torch.models.moe import _capacity
 from repro_torch.models.registry import Model, weight_structs
+from repro_torch.models.tp import shard_model
+from repro_torch.models.transformer import padded_vocab
 
 
 def meta(*shape, dtype=torch.float32, grad=False):
@@ -250,37 +252,41 @@ def test_pod_classification_matches_reference(multi_pod):
 
 def test_moe_collectives_match_their_formulas():
     """dbrx-smoke's decode step (batch 8) on a stacked (pod 2, data 2,
-    model 2) meta mesh under the reference's `Parallelism`: per MoE
-    sublayer, the expert weights' FSDP all-gathers over 'pod' then 'data'
-    (each rank's block grows to its model rank's whole experts), the
-    dispatch and return all-to-alls over 'model' (n_model * E_loc * C rows
-    of D a rank), and the aux loss's means over 'pod' and 'data' (one
-    float32 a rank); the 'pod' ones cross pods."""
+    model 2) meta mesh under the reference's `Parallelism`, on the weight
+    blocks of the model axis: the embedding's and every attention
+    sublayer's all-reduce over 'model' (one rank's (B_l, 1, D) bfloat16
+    residual), per MoE sublayer the dispatch and return all-to-alls over
+    'model' (n_model * E_loc * C rows of D a rank) and the aux loss's
+    means over 'pod' and 'data' (one float32 a rank; the 'pod' one crosses
+    pods), and the logits' all-gather over 'model' (B_l x the padded
+    vocabulary a rank).  The experts' 'data' entries stay whole, so no
+    FSDP all-gather runs."""
     cfg = get_config("dbrx-132b", smoke=True)
     mesh = make_mesh_compat((2, 2, 2), ("pod", "data", "model"), "meta")
     par = parallelism_for(mesh)
     B, S_max = 8, 32
-    model = Model(cfg, weight_structs(cfg))
-    cache = decode_mod.init_cache(cfg, B, S_max, "meta")
+    model = Model(cfg, shard_model(weight_structs(cfg), cfg, mesh))
+    cache = decode_mod.init_cache(cfg, B, S_max, "meta", par)
     tokens = torch.empty(B, 1, dtype=torch.int32, device="meta")
     pos = torch.full((), 5, dtype=torch.long, device="meta")
     with hlo_walk.Walker() as w, torch.no_grad():
         model.decode_step(cache, tokens, pos, par=par)
-    E, D, F, n_model, n_dp = cfg.n_experts, cfg.d_model, cfg.d_ff, 2, 4
-    E_loc, C = E // n_model, _capacity(B // n_dp, cfg)
-    g_pod, g_data = E_loc * (D // 2) * F * 2, E_loc * D * F * 2
+    E, D, n_model, n_dp = cfg.n_experts, cfg.d_model, 2, 4
+    E_loc, B_l = E // n_model, B // n_dp
+    C = _capacity(B_l, cfg)
     a2a = n_model * E_loc * C * D * 2
+    h = B_l * D * 2
     layers = cfg.n_layers
-    want = {"all-gather": layers * 3 * (g_pod + g_data),
-            "all-to-all": layers * 2 * a2a, "all-reduce": layers * 2 * 4}
+    want = {"all-reduce": h + layers * (h + 2 * 4),
+            "all-to-all": layers * 2 * a2a,
+            "all-gather": B_l * padded_vocab(cfg) * 2}
     res = w.result()
     assert res["collective_bytes"] == want
-    assert res["collective_counts"] == {"all-gather": 6 * layers,
+    assert res["collective_counts"] == {"all-reduce": 1 + 3 * layers,
                                         "all-to-all": 2 * layers,
-                                        "all-reduce": 2 * layers}
-    assert res["inter_pod_bytes"] == layers * (3 * g_pod + 4)
-    assert res["intra_pod_bytes"] == sum(want.values()) - layers * (
-        3 * g_pod + 4)
+                                        "all-gather": 1}
+    assert res["inter_pod_bytes"] == layers * 4
+    assert res["intra_pod_bytes"] == sum(want.values()) - layers * 4
     assert hlo.collective_bytes(w.records)["total_bytes"] == sum(
         want.values())
     # the walker gone, the communicator records nothing

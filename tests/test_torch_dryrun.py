@@ -35,12 +35,15 @@ from repro_torch.configs import (SHAPES, cell_enabled, get_config, get_shape,
                                  input_specs, list_archs)
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import make_production_mesh, parallelism_for
+from repro_torch.launch.mesh import (make_mesh_compat, make_production_mesh,
+                                     parallelism_for)
 from repro_torch.models import decode as decode_mod
+from repro_torch.models import transformer as tf
 from repro_torch.models import weight_structs
-from repro_torch.models.params import tree_leaves
+from repro_torch.models.params import Sharding, tree_leaves
+from repro_torch.models.tp import model_shardings
 from repro_torch.models.transformer import padded_vocab
-from repro_torch.sharding.parallel import NONE
+from repro_torch.sharding.parallel import NONE, Parallelism
 from repro_torch.train.train_step import _data_ranks
 
 LAYOUTS = [False, True]
@@ -163,7 +166,10 @@ def test_rank_batch_and_local_parallelism():
     assert dryrun.rank_batch(SHAPES["prefill_32k"], 16) == 2
     assert dryrun.rank_batch(SHAPES["decode_32k"], 32) == 4
     assert dryrun.rank_batch(SHAPES["long_500k"], 16) == 1
+    # the families models.tp covers keep the model axis, stacked on meta
     _, local, _ = _data_ranks(par, get_config("smollm-360m"))
+    assert local.mesh.n_ranks == 16 and local.mesh.axis_names == ("model",)
+    _, local, _ = _data_ranks(par, get_config("rwkv6-1.6b"))
     assert local.mesh is None
     red, local, _ = _data_ranks(par, get_config("dbrx-132b"))
     assert local.mesh.device.type == "meta" and local.mesh.n_ranks == 16
@@ -231,10 +237,14 @@ def test_prefill_dot_flops_near_reference_walk():
 
 def test_full_size_train_cell_on_meta_end_to_end():
     """smollm-360m train_4k on (16, 16): an `ok` artifact with every
-    reference key, one data rank's 16 sequences in 2 micro-batches, K4
-    once a layer a micro-batch, the flat gradient all-reduce over 'data'
-    of every float32 gradient and the loss; every tensor the walker
-    sees lies on meta (host scalars aside)."""
+    reference key, one data rank's 16 sequences in 2 micro-batches on its
+    16 stacked model ranks, K4 once a layer a micro-batch and again in
+    each superblock's recompute on the 15 model ranks that hold a query
+    head (15 heads over 5 KV heads at tp 16: one rank holds none), the
+    flat gradient all-reduce over 'data' of one model rank's float32
+    gradients and the loss, the model axis's all-reduces and all-gathers
+    in the step; every tensor the walker sees lies on meta (host scalars
+    aside)."""
     seen = set()
 
     class Spy(hlo_walk.Walker):
@@ -266,13 +276,58 @@ def test_full_size_train_cell_on_meta_end_to_end():
     assert res["mesh"] == [16, 16] and res["n_micro"] == 2
     port = res["port"]
     assert port["rank_batch"] == 16 and port["dp_size"] == 16
-    assert port["kernels"]["K4"]["launches"] == 64
-    numel = sum(t.numel() for t in tree_leaves(
-        weight_structs(get_config("smollm-360m"))))
-    assert res["collectives"]["bytes"] == {"all-reduce": 4 * (numel + 1)}
+    assert port["kernels"]["K4"]["launches"] == 32 * 2 * 2 * 15 / 16
+    cfg = get_config("smollm-360m")
+    mesh = make_production_mesh(device="meta")
+    numel = sum(math.prod(s.block_shape(d.shape)) for d, s in zip(
+        tree_leaves(tf.model_defs(cfg)), tree_leaves(model_shardings(
+            tf.model_defs(cfg), cfg, mesh))))
+    assert port["reduction"]["stages"] == [
+        {"stage": "all_reduce", "axes": ["data"],
+         "bytes_per_rank": 4 * (numel + 1)}]
+    assert port["reduction"]["collective_bytes"] == {
+        "all-reduce": 4 * (numel + 1)}
+    assert set(port["step"]["collective_bytes"]) == {"all-reduce",
+                                                     "all-gather"}
     assert res["walked"]["inter_pod_bytes"] == 0
     assert res["memory"]["temp_size_in_bytes"] == \
         port["peak_bytes"] - port["held_bytes"]
+
+
+def test_held_bytes_are_the_rank_blocks():
+    """qwen3-smoke on a (model 2) meta mesh: a train rank's held bytes are
+    its weight blocks, their three float32 optimizer copies and the batch,
+    and a decode rank's its weight blocks, its caches' key/value heads and
+    the batch: each the sum of `_block_bytes` over the leaves it holds,
+    under the reference's specs with only their 'model' entries."""
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    mesh = make_mesh_compat((2,), ("model",), "meta")
+    par = Parallelism(mesh=mesh, model_axis="model", remat=False)
+
+    def model_only(spec):
+        return Sharding(mesh, tuple(e if e == "model" else None
+                                    for e in spec))
+
+    defs = tf.model_defs(cfg)
+    whole = weight_structs(cfg)
+    sh = [model_only(d.spec) for d in tree_leaves(defs)]
+    params = sum(dryrun._block_bytes(t, s)
+                 for t, s in zip(tree_leaves(whole), sh))
+    opt = 3 * sum(dryrun._block_bytes(t.float(), s)
+                  for t, s in zip(tree_leaves(whole), sh))
+    for kind, extra in (("train", opt), ("decode", None)):
+        shape = ShapeConfig("c", 64, 4, kind)
+        args, run = dryrun.rank_program(cfg, shape, par)
+        assert run.ranks == 2
+        _, _, held = dryrun.walk_program(args, run)
+        batch = sum(t.numel() * t.element_size()
+                    for t in args["batch"].values())
+        if extra is None:           # the caches' heads over 'model'
+            gcache = decode_mod.init_cache(cfg, 4, 64, "meta")
+            extra = sum(dryrun._block_bytes(t, Sharding(
+                mesh, (None, None, "model", None)))
+                for t in tree_leaves(gcache))
+        assert held == params + extra + batch, kind
 
 
 def test_skipped_and_failed_cells_become_artifacts(tmp_path, monkeypatch):

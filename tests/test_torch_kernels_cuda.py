@@ -1369,7 +1369,8 @@ def test_forward_without_grad_builds_no_graph_on_card(cuda_device):
     """Serving is untouched: under no_grad, and with grad on over a served
     (frozen) model, the forward launches K4 once a layer and builds no
     autograd graph; with trainable weights the Function runs and its
-    backward reaches the weights in front of K4."""
+    backward reaches the weights in front of K4 (K4 launched again in each
+    superblock's recompute: `loss_fn`'s default `Parallelism` remats)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, init_weights
     from repro_torch.models import transformer as ttf
@@ -1388,7 +1389,7 @@ def test_forward_without_grad_builds_no_graph_on_card(cuda_device):
     launches, calls = kattn.launches, kattn.backward_calls
     loss, _ = ttf.loss_fn(params, {"tokens": tokens, "labels": tokens}, cfg)
     loss.backward()
-    assert kattn.launches == launches + cfg.n_layers
+    assert kattn.launches == launches + 2 * cfg.n_layers
     assert kattn.backward_calls == calls + cfg.n_layers
     for pb in params["blocks"]:
         assert float(pb["attn0"]["wq"].grad.abs().max()) > 0
@@ -1431,9 +1432,11 @@ def test_train_step_on_card_matches_cpu(cuda_device, arch):
         p, opt, m = make_train_step(cfg, opt_cfg)(params, init_opt_state(
             params), b)
         if dev != "cpu":
+            # each layer's kernel in the forward and again in its recompute
+            # (the default Parallelism remats)
             n = (kattn.launches - launches[0], krwkv.launches - launches[1])
-            assert n == ((0, cfg.n_layers) if cfg.family == "ssm" else
-                         (cfg.n_layers, 0))
+            assert n == ((0, 2 * cfg.n_layers) if cfg.family == "ssm" else
+                         (2 * cfg.n_layers, 0))
         out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]),
                          [t.cpu() for t in tree_leaves(grads)],
                          [t.cpu() for t in tree_leaves(opt.master)],
@@ -1480,7 +1483,8 @@ def test_expert_parallel_moe_on_card_matches_cpu(cuda_device, seq):
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.models import moe
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import init_params, shard_params
+    from repro_torch.models.tp import model_shardings
     for cf in (4.0, 0.5):
         cfg = replace(get_config("dbrx-132b", smoke=True), dtype="float32",
                       capacity_factor=cf)
@@ -1491,9 +1495,12 @@ def test_expert_parallel_moe_on_card_matches_cpu(cuda_device, seq):
         out = {}
         for dev in ("cpu", cuda_device):
             xx = x.to(dev).detach().requires_grad_()
+            par = _stacked_par(dev, seq)
+            blocks = shard_params({k: v.to(dev) for k, v in p.items()},
+                                  model_shardings(moe.moe_defs(cfg), cfg,
+                                                  par.mesh))
             with moe.routing_log() as log:
-                y, aux = moe.moe_ffn(xx, {k: v.to(dev) for k, v in p.items()},
-                                     cfg, _stacked_par(dev, seq))
+                y, aux = moe.moe_ffn(xx, blocks, cfg, par)
             ((y ** 2).sum() + aux).backward()
             out[str(dev)] = (y.detach().cpu(), float(aux), xx.grad.cpu(),
                              [(e.cpu(), k.cpu()) for e, k, _ in log])
@@ -1511,14 +1518,16 @@ def test_expert_parallel_moe_on_card_matches_cpu(cuda_device, seq):
 
 def test_graphed_decode_under_a_stacked_mesh_on_card(cuda_device):
     """dbrx-smoke (bfloat16) served on a (data 2, model 2) mesh stacked on
-    the card: the decode step captured as one graph gives the eager step's
-    tokens for every request."""
+    the card, on the model ranks' blocks: the decode step captured as one
+    graph gives the eager step's tokens for every request."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
+    from repro_torch.models.tp import shard_model
     from repro_torch.serve.engine import Request, ServeEngine
     cfg = _on_card(get_config("dbrx-132b", smoke=True))
-    model = build_model(cfg, seed=0, device=cuda_device)
     par = _stacked_par(cuda_device)
+    model = build_model(cfg, shard_model(build_model(
+        cfg, seed=0, device=cuda_device).params, cfg, par.mesh))
     outs = []
     for graph in (False, None):
         rng = np.random.default_rng(0)

@@ -24,11 +24,17 @@ At a capacity factor of 0.5 tokens drop, and the expert-parallel route is
 held to its oracle: `_moe_dense` on each data shard, whose capacity and
 drops are the same (the dropped slots equal, the outputs at 1e-6).
 
+Under a model axis the MoE takes the rank's expert block and a copy of the
+router (`models.tp.model_shardings` of `moe_defs`); gradients of the
+blocks are reassembled into whole leaves before they are compared.
+
 Four gloo processes (importing `torch` and `repro_torch` only) run the
-MoE forward on a group (data 2, model 2) mesh and the train step on a
-group (pod 2, data 2) mesh, one rank each: equal to the stacked mesh bit
-for bit.  A train step with experts spread over a group mesh's model axis
-raises (not ported).  The file takes about 20 s on the CPU.
+MoE forward on a group (data 2, model 2) mesh, the train step on a group
+(pod 2, data 2) mesh, and two train steps on the group (data 2, model 2)
+mesh on each rank's weight blocks: dbrx-smoke (experts and dense leaves
+over 'model') and qwen3-smoke (tensor parallel at tp 2), one rank each:
+all equal to the stacked mesh bit for bit.  The file takes about 25 s on
+the CPU.
 """
 import sys
 import textwrap
@@ -44,7 +50,9 @@ from repro_torch.configs import get_config
 from repro_torch.launch.mesh import make_mesh_compat
 from repro_torch.models import moe as tmoe
 from repro_torch.models import weight_structs
-from repro_torch.models.params import map_tree, tree_leaves
+from repro_torch.models.params import (map_tree, shard_params, tree_leaves,
+                                       unshard_params)
+from repro_torch.models.tp import model_shardings, shard_model, unshard_model
 from repro_torch.sharding.parallel import Parallelism
 from repro_torch.train import optimizer as topt
 from repro_torch.train.train_step import make_train_step
@@ -135,8 +143,9 @@ _WORKER = textwrap.dedent("""
     from repro_torch.ckpt import load_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_group_mesh
-    from repro_torch.models import moe, weight_structs
-    from repro_torch.models.params import map_tree, tree_leaves
+    from repro_torch.models import init_weights, moe, weight_structs
+    from repro_torch.models.params import map_tree, shard_params, tree_leaves
+    from repro_torch.models.tp import model_shardings, shard_model
     from repro_torch.sharding.parallel import Parallelism
     from repro_torch.train import optimizer as topt
     from repro_torch.train.train_step import make_train_step
@@ -153,19 +162,30 @@ _WORKER = textwrap.dedent("""
     par = Parallelism(mesh=mesh, data_axes=("data",), model_axis="model")
     me = mesh.coords(rank)[0]
     cfg = replace(get_config("dbrx-132b", smoke=True), dtype="float32")
-    p = {k: inp[f"dbrx-132b/{k}"] for k in
-         ("router", "w_gate", "w_up", "w_down")}
+    p = shard_params({k: inp[f"dbrx-132b/{k}"] for k in
+                      ("router", "w_gate", "w_up", "w_down")},
+                     model_shardings(moe.moe_defs(cfg), cfg, mesh))
     x = inp["dbrx-132b/x"][2 * me:2 * me + 2]
     with torch.no_grad():
         for tag, pp in (("", par), ("seq_", replace(par,
                                                     moe_seq_shard=True))):
             res[f"{tag}y"], res[f"{tag}aux"] = (
                 t.numpy() for t in moe.moe_ffn(x, p, cfg, pp))
-    try:        # experts over a group mesh's model axis: not ported
-        make_train_step(cfg, par=par)
-        res["ep_train"] = "built"
-    except NotImplementedError as e:
-        res["ep_train"] = str(e)
+    # one train step on the rank's weight blocks: dbrx (experts and dense
+    # leaves over 'model') and qwen3 (tensor parallel at tp 2)
+    tp_batch = {k: torch.as_tensor(v[2 * me:2 * me + 2]) for k, v in
+                np.load(f"{d}/tp_batch.npz").items()}
+    for a in ("dbrx-132b", "qwen3-0.6b"):
+        acfg = replace(get_config(a, smoke=True), dtype="float32")
+        blocks = map_tree(lambda t: t.requires_grad_(), shard_model(
+            init_weights(acfg, seed=0, device="cpu"), acfg, mesh))
+        step = make_train_step(acfg, topt.AdamWConfig(
+            lr=1e-3, warmup=2, total_steps=20), par=par)
+        newp, _, m = step(blocks, topt.init_opt_state(blocks), tp_batch)
+        res[f"tp/{a}/loss"] = m["loss"].numpy()
+        res[f"tp/{a}/grad_norm"] = m["grad_norm"].numpy()
+        for i, t in enumerate(tree_leaves(newp)):
+            res[f"tp/{a}/p{i}"] = t.detach().numpy()
 
     tcfg = replace(get_config("smollm-360m", smoke=True), dtype="float32")
     params = load_checkpoint(f"{d}/smollm", 0, {"params": weight_structs(
@@ -225,6 +245,7 @@ def runs(tmp_path_factory):
     batch = {"tokens": seq[:, :-1].astype(np.int32),
              "labels": seq[:, 1:].astype(np.int32)}
     np.savez(d / "batch.npz", **batch)
+    np.savez(d / "tp_batch.npz", **_tp_batch())
     run_side_by_side(
         [[sys.executable, "-c", _REFERENCE, str(d)]]
         + [[sys.executable, "-c", _WORKER, str(r), "4",
@@ -232,6 +253,14 @@ def runs(tmp_path_factory):
         timeout=300, JAX_PLATFORMS="cpu")
     return (d, moe_in, batch, dict(np.load(d / "ref_out.npz")),
             [dict(np.load(d / f"rank{r}.npz")) for r in range(4)])
+
+
+def _tp_batch():
+    """The tensor-parallel steps' batch: 4 x 16 tokens of the smoke
+    vocabulary."""
+    seq = np.random.default_rng(7).integers(1, 256, (4, 17))
+    return {"tokens": seq[:, :-1].astype(np.int32),
+            "labels": seq[:, 1:].astype(np.int32)}
 
 
 def _moe_case(moe_in, arch, **kw):
@@ -245,6 +274,16 @@ def _par(seq=False):
     mesh = make_mesh_compat((2, 2), ("data", "model"), "cpu")
     return Parallelism(mesh=mesh, data_axes=("data",), model_axis="model",
                        moe_seq_shard=seq)
+
+
+def _moe_sh(cfg, par):
+    """The MoE leaves' placement over the model axis."""
+    return model_shardings(tmoe.moe_defs(cfg), cfg, par.mesh)
+
+
+def _moe_ffn(x, p, cfg, par):
+    """`moe_ffn` on the rank blocks of the whole leaves p."""
+    return tmoe.moe_ffn(x, shard_params(p, _moe_sh(cfg, par)), cfg, par)
 
 
 def _untied(cfg, p, x):
@@ -261,7 +300,7 @@ def test_expert_parallel_matches_reference(runs, arch, seq):
     _, moe_in, _, ref, _ = runs
     cfg, p, x = _moe_case(moe_in, arch)
     with tmoe.routing_log() as log:
-        y, aux = tmoe.moe_ffn(x, p, cfg, _par(seq))
+        y, aux = _moe_ffn(x, p, cfg, _par(seq))
     # one routing a rank: each rank routes its data shard (of 32 tokens),
     # or its model slice of it (16) with moe_seq_shard; nothing drops
     assert [tuple(e[0].shape) for e in log] == [(16 if seq else 32,
@@ -284,11 +323,15 @@ def test_expert_parallel_gradients_match_reference(runs):
     cfg, p, x = _moe_case(moe_in, "dbrx-132b")
     ok = _untied(cfg, p, x)
     assert bool(ok.all()), "a near tie in the gradient case's inputs"
-    p = {k: v.clone().requires_grad_() for k, v in p.items()}
+    sh = _moe_sh(cfg, _par())
+    p = {k: v.requires_grad_() for k, v in shard_params(p, sh).items()}
     x = x.clone().requires_grad_()
     y, aux = tmoe.moe_ffn(x, p, cfg, _par())
     ((y ** 2).sum() + aux).backward()
-    for name, g in [("x", x.grad)] + [(k, v.grad) for k, v in p.items()]:
+    # the router's copies hold one gradient, the whole one
+    assert torch.equal(p["router"].grad[0], p["router"].grad[1])
+    whole = unshard_params({k: v.grad for k, v in p.items()}, sh)
+    for name, g in [("x", x.grad)] + list(whole.items()):
         want = ref[f"dbrx-132b/g/{name}"]
         np.testing.assert_allclose(g.numpy(), want, rtol=0,
                                    atol=1e-3 * np.abs(want).max(),
@@ -300,7 +343,7 @@ def test_dropping_capacity_matches_per_shard_oracle(runs, seq):
     _, moe_in, _, _, _ = runs
     cfg, p, x = _moe_case(moe_in, "dbrx-132b", capacity_factor=0.5)
     with tmoe.routing_log() as log:
-        y, aux = tmoe.moe_ffn(x, p, cfg, _par(seq))
+        y, aux = _moe_ffn(x, p, cfg, _par(seq))
     kept = torch.cat([e[1] for e in log])
     # the oracle: _moe_dense on each shard the route splits the tokens into
     # (data shards; with moe_seq_shard, each model rank's slice of one)
@@ -369,15 +412,39 @@ def test_hierarchical_and_flat_reductions_agree(runs):
                                    atol=1e-7 * float(y.abs().max()))
 
 
+def _tp_step(arch):
+    """One train step of `arch`-smoke on the stacked (data 2, model 2)
+    mesh, on the weight blocks: (new blocks, metrics)."""
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    par = _par()
+    from repro_torch.models import init_weights
+    blocks = map_tree(lambda t: t.requires_grad_(), shard_model(
+        init_weights(cfg, seed=0, device="cpu"), cfg, par.mesh))
+    step = make_train_step(cfg, topt.AdamWConfig(**OPT), par=par)
+    newp, _, m = step(blocks, topt.init_opt_state(blocks),
+                      {k: torch.as_tensor(v) for k, v in _tp_batch().items()})
+    return newp, m
+
+
 def test_gloo_ranks_equal_stacked_bit_for_bit(runs):
     _, moe_in, _, _, ranks = runs
     for res in ranks:
         assert res["loaded"].size == 0, res["loaded"]
-        assert "ROADMAP.md" in str(res["ep_train"])
+    # expert-parallel (dbrx) and tensor-parallel (qwen3) train steps on
+    # the group (data 2, model 2) mesh: rank (d, m) holds model rank m's
+    # blocks, equal to the stacked mesh's
+    for arch in ("dbrx-132b", "qwen3-0.6b"):
+        newp, m = _tp_step(arch)
+        for r, res in enumerate(ranks):
+            assert res[f"tp/{arch}/loss"] == m["loss"].numpy(), arch
+            assert res[f"tp/{arch}/grad_norm"] == m["grad_norm"].numpy()
+            for i, t in enumerate(tree_leaves(newp)):
+                np.testing.assert_array_equal(res[f"tp/{arch}/p{i}"][0],
+                                              t.detach()[r % 2].numpy())
     cfg, p, x = _moe_case(moe_in, "dbrx-132b")
     with torch.no_grad():
         for tag, seq in (("", False), ("seq_", True)):
-            y, aux = tmoe.moe_ffn(x, p, cfg, _par(seq))
+            y, aux = _moe_ffn(x, p, cfg, _par(seq))
             # rank (d, m) holds data shard d's output, whatever m
             for r, res in enumerate(ranks):
                 dd = r // 2
@@ -410,8 +477,12 @@ def test_expert_parallel_train_step_on_a_stacked_mesh(runs):
     seq = rng.integers(1, cfg.vocab, (4, 17))
     batch = {"tokens": torch.as_tensor(seq[:, :-1]),
              "labels": torch.as_tensor(seq[:, 1:])}
+    mesh = _par().mesh
+    blocks = map_tree(lambda t: t.detach().requires_grad_(),
+                      shard_model(params, cfg, mesh))
     step = make_train_step(cfg, topt.AdamWConfig(**OPT), par=_par())
-    _, opt, m = step(params, topt.init_opt_state(params), batch)
+    _, opt, m = step(blocks, topt.init_opt_state(blocks), batch)
+    opt = opt._replace(m=unshard_model(opt.m, cfg, mesh))
     want = [torch.zeros(t.shape) for t in tree_leaves(params)]
     losses = []
     for j in range(2):
