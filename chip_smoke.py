@@ -276,21 +276,27 @@ Phases, in order; any failed check raises and ends the run non-zero:
      launches equal to those without the mesh, the graphed decode under
      the mesh equal to the eager one, and each request (and a 6-token
      one) served with its twin (one a data rank) held to a forward under
-     the same mesh by phase 10's rule; (d) smollm-360m's data-parallel
-     train step on a stacked (pod 2, data 2) mesh (batch 4, seq 512),
-     hierarchical and flat, against the single-card step on the same
-     batch (DP_LOSS_RTOL, DP_NORM_RTOL, DP_GRAD_REL_L2, DP_STEP_LR), K4
-     once a layer a data rank, each reduction's time and bytes on the pod
-     axis;
+     the same mesh by phase 10's rule; each rank holding its model block
+     cut over 'data' (FSDP), the graph's pool beside one superblock's
+     gathered weights; (d) smollm-360m's data-parallel train step on a
+     stacked (pod 2, data 2) mesh (batch 4, seq 512), its weights cut
+     over 'data', hierarchical and flat, against the single-card step on
+     the same batch (DP_LOSS_RTOL, DP_NORM_RTOL, DP_GRAD_REL_L2,
+     DP_STEP_LR), K4 once a layer a data rank, each reduction's time and
+     bytes on the pod axis;
  13. the dry run against one rank's steps on the card: for each of
      DRYRUN_CELLS (smollm-360m train_4k: 16 x 4,096 tokens in 2 micro-
      batches, K4 and its backward; rwkv6-1.6b prefill_32k: 2 x 32,768
      tokens, K5; qwen3-0.6b decode_32k: batch 8, one step over an S_max of
      32,768), the rank of the (16, 16) layout: `launch.dryrun.lower_cell`
      on meta (its seconds, the artifact's per-rank figures, the roofline's
-     terms on the H100 SXM constants), then the same rank's program on
-     the card (`launch.dryrun.rank_program`, seeded random weights and
-     inputs) under the same walker (`analysis.hlo_walk`): dot FLOPs,
+     terms on the H100 SXM constants); then, since under FSDP a data row
+     cannot gather without its peers, that rank batch split over the data
+     ranks of a mesh whose every rank the card holds (DRYRUN_CARD_MESH:
+     (data 2, model 8), (data 2), (data 2, model 8); printed), walked on meta
+     and run on the card (`launch.dryrun.rank_program`, seeded random
+     weights and inputs) under the same walker (`analysis.hlo_walk`): dot
+     FLOPs,
      result bytes, read bytes and the kernels' launches, operations and
      bytes equal on meta and on the card, and the walker's predicted peak
      (less the arguments) within DRYRUN_PEAK_TOL of
@@ -300,8 +306,23 @@ Phases, in order; any failed check raises and ends the run non-zero:
      the card's free memory has its rank batch halved until it fits, and
      the cut is printed and held instead; K4's and K5's launches count in
      the kernels' line;
- 14. one JSON line listing every ported kernel;
- 15. the last line: {"ok": true, "device": {...}}.
+ 14. tensor parallel over the model axis, ranks stacked on the card: (a)
+     qwen3-0.6b and phi4-mini served on (data 1, model 4) beside the
+     unsharded engine; (b) smollm-360m's step on (model 4), remat off and
+     on, against the single-card step; (c) dbrx-132b (LM_CUT layers) on
+     (data 2, model 2) against the per-shard oracle;
+ 15. FSDP over the data axes, ranks stacked on the card: (a) smollm-360m
+     at full size, FSDP_STEPS steps of 4 x 512 on (data 4), on (pod 2,
+     data 2) cut over 'data' (hierarchical) and over ('pod', 'data')
+     (`fsdp_pod`), each against the single-card steps (phase 12 (d)'s
+     limits on the first step, TP_LOSS_RTOL on every loss), with the held
+     GiB a rank, the peak, each reduction stage's bytes and axes and what
+     crosses the pod axis; (b) rwkv6-1.6b at full size on (data 2), 2 x
+     512, RWKV_FSDP_STEPS steps (K5 and its backward under the gathers);
+     (c) the GiB a rank of dbrx-132b and llama4-scout holds in phases 12
+     (c) and 14 (c) beside the 13.29 held with the 'data' entries whole;
+ 16. one JSON line listing every ported kernel;
+ 17. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -311,6 +332,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import json
+import math
 import os
 import re
 import statistics
@@ -427,15 +449,31 @@ DRYRUN_CELLS = (("smollm-360m", "train_4k"), ("rwkv6-1.6b", "prefill_32k"),
 DRYRUN_PEAK_TOL = 0.10
 # the meta walks of DRYRUN_CELLS need the CPU only: a process started at
 # the beginning of the run makes them while the card works (`dryrun_meta`)
+# Under FSDP one data rank's row of the production mesh cannot gather
+# without its data peers, so the card runs each cell's rank batch on a mesh
+# whose every rank it holds (the batch split over its data ranks), held
+# against the same mesh walked on meta
+DRYRUN_CARD_MESH = {"smollm-360m": ((2, 8), ("data", "model")),
+                    "rwkv6-1.6b": ((2,), ("data",)),
+                    "qwen3-0.6b": ((2, 8), ("data", "model"))}
 DRYRUN_META = """
 import json, sys, time
 sys.path.insert(0, "src")
+sys.path.insert(0, ".")
+from chip_smoke import card_program
 from repro_torch.launch import dryrun
 out = {}
 for arch, shape in json.loads(sys.argv[1]):
     t0 = time.perf_counter()
     rec, _ = dryrun.lower_cell(arch, shape, multi_pod=False)
-    out[arch + "/" + shape] = dict(rec, cell_s=time.perf_counter() - t0)
+    rec = dict(rec, cell_s=time.perf_counter() - t0)
+    B = rec["port"]["rank_batch"]
+    t0 = time.perf_counter()
+    w, _, held = dryrun.walk_program(*card_program(arch, shape, "meta", B,
+                                                   rec.get("n_micro", 1)))
+    rec["card_mesh"] = {"result": w.result(), "held": held, "B": B,
+                        "s": time.perf_counter() - t0}
+    out[arch + "/" + shape] = rec
 json.dump(out, open(sys.argv[2], "w"))
 """
 BITWISE_TILES = 1 << 20      # live tiles in the K1 == K2 bitwise check
@@ -3450,18 +3488,27 @@ def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
     par = Parallelism(mesh=mesh, data_axes=("data",), model_axis="model",
                       remat=False)
     ranked = build_model(cfg, shard_model(model.params, cfg, mesh))
+    held, sb = fsdp_held(ranked.params, cfg, mesh)
+    HELD_GIB[arch] = held
+    print(f"  {arch}: weights {_gib(model.params):.3f} GiB whole; a rank "
+          f"holds {held:.3f} GiB (its model block cut over 'data'; with the "
+          f"'data' entries whole a model rank of dbrx-132b held "
+          f"{WHOLE_DATA_HELD_GIB} GiB); "
+          f"one superblock gathered {sb:.3f} GiB a rank", flush=True)
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab, int(
         rng.integers(4, 16)))] for _ in range(LM_REQUESTS)]
-    ranked.prefill(torch.as_tensor([prompts[0]] * 2, device=dev), LM_SMAX,
-                   par=par)
-    res = {}
-    for label, m, pp, graph in (
-            ("one rank", model, Parallelism(remat=False), False),
-            ("mesh", ranked, par, False), ("mesh graphed", ranked, par,
-                                           True)):
-        eng = ServeEngine(m, B=LM_SLOTS, S_max=LM_SMAX, graph=graph,
-                          par=pp)
+    res, engines = {}, []
+    for label, pp, graph in (
+            ("one rank", Parallelism(remat=False), False),
+            ("mesh", par, False), ("mesh graphed", par, True)):
+        # the whole model serves first and goes before the mesh's engines
+        # (its weights and a superblock's gathers would not fit beside them)
+        if label == "mesh":                                 # warm
+            ranked.prefill(torch.as_tensor([prompts[0]] * 2, device=dev),
+                           LM_SMAX, par=par)
+        eng = ServeEngine(model if label == "one rank" else ranked,
+                          B=LM_SLOTS, S_max=LM_SMAX, graph=graph, par=pp)
         rec = LogitRecorder(eng)
         reqs = [Request(rid=i, prompt=list(p), max_new=LM_NEW)
                 for i, p in enumerate(prompts)]
@@ -3475,6 +3522,11 @@ def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
         print(f"  {arch} {label}: {n_tok} tokens in {t:.4f} s "
               f"({n_tok / t:.2f} tok/s{', capture included' * graph}), K4 "
               f"launches {kattn.launches}; card {card}", flush=True)
+        if label == "one rank":
+            engines.append(weakref.ref(eng))
+            res[label] = res[label][:4] + (None,)
+            del eng, rec, model
+        torch.cuda.empty_cache()
     # every one of the 4 ranks holds query heads: K4 once a rank
     k4 = {k: v[2] for k, v in res.items()}
     if k4["mesh"] != k4["one rank"] * mesh.n_ranks:
@@ -3484,16 +3536,26 @@ def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
     worst = max(float((a - b).abs().max() / b.abs().max())
                 for a, b in zip(lg_g, lg_e))
     call = eng_g.decode_call
+    pool = call.pool_bytes / 2**30
+    n_sb = len(ranked.params["blocks"])
     print(f"  {arch}: graphed decode under the mesh against the eager one: "
           f"tokens {'identical' if toks_g == toks_e else 'DIFFER'}, logits of "
           f"{len(lg_g)} calls within {worst:.3e} of the largest |logit|; "
-          f"capture {call.capture_s:.4f} s, pool "
-          f"{call.pool_bytes / 2**30:.3f} GiB, launches a replay "
+          f"capture {call.capture_s:.4f} s, pool {pool:.3f} GiB (one "
+          f"superblock gathered on the {mesh.n_ranks} ranks: "
+          f"{sb * mesh.n_ranks:.3f} GiB; all {n_sb}: "
+          f"{sb * mesh.n_ranks * n_sb:.3f}), launches a replay "
           f"{call.launches}", flush=True)
     if toks_g != toks_e or len(lg_g) != len(lg_e) or worst > 1e-3:
         raise AssertionError(f"{arch}: graphed and eager serving under the "
                              f"mesh differ")
-    engines = [weakref.ref(v[4]) for v in res.values()]
+    # the gathers are freed superblock by superblock inside the graph: its
+    # pool holds one superblock's gathered weights and the gather's flat
+    # buffer, never every superblock's
+    if n_sb > 2 and pool >= sb * mesh.n_ranks * n_sb:
+        raise AssertionError(f"{arch}: the graph's pool holds every "
+                             f"superblock's gathered weights")
+    engines += [weakref.ref(v[4]) for v in res.values() if v[4] is not None]
     del res, eng_g, call
     # each request served with its twin, held to a forward under the mesh;
     # a 6-token request too, which no expert's capacity can refuse
@@ -3526,7 +3588,7 @@ def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
     # no engine is in a reference cycle: dropped, each goes at once, and
     # the graphed one's pool with it, without the cyclic collector
     engines.append(weakref.ref(eng))
-    del model, ranked, eng, rec, tape
+    del ranked, eng, rec, tape
     if any(r() is not None for r in engines):
         raise AssertionError(f"{arch}: a dropped ServeEngine is still alive")
     torch.cuda.empty_cache()
@@ -3549,12 +3611,17 @@ def dp_training_on_card(torch, kattn, dev, card) -> int:
     from repro_torch.sharding.parallel import Parallelism
     from repro_torch.train import train_step as tstep
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.models import tp as tpm
+    from repro_torch.models.params import map_tree
     cfg = get_config(TRAIN_ARCH)
     params = init_weights(cfg, seed=0, device=dev, trainable=True)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
         cfg.vocab, DP_S, DP_B, seed=0).next_batch().items()}
     opt_cfg = AdamWConfig(lr=TRAIN_LR)
     mesh = make_mesh_compat((2, 2), ("pod", "data"), dev)
+    # the weights cut over 'data' (FSDP): each rank holds half its leaves
+    cut = map_tree(lambda t: t.detach().requires_grad_(),
+                   tpm.shard_model(params, cfg, mesh))
     runs, launches = {}, 0
     for label, par in (("single card", Parallelism()),
                        ("hierarchical", Parallelism(
@@ -3573,16 +3640,21 @@ def dp_training_on_card(torch, kattn, dev, card) -> int:
             return out
 
         tstep.hierarchical_all_reduce = timed_reduce
+        tree = params if par.mesh is None else cut
         try:
             kattn.launches = 0
-            opt = init_opt_state(params)
+            opt = init_opt_state(tree)
             torch.cuda.reset_peak_memory_stats(dev)
             (newp, opt, m), t = timed_sync(torch, lambda: step(
-                params, opt, batch))
+                tree, opt, batch))
             k4 = kattn.launches
         finally:
             tstep.hierarchical_all_reduce = real
         peak = torch.cuda.max_memory_allocated(dev)
+        if par.mesh is not None:
+            opt = opt._replace(m=tpm.unshard_model(opt.m, cfg, mesh),
+                               master=tpm.unshard_model(opt.master, cfg,
+                                                        mesh))
         runs[label] = (opt, m)
         if par.mesh is not None:
             launches += k4
@@ -3592,8 +3664,9 @@ def dp_training_on_card(torch, kattn, dev, card) -> int:
                   + ", ".join(f"{s['stage']} over {'/'.join(s['axes'])} "
                               f"{s['bytes_per_rank']} B a rank"
                               for s in step.comm)
-                  + f"; on the pod axis {pod} B a rank; "
-                  f"{red[0]:.4f} s (stacked on the card)", flush=True)
+                  + f"; on the pod axis {pod} B a rank; the uncut "
+                  f"leaves' all-reduce {red[0]:.4f} s (stacked on the "
+                  f"card)", flush=True)
             # K4 once a layer a data rank, and again in each layer's
             # recompute (Parallelism's remat, on by default)
             if k4 != cfg.n_layers * par.dp_size() * (1 + par.remat):
@@ -3627,7 +3700,7 @@ def dp_training_on_card(torch, kattn, dev, card) -> int:
                 or g_rel > DP_GRAD_REL_L2 or w_max > DP_STEP_LR:
             raise AssertionError(f"{label} data-parallel step against the "
                                  f"single-card step")
-    del runs, one, params
+    del runs, one, params, cut
     torch.cuda.empty_cache()
     return launches
 
@@ -3668,6 +3741,12 @@ TP_LOSS_RTOL = 5e-4
 # peak of 16.31 GiB (PR 25, phase 12 (b), the stacked route that cut its
 # blocks out of whole leaves and all-gathered them over 'data')
 PR25_MOE_PEAK_GIB = 16.31
+# (c) and phase 12 (c): with the 'data' entries whole on every data rank a
+# model rank of dbrx-132b at LM_CUT layers held 13.29 GiB of weights (this
+# phase on the card, H100 80GB HBM3, 700 W); FSDP cuts them over 'data'
+# (HELD_GIB: what a rank holds now, by arch)
+WHOLE_DATA_HELD_GIB = 13.29
+HELD_GIB: dict = {}
 
 
 def _mesh_par(torch, shape, axes, dev, remat=False):
@@ -3683,6 +3762,22 @@ def _gib(tree) -> float:
     from repro_torch.models.params import tree_leaves
     return sum(t.numel() * t.element_size()
                for t in tree_leaves(tree)) / 2**30
+
+
+def fsdp_held(params, cfg, mesh, fsdp_pod: bool = False) -> tuple:
+    """(GiB one rank holds of a weight tree as the ranks of a stacked mesh
+    hold it, GiB of one superblock gathered a rank)."""
+    from repro_torch.models import tp as tpm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import tree_leaves
+    held = sum(t.numel() * t.element_size() / t.shape[0]
+               for t in tree_leaves(params)) / 2**30
+    sh = tpm.model_shardings(tf.model_defs(cfg), cfg, mesh,
+                             fsdp_pod=fsdp_pod)
+    sb = sum(t[0].numel() * t.element_size() * (s.n_cut if s else 1)
+             for t, s in zip(tree_leaves(params["blocks"][0]),
+                             tree_leaves(sh["blocks"][0]))) / 2**30
+    return held, sb
 
 
 def tp_serving(torch, arch: str, kattn, dev, card) -> int:
@@ -3888,14 +3983,22 @@ def tp_moe_model(torch, kattn, dev, card) -> int:
     par = _mesh_par(torch, (2, 2), ("data", "model"), dev)
     model = build_model(cfg, seed=0, device=dev)
     ranked = build_model(cfg, tpm.shard_model(model.params, cfg, par.mesh))
-    w_all = _gib(ranked.params)
+    held, sb = fsdp_held(ranked.params, cfg, par.mesh)
+    HELD_GIB["dbrx-132b forward"] = held
     print(f"  dbrx-132b: weights {_gib(model.params):.3f} GiB whole, "
-          f"{w_all / 2:.3f} GiB a model rank (the data ranks share them)",
-          flush=True)
+          f"{held:.3f} GiB a rank (its model block cut over 'data'; whole "
+          f"over 'data': {WHOLE_DATA_HELD_GIB} GiB a model rank), one "
+          f"superblock gathered "
+          f"{sb:.3f} GiB a rank", flush=True)
     g = torch.Generator(device=dev).manual_seed(3)
     tok = torch.randint(1, cfg.vocab, (MOE_B, MOE_S), generator=g,
                         device=dev)
     with torch.no_grad():
+        # the oracle first: the whole model goes before the mesh's forward
+        with tmoe.routing_log() as olog:
+            ho = torch.cat([model(tok[2 * d:2 * d + 2]) for d in range(2)])
+        del model
+        torch.cuda.empty_cache()
         ranked(tok[:2, :64], par=par)                        # warm
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3905,8 +4008,6 @@ def tp_moe_model(torch, kattn, dev, card) -> int:
             h, t = timed_sync(torch, lambda: ranked(tok, par=par))
         peak = torch.cuda.max_memory_allocated(dev) - base
         k4 = kattn.launches
-        with tmoe.routing_log() as olog:
-            ho = torch.cat([model(tok[2 * d:2 * d + 2]) for d in range(2)])
     L, T = par.mesh.n_ranks, MOE_B * MOE_S // 2
     if k4 != cfg.n_layers * L or len(log) != cfg.n_layers * L:
         raise AssertionError(f"dbrx-132b: K4 {k4}, routings {len(log)}")
@@ -3932,7 +4033,7 @@ def tp_moe_model(torch, kattn, dev, card) -> int:
     if held < MOE_B or err > LM_LOGIT_TOL or not torch.isfinite(h).all():
         raise AssertionError("dbrx-132b on the model ranks against the "
                              "per-shard oracle")
-    del model, ranked, h, ho
+    del ranked, h, ho
     torch.cuda.empty_cache()
     return k4
 
@@ -3953,6 +4054,184 @@ def lm_tensor_parallel(torch, kattn, dev, card) -> int:
     return k4
 
 
+# ------------------------------------------------------------ phase 15 -----
+# FSDP over the data axes, ranks stacked on the card: (a) smollm-360m at
+# full size on (data 4) and on (pod 2, data 2), the weights cut over 'data'
+# (hierarchical reduction) and over ('pod', 'data') (`fsdp_pod`), FSDP_STEPS
+# steps each against the single-card steps on the same batches, phase 12
+# (d)'s limits on the first step's gradients and masters and
+# TP_LOSS_RTOL on every loss; (b) rwkv6-1.6b at full size on (data 2), K5
+# and its backward under the gathers, RWKV_FSDP_STEPS steps; (c) what a
+# rank of dbrx-132b and llama4-scout holds on (data 2, model 2) in phases
+# 12 (c) and 14 (c), beside the 'data' entries whole
+FSDP_STEPS, RWKV_FSDP_STEPS = 3, 2
+# (b)'s grad norm: rwkv6-1.6b on (data 2) read 3.12e-3 apart from one card
+# (H100, 700 W): its norm (about 1,246) sits in a few leaves whose
+# bfloat16 gradients a rank's batch of 1 rounds apart from one card's 2;
+# the limit is 2.5x that reading, as phase 12 (d)'s are (a gradient
+# summed twice or not at all reads near 1)
+RWKV_DP_NORM_RTOL = 8e-3
+FSDP_LAYOUTS = (("data 4", (4,), ("data",), False),
+                ("pod 2 x data 2, hierarchical", (2, 2), ("pod", "data"),
+                 False),
+                ("pod 2 x data 2, fsdp_pod", (2, 2), ("pod", "data"), True))
+
+
+def _count_gathers(mesh, log: list):
+    """Wrap `mesh.gather_cuts` to append (axes, one rank's result bytes)
+    of every FSDP gather to `log`."""
+    real = mesh.gather_cuts
+
+    def gather_cuts(buf, axes):
+        out = real(buf, axes)
+        log.append((tuple(axes), out[0].numel() * out.element_size()))
+        return out
+    mesh.gather_cuts = gather_cuts
+
+
+def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
+               norm_rtol=DP_NORM_RTOL):
+    """`n_steps` train steps of `arch` at full size (batch B x DP_S) on one
+    card and on each stacked layout (label, shape, axes, fsdp_pod) from
+    one seeded init, the weights cut over the data axes; each held to the
+    single-card steps (module constants above).  Returns the kernels'
+    launches on the meshes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import init_weights, tp as tpm
+    from repro_torch.models.params import map_tree, tree_leaves
+    from repro_torch.sharding.parallel import Parallelism
+    from repro_torch.train import train_step as tstep
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    cfg = get_config(arch)
+    # the whole init and the single-card step's first moments and masters
+    # wait on the host: beside a rank program's state they would not fit
+    params = map_tree(lambda t: t.cpu(), init_weights(cfg, seed=0,
+                                                      device=dev))
+    data = SyntheticLM(cfg.vocab, DP_S, B, seed=0)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                data.next_batch().items()} for _ in range(n_steps)]
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    kernel = kattn if cfg.family != "ssm" else krwkv
+    name = "K4" if kernel is kattn else "K5"
+    one, launches = None, 0
+    for label, shape, axes, pod in (("single card", None, None, False),)\
+            + tuple(layouts):
+        if shape is None:
+            par, tree = Parallelism(), params
+        else:
+            mesh = make_mesh_compat(shape, axes, dev)
+            par = Parallelism(mesh=mesh, data_axes=axes, pod_axis="pod"
+                              if "pod" in axes else None)
+            tree = tpm.shard_model(params, cfg, mesh, fsdp_pod=pod)
+            gathers = []
+            _count_gathers(mesh, gathers)
+        tree = map_tree(lambda t: t.to(dev).requires_grad_(), tree)
+        step = tstep.make_train_step(cfg, opt_cfg, par=par)
+        opt = init_opt_state(tree)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        losses, times, first = [], [], None
+        kernel.launches, bwd0 = 0, kernel.backward_calls
+        for i, b in enumerate(batches):
+            if shape is not None:
+                gathers.clear()
+            (tree, opt, m), t = timed_sync(torch, lambda: step(tree, opt, b))
+            losses.append(float(m["loss"]))
+            times.append(t)
+            if i == 0:
+                gn = float(m["grad_norm"])
+                first = (opt.m, opt.master) if shape is None else (
+                    tpm.unshard_model(opt.m, cfg, mesh, fsdp_pod=pod),
+                    tpm.unshard_model(opt.master, cfg, mesh, fsdp_pod=pod))
+                first = tuple(map_tree(lambda t: t.detach().cpu(), x)
+                              for x in first)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        k, bwd = kernel.launches, kernel.backward_calls - bwd0
+        ranks = 1 if shape is None else mesh.n_ranks
+        if shape is not None:
+            launches += k
+            held, _ = fsdp_held(tree, cfg, mesh, pod)
+        else:
+            held = _gib(tree)
+        print(f"  {arch} {label}: {n_steps} steps of {B} x {DP_S}: losses "
+              f"{np.round(losses, 6).tolist()}, step s "
+              f"{np.round(times, 4).tolist()} (stacked on one card), grad "
+              f"norm {gn:.6f}; {name} launches {k} ({k // n_steps} a step),"
+              f" its backward {bwd} times; weights held a rank "
+              f"{held:.4f} GiB, peak {peak / 2**30:.3f} GiB above the "
+              f"weights, optimizer state and batch "
+              f"({peak / ranks / 2**30:.3f} a rank); card {card}",
+              flush=True)
+        if k == 0 or bwd == 0 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{arch} {label}: {name} launches {k}, "
+                                 f"backwards {bwd}, losses {losses}")
+        if shape is None:
+            one = (losses, gn, first)
+            del tree, opt, step
+            torch.cuda.empty_cache()
+            continue
+        pod_b = sum(st["bytes_per_rank"] for st in step.comm
+                    if "pod" in st["axes"])
+        g_pod = sum(n for ax, n in gathers if "pod" in ax)
+        g_all = sum(n for _, n in gathers)
+        print(f"    reduction stages of the last step: "
+              + "; ".join(f"{st['stage']} over {'/'.join(st['axes'])} "
+                          f"{st['bytes_per_rank']} B a rank"
+                          for st in step.comm)
+              + f"; FSDP gathers {len(gathers)} a step, {g_all} B of "
+              f"results a rank; across the pod axis a rank a step: "
+              f"{pod_b} B of reduction and {g_pod} B of gathers", flush=True)
+        dl = max(abs(a - b) / abs(b) for a, b in zip(losses, one[0]))
+        dg = abs(gn - one[1]) / one[1]
+        g_rel = max(float((a - b).norm() / b.norm()) if b.norm() > 0 else
+                    float(a.norm() > 0) for a, b in zip(
+                        tree_leaves(first[0]), tree_leaves(one[2][0])))
+        w_max = max(float(((a - b).abs() / opt_cfg.lr).max()) for a, b in
+                    zip(tree_leaves(first[1]), tree_leaves(one[2][1])))
+        print(f"    against the single-card steps: losses up to {dl:.3e} "
+              f"(relative; limit {TP_LOSS_RTOL}), the first step's grad "
+              f"norm {dg:.3e} (limit {norm_rtol}), clipped gradient per "
+              f"leaf up to {g_rel:.3e} relative L2 (limit {DP_GRAD_REL_L2}),"
+              f" updated masters up to {w_max:.3f} lr apart (limit "
+              f"{DP_STEP_LR})", flush=True)
+        if dl > TP_LOSS_RTOL or dg > norm_rtol or g_rel > DP_GRAD_REL_L2 \
+                or w_max > DP_STEP_LR:
+            raise AssertionError(f"{arch} {label} against the single card")
+        del tree, opt, step, first
+        torch.cuda.empty_cache()
+    del one, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_fsdp(torch, kattn, krwkv, dev, card) -> dict:
+    """Phase 15: FSDP over the data axes.  Returns K4's and K5's
+    launches."""
+    out = {"K4": 0, "K5": 0}
+    with phase(f"LM FSDP (a): {TRAIN_ARCH} on (data 4) and (pod 2, data 2)"):
+        out["K4"] += fsdp_steps(torch, kattn, krwkv, TRAIN_ARCH,
+                                FSDP_LAYOUTS, FSDP_STEPS, DP_B, dev, card)
+    with phase("LM FSDP (b): rwkv6-1.6b on (data 2)"):
+        out["K5"] += fsdp_steps(torch, kattn, krwkv, "rwkv6-1.6b",
+                                (("data 2", (2,), ("data",), False),),
+                                RWKV_FSDP_STEPS, RWKV_TRAIN_B, dev, card,
+                                RWKV_DP_NORM_RTOL)
+    with phase("LM FSDP (c): what a rank of the MoE models holds on (data "
+               "2, model 2)"):
+        for label, gib in HELD_GIB.items():
+            print(f"  {label} at {LM_CUT.get(label.split()[0])} layers: "
+                  f"{gib:.3f} GiB of weights a rank under FSDP (phases 12 "
+                  f"(c), 14 (c)); the 'data' entries whole: "
+                  f"{WHOLE_DATA_HELD_GIB} GiB a "
+                  f"model rank of dbrx-132b; card {card}", flush=True)
+        if not HELD_GIB or max(HELD_GIB.values()) >= WHOLE_DATA_HELD_GIB:
+            raise AssertionError(f"held a rank {HELD_GIB}")
+    return out
+
+
 def dryrun_meta(tmp: Path):
     """Start the meta walks of DRYRUN_CELLS in a process of their own
     (CPU only): (the process, the file it writes)."""
@@ -3961,6 +4240,30 @@ def dryrun_meta(tmp: Path):
                              json.dumps(DRYRUN_CELLS), str(out)], cwd=ROOT,
                             env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     return proc, out
+
+
+def card_par(arch: str, dev):
+    """The `Parallelism` of DRYRUN_CARD_MESH[arch] on `dev`."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.sharding.parallel import Parallelism
+    dims, names = DRYRUN_CARD_MESH[arch]
+    mesh = make_mesh_compat(dims, names, dev)
+    return Parallelism(mesh=mesh, data_axes=tuple(
+        a for a in names if a != "model"), model_axis="model"
+        if "model" in names else None)
+
+
+def card_program(arch: str, shape_name: str, dev, B: int, n_micro: int,
+                 seed: int = 0):
+    """`dryrun.rank_program` of a rank batch of B sequences split over the
+    data ranks of DRYRUN_CARD_MESH[arch] on `dev` (meta: the
+    prediction)."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    return dryrun.rank_program(get_config(arch), SHAPES[shape_name],
+                               card_par(arch, torch.device(dev)),
+                               n_micro=n_micro, B=B, device=dev, seed=seed)
 
 
 def dryrun_on_card(torch, kattn, krwkv, dev, card, meta=None) -> dict:
@@ -3972,8 +4275,6 @@ def dryrun_on_card(torch, kattn, krwkv, dev, card, meta=None) -> dict:
     from repro_torch.analysis.roofline import H100_SXM, roofline_from_artifact
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_production_mesh, parallelism_for
-    from repro_torch.train.train_step import _data_ranks
 
     launches = {"K4": 0, "K5": 0}
     recs = {}
@@ -4014,23 +4315,32 @@ def dryrun_on_card(torch, kattn, krwkv, dev, card, meta=None) -> dict:
               f"{rl['collective_s']:.6f} s, bound {rl['bound_s']:.6f} s "
               f"({rl['dominant']}), useful ratio {rl['useful_ratio']:.3f}",
               flush=True)
-        mesh = make_production_mesh(device="meta")
-        _, local, _ = _data_ranks(parallelism_for(mesh), cfg)
         B, n_micro = port["rank_batch"], rec.get("n_micro", 1)
-        pred = port["step"]
-        held = port["held_bytes"]
+        dims, names = DRYRUN_CARD_MESH[arch]
+        n_dp = card_par(arch, "meta").dp_size()
+        if "card_mesh" in rec:
+            pred, held = rec["card_mesh"]["result"], rec["card_mesh"]["held"]
+        else:
+            w_m, _, held = dryrun.walk_program(*card_program(
+                arch, shape_name, "meta", B, n_micro))
+            pred = w_m.result()
         free = torch.cuda.mem_get_info(dev)[0]
-        while pred["port"]["stacked"]["peak_bytes"] > 0.95 * free and B > 1:
+        while pred["port"]["stacked"]["peak_bytes"] > 0.95 * free \
+                and B > n_dp:
             B //= 2
             n_micro = min(n_micro, B)
-            w_m, _, held = dryrun.walk_program(*dryrun.rank_program(
-                cfg, shape, local, n_micro=n_micro, B=B))
+            w_m, _, held = dryrun.walk_program(*card_program(
+                arch, shape_name, "meta", B, n_micro))
             pred = w_m.result()
             print(f"    cut: the prediction exceeds the card's free "
                   f"{free} B; rank batch {B}, n_micro {n_micro}: peak "
                   f"{pred['port']['stacked']['peak_bytes']} B", flush=True)
-        args, run = dryrun.rank_program(cfg, shape, local, n_micro=n_micro,
-                                        B=B, device=dev, seed=0)
+        print(f"    on the card: mesh {dict(zip(names, dims))}, every rank "
+              f"stacked (FSDP: a data row cannot gather without its data "
+              f"peers), the rank batch of {B} split over its {n_dp} data "
+              f"ranks, n_micro {n_micro}; held against the same mesh on "
+              f"meta", flush=True)
+        args, run = card_program(arch, shape_name, dev, B, n_micro)
         k0 = (kattn.launches, krwkv.launches)
         w_c, t_walk, held_c = dryrun.walk_program(args, run, dev.type)
         got = w_c.result()
@@ -4685,6 +4995,12 @@ def main() -> int:
     launches["K4"] += lm_tensor_parallel(torch, kattn, dev, card)
 
     # ------------------------------------------------------------ 15 -----
+    torch.cuda.empty_cache()
+    print(f"  card {card}", flush=True)
+    for name, n in lm_fsdp(torch, kattn, krwkv, dev, card).items():
+        launches[name] += n
+
+    # ------------------------------------------------------------ 16 -----
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

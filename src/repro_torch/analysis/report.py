@@ -10,8 +10,11 @@ H100 SXM's constants (`analysis.roofline`), and its last column names the
 card's levers (shared memory, the tensor cores, K4) where the reference's
 names the TPU's.  `placement_table`, the port's own, sets one rank's
 bytes under the reference's shardings beside those under the port's
-placement (whole dense weights, caches and activations), its peak and
-whether it fits one 80 GB card, in both layouts, with the roofline's terms.
+placement (the model ranks' blocks cut over 'data', caches and
+activations), its peak and whether it fits one 80 GB card, in both
+layouts, with the roofline's terms; `fsdp_pod_table` the train cells of
+the multi-pod layout with the weights cut over 'data' (hierarchical) and
+over ('pod', 'data') (`--fsdp-pod`), and the bytes each puts across pods.
 `observability_section` renders the port's `FMMSession.report()`.
 """
 from __future__ import annotations
@@ -23,7 +26,8 @@ import os
 from repro_torch.analysis.roofline import H100_SXM, roofline_from_artifact
 
 __all__ = ["load", "fmt_bytes", "dryrun_table", "roofline_table",
-           "placement_table", "observability_section", "ADVICE", "main"]
+           "placement_table", "fsdp_pod_table", "observability_section",
+           "ADVICE", "main"]
 
 # what would move each family's dominant term on the card
 ADVICE = {
@@ -124,7 +128,8 @@ def placement_table(recs):
     ]
     cells = {}
     for r in recs:
-        if "skipped" in r or "error" in r or "port" not in r:
+        if "skipped" in r or "error" in r or "port" not in r \
+                or r["port"].get("fsdp_pod"):
             continue
         cells.setdefault((r["arch"], r["shape"]), {})[
             "2pod" if r["multi_pod"] else "1pod"] = r
@@ -145,6 +150,35 @@ def placement_table(recs):
             f"{both(lambda r: fmt_bytes(r['port']['peak_bytes']))} | "
             f"{both(lambda r: 'yes' if r['port']['fits_80gb'] else 'no')} | "
             f"{terms} |")
+    return "\n".join(lines)
+
+
+def fsdp_pod_table(recs):
+    """Per train cell of the (2, 16, 16) layout: the GB one rank holds,
+    its peak, and its collective bytes inter- / intra-pod, with the
+    weights cut over 'data' (hierarchical reduction) and over ('pod',
+    'data') (`--fsdp-pod`)."""
+    lines = [
+        "| arch | held GB (data · pod x data) | peak GB | inter-pod GB | "
+        "intra-pod GB |",
+        "|---|---|---|---|---|",
+    ]
+    cells = {}
+    for r in recs:
+        if "port" not in r or not r.get("multi_pod") or \
+                r["shape"] != "train_4k":
+            continue
+        cells.setdefault(r["arch"], {})[
+            "pod" if r["port"].get("fsdp_pod") else "data"] = r
+    for arch, by in sorted(cells.items()):
+        def both(f):
+            return " · ".join(f(by[k]) if k in by else "–"
+                              for k in ("data", "pod"))
+        lines.append(
+            f"| {arch} | {both(lambda r: fmt_bytes(r['port']['held_bytes']))}"
+            f" | {both(lambda r: fmt_bytes(r['port']['peak_bytes']))} | "
+            f"{both(lambda r: fmt_bytes(r['walked']['inter_pod_bytes']))} | "
+            f"{both(lambda r: fmt_bytes(r['walked']['intra_pod_bytes']))} |")
     return "\n".join(lines)
 
 
@@ -227,6 +261,9 @@ def main(argv=None):
     print("\n## §Dry-run — one rank under the port's placement (1pod · "
           "2pod)\n")
     print(placement_table(recs))
+    print("\n## §Dry-run — the train cells' FSDP cut over 'data' · over "
+          "('pod', 'data'), one rank of (2, 16, 16)\n")
+    print(fsdp_pod_table(recs))
 
 
 if __name__ == "__main__":

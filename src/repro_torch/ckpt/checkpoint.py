@@ -20,7 +20,13 @@ mesh)`, None where a leaf stays whole) each leaf lands as the blocks the
 ranks of this process hold on that mesh (`shard_params`: (L, *block)) on
 the mesh's device, whatever mesh shape wrote the checkpoint (the file
 holds whole leaves).  Without it, `device=` (default: the card) takes the
-whole tree.
+whole tree.  The port's own placement loads the same way:
+`models.tp.model_shardings` (the model ranks' blocks, FSDP cuts over the
+data axes) in place of `param_shardings`, on a mesh of any shape.
+`save_checkpoint(..., shardings=)` is the inverse: each leaf put together
+from the blocks the ranks hold (`unshard_params`; on a group mesh every
+process takes part) before it is written, so the file holds whole leaves
+whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import torch
 
 from repro_torch.convert import unstack
 from repro_torch.device import resolve_device
-from repro_torch.models.params import shard_leaf
+from repro_torch.models.params import shard_leaf, unshard_leaf
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step"]
 
@@ -75,9 +81,11 @@ def _flatten(tree, key: str, out: dict) -> None:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, extra: dict | None = None,
-                    keep: int = 3):
+                    keep: int = 3, shardings=None):
     """Atomic save of a tree (+ JSON-serializable extras, e.g. the data
-    cursor).  Returns the step's directory."""
+    cursor), with `shardings` each leaf first put together from the
+    ranks' blocks (module docstring).  Returns the step's directory."""
+    tree = _shard(tree, shardings, unshard_leaf)
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
@@ -142,20 +150,20 @@ def _restore(like, key: str, arrays: dict, dev):
     return type(like)(arr)
 
 
-def _shard(tree, shardings):
-    """Each tensor leaf cut to its blocks where `shardings` has a
-    `Sharding` (the trees of one structure, None for a whole leaf)."""
+def _shard(tree, shardings, fn=shard_leaf):
+    """fn(leaf, its sharding) over each tensor leaf that `shardings` gives
+    one (the trees of one structure, None for a whole leaf): each cut to
+    its blocks (`shard_leaf`), or put together from them."""
     if shardings is None:
         return tree
     if _is_namedtuple(tree):
-        return type(tree)(*(_shard(getattr(tree, n), getattr(shardings, n))
-                            for n in tree._fields))
+        return type(tree)(*(_shard(getattr(tree, n), getattr(shardings, n),
+                                   fn) for n in tree._fields))
     if isinstance(tree, dict):
-        return {k: _shard(v, shardings[k]) for k, v in tree.items()}
+        return {k: _shard(v, shardings[k], fn) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_shard(v, s) for v, s in zip(tree, shardings)]
-    return shard_leaf(tree, shardings) if isinstance(tree, torch.Tensor) \
-        else tree
+        return [_shard(v, s, fn) for v, s in zip(tree, shardings)]
+    return fn(tree, shardings) if isinstance(tree, torch.Tensor) else tree
 
 
 def _first_mesh(shardings):

@@ -81,6 +81,18 @@ scaled by s (an output each rank of a group computes alike, as
 engine's `all_to_all` / `all_gather` without axes and `ppermute` stay
 plain: on a stacked mesh autograd runs through their reshapes and copies,
 and a group mesh's are not differentiable.
+
+FSDP (`models.tp`): `gather_cuts(buf, axes)` is the all-gather of a flat
+buffer of weight cuts, (L, N) -> (L, G, N), whose backward reduce-scatters
+the cotangents in float32 (added in group order, rounded once to the
+buffer's type); while `grad_log()` is open each such backward appends the
+bytes one rank puts into it.  Where no gradient flows a stacked mesh
+makes each group's gathered buffer once (`gather_groups`): its members
+would hold equal copies.  `RowComm` is one row of a mesh on the meta
+device, for the dry run: the ranks that differ only on the row's axes,
+stacked; collectives within the row run as a `StackedComm`'s, the others
+give meta results of their shape and record themselves against the whole
+mesh.
 """
 from __future__ import annotations
 
@@ -90,7 +102,9 @@ import torch
 
 from repro_torch.obs import cost as _cost
 
-__all__ = ["StackedComm", "GroupComm", "scale_grad"]
+from contextlib import contextmanager
+
+__all__ = ["StackedComm", "GroupComm", "RowComm", "scale_grad", "grad_log"]
 
 # the collective whose backward a collective's is (module docstring)
 _ADJOINT = {"psum": "psum", "all_gather": "psum_scatter",
@@ -157,6 +171,42 @@ class _ScaleGrad(torch.autograd.Function):
     def backward(ctx, g):
         with _cost.stacked(g.shape[0] if g.dim() else 1):
             return g * ctx.s, None
+
+
+_grad_bytes: list | None = None
+
+
+@contextmanager
+def grad_log():
+    """Within the block, each `gather_cuts` backward appends one rank's
+    bytes into its reduce-scatter (the float32 cotangent) to the yielded
+    list."""
+    global _grad_bytes
+    prev, _grad_bytes = _grad_bytes, []
+    try:
+        yield _grad_bytes
+    finally:
+        _grad_bytes = prev
+
+
+class _GatherCuts(torch.autograd.Function):
+    """The FSDP all-gather (module docstring); backward, a float32
+    reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, buf, mesh, axes):
+        ctx.args = (mesh, axes, buf.dtype)
+        return mesh._collective("all_gather", buf, axes, 0, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dtype = ctx.args
+        g = g.float().contiguous()
+        if _grad_bytes is not None:
+            _grad_bytes.append(g[0].numel() * g.element_size())
+        with _cost.stacked(len(mesh.local_ranks)):
+            out = mesh._collective("psum_scatter", g, axes, 0, False)
+        return out.to(dtype), None, None
 
 
 def scale_grad(buf: torch.Tensor, s: float) -> torch.Tensor:
@@ -278,6 +328,13 @@ class _NamedMesh:
             return _ReduceFrom.apply(buf, self, axes)
         return self._collective("psum", buf, axes, 0, False)
 
+    def gather_cuts(self, buf: torch.Tensor, axes) -> torch.Tensor:
+        """(L, N) -> (L, G, N): every member's buffer along `axes`; its
+        backward a float32 reduce-scatter (module docstring)."""
+        if _wants_grad(buf):
+            return _GatherCuts.apply(buf, self, axes)
+        return self._collective("all_gather", buf, axes, 0, False)
+
 
 def _note(comm, method: str, axes, out: torch.Tensor, whole: bool = False):
     """Record one collective in the active walker: one rank's result bytes
@@ -381,6 +438,26 @@ class StackedComm(_NamedMesh):
         if buf.shape[0] != self.n_ranks:
             raise ValueError(f"stacked buffers need a leading axis of "
                              f"{self.n_ranks} ranks, got {tuple(buf.shape)}")
+
+    def gather_groups(self, buf: torch.Tensor, axes) -> tuple:
+        """`gather_cuts` without its copies, where no gradient flows: the
+        members of a group along `axes` would all receive the same
+        buffer, so each group's is made once.  Returns ((O, G, N): every
+        group's members' buffers, each local rank's group), the
+        all-gather recorded as each rank would run it."""
+        ks = self._axes(axes)
+        w = self._along(buf, ks)
+        others = [k for k in range(len(self.dims)) if k not in ks]
+        group = []
+        for r in self.local_ranks:
+            c, o = self.coords(r), 0
+            for k in others:
+                o = o * self.dims[k] + c[k]
+            group.append(o)
+        if _cost.ACTIVE is not None:
+            _cost.record_collective(self, "all_gather", axes,
+                                    w[0].numel() * w.element_size())
+        return w, group
 
     def all_to_all(self, buf: torch.Tensor, axes=None,
                    dim: int = 0) -> torch.Tensor:
@@ -606,3 +683,80 @@ class GroupComm(_NamedMesh):
             for req in self._dist.batch_isend_irecv(ops):
                 req.wait()
         return out
+
+
+class RowComm(StackedComm):
+    """One row of a mesh of `shape` over `axis_names` on the meta device:
+    the ranks whose coordinates are 0 on every axis but `row_axes`,
+    stacked.  Collectives along axes of the row run over it as a
+    `StackedComm`'s; along any other axis their result is a meta tensor
+    of its shape (on meta nothing is computed, so no peer outside the row
+    is needed), recorded against the whole mesh (module docstring)."""
+
+    def __init__(self, shape, axis_names, row_axes, device="meta"):
+        self.device = torch.device(device)
+        if self.device.type != "meta":
+            raise ValueError("RowComm: meta tensors only (a peer outside "
+                             "the row sends nothing)")
+        self.n_ranks = math.prod(int(d) for d in shape)
+        self._name_axes(axis_names, shape)
+        row_axes = (row_axes,) if isinstance(row_axes, str) else \
+            tuple(row_axes)
+        ks = self._axes(row_axes)
+        self.local_ranks = tuple(
+            r for r in range(self.n_ranks)
+            if all(c == 0 for k, c in enumerate(self.coords(r))
+                   if k not in ks))
+        self._row = StackedComm(len(self.local_ranks), self.device,
+                                axis_names=row_axes,
+                                shape=[self.dims[k] for k in ks])
+        self._perms = {}
+
+    def _check(self, buf: torch.Tensor) -> None:
+        if buf.shape[0] != len(self.local_ranks):
+            raise ValueError(f"row buffers need a leading axis of "
+                             f"{len(self.local_ranks)} ranks, got "
+                             f"{tuple(buf.shape)}")
+
+    def _inside(self, axes) -> bool:
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        return set(names) <= set(self._row.axis_names)
+
+    def _psum(self, buf, axes):
+        if self._inside(axes):
+            return self._row._psum(buf, axes)
+        self._check(buf)
+        return torch.zeros_like(buf)
+
+    def _psum_scatter(self, buf, axes, dim=0, tiled=False):
+        if self._inside(axes):
+            return self._row._psum_scatter(buf, axes, dim, tiled)
+        self._check(buf)
+        shape = list(buf.shape)
+        if tiled:
+            shape[1 + dim] //= self.axis_size(axes)
+        else:
+            del shape[1 + dim]
+        return buf.new_zeros(shape)
+
+    def _all_gather_axes(self, t, axes, dim, tiled):
+        if self._inside(axes):
+            return self._row._all_gather_axes(t, axes, dim, tiled)
+        self._check(t)
+        shape, G = list(t.shape), self.axis_size(axes)
+        if tiled:
+            shape[1 + dim] *= G
+        else:
+            shape.insert(1 + dim, G)
+        return t.new_zeros(shape)
+
+    def _all_to_all_axes(self, buf, axes, dim):
+        if self._inside(axes):
+            return self._row._all_to_all_axes(buf, axes, dim)
+        self._check(buf)
+        return torch.zeros_like(buf)
+
+    def all_gather(self, t, axes=None, dim=0, tiled=False):
+        if axes is None:
+            raise NotImplementedError("RowComm: no all-gather of whole rows")
+        return self._run("all_gather", t, axes, dim, tiled)

@@ -19,32 +19,32 @@ allocated, so the full-size cells run on a CPU.
 The artifact describes the program of one rank, as the reference's
 post-SPMD figures do.  The mesh is `make_production_mesh(multi_pod=...,
 device="meta")`, (16, 16) ('data', 'model') or (2, 16, 16) ('pod', 'data',
-'model').  One data rank runs:
+'model').  One data rank runs (`local_parallelism`): its ranks of data
+coordinate 0 as a `core.dist.comm.RowComm` on meta, the 16 model ranks
+stacked for the families `models.tp` covers (dense, moe, encdec, vlm),
+the one rank for rwkv6 and hymba (their model ranks hold the same whole
+leaves); collectives along the model axis run over the row, those along
+the data axes give meta results and record their bytes against the whole
+mesh.  The weights are the blocks and FSDP cuts `tp.shard_model` gives
+that row (over 'data', or ('pod', 'data') with `--fsdp-pod`):
 
   train    global_batch / dp_size sequences in `_micro_batches` micro-
-           batches (the reference's arithmetic), under the `Parallelism`
-           of one data rank that the train step's `_data_ranks` builds:
-           for the families `models.tp` covers (dense, moe, encdec, vlm)
-           the model axis as a stacked `StackedComm` of 16 ranks on meta,
-           each holding its weight blocks; no mesh for rwkv6 and hymba.
-           The gradient reduction runs in a walk of its own:
-           `hierarchical_all_reduce` (or, `--flat`, one all-reduce over
-           the data axes) on a meta (dp_size, numel) float32 buffer of the
-           stacked data ranks, numel a model rank's gradient, its `stats`
-           kept;
+           batches (the reference's arithmetic), the train step with its
+           per-superblock gathers, the reduce-scatters of their backwards
+           and the rest of the gradient reduction (`train_step.comm`'s
+           stages, under `port.reduction`);
   prefill, B / dp_size sequences where dp_size divides the batch, else the
-  decode   whole batch (the reference replicates it then), under the same
-           local `Parallelism`; S_max is seq_len + 128 for a prefill and
-           seq_len for a decode step, whose cache comes from
-           `decode.init_cache(..., device="meta", par)` (the model ranks'
-           key/value heads).
+  decode   whole batch (the reference replicates it then); S_max is
+           seq_len + 128 for a prefill and seq_len for a decode step,
+           whose cache comes from `decode.init_cache(..., device="meta",
+           par)` (the model ranks' key/value heads).
 
 The 16 or 32 data ranks are never summed into a per-rank figure.  Where
-ranks are stacked (the model axis, the reduction's data ranks), the walker
-counts the stacked total and derives one rank's share: the work inside
-the stacked scope (and the backward of what it made), the bytes it
-allocates and the stacked arguments (weight blocks, optimizer state,
-caches: `Walker.track(..., L)`) count 1/L each, L the stacked ranks; each
+ranks are stacked (the row's model ranks), the walker counts the stacked
+total and derives one rank's share: the work inside the stacked scope
+(and the backward of what it made), the bytes it allocates and the
+stacked arguments (weight blocks and cuts, optimizer state, caches:
+`Walker.track(..., L)`) count 1/L each, L the stacked ranks; each
 collective's bytes are one rank's result already.  `port.stacked` keeps
 the totals as run.
 
@@ -69,17 +69,18 @@ port artifact unchanged:
 The port's own figures are under `port`: the bytes the rank holds under
 the port's placement (`held_bytes`, split in `held` into parameters,
 optimizer state, batch and caches: the blocks of the 'model' entries of
-the reference's specs, `models.tp`, the 'data' entries whole; rwkv6 and
-hymba every leaf whole), its peak (`peak_bytes`, against one 80 GB card:
+the reference's specs cut over their 'data' entries, `models.tp`; rwkv6
+and hymba every leaf whole over 'model' and cut over 'data'), its peak (`peak_bytes`, against one 80 GB card:
 `fits_80gb`), the kernels' launches, operations and bytes, the dot FLOPs
 as the card runs them (`dot_flops_card`: the kernels' operations in place
-of the reference's dots, what the H100 roofline reads), the step's and
-the reduction's walks, and the stacked totals.  `save_artifact` writes no
+of the reference's dots, what the H100 roofline reads), the step's walk,
+the reduction's stages, and the stacked totals.  `save_artifact` writes no
 `.hlo.gz`: there is no HLO.  Failures are recorded as artifacts too.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -93,7 +94,7 @@ from repro_torch.analysis.hlo_walk import Walker
 from repro_torch.configs import (SHAPES, cell_enabled, get_config,
                                  input_specs, list_archs)
 from repro_torch.configs.base import active_param_count, param_count
-from repro_torch.core.collectives import hierarchical_all_reduce
+from repro_torch.core.dist.comm import RowComm
 from repro_torch.launch.mesh import make_production_mesh, parallelism_for
 from repro_torch.models import decode as decode_mod
 from repro_torch.models import tp as tp_mod
@@ -101,14 +102,12 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.params import (Sharding, map_tree, param_shardings,
                                        param_structs, tree_leaves)
 from repro_torch.models.registry import Model, init_weights, weight_structs
-from repro_torch.obs import cost
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
-from repro_torch.train.train_step import (_data_ranks, make_train_step,
-                                          reduction_axes)
+from repro_torch.train.train_step import make_train_step
 
 __all__ = ["lower_cell", "save_artifact", "batch_shardings",
-           "cache_shardings", "rank_batch", "rank_program", "walk_program",
-           "CARD_BYTES", "main"]
+           "cache_shardings", "rank_batch", "local_parallelism",
+           "rank_program", "walk_program", "CARD_BYTES", "main"]
 
 CARD_BYTES = 80 * 10 ** 9       # one H100's memory, 80 GB
 
@@ -217,13 +216,26 @@ def _inputs(cfg, shape, B: int, device, gen) -> dict:
     return out
 
 
+def local_parallelism(par, cfg):
+    """The `Parallelism` of one data rank's program on meta (module
+    docstring): `par` with its mesh a `RowComm` of the ranks of data
+    coordinate 0, over the model axis where `models.tp` covers the
+    family, else the one rank."""
+    covered = cfg.family in tp_mod.COVERED and par.tp_size() > 1
+    row = RowComm(par.mesh.dims, par.mesh.axis_names,
+                  (par.model_axis,) if covered else (), device="meta")
+    return dataclasses.replace(par, mesh=row)
+
+
 def rank_program(cfg, shape, par, *, n_micro: int = 1, B: int | None = None,
-                 device="meta", seed: int = 0):
+                 device="meta", seed: int = 0, fsdp_pod: bool = False):
     """(arguments, run) of one data rank's step: the arguments the rank
     holds ({"params", "opt", "batch", "cache"} as the kind needs; meta
     tensors on meta, a seeded random init elsewhere) and `run()`, which
-    runs the step on them.  `par` is the rank's local `Parallelism`
-    (`_data_ranks`'s); B the rank's sequences (default: the shape's)."""
+    runs the step on them.  `par` is the rank's `Parallelism`
+    (`local_parallelism`'s on meta; a mesh whose every rank this process
+    holds elsewhere); B the rank's sequences (default: the shape's);
+    `fsdp_pod`, the weights cut over ('pod', 'data')."""
     B = shape.global_batch if B is None else B
     dev = torch.device(device)
     meta = dev.type == "meta"
@@ -233,16 +245,20 @@ def rank_program(cfg, shape, par, *, n_micro: int = 1, B: int | None = None,
     params = weight_structs(cfg) if meta else init_weights(cfg, seed=seed,
                                                            device=dev)
     if tp is not None:
-        params = tp_mod.shard_model(params, cfg, par.mesh, par.model_axis)
+        params = tp_mod.shard_model(params, cfg, par.mesh, par.model_axis,
+                                    data_axes=par.data_axes,
+                                    fsdp_pod=fsdp_pod)
     if train:
         params = map_tree(lambda t: t.requires_grad_(), params)
     batch = _inputs(cfg, shape, B, dev, gen)
     if train:
         opt = init_opt_state(params)
         step = make_train_step(cfg, AdamWConfig(), n_micro=n_micro, par=par)
-        return _ranked({"params": params, "opt": list(opt[:3]),
-                        "batch": batch}, lambda: step(params, opt, batch),
-                       tp)
+        args, run = _ranked({"params": params, "opt": list(opt[:3]),
+                             "batch": batch},
+                            lambda: step(params, opt, batch), tp)
+        run.step = step
+        return args, run
     model = Model(cfg, params)
     if shape.kind == "prefill":
         S_max = shape.seq_len + 128
@@ -264,18 +280,27 @@ def rank_program(cfg, shape, par, *, n_micro: int = 1, B: int | None = None,
 
 
 def _ranked(args, run, tp):
-    """`run` marked with the stacked ranks that hold the arguments other
-    than the batch (`walk_program` counts 1/L of them a rank)."""
+    """`run` marked with the stacked ranks that hold the weights and
+    optimizer state (`ranks`) and the caches (`cache_ranks`: one a rank
+    under the Megatron program, whole under the whole-leaf one);
+    `walk_program` counts 1/L of them a rank."""
     run.ranks = tp.L if tp is not None and tp.stacked else 1
+    run.cache_ranks = run.ranks if tp is not None and tp.covered else 1
     return args, run
+
+
+def _ranks_of(run, key: str) -> int:
+    if key == "batch":
+        return 1
+    if key == "cache":
+        return getattr(run, "cache_ranks", 1)
+    return getattr(run, "ranks", 1)
 
 
 def held_parts(args, run) -> dict:
     """One rank's bytes of each argument (the batch whole, the rest 1/L
     of the stacked ranks')."""
-    L = getattr(run, "ranks", 1)
-    return {k: _whole_bytes(v) / (1 if k == "batch" else L)
-            for k, v in args.items()}
+    return {k: _whole_bytes(v) / _ranks_of(run, k) for k, v in args.items()}
 
 
 def walk_program(args, run, device_type: str = "meta") -> tuple:
@@ -283,47 +308,13 @@ def walk_program(args, run, device_type: str = "meta") -> tuple:
     bytes of the arguments, `held_parts` summed).  The step's outputs are
     dropped."""
     t0 = time.perf_counter()
-    L = getattr(run, "ranks", 1)
     with Walker(device_type) as w:
-        w.track(args["batch"])
-        w.track({k: v for k, v in args.items() if k != "batch"}, L)
+        for k, v in args.items():
+            w.track(v, _ranks_of(run, k))
         out = run()
         del out
     held = int(round(sum(held_parts(args, run).values())))
     return w, time.perf_counter() - t0, held
-
-
-def _reduction(par, red, params, L: int = 1) -> tuple:
-    """The gradient reduction of the stacked data ranks on a meta (dp,
-    numel) float32 buffer (one model rank's gradients, of `params` held
-    by L stacked ranks, and the loss): (walker, stages)."""
-    inner, outer = reduction_axes(par)
-    numel = sum(p.numel() for p in tree_leaves(params)) // L + 1
-    stats: list = []
-    with Walker("meta") as w:
-        with cost.stacked(red.n_ranks):
-            buf = torch.empty((red.n_ranks, numel), dtype=torch.float32,
-                              device="meta")
-            out = hierarchical_all_reduce(buf, red, inner, outer,
-                                          stats=stats)
-            del buf, out
-    return w, stats
-
-
-def _merged(step: dict, red: dict | None) -> dict:
-    """`weighted_analysis`'s keys over the step and the reduction."""
-    if red is None:
-        return {k: v for k, v in step.items() if k != "port"}
-    out = {}
-    for k in ("collective_bytes", "collective_counts"):
-        d = dict(step[k])
-        for c, v in red[k].items():
-            d[c] = d.get(c, 0.0) + v
-        out[k] = d
-    for k in ("total_collective_bytes", "inter_pod_bytes", "intra_pod_bytes",
-              "dot_flops", "result_bytes"):
-        out[k] = step[k] + red[k]
-    return out
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -343,7 +334,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     par = parallelism_for(mesh, hierarchical=hierarchical,
                           moe_seq_shard=moe_seq_shard)
     dp = par.dp_size()
-    red, local, _ = _data_ranks(par, cfg)
+    local = local_parallelism(par, cfg)
     B = rank_batch(shape, dp)
     defs = tf.model_defs(cfg)
     pstructs, pshard = param_structs(defs), param_shardings(
@@ -360,7 +351,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
             tree_leaves(pstructs), tree_leaves(pshard))) + 4
         arg_bytes += opt_bytes
         out_bytes = _sharded_bytes(pstructs, pshard) + opt_bytes + 3 * 4
-        args, run = rank_program(cfg, shape, local, n_micro=n_micro, B=B)
+        args, run = rank_program(cfg, shape, local, n_micro=n_micro, B=B,
+                                 fsdp_pod=fsdp_pod)
     else:
         S_max = shape.seq_len + (128 if shape.kind == "prefill" else 0)
         shardable = shape.global_batch % dp == 0
@@ -374,33 +366,22 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
             mesh, (par.data_axes if shardable else None,)))
         if shape.kind == "decode":
             arg_bytes += cache_bytes
-        args, run = rank_program(cfg, shape, local, B=B)
+        args, run = rank_program(cfg, shape, local, B=B, fsdp_pod=fsdp_pod)
     t_lower = time.perf_counter() - t0
 
     w_step, t_step, held = walk_program(args, run)
-    step, records = w_step.result(), list(w_step.records)
-    red_walk, stages = None, None
-    t_red = 0.0
-    if shape.kind == "train":
-        t1 = time.perf_counter()
-        w_red, stages = _reduction(par, red, args["params"],
-                                   getattr(run, "ranks", 1))
-        red_walk = w_red.result()
-        records += w_red.records
-        t_red = time.perf_counter() - t1
-    walked = _merged(step, red_walk)
+    step = w_step.result()
+    walked = {k: v for k, v in step.items() if k != "port"}
     peak = step["port"]["peak_bytes"]
-    if red_walk is not None:        # the reduction over the held arguments
-        peak = max(peak, held + red_walk["port"]["peak_bytes"])
     kernels = step["port"]["kernels"]
-    read_bytes = step["port"]["read_bytes"] + (
-        red_walk["port"]["read_bytes"] if red_walk else 0.0)
-    coll = collective_bytes(records)
+    read_bytes = step["port"]["read_bytes"]
+    coll = collective_bytes(w_step.records)
+    stages = run.step.comm if shape.kind == "train" else None
     result = {
         "arch": arch, "shape": shape_name, "multi_pod": multi_pod,
         "hierarchical": hierarchical,
         "mesh": list(mesh.dims), "axes": list(mesh.axis_names),
-        "lower_s": round(t_lower, 3), "compile_s": round(t_step + t_red, 3),
+        "lower_s": round(t_lower, 3), "compile_s": round(t_step, 3),
         "flops": walked["dot_flops"],
         "bytes_accessed": walked["result_bytes"] + read_bytes,
         "memory": {
@@ -416,26 +397,24 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         **extra,
         "port": {
             "device": "meta", "dp_size": dp, "rank_batch": B,
-            "model_ranks_stacked": (local.mesh.n_ranks
-                                    if local.mesh is not None else 1),
+            "model_ranks_stacked": len(local.mesh.local_ranks),
+            "fsdp_pod": fsdp_pod,
             "held_bytes": int(held),
             "held": {k: int(round(v)) for k, v in held_parts(
                 args, run).items()},
             "peak_bytes": int(peak),
             "fits_80gb": bool(peak <= CARD_BYTES),
             "kernels": kernels,
-            "dot_flops_card": step["port"]["dot_flops_card"] + (
-                red_walk["port"]["dot_flops_card"] if red_walk else 0.0),
+            "dot_flops_card": step["port"]["dot_flops_card"],
             "read_bytes": read_bytes,
             "step": step,
-            "reduction": (None if red_walk is None else
-                          dict(red_walk, stages=[dict(s, axes=list(s["axes"]))
-                                                 for s in stages])),
+            "reduction": (None if stages is None else
+                          {"stages": [dict(s, axes=list(s["axes"]))
+                                      for s in stages]}),
             "stacked": step["port"]["stacked"],
             "per_rank": "one data rank's program; its stacked model-axis "
-                        "ranks (the weight blocks of models.tp) and the "
-                        "reduction's stacked data ranks count 1/L each "
-                        "(analysis.hlo_walk)",
+                        "ranks (the weight blocks and FSDP cuts of "
+                        "models.tp) count 1/L each (analysis.hlo_walk)",
         },
     }
     return result, None

@@ -19,10 +19,11 @@ Weights start from `init_weights(cfg, seed=seed)` (a seeded
 step runs under `par` (default: the reference's `Parallelism(remat=
 False)`, no mesh); a `Parallelism` over a mesh makes it data parallel
 over its data axes (`train.train_step`, the batch split over its data
-ranks) and tensor parallel over its model axis: the weights, the
-optimizer state and the checkpoints are then the model ranks' blocks
-(`models.tp.shard_model`).  `--model-ranks N` stacks N model ranks on
-the device (a (data 1, model N) mesh, remat on).
+ranks) and tensor parallel over its model axis: the weights and the
+optimizer state are then the blocks and FSDP cuts the ranks hold
+(`models.tp.shard_model`), and the checkpoints hold whole leaves (put
+together on save, cut on load).  `--model-ranks N` stacks N model ranks
+on the device (a (data 1, model N) mesh, remat on).
 """
 from __future__ import annotations
 
@@ -39,9 +40,10 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_mesh_compat
 from repro_torch.models import init_weights, weight_structs
 from repro_torch.models import tp as tp_mod
-from repro_torch.models.params import map_tree
+from repro_torch.models.params import map_tree, shard_params
 from repro_torch.sharding.parallel import Parallelism
-from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+from repro_torch.train.optimizer import (AdamWConfig, OptState,
+                                        init_opt_state)
 from repro_torch.train.train_step import make_train_step
 
 __all__ = ["run", "main"]
@@ -63,19 +65,24 @@ def run(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     par = Parallelism(remat=False) if par is None else par
     train_step = make_train_step(cfg, opt_cfg, n_micro=n_micro, par=par)
 
+    sh = None
+    if tp_mod.plan(cfg, par) is not None:
+        sh = tp_mod.par_shardings(cfg, par)
+    sh_state = None if sh is None else {
+        "params": sh, "opt": OptState(sh, sh, sh, None)}
+
     def placed(tree):
-        """A whole tree as the blocks `par`'s model axis runs on."""
-        if tp_mod.plan(cfg, par) is None:
-            return tree
-        return tp_mod.shard_model(tree, cfg, par.mesh, par.model_axis)
+        """A whole tree as the blocks and cuts `par`'s ranks run on."""
+        return tree if sh is None else shard_params(tree, sh)
 
     data = SyntheticLM(cfg.vocab, seq, batch, seed=seed)
     start = 0
     last = latest_step(ckpt_dir) if ckpt_dir else None
     if last is not None:
-        like = placed(weight_structs(cfg))
+        like = weight_structs(cfg)
         like = {"params": like, "opt": init_opt_state(like)}
-        state, extra = load_checkpoint(ckpt_dir, last, like, device=dev)
+        state, extra = load_checkpoint(ckpt_dir, last, like, device=dev,
+                                       shardings=sh_state)
         params = map_tree(lambda p: p.requires_grad_(), state["params"])
         opt_state = state["opt"]
         data.restore(extra["data"])
@@ -110,10 +117,11 @@ def run(arch: str, smoke: bool, steps: int, batch: int, seq: int,
         if ckpt_dir and (step + 1) % ckpt_every == 0:
             save_checkpoint(ckpt_dir, step + 1,
                             {"params": params, "opt": opt_state},
-                            extra={"data": data.snapshot()})
+                            extra={"data": data.snapshot()},
+                            shardings=sh_state)
     if ckpt_dir:
         save_checkpoint(ckpt_dir, steps, {"params": params, "opt": opt_state},
-                        extra={"data": data.snapshot()})
+                        extra={"data": data.snapshot()}, shardings=sh_state)
     return {"losses": losses, "grad_norms": [float(g) for g in gnorms],
             "step_s": times, "stragglers": stragglers,
             "final_loss": losses[-1] if losses else None}

@@ -64,6 +64,14 @@ them as before.  Every collective of the program is a stacked or group
 communicator's, which reads nothing back to the host, so a decode step
 under a stacked mesh still captures as one CUDA graph.  rwkv6 and hymba
 keep their whole-leaf caches.
+
+FSDP (`models.tp`, more than one data rank): each superblock's cuts are
+gathered when the step reaches it and dropped after it, in a captured
+step too, so a graph's pool holds one superblock's gathered weights at a
+time.  Where no model axis splits the model (rwkv6, hymba, or none of
+more than one rank) the step runs the whole-leaf path on the gathered
+leaves of the first local rank (`_whole_view`): the whole batch on a
+stacked mesh, the rank's shard on a group rank, with whole-leaf caches.
 """
 from __future__ import annotations
 
@@ -93,6 +101,8 @@ def init_cache(cfg, B: int, S_max: int, device, par=NONE) -> dict:
     check_supported(cfg)
     hd, D, Hkv = cfg.hd, cfg.d_model, cfg.n_kv_heads
     tp = tp_mod.plan(cfg, par)
+    if tp is not None and not tp.covered:
+        tp = None
     lead = ()
     if tp is not None:
         lead, B, Hkv = (tp.L,), B // tp.n_dp, max(tp.hkv)
@@ -138,6 +148,38 @@ def init_cache(cfg, B: int, S_max: int, device, par=NONE) -> dict:
         cache["memory"] = z(Bm, S_max, D)
         cache["memory_len"] = z(dtype=torch.long)
     return cache
+
+
+class _Gathered:
+    """Superblock trees read one at a time, each gathered as it is read
+    (its first local rank's leaves)."""
+
+    def __init__(self, blocks, tp, sh):
+        self.blocks, self.tp, self.sh = blocks, tp, sh
+
+    def __len__(self):
+        return len(self.blocks)
+
+    def __getitem__(self, i):
+        with self.tp.scope():
+            return tp_mod.rank_tree(self.tp.gather(self.blocks[i], self.sh),
+                                    0)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
+def _whole_view(params, tp) -> dict:
+    """The weight tree as the whole-leaf serving path reads it (module
+    docstring): the top-level leaves gathered now, the superblocks as
+    they are read."""
+    top = [k for k in params if k not in ("blocks", "enc_blocks")]
+    with tp.scope():
+        out = tp_mod.rank_tree(tp.top(params, *top), 0)
+    for k in ("blocks", "enc_blocks"):
+        if k in params:
+            out[k] = _Gathered(params[k], tp, tp.sh[k][0])
+    return out
 
 
 # ------------------------------------------------------- kv projections ----
@@ -215,11 +257,13 @@ def prefill(params, tokens, cfg, S_max: int, *, frames=None, vis=None,
         raise ValueError(f"prefill: frames {tuple(frames.shape)} for a "
                          f"prompt of ({B}, {S}) tokens (the encoder reads "
                          f"the prompt's positions)")
-    tp = tp_mod.plan(cfg, par)
-    if tp is not None:
+    tp = tp_mod.plan(cfg, par, params)
+    if tp is not None and tp.covered:
         with tp.scope():
             return _prefill_ranks(params, tokens, cfg, S_max, frames, vis,
                                   par, tp)
+    if tp is not None:
+        params, par = _whole_view(params, tp), NONE
     x = embed(params, tokens, cfg)
     cache = init_cache(cfg, B, S_max, x.device)
     positions = torch.arange(S, device=x.device)
@@ -278,6 +322,7 @@ def _decode_ranks(params, cache, tokens, pos, cfg, par, tp):
         mem_len = cache.get("memory_len", memory.shape[1])
         memory = tp.enter(memory.to(h.dtype))
     for pb, c in zip(params["blocks"], cache["blocks"]):
+        pb = tp.gather(pb, tp.block_sh)
         li = si = 0
         for s in range(_period(cfg)):
             kind = _sublayer_kind(cfg, s)
@@ -307,6 +352,7 @@ def _decode_ranks(params, cache, tokens, pos, cfg, par, tp):
                     h, pb[f"dec_cross{s}"], cfg, tp, positions=positions,
                     memory=memory, kv_len=mem_len)
             h, _ = _ffn_sublayer(h, pb, cfg, s, par, tp)
+        del pb                  # the gathered block, before the next one
     h = tp.norm(h, params["final_ln"], cfg.norm_eps)
     return tp.leave(tp_mod.logits(params, h, cfg, tp)), cache
 
@@ -356,10 +402,12 @@ def decode_step(params, cache, tokens, pos, cfg, par=NONE):
     B = tokens.shape[0]
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((), pos, dtype=torch.long, device=tokens.device)
-    tp = tp_mod.plan(cfg, par)
-    if tp is not None:
+    tp = tp_mod.plan(cfg, par, params)
+    if tp is not None and tp.covered:
         with tp.scope():
             return _decode_ranks(params, cache, tokens, pos, cfg, par, tp)
+    if tp is not None:
+        params, par = _whole_view(params, tp), NONE
     h = embed(params, tokens, cfg)
     if cfg.family == "ssm":
         for pb, c in zip(params["blocks"], cache["blocks"]):

@@ -15,10 +15,16 @@ the MoE sublayer takes the reference's expert-parallel route
 (`_moe_shard_map`) as a step of the rank program of `models.tp`, over
 the ranks this process holds (`core.dist.comm`: every rank of a stacked
 mesh, or this process's one rank of a group mesh).  Each rank holds only
-its expert block, (E / n_model) experts whole on the 'data' axes
-(`tp.model_shardings`: the 'model' entries of the reference's specs; the
-'data' ones, the FSDP shards the reference all-gathers, stay whole, so
-nothing is gathered), and a copy of the router.  The tokens of a rank
+its expert block, (E / n_model) experts (`tp.model_shardings`: the
+'model' entries of the reference's specs), cut on their D dim over the
+data axes where the mesh has more than one data rank (the 'data'
+entries: FSDP), and a copy of the router.  The cut blocks are
+all-gathered over the data axes before the experts run, ZeRO-3, as the
+reference's body all-gathers them (`src/repro/models/moe.py:138-142`):
+inside a model with the rest of the superblock at its entry
+(`tp.TP.gather`, one flat buffer), through `moe_ffn` here; the gather's
+backward reduce-scatters the experts' gradients back to the cuts.  The
+tokens of a rank
 are its data shard, replicated over the model axis; each rank routes its
 tokens with the capacity of its own token count (`_capacity`) into an
 (E, C, D) buffer; the buffer goes to the experts' ranks by an all-to-all
@@ -188,26 +194,43 @@ def _moe_dense(x, p, cfg):
 
 
 def moe_ffn(x, p, cfg, par=NONE):
-    """x: (B, S, D) -> (y, aux_loss): `_moe_dense` without a mesh, a model
-    axis, or with one model rank; else the expert-parallel route on the
-    rank blocks `p` (`tp.shard_model`'s), x and y the batch (stacked: whole;
-    group: the rank's shard)."""
-    if par.mesh is None or par.model_axis is None or par.tp_size() == 1:
+    """x: (B, S, D) -> (y, aux_loss): `_moe_dense` where `par` runs no
+    rank program (no mesh, one data rank and no model axis of more than
+    one rank); else the rank program's route on the rank blocks `p`
+    (`tp.shard_model`'s of `moe_defs`, gathered here), x and y the batch
+    (stacked: whole; group: the rank's shard)."""
+    from repro_torch.models import tp as tp_mod
+    if tp_mod.plan(cfg, par) is None:
         return _moe_dense(x, p, cfg)
     return _moe_shard_map(x, p, cfg, par)
 
 
 def _moe_shard_map(x, p, cfg, par):
     from repro_torch.models import tp as tp_mod
-    tp = tp_mod.plan(cfg, par)
+    defs = moe_defs(cfg)
+    cut = tp_mod.infer_cut(p, defs, par.mesh, par.data_axes)
+    tp = tp_mod.TP(cfg, par, cut)
+    sh = tp_mod.model_shardings(
+        defs, cfg, par.mesh, par.model_axis,
+        data_axes=tp_mod._data_axes(par.mesh, par.data_axes),
+        fsdp=bool(cut), fsdp_pod=cut == ("pod", "data"))
     with tp.scope():
-        y, aux = moe_ranks(tp.enter(x), p, cfg, par, tp)
+        g = tp.gather(p, sh)
+        xl = tp.enter(x)
+        if tp.covered:
+            y, aux = moe_ranks(xl, g, cfg, par, tp)
+        else:
+            outs = [_moe_dense(xl[i], tp_mod.rank_tree(g, i), cfg)
+                    for i in range(tp.L)]
+            y = torch.stack([o[0] for o in outs])
+            aux = torch.stack([o[1] for o in outs])
         return tp.leave(y), tp.leave_mean(aux)
 
 
 def moe_ranks(xl, p, cfg, par, tp):
     """The expert-parallel route (module docstring) on each local rank's
-    tokens xl (L, B_l, S, D) -> (y (L, B_l, S, D), aux (L,))."""
+    tokens xl (L, B_l, S, D) and its gathered weights p (every leaf (L,
+    ...), `tp.TP.gather`'s) -> (y (L, B_l, S, D), aux (L,))."""
     mesh, model = tp.mesh, tp.axis
     n_model = tp.M
     assert cfg.n_experts % n_model == 0, (cfg.n_experts, n_model)
@@ -215,7 +238,7 @@ def moe_ranks(xl, p, cfg, par, tp):
     E, D = cfg.n_experts, xl.shape[-1]
     E_loc = E // n_model
     xl = tp.f(xl)
-    router = tp.f(tp.stack_rows(p["router"]).float())
+    router = tp.f(p["router"].float())
     L, B_loc, S = xl.shape[:3]
     T_full = B_loc * S
     # without sequence sharding every model rank routes the SAME tokens,
@@ -241,8 +264,8 @@ def moe_ranks(xl, p, cfg, par, tp):
     recv = mesh.all_to_all(torch.stack(sends), model)
     recv = recv.reshape(L, n_model, E_loc, C, D).transpose(1, 2) \
                .reshape(L, E_loc, n_model * C, D)
-    y = torch.stack([_expert_ffn(recv[i], *(p[k][r] for k in (
-        "w_gate", "w_up", "w_down"))) for i, r in enumerate(tp.rows)])
+    y = torch.stack([_expert_ffn(recv[i], *(p[k][i] for k in (
+        "w_gate", "w_up", "w_down"))) for i in range(L)])
     y4 = y.reshape(L, E_loc, n_model, C, D).transpose(1, 2) \
           .reshape(L, n_model, E_loc * C, D)
     back = mesh.all_to_all(y4, model).reshape(L, E, C, D)

@@ -22,13 +22,17 @@ on an axis no entry names holds the same block as its peers there.  These
 are the reference's full specs, for checkpoints and memory figures.
 
 The models run on the port's own placement, `ModelBlocks`
-(`models.tp.model_shardings`): only the 'model' entries are cut, each
-model rank's block padded to one width (an uneven dim rounds up, as
-XLA pads it), the 'data' entries left whole, and a leaf no 'model' entry
-names held whole by every model rank.  Its blocks are stacked one per
-model rank this process holds: every model rank of a stacked mesh (the
-data ranks of a stacked mesh share them), this process's one of a group
-mesh.
+(`models.tp.model_shardings`): the 'model' entries cut into one block a
+model rank, padded to one width (an uneven dim rounds up, as XLA pads
+it), a leaf no 'model' entry names held whole by every model rank; and,
+FSDP, the 'data' entry of each leaf that has one cuts that block again
+over the data axes ('data', or ('pod', 'data') with `fsdp_pod`): data
+rank j holds the j-th 1/|data| of it on that dim, the last cuts padded
+with zeros.  Blocks without a cut are stacked one per model rank this
+process holds (every model rank of a stacked mesh, whose data ranks
+share them; this process's one of a group mesh); cut blocks one per rank
+this process holds (every rank of a stacked mesh; its own of a group
+mesh), since no two data ranks hold the same cut.
 """
 from __future__ import annotations
 
@@ -106,67 +110,110 @@ class Sharding:
 
 @dataclass(frozen=True)
 class ModelBlocks:
-    """A leaf's blocks over a mesh's model axis (module docstring).
-    `dim` is the dim the model ranks split (None: every model rank holds
-    the whole leaf); model rank m holds [starts[m], stops[m]) of it,
-    zero-padded to `width`.  `reduce` says how a rank's gradient of its
-    block becomes the leaf's: None (it is already), "model" (a psum over
-    the model axis: a replicated leaf each rank reads only a part of, as
-    q_norm / k_norm), "sharers" (a psum over the model ranks that hold the
-    same range: a key or value head held by several ranks)."""
+    """A leaf's blocks over a mesh's model axis and its cut over the data
+    axes (module docstring).  `dim` is the dim the model ranks split (None:
+    every model rank holds the whole leaf; `axis` None: one model rank);
+    model rank m holds [starts[m], stops[m]) of it, zero-padded to
+    `width`.  `reduce` says how a rank's gradient of its block becomes the
+    leaf's: None (it is already), "model" (a psum over the model axis: a
+    replicated leaf each rank reads only a part of, as q_norm / k_norm),
+    "sharers" (a psum over the model ranks that hold the same range: a key
+    or value head held by several ranks).  With `cut_axes` the block is
+    cut again on `cut_dim` (of length `cut_len`) over those mesh axes:
+    their group rank j holds [j c, (j + 1) c), c = ceil(cut_len / |cut|),
+    zero-padded to c."""
     mesh: object
-    axis: str
+    axis: str | None
     dim: int | None = None
     starts: tuple = ()
     stops: tuple = ()
     width: int = 0
     reduce: str | None = None
+    cut_dim: int | None = None
+    cut_axes: tuple = ()
+    cut_len: int = 0
 
     @property
     def n_model(self) -> int:
-        return self.mesh.shape[self.axis]
+        return 1 if self.axis is None else self.mesh.shape[self.axis]
+
+    @property
+    def n_cut(self) -> int:
+        return self.mesh.axis_size(self.cut_axes) if self.cut_axes else 1
+
+    @property
+    def cut_width(self) -> int:
+        return -(-self.cut_len // self.n_cut)
+
+    def model_of(self, rank: int) -> int:
+        if self.axis is None:
+            return 0
+        return self.mesh.coords(rank)[self.mesh.axis_names.index(self.axis)]
 
     def model_rows(self) -> list:
         """The model ranks whose blocks this process holds, in order."""
-        if len(self.mesh.local_ranks) == self.mesh.n_ranks:
-            return list(range(self.n_model))
-        k = self.mesh.axis_names.index(self.axis)
-        return [self.mesh.coords(self.mesh.local_ranks[0])[k]]
+        return list(dict.fromkeys(self.model_of(r)
+                                  for r in self.mesh.local_ranks))
 
     def live(self, m: int) -> int:
         return 0 if self.dim is None else self.stops[m] - self.starts[m]
 
     def block_shape(self, shape) -> tuple:
-        if self.dim is None:
-            return tuple(shape)
-        return tuple(self.width if d == self.dim else n
-                     for d, n in enumerate(shape))
+        """One rank's block (its cut, with `cut_axes`) of a leaf."""
+        out = [self.width if d == self.dim else n
+               for d, n in enumerate(shape)]
+        if self.cut_axes:
+            out[self.cut_dim] = self.cut_width
+        return tuple(out)
 
     def block(self, t, m: int):
         """Model rank m's block of the whole leaf t (a new tensor)."""
         if self.dim is None:
             return t.clone()
-        out = t.new_zeros(self.block_shape(t.shape))
+        shape = [self.width if d == self.dim else n
+                 for d, n in enumerate(t.shape)]
+        out = t.new_zeros(shape)
         n = self.live(m)
         if n:
             out.narrow(self.dim, 0, n).copy_(
                 t.narrow(self.dim, self.starts[m], n))
         return out
 
+    def cut(self, blk, j: int):
+        """Data group rank j's cut of a model block (a new tensor)."""
+        c = self.cut_width
+        shape = list(blk.shape)
+        shape[self.cut_dim] = c
+        out = blk.new_zeros(shape)
+        n = max(0, min(c, self.cut_len - j * c))
+        if n:
+            out.narrow(self.cut_dim, 0, n).copy_(
+                blk.narrow(self.cut_dim, j * c, n))
+        return out
+
     def shard(self, t) -> torch.Tensor:
-        """(M, *block): this process's model ranks' blocks, stacked."""
-        return torch.stack([self.block(t, m) for m in self.model_rows()])
+        """(M, *block) without a cut: this process's model ranks' blocks;
+        (L, *cut) with one: each local rank's cut."""
+        if not self.cut_axes:
+            return torch.stack([self.block(t, m) for m in self.model_rows()])
+        cut = self.mesh.axis_index(self.cut_axes)
+        return torch.stack([self.cut(self.block(t, self.model_of(r)), j)
+                            for r, j in zip(self.mesh.local_ranks, cut)])
 
     def unshard(self, blocks) -> torch.Tensor:
-        """The whole leaf from (M, *block) (gathered over the model axis
-        on a group mesh)."""
-        rows = self.model_rows()
-        if len(rows) != blocks.shape[0]:
-            raise ValueError(f"blocks {tuple(blocks.shape)} for model "
-                             f"ranks {rows}")
-        if len(rows) < self.n_model:                    # a group rank
-            blocks = self.mesh.all_gather(blocks, self.axis, dim=0,
-                                          tiled=True)[0]
+        """The whole leaf from `shard`'s stack (gathered over the mesh on
+        a group rank)."""
+        if self.cut_axes:
+            blocks = self._uncut(blocks)
+        else:
+            rows = self.model_rows()
+            if len(rows) != blocks.shape[0]:
+                raise ValueError(f"blocks {tuple(blocks.shape)} for model "
+                                 f"ranks {rows}")
+            if self.dim is None:
+                return blocks[0].clone()
+            if len(rows) < self.n_model:                # a group rank
+                blocks = self.mesh.all_gather(blocks, self.axis, dim=0)[0]
         if self.dim is None:
             return blocks[0].clone()
         shape = list(blocks.shape[1:])
@@ -178,6 +225,27 @@ class ModelBlocks:
                 out.narrow(self.dim, self.starts[m], n).copy_(
                     blocks[m].narrow(self.dim, 0, n))
         return out
+
+    def _uncut(self, cuts) -> torch.Tensor:
+        """(M, *block) from every local rank's cut (L, *cut): each model
+        rank's block put together from its cuts, the padding dropped."""
+        mesh = self.mesh
+        if cuts.shape[0] != len(mesh.local_ranks):
+            raise ValueError(f"cuts {tuple(cuts.shape)} for "
+                             f"{len(mesh.local_ranks)} local ranks")
+        if len(mesh.local_ranks) < mesh.n_ranks:
+            if len(mesh.local_ranks) != 1:
+                raise ValueError("cuts of a partial stacked mesh cannot be "
+                                 "put together")
+            cuts = mesh.all_gather(cuts.contiguous())   # (D, *cut)
+        ks = mesh._axes(self.cut_axes)
+        at = {}
+        for r in range(mesh.n_ranks):
+            at.setdefault((self.model_of(r), mesh._group_index(r, ks)), r)
+        return torch.stack([torch.cat(
+            [cuts[at[(m, j)]] for j in range(self.n_cut)],
+            self.cut_dim).narrow(self.cut_dim, 0, self.cut_len)
+            for m in range(self.n_model)])
 
 
 def stack_defs(defs, n: int) -> list:

@@ -29,9 +29,27 @@ head (smollm at tp 16): it launches nothing for the sublayer and adds
 zeros.  A KV head its group's ranks share is held by each of them.
 Other 'model' dims split evenly, an uneven one rounded up.
 
-Layout.  Weights are `ModelBlocks` blocks (`models.params`) stacked one
-per model rank this process holds: (M, *block) on a stacked mesh, whose
-data ranks share them, (1, *block) on a group rank.  Inside a model the
+FSDP.  With more than one rank on the data axes (and `Parallelism.fsdp`,
+the default), every leaf whose spec has a 'data' entry is held cut on
+that dim over 'data' (or ('pod', 'data') with `fsdp_pod`): the
+reference's `param_shardings`.  A superblock's cuts are all-gathered at
+its entry as one flat buffer a type (`gather`; a superblock of more than
+GATHER_BUCKET bytes a rank in buckets of at most that), inside the
+superblock's checkpoint, so a recompute gathers again and the gathered block lives
+only while the superblock runs; the embedding, `final_ln`, `lm_head` and
+the encoder's leaves likewise.  The gather's backward reduce-scatters the
+gradient back to the cut (`core.dist.comm.gather_cuts`).  Leaves without
+a 'data' entry (norms, biases, the router) stay whole over the data
+axes.  rwkv6 and hymba, whose leaves stay whole over 'model', run a rank
+program too when they are cut: each rank its data shard on its gathered
+whole leaves.
+
+Layout.  Weights are `ModelBlocks` blocks (`models.params`): a leaf
+without a cut stacked one per model rank this process holds, (M, *block)
+on a stacked mesh, whose data ranks share them, (1, *block) on a group
+rank; a cut leaf one per rank, (L, *cut).  Each sublayer reads its
+superblock as `gather` gives it: every leaf (L, *block), one per local
+rank.  Inside a model the
 residual stream is one copy a rank, (L, B_l, S, D), L the local ranks and
 B_l the rank's data shard of the batch.  The model's entry points take
 and give the batch as before (stacked: the whole batch; group: the rank's
@@ -48,29 +66,37 @@ Two kinds of leaf need more, applied by `sync_grads` to a gradient tree:
 q_norm / k_norm (each rank reads them on its own heads: a psum over
 'model') and key/value heads several ranks hold (a psum over the ranks
 that hold one).  The global gradient norm counts each element once
-(`grad_sq_sum`).  The MoE's outputs are the same on every model rank,
+(`grad_sq_sum`: each rank's squares over the ranks that hold the same
+elements, psummed over the whole mesh).  The MoE's outputs are the same on every model rank,
 so their cotangents are divided by the model ranks (`shard_map`'s rule)
 and the router and the input psum theirs back.
 
-Covered: dense, moe, encdec and vlm.  rwkv6 (ssm) and hymba (hybrid) run
-as before on whole leaves under a model axis (`plan` returns None for
-them), their SSM heads not yet split.  On a stacked mesh the program runs
-inside `obs.cost.stacked(L)`, so a cost walker counts one rank's share.
+Covered: dense, moe, encdec and vlm.  rwkv6 (ssm) and hymba (hybrid)
+keep whole leaves under a model axis (`plan` returns None for them unless
+there are data ranks), their SSM heads not yet split.  On a stacked mesh
+the program runs inside `obs.cost.stacked(L)`, so a cost walker counts
+one rank's share.
 """
 from __future__ import annotations
+
+import functools
+from dataclasses import replace
 
 import torch
 
 from repro_torch.core.dist.comm import StackedComm
 from repro_torch.models import layers as lay
-from repro_torch.models.params import ModelBlocks, ParamDef, map_tree
+from repro_torch.models.params import (ModelBlocks, ParamDef, map_tree,
+                                       tree_leaves, tree_unflatten)
 
-__all__ = ["COVERED", "head_placement", "model_shardings", "plan", "TP",
-           "shard_model", "unshard_model", "sync_grads", "grad_sq_sum",
-           "n_holders"]
+__all__ = ["COVERED", "head_placement", "cut_axes", "model_shardings",
+           "plan", "TP", "shard_model", "unshard_model", "sync_grads",
+           "grad_sq_sum", "n_holders"]
 
 COVERED = ("dense", "moe", "encdec", "vlm")
 ATTN_KEYS = ("wq", "wk", "wv", "wo")
+# the most gathered weights a rank one FSDP gather carries (`_buckets`)
+GATHER_BUCKET = 1 << 30
 
 
 # ============================================================ placement ====
@@ -118,18 +144,57 @@ def _head_blocks(mesh, axis, heads, hd, which, dim, reduce=None):
     return ModelBlocks(mesh, axis, dim, starts, stops, width, reduce)
 
 
-def model_shardings(defs, cfg, mesh, axis: str = "model"):
-    """Per leaf of a def tree, its `ModelBlocks` over `mesh`'s `axis`;
-    None for every leaf of a family `COVERED` does not name (rwkv6, hymba:
-    whole leaves)."""
-    if cfg.family not in COVERED:
+def _data_axes(mesh, data_axes) -> tuple:
+    """The data axes: as given, else the mesh's 'pod' and 'data'."""
+    if data_axes is not None:
+        return tuple(data_axes)
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def cut_axes(mesh, data_axes=None, fsdp: bool = True,
+             fsdp_pod: bool = False) -> tuple:
+    """The mesh axes the 'data' entries are cut over: ('data',), or
+    ('pod', 'data') with `fsdp_pod` and a pod axis among the data axes;
+    () with `fsdp` off, no 'data' data axis, or one rank on them."""
+    dp = _data_axes(mesh, data_axes)
+    if not fsdp or "data" not in dp:
+        return ()
+    axes = ("pod", "data") if fsdp_pod and "pod" in dp else ("data",)
+    return axes if mesh.axis_size(axes) > 1 else ()
+
+
+def _model_axis(mesh, axis):
+    """`axis` if the mesh has it with more than one rank, else None."""
+    if axis is None or axis not in mesh.axis_names \
+            or mesh.shape[axis] == 1:
+        return None
+    return axis
+
+
+def model_shardings(defs, cfg, mesh, axis: str = "model", *,
+                    data_axes=None, fsdp: bool = True,
+                    fsdp_pod: bool = False):
+    """Per leaf of a def tree, its `ModelBlocks` over `mesh`: the 'model'
+    entries over `axis` for a family `COVERED` names (whole leaves for
+    rwkv6, hymba), each 'data' entry cut over `cut_axes(mesh, data_axes,
+    fsdp, fsdp_pod)`.  None for every leaf where `plan` runs no rank
+    program: no model axis of more than one rank under a covered family,
+    and one data rank (`data_axes`: default the mesh's 'pod' and 'data')."""
+    dp = _data_axes(mesh, data_axes)
+    cut = cut_axes(mesh, dp, fsdp, fsdp_pod)
+    axis = _model_axis(mesh, axis)
+    M = 1 if axis is None else mesh.shape[axis]
+    covered = cfg.family in COVERED and axis is not None
+    if not covered and (not dp or mesh.axis_size(dp) == 1):
         return map_tree(lambda d: None, defs)
-    M = mesh.shape[axis]
-    heads = head_placement(cfg.n_heads, cfg.n_kv_heads, M)
-    shared = M > cfg.n_kv_heads
+    if covered:
+        heads = head_placement(cfg.n_heads, cfg.n_kv_heads, M)
+        shared = M > cfg.n_kv_heads
     hd = cfg.hd
 
-    def leaf(d: ParamDef, name: str, attn: bool):
+    def model_leaf(d: ParamDef, name: str, attn: bool):
+        if not covered:
+            return ModelBlocks(mesh, axis)
         if attn and name in ATTN_KEYS:
             if name == "wq":
                 return _head_blocks(mesh, axis, heads, hd, "q", 1)
@@ -144,6 +209,13 @@ def model_shardings(defs, cfg, mesh, axis: str = "model"):
         return ModelBlocks(mesh, axis, reduce="model" if attn and name in (
             "q_norm", "k_norm") else None)
 
+    def leaf(d: ParamDef, name: str, attn: bool):
+        mb = model_leaf(d, name, attn)
+        if cut and "data" in d.spec:
+            dim = d.spec.index("data")
+            mb = replace(mb, cut_dim=dim, cut_axes=cut, cut_len=d.shape[dim])
+        return mb
+
     def walk(t):
         if isinstance(t, list):
             return [walk(v) for v in t]
@@ -154,22 +226,61 @@ def model_shardings(defs, cfg, mesh, axis: str = "model"):
     return walk(defs)
 
 
-def shard_model(params, cfg, mesh, axis: str = "model"):
-    """A whole weight tree -> its blocks on `mesh` (`model_shardings`):
-    (M, *block) leaves on the mesh's device; whole leaves for rwkv6 and
-    hymba."""
-    from repro_torch.models.params import shard_params
+@functools.lru_cache(maxsize=64)
+def _shardings(cfg, mesh, axis, data_axes, fsdp, fsdp_pod):
     from repro_torch.models.transformer import model_defs
-    return shard_params(params, model_shardings(model_defs(cfg), cfg, mesh,
-                                                axis))
+    return model_shardings(model_defs(cfg), cfg, mesh, axis,
+                           data_axes=data_axes, fsdp=fsdp, fsdp_pod=fsdp_pod)
 
 
-def unshard_model(blocks, cfg, mesh, axis: str = "model"):
+def shard_model(params, cfg, mesh, axis: str = "model", *, data_axes=None,
+                fsdp: bool = True, fsdp_pod: bool = False):
+    """A whole weight tree -> its blocks on `mesh` (`model_shardings`):
+    (M, *block) leaves, cut leaves (L, *cut), on the mesh's device; whole
+    leaves where no rank program runs."""
+    from repro_torch.models.params import shard_params
+    return shard_params(params, _shardings(
+        cfg, mesh, axis, _data_axes(mesh, data_axes), fsdp, fsdp_pod))
+
+
+def unshard_model(blocks, cfg, mesh, axis: str = "model", *,
+                  data_axes=None, fsdp: bool = True, fsdp_pod: bool = False):
     """The whole weight tree from `shard_model`'s blocks."""
     from repro_torch.models.params import unshard_params
-    from repro_torch.models.transformer import model_defs
-    return unshard_params(blocks, model_shardings(model_defs(cfg), cfg, mesh,
-                                                  axis))
+    return unshard_params(blocks, _shardings(
+        cfg, mesh, axis, _data_axes(mesh, data_axes), fsdp, fsdp_pod))
+
+
+def par_shardings(cfg, par, cut: tuple | None = None):
+    """`model_shardings` of `cfg`'s whole tree under `par` with the
+    weights cut over `cut` (default: 'data', as `shard_model` cuts)
+    (cached)."""
+    dp = _data_axes(par.mesh, par.data_axes)
+    cut = cut_axes(par.mesh, dp) if cut is None else tuple(cut)
+    return _shardings(cfg, par.mesh, par.model_axis, dp, bool(cut),
+                      cut == ("pod", "data"))
+
+
+def infer_cut(tree, defs, mesh, data_axes=None) -> tuple:
+    """The axes a weight tree as the ranks hold it was cut over (`()`:
+    the 'data' entries whole), read off its first leaf whose spec has a
+    'data' entry: its length on that dim is the whole one, or a cut's
+    over ('data',) or ('pod', 'data')."""
+    dp = _data_axes(mesh, data_axes)
+    for t, d in zip(tree_leaves(tree), tree_leaves(defs)):
+        if "data" not in d.spec or t.dim() != len(d.shape) + 1:
+            continue
+        dim = d.spec.index("data")
+        n, held = d.shape[dim], t.shape[1 + dim]
+        for cand in ((), cut_axes(mesh, dp), cut_axes(mesh, dp,
+                                                      fsdp_pod=True)):
+            k = mesh.axis_size(cand) if cand else 1
+            if held == -(-n // k):
+                return cand
+        raise ValueError(f"a leaf of {tuple(d.shape)} held as "
+                         f"{tuple(t.shape)}: not a cut over the data axes "
+                         f"{dp} of mesh {mesh.shape}")
+    return ()
 
 
 # ========================================================= rank program ====
@@ -227,24 +338,37 @@ class _LeaveMean(torch.autograd.Function):
 
 class TP:
     """The rank program of `cfg` under `par` (module docstring): the mesh,
-    the local ranks' model and data coordinates, and each one's heads,
-    d_ff columns and vocabulary rows."""
+    the local ranks' model and data coordinates, the FSDP cut, and each
+    rank's heads, d_ff columns and vocabulary rows.  `covered`: the
+    Megatron sublayers over a model axis of more than one rank; else each
+    rank runs the whole-leaf model on its data shard (rwkv6, hymba, or no
+    model axis)."""
 
-    def __init__(self, cfg, par):
-        mesh, axis = par.mesh, par.model_axis
+    def __init__(self, cfg, par, cut: tuple | None = None):
+        mesh = par.mesh
+        axis = _model_axis(mesh, par.model_axis)
         self.cfg, self.mesh, self.axis = cfg, mesh, axis
-        self.M = mesh.shape[axis]
+        self.M = 1 if axis is None else mesh.shape[axis]
+        self.covered = cfg.family in COVERED and axis is not None
         self.stacked = isinstance(mesh, StackedComm)
         self.L = len(mesh.local_ranks)
-        self.midx = mesh.axis_index(axis)
-        self.rows = list(self.midx) if self.stacked else [0] * self.L
-        dp = tuple(par.data_axes)
+        self.midx = mesh.axis_index(axis) if axis else [0] * self.L
+        rows = list(dict.fromkeys(self.midx))
+        self.rows = [rows.index(m) for m in self.midx]
+        dp = _data_axes(mesh, par.data_axes)
         if self.stacked:
-            self.n_dp = par.dp_size()
-            self.didx = mesh.axis_index(dp) if dp else [0] * self.L
+            idx = mesh.axis_index(dp) if dp else [0] * self.L
+            order = sorted(set(idx))
+            self.didx = [order.index(i) for i in idx]
+            self.n_dp = len(order)
             self.first = [self.didx.index(j) for j in range(self.n_dp)]
         else:
             self.n_dp, self.didx, self.first = 1, [0], [0]
+        self.cut = cut_axes(mesh, dp) if cut is None else tuple(cut)
+        self.sh = par_shardings(cfg, par, self.cut)
+        self.block_sh = self.sh["blocks"][0]
+        if not self.covered:
+            return
         heads = [head_placement(cfg.n_heads, cfg.n_kv_heads, self.M)[m]
                  for m in self.midx]
         self.hq = [q1 - q0 for q0, q1, _, _ in heads]
@@ -278,34 +402,131 @@ class TP:
         from repro_torch.obs import cost
         return cost.stacked(self.L if self.stacked else 1)
 
-    # ---- collectives and rows ---------------------------------------------
-    def f(self, x):
-        return self.mesh.copy_into(x, self.axis)
-
-    def g(self, x):
-        return self.mesh.reduce_from(x, self.axis)
-
-    def stack_rows(self, leaf: torch.Tensor) -> torch.Tensor:
-        """(L, ...): each local rank's row of a (M, ...) leaf."""
-        if self.rows == list(range(leaf.shape[0])):
+    # ---- weights ------------------------------------------------------------
+    def per_rank(self, leaf: torch.Tensor) -> torch.Tensor:
+        """(L, ...): each local rank's row of a leaf held one a model rank
+        (M_l, ...); a leaf held one a rank as it is."""
+        if leaf.shape[0] == self.L:
             return leaf
         return torch.stack([leaf[r] for r in self.rows])
 
+    def gather(self, tree, sh):
+        """A weight tree as the ranks hold it (`sh` its `ModelBlocks`) ->
+        every leaf (L, *block), one per local rank: the cut leaves
+        all-gathered over the cut axes as one flat buffer a type and
+        bucket (`_buckets`; the padding dropped; backward, a float32
+        reduce-scatter to the cuts), the others each local rank's row.
+        Where no gradient flows to them on a stacked mesh a cut leaf is
+        one block a group of ranks that would gather the same (`_Rows`,
+        indexed by rank)."""
+        leaves, shs = tree_leaves(tree), tree_leaves(sh)
+        out, groups = [None] * len(leaves), {}
+        for i, (t, s) in enumerate(zip(leaves, shs)):
+            if s is not None and s.cut_axes:
+                groups.setdefault(t.dtype, []).append(i)
+            else:
+                out[i] = self.per_rank(t)
+        whole = self.stacked and \
+            len(self.mesh.local_ranks) == self.mesh.n_ranks
+        for idx in _buckets(groups.values(), leaves, shs):
+            flat = torch.cat([leaves[i].reshape(self.L, -1) for i in idx], 1)
+            share = whole and not (torch.is_grad_enabled()
+                                   and flat.requires_grad)
+            if share:                                       # (O, G, N)
+                g, group = self.mesh.gather_groups(flat, self.cut)
+            else:                                           # (L, G, N)
+                g = self.mesh.gather_cuts(flat, self.cut)
+            at = 0
+            for i in idx:
+                t, s = leaves[i], shs[i]
+                n = t[0].numel()
+                part = g[:, :, at:at + n].reshape(g.shape[0], g.shape[1],
+                                                  *t.shape[1:])
+                d = 1 + s.cut_dim
+                out[i] = part.movedim(1, d).flatten(d, d + 1).narrow(
+                    d, 0, s.cut_len)
+                if share:
+                    out[i] = _Rows(out[i], group)
+                at += n
+        return tree_unflatten(tree, out)
+
+    def top(self, params, *keys) -> dict:
+        """The top-level leaves `keys` of a weight tree, gathered."""
+        return self.gather({k: params[k] for k in keys},
+                           {k: self.sh[k] for k in keys})
+
+    def head_key(self) -> str:
+        return "embed" if self.cfg.tie_embeddings else "lm_head"
+
+    # ---- collectives and rows ---------------------------------------------
+    def f(self, x):
+        return x if self.axis is None else self.mesh.copy_into(x, self.axis)
+
+    def g(self, x):
+        return x if self.axis is None else self.mesh.reduce_from(x, self.axis)
+
     def norm(self, h, gamma, eps):
         """rms_norm of each rank's rows with its own copy of gamma."""
-        g = self.stack_rows(gamma)
+        g = self.per_rank(gamma)
         return lay.rms_norm(h, g.reshape(self.L, *([1] * (h.dim() - 2)),
                                          g.shape[-1]), eps)
 
 
-def plan(cfg, par):
+class _Rows:
+    """A gathered leaf whose ranks share blocks (`TP.gather` where no
+    gradient flows, on a stacked mesh): rank i's row is base[group[i]]."""
+
+    def __init__(self, base, group):
+        self.base, self.group = base, group
+
+    def __getitem__(self, i):
+        return self.base[self.group[i]]
+
+
+def _buckets(groups, leaves, shs) -> list:
+    """The cut leaves' indices in buckets to gather as one flat buffer
+    each: one a type, a bucket closed before it would pass GATHER_BUCKET
+    bytes of gathered weights a rank (a larger leaf alone).  The gathered
+    copies of a bucket are made from its flat buffer before the next one
+    is gathered, so a superblock's gather holds its gathered weights and
+    one bucket's buffer at a time, not two copies of the whole block."""
+    out = []
+    for idx in groups:
+        cur, size = [], 0
+        for i in idx:
+            t = leaves[i]
+            n = t[0].numel() * t.element_size() * shs[i].n_cut
+            if cur and size + n > GATHER_BUCKET:
+                out.append(cur)
+                cur, size = [], 0
+            cur.append(i)
+            size += n
+        out.append(cur)
+    return out
+
+
+def plan(cfg, par, params=None):
     """The `TP` of `cfg` under `par`, or None where the model runs on
-    whole leaves: no mesh, no model axis, one model rank, or a family
-    `COVERED` does not name."""
-    if par.mesh is None or par.model_axis is None or par.tp_size() == 1 \
-            or cfg.family not in COVERED:
+    whole leaves: no mesh, or one data rank and no model axis of more
+    than one rank under a family `COVERED` names.  With `params` (the
+    weights as the ranks hold them) the cut is read off them
+    (`infer_cut`); else it is `shard_model`'s default."""
+    if par.mesh is None:
         return None
-    return TP(cfg, par)
+    covered = cfg.family in COVERED and _model_axis(
+        par.mesh, par.model_axis) is not None
+    if not covered and par.dp_size() == 1:
+        return None
+    cut = None
+    if params is not None:
+        from repro_torch.models.transformer import model_defs
+        cut = infer_cut(params, model_defs(cfg), par.mesh, par.data_axes)
+    return TP(cfg, par, cut)
+
+
+def rank_tree(tree, i: int):
+    """Rank i's leaves of a tree of (L, ...) leaves."""
+    return map_tree(lambda t: t[i], tree)
 
 
 # ============================================================ sublayers ====
@@ -328,27 +549,28 @@ def attn_sublayer(h, p, cfg, tp, *, positions, causal=True, window=None,
     self-attention, k / v written into the rank caches (L, B, S_max,
     Hkv_pad, hd) at `at` and attended over their first kv_len rows.
     Returns (h, ks, vs): per rank its keys and values (B, Sk, Hkv_l, hd),
-    None where it has no query head."""
+    None where it has no query head.  `p` is `TP.gather`'s: each leaf
+    (L, *block)."""
     L, B, S, D = h.shape
     hd, eps = cfg.hd, cfg.norm_eps
     x = tp.f(tp.norm(h, p["ln"], eps))
     src = x if memory is None else tp.f(memory)
     ys, ks, vs = [], [], []
     for i in range(L):
-        r, nq, nk = tp.rows[i], tp.hq[i], tp.hkv[i]
+        nq, nk = tp.hq[i], tp.hkv[i]
         if nq == 0:
             ys.append(_nothing(x[i], None if memory is None else src[i]))
             ks.append(None)
             vs.append(None)
             continue
-        q = (x[i] @ p["wq"][r].narrow(1, 0, nq * hd)).reshape(B, S, nq, hd)
-        k = (src[i] @ p["wk"][r].narrow(1, 0, nk * hd)).reshape(
+        q = (x[i] @ p["wq"][i].narrow(1, 0, nq * hd)).reshape(B, S, nq, hd)
+        k = (src[i] @ p["wk"][i].narrow(1, 0, nk * hd)).reshape(
             B, -1, nk, hd)
-        v = (src[i] @ p["wv"][r].narrow(1, 0, nk * hd)).reshape(
+        v = (src[i] @ p["wv"][i].narrow(1, 0, nk * hd)).reshape(
             B, -1, nk, hd)
         if cfg.qk_norm:
-            q = lay.rms_norm(q, p["q_norm"][r], eps)
-            k = lay.rms_norm(k, p["k_norm"][r], eps)
+            q = lay.rms_norm(q, p["q_norm"][i], eps)
+            k = lay.rms_norm(k, p["k_norm"][i], eps)
         if memory is None:
             q = lay.apply_rope(q, positions, cfg.rope_theta)
             k = lay.apply_rope(k, positions, cfg.rope_theta)
@@ -365,7 +587,7 @@ def attn_sublayer(h, p, cfg, tp, *, positions, causal=True, window=None,
             o = lay.attention_flash(q, k, v, causal=False)
         else:
             o = lay.attention_flash(q, k, v, causal=causal, window=window)
-        ys.append(o.reshape(B, S, nq * hd) @ p["wo"][r].narrow(0, 0,
+        ys.append(o.reshape(B, S, nq * hd) @ p["wo"][i].narrow(0, 0,
                                                                nq * hd))
         ks.append(k)
         vs.append(v)
@@ -377,49 +599,59 @@ def mlp_sublayer(h, p, cfg, tp):
     x = tp.f(tp.norm(h, p["ln"], cfg.norm_eps))
     ys = []
     for i in range(tp.L):
-        r, n = tp.rows[i], tp.ff[i]
+        n = tp.ff[i]
         if n == 0:
             ys.append(_nothing(x[i], None))
             continue
-        ys.append(lay.swiglu(x[i], p["w_gate"][r].narrow(1, 0, n),
-                             p["w_up"][r].narrow(1, 0, n),
-                             p["w_down"][r].narrow(0, 0, n)))
+        ys.append(lay.swiglu(x[i], p["w_gate"][i].narrow(1, 0, n),
+                             p["w_up"][i].narrow(1, 0, n),
+                             p["w_down"][i].narrow(0, 0, n)))
     return h + tp.g(torch.stack(ys))
 
 
 def embed(params, tokens, cfg, tp):
-    """(L, B, S) token ids -> (L, B, S, D): each rank's rows of the
-    vocabulary looked up, the rest zero, summed over 'model'."""
+    """(L, B, S) token ids -> (L, B, S, D), the embedding gathered: each
+    rank's rows of the vocabulary looked up, the rest zero, summed over
+    'model' (`covered`), or each rank's whole table."""
     dt = getattr(torch, cfg.dtype)
+    e = tp.top(params, "embed")["embed"]
+    if not tp.covered:
+        return torch.stack([e[i][tokens[i].long()].to(dt)
+                            for i in range(tp.L)])
     parts = []
     for i in range(tp.L):
         v0, n = tp.vocab[i]
         t = tokens[i].long() - v0
         ok = (t >= 0) & (t < n)
-        e = params["embed"][tp.rows[i]][t.clamp(0, max(n - 1, 0))].to(dt)
-        parts.append(torch.where(ok[..., None], e, torch.zeros((), dtype=dt,
-                                                               device=e.device)))
+        ei = e[i][t.clamp(0, max(n - 1, 0))].to(dt)
+        parts.append(torch.where(ok[..., None], ei, torch.zeros(
+            (), dtype=dt, device=ei.device)))
     return tp.g(torch.stack(parts))
 
 
-def _head_rows(params, cfg, tp, i):
-    """Rank i's (D, V_l) block of the output projection."""
-    r, (_, n) = tp.rows[i], tp.vocab[i]
+def _head_rows(w, cfg, tp, i):
+    """Rank i's (D, V_l) block of the output projection, from the gathered
+    embedding (tied) or `lm_head`."""
+    if not tp.covered:
+        return w[i].T if cfg.tie_embeddings else w[i]
+    n = tp.vocab[i][1]
     if cfg.tie_embeddings:
-        return params["embed"][r].narrow(0, 0, n).T
-    return params["lm_head"][r].narrow(1, 0, n)
+        return w[i].narrow(0, 0, n).T
+    return w[i].narrow(1, 0, n)
 
 
 def logits(params, h, cfg, tp):
     """Final hidden states (L, B, S, D) -> the whole logits (L, B, S, vp),
     each rank's columns all-gathered over 'model'."""
+    w = tp.top(params, tp.head_key())[tp.head_key()]
     x = tp.f(h)
     parts = []
     for i in range(tp.L):
-        y = x[i] @ _head_rows(params, cfg, tp, i).to(x.dtype)
-        pad = tp.v_width - y.shape[-1]
+        y = x[i] @ _head_rows(w, cfg, tp, i).to(x.dtype)
+        pad = (tp.v_width - y.shape[-1]) if tp.covered else 0
         parts.append(torch.nn.functional.pad(y, (0, pad)) if pad else y)
-    return _gather_cols(tp, torch.stack(parts))
+    y = torch.stack(parts)
+    return _gather_cols(tp, y) if tp.covered else y
 
 
 def _gather_cols(tp, y):
@@ -459,15 +691,22 @@ def _xent_ranks(hs, ls, *ws, tp):
 def chunked_xent(params, h, labels, cfg, tp, chunk: int = 512):
     """Per-rank mean cross-entropy (L,) of h (L, B, S, D) against labels
     (L, B, S), vocabulary-parallel, over sequence chunks of min(chunk, S)
-    as `transformer.chunked_xent` (each chunk recomputed in backward)."""
+    as `transformer.chunked_xent` (each chunk recomputed in backward); a
+    rank of the whole-leaf program runs `transformer.chunked_xent`."""
     from torch.utils.checkpoint import checkpoint
     L, B, S, _ = h.shape
+    key = tp.head_key()
+    w = tp.top(params, key)[key]
+    if not tp.covered:
+        from repro_torch.models.transformer import chunked_xent as xent
+        return torch.stack([xent({key: w[i]}, h[i], labels[i], cfg, chunk)
+                            for i in range(L)])
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"chunked_xent: {S} tokens are not a whole number "
                          f"of chunks of {chunk}")
     x = tp.f(h)
-    ws = [_head_rows(params, cfg, tp, i) for i in range(L)]
+    ws = [_head_rows(w, cfg, tp, i) for i in range(L)]
     labels = labels.long()
     total = torch.zeros(L, dtype=torch.float32, device=h.device)
 
@@ -482,11 +721,19 @@ def chunked_xent(params, h, labels, cfg, tp, chunk: int = 512):
 
 
 # ============================================================ gradients ====
+def _rows_of(g, sh: ModelBlocks) -> list:
+    """The model rank of each row of a gradient as the ranks hold it: one
+    a local rank for a cut leaf, one a model row otherwise."""
+    if sh.cut_axes:
+        return [sh.model_of(r) for r in sh.mesh.local_ranks]
+    return sh.model_rows()
+
+
 def _sharer_sum(g, sh: ModelBlocks, comm, axis):
-    """Each rank's (M_l, *block) gradient of a shared head block summed
-    over the ranks that hold the same heads: scattered into the leaf's
-    whole width, psummed over 'model', and read back."""
-    rows = sh.model_rows()
+    """Each row's gradient of a shared head block summed over the ranks
+    that hold the same heads: scattered into the leaf's whole width,
+    psummed over 'model', and read back."""
+    rows = _rows_of(g, sh)
     whole = max(sh.stops)
     buf = g.new_zeros(g.shape[0], *[whole if d == sh.dim else n
                                     for d, n in enumerate(g.shape[1:])])
@@ -504,10 +751,11 @@ def _sharer_sum(g, sh: ModelBlocks, comm, axis):
 
 
 def _model_comm(sh: ModelBlocks):
-    """The communicator of a gradient's (M_l, ...) rows: on a stacked
-    mesh a model-axis-only one (the data ranks share rows)."""
+    """The communicator of a gradient's rows: the mesh for a cut leaf (a
+    row a local rank); for the others on a stacked mesh a model-axis-only
+    one (the data ranks share rows)."""
     mesh = sh.mesh
-    if isinstance(mesh, StackedComm):
+    if isinstance(mesh, StackedComm) and not sh.cut_axes:
         if mesh.axis_names == (sh.axis,):
             return mesh
         return StackedComm(sh.n_model, mesh.device, axis_names=(sh.axis,))
@@ -541,20 +789,26 @@ def n_holders(sh: ModelBlocks, m: int) -> int:
 
 def grad_sq_sum(grads, shardings) -> torch.Tensor:
     """The squared global norm of a block gradient tree, each element of
-    the whole gradient counted once: per rank, its blocks' squares
-    weighted by 1 / (the model ranks that hold them), in leaf order, then
-    psummed over 'model' (a 0-d float32 tensor)."""
-    from repro_torch.models.params import tree_leaves
+    the whole gradient counted once: per local rank, its blocks' squares
+    in leaf order, each weighted by 1 / (the ranks of the mesh that hold
+    the same elements: the model ranks that hold its range, times the
+    data ranks a cut leaf is not cut over or a leaf without a cut is
+    whole on), then psummed over every axis of the mesh (a 0-d float32
+    tensor)."""
     gl, sl = tree_leaves(grads), tree_leaves(shardings)
-    sh0 = next(s for s in sl if isinstance(s, ModelBlocks))
+    mesh = next(s for s in sl if isinstance(s, ModelBlocks)).mesh
     per = []
     with torch.no_grad():
-        for i, m in enumerate(sh0.model_rows()):
+        for li, r in enumerate(mesh.local_ranks):
             acc = torch.zeros((), dtype=torch.float32, device=gl[0].device)
             for g, sh in zip(gl, sl):
+                m = sh.model_of(r)
+                i = li if g.shape[0] == len(mesh.local_ranks) else \
+                    sh.model_rows().index(m)
+                k = n_holders(sh, m) * (mesh.n_ranks // (
+                    sh.n_model * sh.n_cut))
                 sq = g[i].float().square().sum()
-                k = n_holders(sh, m)
                 acc = acc + (sq / k if k > 1 else sq)
             per.append(acc)
-        tot = _model_comm(sh0).psum(torch.stack(per), sh0.axis)
+        tot = mesh.psum(torch.stack(per), mesh.axis_names)
     return tot[0]

@@ -30,8 +30,15 @@ reference's.  Under a mesh with a model axis of more than one rank the
 dense, moe, encdec and vlm families run on the blocks a rank holds
 (`models.tp`: heads, d_ff columns, vocabulary rows, experts; the weight
 tree is `tp.shard_model`'s), as one SPMD program over the ranks this
-process holds; rwkv6 and hymba read whole leaves and run the whole batch
-as before.  `par.constrain` returns its input (the port has no GSPMD).
+process holds.  With more than one data rank the leaves with a 'data'
+entry are held cut over the data axes (FSDP, `models.tp`): each
+superblock gathers its tree at its entry (inside its checkpoint), and
+the embedding, `final_ln` and the head are gathered where they are read;
+rwkv6, hymba and the families without a model axis then run each rank's
+data shard through the whole-leaf functions below on its gathered
+leaves (`_whole_ranks`).  Otherwise rwkv6 and hymba read whole leaves
+and run the whole batch.  `par.constrain` returns its input (the port
+has no GSPMD).
 With `par.remat` (the default) and grad enabled, each superblock (the
 rwkv6 block, the hymba layer, the encoder block) runs under
 `torch.utils.checkpoint` (non-reentrant), as the reference's
@@ -57,7 +64,7 @@ from repro_torch.sharding.parallel import NONE
 __all__ = ["attn_defs", "mlp_defs", "superblock_defs", "model_defs",
            "padded_vocab", "forward", "forward_with_aux", "superblock",
            "hybrid_block", "encode", "memory_of", "logits_fn",
-           "chunked_xent", "loss_fn", "check_supported"]
+           "chunked_xent", "loss_fn", "rank_losses", "check_supported"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -245,7 +252,10 @@ def superblock(h, pb, cfg, *, positions, memory=None, par=NONE, tp=None):
     """One attention superblock over a whole sequence: (h, aux, kv), kv one
     (kind, k, v) per self-attention sublayer, in order; `memory` is what
     the cross-attention sublayers read (vlm, encdec).  With `tp`, on each
-    rank's blocks (h (L, B, S, D), aux (L,) with experts)."""
+    rank's blocks (h (L, B, S, D), aux (L,) with experts), the block as
+    the ranks hold it gathered first (`tp.gather`)."""
+    if tp is not None:
+        pb = tp.gather(pb, tp.block_sh)
     aux, kv = 0.0, []
     for s in range(_period(cfg)):
         kind = _sublayer_kind(cfg, s)
@@ -310,6 +320,8 @@ def embed(params, tokens, cfg):
 
 
 def _enc_block(m, pb, cfg, positions, tp=None):
+    if tp is not None:
+        pb = tp.gather(pb, tp.sh["enc_blocks"][0])
     m, _, _ = _attn_sublayer(m, pb["attn0"], cfg, positions=positions,
                              causal=False, tp=tp)
     return _mlp_sublayer(m, pb["mlp0"], cfg, tp)
@@ -351,6 +363,8 @@ def memory_of(params, cfg, frames=None, vis=None, tp=None, remat=False):
 def _forward_ranks(params, tokens, cfg, frames, vis, par, tp):
     """The rank program's forward: (final hidden states (L, B_l, S, D),
     aux (L,))."""
+    if not tp.covered:
+        return _whole_ranks(params, tokens, cfg, frames, vis, par, tp)
     remat = _remat(par)
     h = tp_mod.embed(params, tp.enter(tokens), cfg, tp)
     aux = torch.zeros(tp.L, dtype=torch.float32, device=h.device)
@@ -364,12 +378,66 @@ def _forward_ranks(params, tokens, cfg, frames, vis, par, tp):
     return tp.norm(h, params["final_ln"], cfg.norm_eps), aux
 
 
+def _whole_block(h, pb, cfg, tp, positions, memory, i):
+    """Superblock i of the whole-leaf rank program: its tree gathered,
+    then each rank's rows through the single-rank block: (h, aux (L,))."""
+    g = tp.gather(pb, tp.block_sh)
+    hs, auxs = [], []
+    for j in range(tp.L):
+        pj = tp_mod.rank_tree(g, j)
+        if cfg.family == "ssm":
+            y, aux = rwkv_mod.rwkv_block(h[j], pj["rwkv"], cfg)[0], 0.0
+        elif cfg.family == "hybrid":
+            y, aux = hybrid_block(h[j], pj, cfg, positions=positions,
+                                  window=_window(cfg, i))[0], 0.0
+        else:
+            y, aux, _ = superblock(h[j], pj, cfg, positions=positions,
+                                   memory=None if memory is None
+                                   else memory[j])
+        hs.append(y)
+        auxs.append(torch.as_tensor(aux, dtype=torch.float32,
+                                    device=h.device))
+    return torch.stack(hs), torch.stack(auxs)
+
+
+def _whole_enc(m, pb, cfg, tp, positions):
+    g = tp.gather(pb, tp.sh["enc_blocks"][0])
+    return torch.stack([_enc_block(m[j], tp_mod.rank_tree(g, j), cfg,
+                                   positions) for j in range(tp.L)])
+
+
+def _whole_ranks(params, tokens, cfg, frames, vis, par, tp):
+    """`_forward_ranks` where each rank runs the whole-leaf model on its
+    data shard (`TP.covered` false)."""
+    remat = _remat(par)
+    h = tp_mod.embed(params, tp.enter(tokens), cfg, tp)
+    positions = torch.arange(tokens.shape[1], device=h.device)
+    memory = None
+    if cfg.is_encdec:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
+                             f"`frames`, the frame embeddings (B, S, D)")
+        m = tp.enter(frames).to(getattr(torch, cfg.dtype))
+        mpos = torch.arange(m.shape[-2], device=m.device)
+        for pb in params["enc_blocks"]:
+            m = _maybe_remat(remat, _whole_enc, m, pb, cfg, tp, mpos)
+        memory = tp.norm(m, params["enc_ln"], cfg.norm_eps)
+    elif cfg.family == "vlm":
+        memory = memory_of(params, cfg, vis=vis, tp=tp)
+    aux = torch.zeros(tp.L, dtype=torch.float32, device=h.device)
+    for i, pb in enumerate(params["blocks"]):
+        h, aux_b = _maybe_remat(remat, _whole_block, h, pb, cfg, tp,
+                                positions, memory, i)
+        aux = aux + aux_b
+    return tp.norm(h, params["final_ln"], cfg.norm_eps), aux
+
+
 def forward_with_aux(params, tokens, cfg, *, frames=None, vis=None,
                      par=NONE):
     """Full-sequence forward -> (final hidden states (B, S, D), the MoE aux
     loss summed over layers: a float32 0-d tensor, 0 without experts)."""
     check_supported(cfg)
-    tp = tp_mod.plan(cfg, par)
+    tp = tp_mod.plan(cfg, par, params)
     if tp is not None:
         with tp.scope():
             h, aux = _forward_ranks(params, tokens, cfg, frames, vis, par,
@@ -406,7 +474,7 @@ def forward(params, tokens, cfg, *, frames=None, vis=None, par=NONE):
 def logits_fn(params, h, cfg, par=NONE):
     """Final hidden states (B, S, D) -> logits (B, S, padded vocab); under
     a model axis from the vocabulary blocks, all-gathered."""
-    tp = tp_mod.plan(cfg, par)
+    tp = tp_mod.plan(cfg, par, params)
     if tp is not None:
         with tp.scope():
             return tp.leave(tp_mod.logits(params, tp.enter(h), cfg, tp))
@@ -443,22 +511,31 @@ def chunked_xent(params, h, labels, cfg, chunk: int = 512):
     return total / (B * S)
 
 
+def rank_losses(params, batch, cfg, par, tp):
+    """The rank program's training loss: (ce + 0.01 aux, ce, aux), each
+    (L,) per local rank (its data shard's mean)."""
+    check_supported(cfg)
+    with tp.scope():
+        h, aux = _forward_ranks(params, batch["tokens"], cfg,
+                                batch.get("frames"), batch.get("vis"), par,
+                                tp)
+        ce = tp_mod.chunked_xent(params, h, tp.enter(batch["labels"]), cfg,
+                                 tp)
+        return ce + 0.01 * aux, ce, aux
+
+
 def loss_fn(params, batch, cfg, par=NONE):
     """The training loss of a weight tree on a batch (`tokens`, `labels`;
     `frames` / `vis` where the family needs them): (ce + 0.01 aux, {"ce":
     ce, "aux": aux}), aux the MoE load-balance and z-loss summed over
-    layers (0 without experts)."""
-    tp = tp_mod.plan(cfg, par)
+    layers (0 without experts); under a rank program the mean over the
+    data shards."""
+    tp = tp_mod.plan(cfg, par, params)
     if tp is not None:
-        check_supported(cfg)
+        loss, ce, aux = rank_losses(params, batch, cfg, par, tp)
         with tp.scope():
-            h, aux = _forward_ranks(params, batch["tokens"], cfg,
-                                    batch.get("frames"), batch.get("vis"),
-                                    par, tp)
-            ce = tp_mod.chunked_xent(params, h, tp.enter(batch["labels"]),
-                                     cfg, tp)
-            return tp.leave_mean(ce + 0.01 * aux), {
-                "ce": tp.leave_mean(ce), "aux": tp.leave_mean(aux)}
+            return tp.leave_mean(loss), {"ce": tp.leave_mean(ce),
+                                         "aux": tp.leave_mean(aux)}
     h, aux = forward_with_aux(params, batch["tokens"], cfg,
                               frames=batch.get("frames"), vis=batch.get("vis"),
                               par=par)

@@ -5,8 +5,16 @@ Mesh conventions (`launch.mesh`, the reference's production layout):
   single pod : (data=16, model=16)            axes ('data', 'model')
   multi-pod  : (pod=2, data=16, model=16)     axes ('pod', 'data', 'model')
 
-`data_axes` (possibly ('pod', 'data')) carry data parallelism and the
-expert weights' FSDP shards; `model_axis` carries expert parallelism.
+`data_axes` (possibly ('pod', 'data')) carry data parallelism and FSDP:
+with more than one rank on 'data', each rank holds 1/|data| of its
+weight block on the dim where the reference's spec says 'data'
+(1/|pod x data| when the weights were placed with `fsdp_pod`, the
+reference's `param_shardings(fsdp_pod=)`), all-gathered a superblock at
+a time and its gradient reduce-scattered; `model_axis` carries tensor
+and expert parallelism.  The weights carry their placement, as the
+reference's arguments carry their shardings: `models.tp.shard_model(...,
+fsdp_pod=, fsdp=)` cuts them, and the rank program reads the cut off
+them (`models.tp.infer_cut`).
 `hierarchical=True` selects the paper-derived two-stage collectives where
 they apply: the train step's gradient reduction runs
 `core.collectives.hierarchical_all_reduce` (reduce-scatter over 'data',
@@ -29,7 +37,8 @@ returns its input.  What reads the fields:
               all-to-alls, and the vocabulary's all-reduces and
               all-gathers; rwkv6 and hymba read whole leaves;
   data_axes   the batch split of the stacked route (`tp.TP`), the MoE's
-              aux mean and the train step's gradient reduction;
+              aux mean, the axes the FSDP cut may span and the train
+              step's gradient reduction;
   remat       `transformer` (forward and loss): with grad enabled, each
               superblock under `torch.utils.checkpoint`, as the
               reference's `jax.checkpoint` (the serving entry points pass

@@ -10,7 +10,10 @@ take the schedule, the clipping and the master copy as the reference does.
 The step count is a host integer (the host drives the loop), so the
 schedule and the bias corrections are computed on the host in float64,
 where the reference computes them in float32; the clip scale stays on the
-device, so an update never waits for the gradient norm.
+device, so an update never waits for the gradient norm.  Under a rank
+program (`models.tp`) the tree's leaves are the blocks and FSDP cuts the
+ranks hold, so the masters and moments are cut alike, and the clipping
+norm is the whole gradient's (`gnorm`, from `tp.grad_sq_sum`).
 """
 from __future__ import annotations
 

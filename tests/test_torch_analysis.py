@@ -31,7 +31,9 @@ from repro_torch.launch.mesh import make_mesh_compat, parallelism_for
 from repro_torch.models import decode as decode_mod
 from repro_torch.models.moe import _capacity
 from repro_torch.models.registry import Model, weight_structs
-from repro_torch.models.tp import shard_model
+from repro_torch.models import transformer as tf
+from repro_torch.models.params import tree_leaves
+from repro_torch.models.tp import model_shardings, shard_model
 from repro_torch.models.transformer import padded_vocab
 
 
@@ -259,8 +261,10 @@ def test_moe_collectives_match_their_formulas():
     'model' (n_model * E_loc * C rows of D a rank) and the aux loss's
     means over 'pod' and 'data' (one float32 a rank; the 'pod' one crosses
     pods), and the logits' all-gather over 'model' (B_l x the padded
-    vocabulary a rank).  The experts' 'data' entries stay whole, so no
-    FSDP all-gather runs."""
+    vocabulary a rank); FSDP: the leaves with a 'data' entry held cut over
+    'data', each superblock's cuts all-gathered at its entry as one flat
+    buffer, the embedding's and the head's where they are read (a rank's
+    result: every member's cuts)."""
     cfg = get_config("dbrx-132b", smoke=True)
     mesh = make_mesh_compat((2, 2, 2), ("pod", "data", "model"), "meta")
     par = parallelism_for(mesh)
@@ -277,14 +281,23 @@ def test_moe_collectives_match_their_formulas():
     a2a = n_model * E_loc * C * D * 2
     h = B_l * D * 2
     layers = cfg.n_layers
+    defs = tf.model_defs(cfg)
+    sh = model_shardings(defs, cfg, mesh)
+
+    def gathered(d, s):
+        return 2 * s.n_cut * math.prod(s.block_shape(d.shape)) \
+            if s.cut_axes else 0
+    fsdp = sum(gathered(d, s) for d, s in zip(tree_leaves(defs),
+                                              tree_leaves(sh)))
+    assert not cfg.tie_embeddings
     want = {"all-reduce": h + layers * (h + 2 * 4),
             "all-to-all": layers * 2 * a2a,
-            "all-gather": B_l * padded_vocab(cfg) * 2}
+            "all-gather": B_l * padded_vocab(cfg) * 2 + fsdp}
     res = w.result()
     assert res["collective_bytes"] == want
     assert res["collective_counts"] == {"all-reduce": 1 + 3 * layers,
                                         "all-to-all": 2 * layers,
-                                        "all-gather": 1}
+                                        "all-gather": 1 + layers + 2}
     assert res["inter_pod_bytes"] == layers * 4
     assert res["intra_pod_bytes"] == sum(want.values()) - layers * 4
     assert hlo.collective_bytes(w.records)["total_bytes"] == sum(

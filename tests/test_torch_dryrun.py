@@ -44,7 +44,6 @@ from repro_torch.models.params import Sharding, tree_leaves
 from repro_torch.models.tp import model_shardings
 from repro_torch.models.transformer import padded_vocab
 from repro_torch.sharding.parallel import NONE, Parallelism
-from repro_torch.train.train_step import _data_ranks
 
 LAYOUTS = [False, True]
 CELLS = [(a, s) for a in list_archs() for s in SHAPES]
@@ -166,14 +165,17 @@ def test_rank_batch_and_local_parallelism():
     assert dryrun.rank_batch(SHAPES["prefill_32k"], 16) == 2
     assert dryrun.rank_batch(SHAPES["decode_32k"], 32) == 4
     assert dryrun.rank_batch(SHAPES["long_500k"], 16) == 1
-    # the families models.tp covers keep the model axis, stacked on meta
-    _, local, _ = _data_ranks(par, get_config("smollm-360m"))
-    assert local.mesh.n_ranks == 16 and local.mesh.axis_names == ("model",)
-    _, local, _ = _data_ranks(par, get_config("rwkv6-1.6b"))
-    assert local.mesh is None
-    red, local, _ = _data_ranks(par, get_config("dbrx-132b"))
-    assert local.mesh.device.type == "meta" and local.mesh.n_ranks == 16
-    assert local.mesh.axis_names == ("model",) and red.n_ranks == 16
+    # one data rank: the ranks of data coordinate 0 of the whole mesh, the
+    # model axis stacked on meta for the families models.tp covers
+    for arch in ("smollm-360m", "dbrx-132b"):
+        local = dryrun.local_parallelism(par, get_config(arch))
+        mesh = local.mesh
+        assert mesh.device.type == "meta" and mesh.n_ranks == 256
+        assert mesh.axis_names == ("data", "model")
+        assert mesh.axis_index("model") == list(range(16))
+        assert set(mesh.axis_index("data")) == {0}
+    local = dryrun.local_parallelism(par, get_config("rwkv6-1.6b"))
+    assert local.mesh.local_ranks == (0,) and local.mesh.n_ranks == 256
 
 
 _REF_PREFILL = textwrap.dedent("""
@@ -240,11 +242,13 @@ def test_full_size_train_cell_on_meta_end_to_end():
     reference key, one data rank's 16 sequences in 2 micro-batches on its
     16 stacked model ranks, K4 once a layer a micro-batch and again in
     each superblock's recompute on the 15 model ranks that hold a query
-    head (15 heads over 5 KV heads at tp 16: one rank holds none), the
-    flat gradient all-reduce over 'data' of one model rank's float32
-    gradients and the loss, the model axis's all-reduces and all-gathers
-    in the step; every tensor the walker sees lies on meta (host scalars
-    aside)."""
+    head (15 heads over 5 KV heads at tp 16: one rank holds none); FSDP
+    over 'data': the rank holds 1/16 of its blocks, each superblock's
+    cuts all-gathered (again in its recompute) and their float32
+    gradient reduce-scattered in its backward (the tied embedding twice:
+    its lookup and the head), the other leaves and the loss all-reduced
+    over 'data', beside the model axis's all-reduces and all-gathers;
+    every tensor the walker sees lies on meta (host scalars aside)."""
     seen = set()
 
     class Spy(hlo_walk.Walker):
@@ -279,38 +283,61 @@ def test_full_size_train_cell_on_meta_end_to_end():
     assert port["kernels"]["K4"]["launches"] == 32 * 2 * 2 * 15 / 16
     cfg = get_config("smollm-360m")
     mesh = make_production_mesh(device="meta")
-    numel = sum(math.prod(s.block_shape(d.shape)) for d, s in zip(
-        tree_leaves(tf.model_defs(cfg)), tree_leaves(model_shardings(
-            tf.model_defs(cfg), cfg, mesh))))
+    defs = tf.model_defs(cfg)
+    sh = tree_leaves(model_shardings(defs, cfg, mesh))
+    cut = sum(16 * math.prod(s.block_shape(d.shape)) for d, s in zip(
+        tree_leaves(defs), sh) if s.cut_axes)
+    rest = sum(math.prod(s.block_shape(d.shape)) for d, s in zip(
+        tree_leaves(defs), sh) if not s.cut_axes)
+    emb = 16 * math.prod(sh[0].block_shape(defs["embed"].shape))
+    assert cfg.tie_embeddings and sh[0].cut_axes == ("data",)
     assert port["reduction"]["stages"] == [
+        {"stage": "reduce_scatter", "axes": ["data"],
+         "bytes_per_rank": 4 * 2 * (cut + emb)},
         {"stage": "all_reduce", "axes": ["data"],
-         "bytes_per_rank": 4 * (numel + 1)}]
-    assert port["reduction"]["collective_bytes"] == {
-        "all-reduce": 4 * (numel + 1)}
-    assert set(port["step"]["collective_bytes"]) == {"all-reduce",
-                                                     "all-gather"}
+         "bytes_per_rank": 4 * (rest + 1)}]
+    # the walker records a reduce-scatter's result: 1/16 of what goes in
+    assert port["step"]["collective_bytes"]["reduce-scatter"] == \
+        4 * 2 * (cut + emb) // 16
+    assert set(port["step"]["collective_bytes"]) == {
+        "all-reduce", "all-gather", "reduce-scatter"}
+    # held within the padding of the reference's argument bytes: the head
+    # rule pads wq / wo to a whole head a rank (64 columns for 60) and
+    # gives each rank a whole KV head (64 for 20)
+    args = res["memory"]["argument_size_in_bytes"]
+    assert args < port["held_bytes"] < 1.15 * args
     assert res["walked"]["inter_pod_bytes"] == 0
     assert res["memory"]["temp_size_in_bytes"] == \
         port["peak_bytes"] - port["held_bytes"]
 
 
-def test_held_bytes_are_the_rank_blocks():
-    """qwen3-smoke on a (model 2) meta mesh: a train rank's held bytes are
-    its weight blocks, their three float32 optimizer copies and the batch,
-    and a decode rank's its weight blocks, its caches' key/value heads and
-    the batch: each the sum of `_block_bytes` over the leaves it holds,
-    under the reference's specs with only their 'model' entries."""
+@pytest.mark.parametrize("cut", [False, True])
+def test_held_bytes_are_the_rank_blocks(cut):
+    """qwen3-smoke on a (model 2) meta mesh, and one data rank of a (data 2,
+    model 2) one (its row: FSDP cuts over 'data'): a train rank's held
+    bytes are its weight blocks (cuts), their three float32 optimizer
+    copies and the batch, and a decode rank's its weight blocks (cuts),
+    its caches' key/value heads and the batch: each the sum of
+    `_block_bytes` over the leaves it holds, under the reference's specs
+    with their 'model' entries (and, cut, their 'data' entries)."""
     cfg = get_config("qwen3-0.6b", smoke=True)
-    mesh = make_mesh_compat((2,), ("model",), "meta")
-    par = Parallelism(mesh=mesh, model_axis="model", remat=False)
+    if cut:
+        mesh = make_mesh_compat((2, 2), ("data", "model"), "meta")
+        par = dryrun.local_parallelism(Parallelism(
+            mesh=mesh, data_axes=("data",), model_axis="model",
+            remat=False), cfg)
+        keep = ("data", "model")
+    else:
+        mesh = make_mesh_compat((2,), ("model",), "meta")
+        par = Parallelism(mesh=mesh, model_axis="model", remat=False)
+        keep = ("model",)
 
-    def model_only(spec):
-        return Sharding(mesh, tuple(e if e == "model" else None
-                                    for e in spec))
+    def ref_spec(spec):
+        return Sharding(mesh, tuple(e if e in keep else None for e in spec))
 
     defs = tf.model_defs(cfg)
     whole = weight_structs(cfg)
-    sh = [model_only(d.spec) for d in tree_leaves(defs)]
+    sh = [ref_spec(d.spec) for d in tree_leaves(defs)]
     params = sum(dryrun._block_bytes(t, s)
                  for t, s in zip(tree_leaves(whole), sh))
     opt = 3 * sum(dryrun._block_bytes(t.float(), s)

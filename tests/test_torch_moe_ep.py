@@ -33,7 +33,9 @@ MoE forward on a group (data 2, model 2) mesh, the train step on a group
 (pod 2, data 2) mesh, and two train steps on the group (data 2, model 2)
 mesh on each rank's weight blocks: dbrx-smoke (experts and dense leaves
 over 'model') and qwen3-smoke (tensor parallel at tp 2), one rank each:
-all equal to the stacked mesh bit for bit.  The file takes about 25 s on
+all equal to the stacked mesh bit for bit (a rank's cut leaf against the
+stacked mesh's row of that rank, a leaf without a cut against its model
+rank's).  The file takes about 25 s on
 the CPU.
 """
 import sys
@@ -52,6 +54,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import weight_structs
 from repro_torch.models.params import (map_tree, shard_params, tree_leaves,
                                        unshard_params)
+from repro_torch.models import transformer as tf
 from repro_torch.models.tp import model_shardings, shard_model, unshard_model
 from repro_torch.sharding.parallel import Parallelism
 from repro_torch.train import optimizer as topt
@@ -196,7 +199,8 @@ _WORKER = textwrap.dedent("""
     for tag, hier in (("hier", True), ("flat", False)):
         pt = Parallelism(mesh=two, data_axes=("pod", "data"),
                          pod_axis="pod", hierarchical=hier)
-        ptree = map_tree(lambda t: t.clone().requires_grad_(), params)
+        ptree = map_tree(lambda t: t.requires_grad_(), shard_model(
+            params, tcfg, two))
         step = make_train_step(tcfg, topt.AdamWConfig(
             lr=1e-3, warmup=2, total_steps=20), par=pt)
         newp, opt, m = step(ptree, topt.init_opt_state(ptree), batch)
@@ -368,20 +372,21 @@ def _train(runs, hier: bool):
     cfg = replace(get_config(TRAIN_ARCH, smoke=True), dtype="float32")
     params = load_checkpoint(str(d / "smollm"), 0, {
         "params": weight_structs(cfg)}, device="cpu")[0]["params"]
-    ptree = map_tree(lambda t: t.clone().requires_grad_(), params)
     mesh = make_mesh_compat((2, 2), ("pod", "data"), "cpu")
+    ptree = map_tree(lambda t: t.requires_grad_(), shard_model(
+        params, cfg, mesh))
     par = Parallelism(mesh=mesh, data_axes=("pod", "data"), pod_axis="pod",
                       hierarchical=hier)
     step = make_train_step(cfg, topt.AdamWConfig(**OPT), par=par)
     newp, opt, m = step(ptree, topt.init_opt_state(ptree),
                         {k: torch.as_tensor(v) for k, v in batch.items()})
-    return newp, opt, m, step.comm
+    return newp, opt, m, step.comm, mesh
 
 
 @pytest.mark.parametrize("hier", [True, False])
 def test_data_parallel_step_matches_reference(runs, hier):
     d, ref = runs[0], runs[3]
-    _, opt, m, comm = _train(runs, hier)
+    _, opt, m, comm, mesh = _train(runs, hier)
     np.testing.assert_allclose(float(m["loss"]), ref["train/loss"],
                                rtol=1e-4)
     np.testing.assert_allclose(float(m["grad_norm"]), ref["train/grad_norm"],
@@ -389,20 +394,35 @@ def test_data_parallel_step_matches_reference(runs, hier):
     cfg = replace(get_config(TRAIN_ARCH, smoke=True), dtype="float32")
     jm = load_checkpoint(str(d / "ref_m"), 0, {"m": weight_structs(cfg)},
                          device="cpu")[0]["m"]
-    for got, want in zip(tree_leaves(opt.m), tree_leaves(jm)):
+    whole = unshard_model(opt.m, cfg, mesh)
+    for got, want in zip(tree_leaves(whole), tree_leaves(jm)):
         assert got.shape == want.shape
         # the clipped gradient, m / (1 - b1), within 1e-3 of its largest
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                    atol=1e-3 * float(want.abs().max()))
-    # what crosses the pod axis: 1/|data| of the flat reduction's payload
-    total = sum(t.numel() for t in tree_leaves(opt.m)) + 1   # + the loss
+    # the cut leaves (a rank's cuts: 1/|data| of them) cross the pod axis
+    # in an all-reduce of their own; the rest, 1/|data| of them
+    # hierarchically, all of them flat
+    sh = tree_leaves(model_shardings(tf.model_defs(cfg), cfg, mesh))
+    cut = sum(t[0].numel() for t, s in zip(tree_leaves(opt.m), sh)
+              if s.cut_axes)
+    rest = sum(t[0].numel() for t, s in zip(tree_leaves(opt.m), sh)
+               if not s.cut_axes) + 1                      # + the loss
+    assert comm[0]["stage"] == "reduce_scatter" and comm[0]["axes"] == (
+        "data",)
+    assert comm[1] == {"stage": "all_reduce", "axes": ("pod",),
+                       "bytes_per_rank": 4 * cut}
     if hier:
-        assert [s for s in comm if "pod" in s["axes"]] == [
+        assert comm[2:] == [
+            {"stage": "reduce_scatter", "axes": ("data",),
+             "bytes_per_rank": 4 * (rest + rest % 2)},
             {"stage": "all_reduce", "axes": ("pod",),
-             "bytes_per_rank": 4 * -(-total // 2)}]
+             "bytes_per_rank": 4 * -(-rest // 2)},
+            {"stage": "all_gather", "axes": ("data",),
+             "bytes_per_rank": 4 * -(-rest // 2)}]
     else:
-        assert comm == [{"stage": "all_reduce", "axes": ("pod", "data"),
-                         "bytes_per_rank": 4 * total}]
+        assert comm[2:] == [{"stage": "all_reduce", "axes": ("pod", "data"),
+                             "bytes_per_rank": 4 * rest}]
 
 
 def test_hierarchical_and_flat_reductions_agree(runs):
@@ -426,6 +446,12 @@ def _tp_step(arch):
     return newp, m
 
 
+def _row(t, r: int, n_model: int) -> int:
+    """The row of rank r in a stacked leaf: its own for a cut leaf (one a
+    rank), its model rank's otherwise."""
+    return r if t.shape[0] == 4 else r % n_model
+
+
 def test_gloo_ranks_equal_stacked_bit_for_bit(runs):
     _, moe_in, _, _, ranks = runs
     for res in ranks:
@@ -440,7 +466,8 @@ def test_gloo_ranks_equal_stacked_bit_for_bit(runs):
             assert res[f"tp/{arch}/grad_norm"] == m["grad_norm"].numpy()
             for i, t in enumerate(tree_leaves(newp)):
                 np.testing.assert_array_equal(res[f"tp/{arch}/p{i}"][0],
-                                              t.detach()[r % 2].numpy())
+                                              t.detach()[_row(t, r, 2)]
+                                              .numpy())
     cfg, p, x = _moe_case(moe_in, "dbrx-132b")
     with torch.no_grad():
         for tag, seq in (("", False), ("seq_", True)):
@@ -452,15 +479,17 @@ def test_gloo_ranks_equal_stacked_bit_for_bit(runs):
                                               y[2 * dd:2 * dd + 2].numpy())
                 assert res[f"{tag}aux"] == aux.numpy()
     for tag, hier in (("hier", True), ("flat", False)):
-        newp, opt, m, _ = _train(runs, hier)
-        for res in ranks:
+        newp, opt, m, _, _ = _train(runs, hier)
+        for r, res in enumerate(ranks):
             assert res[f"{tag}/loss"] == m["loss"].numpy()
             assert res[f"{tag}/grad_norm"] == m["grad_norm"].numpy()
             for i, t in enumerate(tree_leaves(opt.m)):
-                np.testing.assert_array_equal(res[f"{tag}/m{i}"], t.numpy())
+                np.testing.assert_array_equal(res[f"{tag}/m{i}"][0],
+                                              t[_row(t, r, 1)].numpy())
             for i, t in enumerate(tree_leaves(newp)):
-                np.testing.assert_array_equal(res[f"{tag}/p{i}"],
-                                              t.detach().numpy())
+                np.testing.assert_array_equal(res[f"{tag}/p{i}"][0],
+                                              t.detach()[_row(t, r, 1)]
+                                              .numpy())
 
 
 def test_expert_parallel_train_step_on_a_stacked_mesh(runs):
