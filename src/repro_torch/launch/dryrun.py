@@ -20,10 +20,12 @@ The artifact describes the program of one rank, as the reference's
 post-SPMD figures do.  The mesh is `make_production_mesh(multi_pod=...,
 device="meta")`, (16, 16) ('data', 'model') or (2, 16, 16) ('pod', 'data',
 'model').  One data rank runs (`local_parallelism`): its ranks of data
-coordinate 0 as a `core.dist.comm.RowComm` on meta, the 16 model ranks
-stacked for the families `models.tp` covers (dense, moe, encdec, vlm),
-the one rank for rwkv6 and hymba (their model ranks hold the same whole
-leaves); collectives along the model axis run over the row, those along
+coordinate 0 as a `core.dist.comm.RowComm` on meta, its 16 model ranks
+stacked (every family: `models.tp` places rwkv6's time-mix heads and
+channel-mix columns and hymba's attention heads and SSM channels as it
+places the other families' heads and columns; the one rank where the
+mesh has no model axis of more than one rank); collectives along the
+model axis run over the row, those along
 the data axes give meta results and record their bytes against the whole
 mesh.  The weights are the blocks and FSDP cuts `tp.shard_model` gives
 that row (over 'data', or ('pod', 'data') with `--fsdp-pod`):
@@ -69,8 +71,8 @@ port artifact unchanged:
 The port's own figures are under `port`: the bytes the rank holds under
 the port's placement (`held_bytes`, split in `held` into parameters,
 optimizer state, batch and caches: the blocks of the 'model' entries of
-the reference's specs cut over their 'data' entries, `models.tp`; rwkv6
-and hymba every leaf whole over 'model' and cut over 'data'), its peak (`peak_bytes`, against one 80 GB card:
+the reference's specs cut over their 'data' entries, `models.tp`), its
+peak (`peak_bytes`, against one 80 GB card:
 `fits_80gb`), the kernels' launches, operations and bytes, the dot FLOPs
 as the card runs them (`dot_flops_card`: the kernels' operations in place
 of the reference's dots, what the H100 roofline reads), the step's walk,
@@ -219,8 +221,8 @@ def _inputs(cfg, shape, B: int, device, gen) -> dict:
 def local_parallelism(par, cfg):
     """The `Parallelism` of one data rank's program on meta (module
     docstring): `par` with its mesh a `RowComm` of the ranks of data
-    coordinate 0, over the model axis where `models.tp` covers the
-    family, else the one rank."""
+    coordinate 0, over the model axis where it has more than one rank,
+    else the one rank."""
     covered = cfg.family in tp_mod.COVERED and par.tp_size() > 1
     row = RowComm(par.mesh.dims, par.mesh.axis_names,
                   (par.model_axis,) if covered else (), device="meta")
@@ -282,8 +284,8 @@ def rank_program(cfg, shape, par, *, n_micro: int = 1, B: int | None = None,
 def _ranked(args, run, tp):
     """`run` marked with the stacked ranks that hold the weights and
     optimizer state (`ranks`) and the caches (`cache_ranks`: one a rank
-    under the Megatron program, whole under the whole-leaf one);
-    `walk_program` counts 1/L of them a rank."""
+    under the rank program over a model axis, whole under the
+    whole-leaf one); `walk_program` counts 1/L of them a rank."""
     run.ranks = tp.L if tp is not None and tp.stacked else 1
     run.cache_ranks = run.ranks if tp is not None and tp.covered else 1
     return args, run

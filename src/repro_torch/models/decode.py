@@ -52,26 +52,29 @@ position (`serve.engine`); this matches the reference's traced `pos` and
 `dynamic_update_slice`.
 
 `par` (the reference's argument, `NONE` by default): under a mesh with a
-model axis of more than one rank the dense, moe, encdec and vlm families
-run the rank program of `models.tp` on the weight blocks
-(`tp.shard_model`).  Each attention cache leaf then holds each local
-rank's key/value heads on a leading rank axis, (L, ..., B_l, S_max,
-Hkv_pad, hd) (L the ranks this process holds, B_l a rank's data shard,
-Hkv_pad the widest rank's heads; a rank's own are the first of them,
-zeros after), and `memory` the batch as the model takes it.  The logits
-are the whole vocabulary's (all-gathered), so the greedy choice reads
-them as before.  Every collective of the program is a stacked or group
-communicator's, which reads nothing back to the host, so a decode step
-under a stacked mesh still captures as one CUDA graph.  rwkv6 and hymba
-keep their whole-leaf caches.
+model axis of more than one rank every family runs the rank program of
+`models.tp` on the weight blocks (`tp.shard_model`).  Each cache leaf
+then holds each local rank's own on a leading rank axis (L the ranks
+this process holds, B_l a rank's data shard): an attention cache its
+key/value heads, (L, ..., B_l, S_max, Hkv_pad, hd) (Hkv_pad the widest
+rank's heads; a rank's own are the first of them, zeros after); rwkv6's
+`wkv` its heads' states (L, B_l, H_pad, hd, hd) float32 and its token
+tails `tm_tok` / `cm_tok` (L, B_l, 1, D), copies of the replicated
+input; hymba's `ssm_h` (L, B_l, C_pad, N) float32 and `conv` (L, B_l, 4,
+C_pad) on its SSM channels (C_pad the widest rank's).  `memory` is the
+batch as the model takes it.  The logits are the whole vocabulary's
+(all-gathered), so the greedy choice reads them as before.  Every
+collective of the program is a stacked or group communicator's, which
+reads nothing back to the host, so a decode step under a stacked mesh
+still captures as one CUDA graph.
 
 FSDP (`models.tp`, more than one data rank): each superblock's cuts are
 gathered when the step reaches it and dropped after it, in a captured
 step too, so a graph's pool holds one superblock's gathered weights at a
-time.  Where no model axis splits the model (rwkv6, hymba, or none of
-more than one rank) the step runs the whole-leaf path on the gathered
-leaves of the first local rank (`_whole_view`): the whole batch on a
-stacked mesh, the rank's shard on a group rank, with whole-leaf caches.
+time.  Where no model axis of more than one rank splits the model the
+step runs the whole-leaf path on the gathered leaves of the first local
+rank (`_whole_view`): the whole batch on a stacked mesh, the rank's shard
+on a group rank, with whole-leaf caches.
 """
 from __future__ import annotations
 
@@ -110,19 +113,20 @@ def init_cache(cfg, B: int, S_max: int, device, par=NONE) -> dict:
     def z(*shape, dtype=CDT):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    def zk(*shape):
-        return z(*lead, *shape)
+    def zk(*shape, dtype=CDT):
+        return z(*lead, *shape, dtype=dtype)
 
+    H, C = (cfg.n_heads, D) if tp is None else (max(tp.hq), tp.ch_width)
     if cfg.family == "ssm":
         def per():
-            return {"tm_tok": z(B, 1, D),
-                    "wkv": z(B, cfg.n_heads, hd, hd, dtype=torch.float32),
-                    "cm_tok": z(B, 1, D)}
+            return {"tm_tok": zk(B, 1, D),
+                    "wkv": zk(B, H, hd, hd, dtype=torch.float32),
+                    "cm_tok": zk(B, 1, D)}
     elif cfg.family == "hybrid":
         def per():
-            return {"k": z(B, S_max, Hkv, hd), "v": z(B, S_max, Hkv, hd),
-                    "ssm_h": z(B, D, cfg.ssm_state, dtype=torch.float32),
-                    "conv": z(B, 4, D)}
+            return {"k": zk(B, S_max, Hkv, hd), "v": zk(B, S_max, Hkv, hd),
+                    "ssm_h": zk(B, C, cfg.ssm_state, dtype=torch.float32),
+                    "conv": zk(B, 4, C)}
     elif cfg.cross_attn_period:
         n_self = cfg.cross_attn_period - 1
 
@@ -305,18 +309,76 @@ def _prefill_ranks(params, tokens, cfg, S_max, frames, vis, par, tp):
         cache["memory"][:, :memory.shape[2]] = tp.leave(memory)
     if cfg.is_encdec:
         cache["memory_len"].fill_(S)
-    for pb, c in zip(params["blocks"], cache["blocks"]):
-        h, _, kv = superblock(h, pb, cfg, positions=positions,
-                              memory=memory, par=par, tp=tp)
-        _store_kv(c, kv, S, cfg, tp)
+    if cfg.family in ("ssm", "hybrid"):
+        h = _prefill_rank_layers(params, h, cfg, cache, tp, positions)
+    else:
+        for pb, c in zip(params["blocks"], cache["blocks"]):
+            h, _, kv = superblock(h, pb, cfg, positions=positions,
+                                  memory=memory, par=par, tp=tp)
+            _store_kv(c, kv, S, cfg, tp)
     h = tp.norm(h, params["final_ln"], cfg.norm_eps)
     return cache, tp.leave(tp_mod.logits(params, h[:, :, -1:], cfg, tp))
+
+
+def _prefill_rank_layers(params, h, cfg, cache, tp, positions):
+    """rwkv6's and hymba's rank prefill: each superblock gathered, run
+    and its rank cache entry filled (each rank's heads and channels
+    first); the reference's rwkv6 channel-mix tail kept (module
+    docstring)."""
+    S = h.shape[2]
+    for i, (pb, c) in enumerate(zip(params["blocks"], cache["blocks"])):
+        pb = tp.gather(pb, tp.block_sh)
+        if cfg.family == "ssm":
+            p = pb["rwkv"]
+            h, (tm_tok, wkv, _) = tp_mod.rwkv_block(h, p, cfg, tp)
+            c["tm_tok"].copy_(tm_tok)
+            _write_ranks(c["wkv"], wkv, 1)
+            # the reference's entry: the block OUTPUT normalised
+            c["cm_tok"].copy_(tp.norm(h, p["ln2"], cfg.norm_eps)[:, :, -1:])
+        else:
+            h, ent = tp_mod.hybrid_layer(h, pb, cfg, tp, positions=positions,
+                                         window=_window(cfg, i))
+            _store_kv({"k": c["k"], "v": c["v"]},
+                      [("attn", ent["k"], ent["v"])], S, cfg, tp)
+            _write_ranks(c["ssm_h"], ent["ssm_h"], 1)
+            _write_ranks(c["conv"], ent["conv"], 2)
+        del pb                  # the gathered block, before the next one
+    return h
+
+
+def _write_ranks(buf, parts, dim: int) -> None:
+    """Each local rank's part (None: nothing) into the first entries of
+    its row of a rank cache leaf (L, ...) along `dim`, in place."""
+    for j, t in enumerate(parts):
+        if t is not None:
+            buf[j].narrow(dim, 0, t.shape[dim]).copy_(t)
 
 
 def _decode_ranks(params, cache, tokens, pos, cfg, par, tp):
     """`decode_step` as the rank program of `models.tp`."""
     h = tp_mod.embed(params, tp.enter(tokens), cfg, tp)
     positions = pos.reshape(1)
+    if cfg.family in ("ssm", "hybrid"):
+        for i, (pb, c) in enumerate(zip(params["blocks"], cache["blocks"])):
+            pb = tp.gather(pb, tp.block_sh)
+            if cfg.family == "ssm":
+                h, (tm_tok, wkv, cm_tok) = tp_mod.rwkv_block(
+                    h, pb["rwkv"], cfg, tp, {
+                        "tm_tok": c["tm_tok"].to(h.dtype), "wkv": c["wkv"],
+                        "cm_tok": c["cm_tok"].to(h.dtype)})
+                c["tm_tok"].copy_(tm_tok)
+                c["cm_tok"].copy_(cm_tok)
+                _write_ranks(c["wkv"], wkv, 1)
+            else:
+                h, ent = tp_mod.hybrid_layer(h, pb, cfg, tp,
+                                             positions=positions,
+                                             window=_window(cfg, i), cache=c,
+                                             pos=pos)
+                _write_ranks(c["ssm_h"], ent["ssm_h"], 1)
+                _write_ranks(c["conv"], ent["conv"], 2)
+            del pb
+        h = tp.norm(h, params["final_ln"], cfg.norm_eps)
+        return tp.leave(tp_mod.logits(params, h, cfg, tp)), cache
     memory, mem_len = cache.get("memory"), None
     if memory is not None:
         mem_len = cache.get("memory_len", memory.shape[1])

@@ -18,7 +18,21 @@ of a stacked mesh, or its one rank of a `torch.distributed` group):
              each rank looks up the tokens its rows hold (zeros for the
              rest) and an all-reduce adds them; the loss all-gathers the
              row maxima and all-reduces the sums of exponentials and the
-             gold logits; serving all-gathers the logits.
+             gold logits; serving all-gathers the logits;
+  rwkv6      the time mix on whole heads, ceil(H / M) a rank (w_r, w_k,
+             w_v, w_w, w_g column-parallel, K5 on the rank's heads, w_o
+             row-parallel): `ln_x` normalises over all D channels, so the
+             per-token sums of squares are all-reduced in float32 first;
+             the channel mix's value relu(xk cw_k)^2 cw_v is row-parallel
+             and its gate sigmoid(xr cw_r) column-parallel, so the value is
+             reduce-scattered to cw_r's column ranges, multiplied by the
+             rank's gate and all-gathered (the bytes of one all-reduce);
+  hymba      the attention heads as above and the SSM on the rank's d_model
+             channels (in_proj columns, conv_w columns, A_log and out_proj
+             rows), whose dt / B / C projections contract over the cut
+             channels: one float32 all-reduce of the (B, S, 1 + 2N)
+             partial products; one all-reduce of 0.5 (attention + SSM)
+             for both heads, then the MLP.
 
 Heads are placed by one rule (`head_placement`) that gives every rank
 whole key/value heads and one group size, so K4 runs on (H_local,
@@ -40,9 +54,10 @@ only while the superblock runs; the embedding, `final_ln`, `lm_head` and
 the encoder's leaves likewise.  The gather's backward reduce-scatters the
 gradient back to the cut (`core.dist.comm.gather_cuts`).  Leaves without
 a 'data' entry (norms, biases, the router) stay whole over the data
-axes.  rwkv6 and hymba, whose leaves stay whole over 'model', run a rank
-program too when they are cut: each rank its data shard on its gathered
-whole leaves.
+axes.  Every family gathers so, rwkv6 and hymba included; a mesh without
+a model axis of more than one rank runs a whole-leaf rank program when
+its leaves are cut: each rank its data shard on its gathered whole
+leaves.
 
 Layout.  Weights are `ModelBlocks` blocks (`models.params`): a leaf
 without a cut stacked one per model rank this process holds, (M, *block)
@@ -63,19 +78,20 @@ column-parallel product, `reduce_from` (g) after each row-parallel one, so
 a rank's backward gives exactly its own block's gradient, and a
 replicated leaf (norms, the router) the same whole gradient on every rank.
 Two kinds of leaf need more, applied by `sync_grads` to a gradient tree:
-q_norm / k_norm (each rank reads them on its own heads: a psum over
-'model') and key/value heads several ranks hold (a psum over the ranks
-that hold one).  The global gradient norm counts each element once
+the whole leaves each rank reads only on its own heads or channels (a
+psum over 'model': q_norm / k_norm; rwkv6's w_bias, u_bonus, ln_x;
+hymba's D_skip, dt_proj, B_proj, C_proj) and key/value heads several
+ranks hold (a psum over the ranks that hold one).  rwkv6's token-shift
+mixes (mu_*, cmu_*) are taken before f, so their gradients come out
+whole on every rank.  The global gradient norm counts each element once
 (`grad_sq_sum`: each rank's squares over the ranks that hold the same
 elements, psummed over the whole mesh).  The MoE's outputs are the same on every model rank,
 so their cotangents are divided by the model ranks (`shard_map`'s rule)
 and the router and the input psum theirs back.
 
-Covered: dense, moe, encdec and vlm.  rwkv6 (ssm) and hymba (hybrid)
-keep whole leaves under a model axis (`plan` returns None for them unless
-there are data ranks), their SSM heads not yet split.  On a stacked mesh
-the program runs inside `obs.cost.stacked(L)`, so a cost walker counts
-one rank's share.
+Covered: every family (dense, moe, ssm, hybrid, encdec, vlm).  On a
+stacked mesh the program runs inside `obs.cost.stacked(L)`, so a cost
+walker counts one rank's share.
 """
 from __future__ import annotations
 
@@ -83,9 +99,12 @@ import functools
 from dataclasses import replace
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.dist.comm import StackedComm
 from repro_torch.models import layers as lay
+from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import (ModelBlocks, ParamDef, map_tree,
                                        tree_leaves, tree_unflatten)
 
@@ -93,8 +112,15 @@ __all__ = ["COVERED", "head_placement", "cut_axes", "model_shardings",
            "plan", "TP", "shard_model", "unshard_model", "sync_grads",
            "grad_sq_sum", "n_holders"]
 
-COVERED = ("dense", "moe", "encdec", "vlm")
+COVERED = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 ATTN_KEYS = ("wq", "wk", "wv", "wo")
+# rwkv6's time-mix leaves, split on head boundaries (K5 runs whole heads)
+RWKV_HEAD_KEYS = ("w_r", "w_k", "w_v", "w_w", "w_g", "w_o")
+# per kind of sublayer tree, the whole leaves a rank reads only on its own
+# heads or channels: their gradients are psummed over 'model'
+PARTIAL = {"attn": ("q_norm", "k_norm"),
+           "rwkv": ("w_bias", "u_bonus", "ln_x"),
+           "ssm": ("D_skip", "dt_proj", "B_proj", "C_proj")}
 # the most gathered weights a rank one FSDP gather carries (`_buckets`)
 GATHER_BUCKET = 1 << 30
 
@@ -171,15 +197,25 @@ def _model_axis(mesh, axis):
     return axis
 
 
+def _kind(t: dict):
+    """The kind of a sublayer's leaf tree: "attn", "rwkv", "ssm" or
+    None."""
+    for key, kind in (("wq", "attn"), ("w_r", "rwkv"), ("in_proj", "ssm")):
+        if key in t:
+            return kind
+    return None
+
+
 def model_shardings(defs, cfg, mesh, axis: str = "model", *,
                     data_axes=None, fsdp: bool = True,
                     fsdp_pod: bool = False):
     """Per leaf of a def tree, its `ModelBlocks` over `mesh`: the 'model'
-    entries over `axis` for a family `COVERED` names (whole leaves for
-    rwkv6, hymba), each 'data' entry cut over `cut_axes(mesh, data_axes,
-    fsdp, fsdp_pod)`.  None for every leaf where `plan` runs no rank
-    program: no model axis of more than one rank under a covered family,
-    and one data rank (`data_axes`: default the mesh's 'pod' and 'data')."""
+    entries over `axis` (attention by `head_placement`, rwkv6's time mix
+    on whole heads in blocks of ceil(H / M), the other 'model' dims
+    evenly), each 'data' entry cut over `cut_axes(mesh, data_axes, fsdp,
+    fsdp_pod)`.  None for every leaf where `plan` runs no rank program: no
+    model axis of more than one rank and one data rank (`data_axes`:
+    default the mesh's 'pod' and 'data')."""
     dp = _data_axes(mesh, data_axes)
     cut = cut_axes(mesh, dp, fsdp, fsdp_pod)
     axis = _model_axis(mesh, axis)
@@ -190,27 +226,33 @@ def model_shardings(defs, cfg, mesh, axis: str = "model", *,
     if covered:
         heads = head_placement(cfg.n_heads, cfg.n_kv_heads, M)
         shared = M > cfg.n_kv_heads
+        rwkv_hd = cfg.d_model // cfg.n_heads
+        hs, he, hb = _even(cfg.n_heads, M)
     hd = cfg.hd
 
-    def model_leaf(d: ParamDef, name: str, attn: bool):
+    def model_leaf(d: ParamDef, name: str, kind):
         if not covered:
             return ModelBlocks(mesh, axis)
-        if attn and name in ATTN_KEYS:
+        if kind == "attn" and name in ATTN_KEYS:
             if name == "wq":
                 return _head_blocks(mesh, axis, heads, hd, "q", 1)
             if name == "wo":
                 return _head_blocks(mesh, axis, heads, hd, "q", 0)
             return _head_blocks(mesh, axis, heads, hd, "k", 1,
                                 "sharers" if shared else None)
+        if kind == "rwkv" and name in RWKV_HEAD_KEYS:
+            return ModelBlocks(mesh, axis, d.spec.index("model"),
+                               tuple(h * rwkv_hd for h in hs),
+                               tuple(h * rwkv_hd for h in he), hb * rwkv_hd)
         if "model" in d.spec:
             dim = d.spec.index("model")
             starts, stops, width = _even(d.shape[dim], M)
             return ModelBlocks(mesh, axis, dim, starts, stops, width)
-        return ModelBlocks(mesh, axis, reduce="model" if attn and name in (
-            "q_norm", "k_norm") else None)
+        return ModelBlocks(mesh, axis, reduce="model" if name in PARTIAL.get(
+            kind, ()) else None)
 
-    def leaf(d: ParamDef, name: str, attn: bool):
-        mb = model_leaf(d, name, attn)
+    def leaf(d: ParamDef, name: str, kind):
+        mb = model_leaf(d, name, kind)
         if cut and "data" in d.spec:
             dim = d.spec.index("data")
             mb = replace(mb, cut_dim=dim, cut_axes=cut, cut_len=d.shape[dim])
@@ -219,9 +261,9 @@ def model_shardings(defs, cfg, mesh, axis: str = "model", *,
     def walk(t):
         if isinstance(t, list):
             return [walk(v) for v in t]
-        attn = "wq" in t
+        kind = _kind(t)
         return {k: (walk(v) if not isinstance(v, ParamDef)
-                    else leaf(v, k, attn)) for k, v in t.items()}
+                    else leaf(v, k, kind)) for k, v in t.items()}
 
     return walk(defs)
 
@@ -339,10 +381,11 @@ class _LeaveMean(torch.autograd.Function):
 class TP:
     """The rank program of `cfg` under `par` (module docstring): the mesh,
     the local ranks' model and data coordinates, the FSDP cut, and each
-    rank's heads, d_ff columns and vocabulary rows.  `covered`: the
-    Megatron sublayers over a model axis of more than one rank; else each
-    rank runs the whole-leaf model on its data shard (rwkv6, hymba, or no
-    model axis)."""
+    rank's heads (`hq`, `hkv`; rwkv6: `hq` its heads from `h0`), d_model
+    channels (`ch`: (start, count), `ch_width` the widest), d_ff columns
+    and vocabulary rows.  `covered`: the sublayers over a model axis of
+    more than one rank; else each rank runs the whole-leaf model on its
+    data shard (no model axis)."""
 
     def __init__(self, cfg, par, cut: tuple | None = None):
         mesh = par.mesh
@@ -369,10 +412,18 @@ class TP:
         self.block_sh = self.sh["blocks"][0]
         if not self.covered:
             return
-        heads = [head_placement(cfg.n_heads, cfg.n_kv_heads, self.M)[m]
-                 for m in self.midx]
-        self.hq = [q1 - q0 for q0, q1, _, _ in heads]
-        self.hkv = [k1 - k0 for _, _, k0, k1 in heads]
+        if cfg.family == "ssm":
+            hs, he, _ = _even(cfg.n_heads, self.M)
+            self.h0 = [hs[m] for m in self.midx]
+            self.hq = [he[m] - hs[m] for m in self.midx]
+            self.hkv = list(self.hq)
+        else:
+            heads = [head_placement(cfg.n_heads, cfg.n_kv_heads, self.M)[m]
+                     for m in self.midx]
+            self.hq = [q1 - q0 for q0, q1, _, _ in heads]
+            self.hkv = [k1 - k0 for _, _, k0, k1 in heads]
+        cs, ce, self.ch_width = _even(cfg.d_model, self.M)
+        self.ch = [(cs[m], ce[m] - cs[m]) for m in self.midx]
         ff = _even(cfg.d_ff, self.M)
         self.ff = [ff[1][m] - ff[0][m] for m in self.midx]
         from repro_torch.models.transformer import padded_vocab
@@ -508,9 +559,11 @@ def _buckets(groups, leaves, shs) -> list:
 def plan(cfg, par, params=None):
     """The `TP` of `cfg` under `par`, or None where the model runs on
     whole leaves: no mesh, or one data rank and no model axis of more
-    than one rank under a family `COVERED` names.  With `params` (the
-    weights as the ranks hold them) the cut is read off them
-    (`infer_cut`); else it is `shard_model`'s default."""
+    than one rank.  Where there are data ranks, the cuts of the 'data'
+    entries are gathered a superblock at a time (`TP.gather`) in every
+    family.  With `params` (the weights as the ranks hold them) the cut
+    is read off them (`infer_cut`); else it is `shard_model`'s
+    default."""
     if par.mesh is None:
         return None
     covered = cfg.family in COVERED and _model_axis(
@@ -551,10 +604,24 @@ def attn_sublayer(h, p, cfg, tp, *, positions, causal=True, window=None,
     Returns (h, ks, vs): per rank its keys and values (B, Sk, Hkv_l, hd),
     None where it has no query head.  `p` is `TP.gather`'s: each leaf
     (L, *block)."""
-    L, B, S, D = h.shape
+    x = tp.f(tp.norm(h, p["ln"], cfg.norm_eps))
+    ys, ks, vs = _attn_heads(x, p, cfg, tp, positions=positions,
+                             causal=causal, window=window,
+                             memory=None if memory is None
+                             else tp.f(memory), kv_len=kv_len, cache=cache)
+    return h + tp.g(ys), ks, vs
+
+
+def _attn_heads(x, p, cfg, tp, *, positions, causal=True, window=None,
+                memory=None, kv_len=None, cache=None, q_offset=0):
+    """`attn_sublayer` after its f, before its residual and g: x (L, B, S,
+    D) the normalised input, memory (L, B, Sm, D) past its f.  A decode
+    step's `cache` attends within `window` keys of the query at position
+    `q_offset` when a window is given (hymba's full caches).  Returns
+    (each rank's partial output (L, B, S, D), ks, vs)."""
+    L, B, S, D = x.shape
     hd, eps = cfg.hd, cfg.norm_eps
-    x = tp.f(tp.norm(h, p["ln"], eps))
-    src = x if memory is None else tp.f(memory)
+    src = x if memory is None else memory
     ys, ks, vs = [], [], []
     for i in range(L):
         nq, nk = tp.hq[i], tp.hkv[i]
@@ -580,7 +647,8 @@ def attn_sublayer(h, p, cfg, tp, *, positions, causal=True, window=None,
             kci.index_copy_(1, at, k.to(kci.dtype))
             vci.index_copy_(1, at, v.to(vci.dtype))
             o = lay.attention_full(q, kci.to(q.dtype), vci.to(q.dtype),
-                                   causal=False, kv_len=kvl)
+                                   causal=False, window=window,
+                                   q_offset=q_offset, kv_len=kvl)
         elif kv_len is not None:
             o = lay.attention_full(q, k, v, causal=False, kv_len=kv_len)
         elif memory is not None:
@@ -591,7 +659,7 @@ def attn_sublayer(h, p, cfg, tp, *, positions, causal=True, window=None,
                                                                nq * hd))
         ks.append(k)
         vs.append(v)
-    return h + tp.g(torch.stack(ys)), ks, vs
+    return torch.stack(ys), ks, vs
 
 
 def mlp_sublayer(h, p, cfg, tp):
@@ -607,6 +675,233 @@ def mlp_sublayer(h, p, cfg, tp):
                              p["w_up"][i].narrow(1, 0, n),
                              p["w_down"][i].narrow(0, 0, n)))
     return h + tp.g(torch.stack(ys))
+
+
+class _GatherOwn(torch.autograd.Function):
+    """(L, ..., b) each rank's columns -> (L, ..., M b), all-gathered over
+    'model' in rank order: a value every rank then holds alike, so each
+    rank's cotangent is the whole one and its backward is the rank's own
+    columns of it (no collective)."""
+
+    @staticmethod
+    def forward(ctx, y, tp):
+        ctx.tp, ctx.b = tp, y.shape[-1]
+        return tp.mesh._collective("all_gather", y, tp.axis, y.dim() - 2,
+                                   True)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, b = ctx.tp, ctx.b
+        with tp.scope():
+            return torch.stack([g[i].narrow(-1, tp.midx[i] * b, b)
+                                for i in range(tp.L)]), None
+
+
+def _gather_own(tp, y):
+    if y.requires_grad and torch.is_grad_enabled():
+        return _GatherOwn.apply(y.contiguous(), tp)
+    return tp.mesh._collective("all_gather", y.contiguous(), tp.axis,
+                               y.dim() - 2, True)
+
+
+def _link(out, t):
+    """`out` plus nothing from `t`: a rank that uses none of a
+    collective's result still takes the collective's backward, as its
+    peers do."""
+    return out + t.narrow(-1, 0, 0).sum(-1, keepdim=True).to(out.dtype)
+
+
+def _mixes(x, prev, p, keys, tp):
+    """rwkv6's token-shift mixes x + (shift(x) - x) mu of each mu in
+    `keys`, stacked (L, len(keys), B, S, D) behind one f: each rank reads
+    them on its own columns, so the cotangents psummed there make every
+    mu's gradient whole on every rank."""
+    L, B, S, D = x.shape
+    if prev is None:
+        prev = x.new_zeros(L, B, 1, D)
+    xs = torch.cat([prev, x[:, :, :-1]], dim=2)
+    mus = torch.stack([p[k] for k in keys], 1)                # (L, K, D)
+    return tp.f(x[:, None] + (xs - x)[:, None] * mus[:, :, None, None, :])
+
+
+def _time_mix(x, p, cfg, tp, prev=None, state=None):
+    """rwkv6's time mix on each rank's heads (module docstring): x (L, B,
+    S, D) normalised; prev (L, B, 1, D) the token-shift tail; state (L, B,
+    H_pad, hd, hd) float32, a rank's heads first.  Returns (the reduced
+    output (L, B, S, D), the new tail, each rank's new WKV state (B, H_l,
+    hd, hd) or None without a head)."""
+    L, B, S, D = x.shape
+    hd = D // cfg.n_heads
+    m = _mixes(x, prev, p, ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"), tp)
+    ys, gs, ss, states = [], [], [], []
+    for i in range(L):
+        n = tp.hq[i]
+        if n == 0:
+            ys.append(None)
+            gs.append(None)
+            ss.append(m[i, 0].narrow(-1, 0, 0).float().sum(-1, keepdim=True))
+            states.append(None)
+            continue
+        c, c0 = n * hd, tp.h0[i] * hd
+        mr, mk, mv, mw, mg = m[i].unbind(0)
+
+        def cols(key):
+            return p[key][i].narrow(1, 0, c)
+
+        def heads(a):                      # (B, S, c) -> (B n, S, hd)
+            return a.reshape(B, S, n, hd).transpose(1, 2).reshape(
+                B * n, S, hd)
+
+        r = heads(mr @ cols("w_r"))
+        k = heads(mk @ cols("w_k"))
+        v = heads(mv @ cols("w_v"))
+        gs.append(F.silu(mg @ cols("w_g")))
+        w = torch.exp(-torch.exp((mw @ cols("w_w") + p["w_bias"][i].narrow(
+            0, c0, c)).float()))
+        w = heads(w.clamp(1e-5, 1.0))
+        u = p["u_bonus"][i].narrow(0, c0, c).reshape(1, n, hd).expand(
+            B, n, hd).reshape(B * n, hd)
+        s0 = (state[i].narrow(1, 0, n) if state is not None else
+              torch.zeros(B, n, hd, hd, dtype=torch.float32,
+                          device=x.device))
+        y, s1 = rwkv_mod.rwkv6_wkv(r, k, v, w, u, s0.reshape(B * n, hd, hd),
+                                   chunk=min(rwkv_mod.CHUNK, S))
+        y = y.reshape(B, n, S, hd).transpose(1, 2).reshape(B, S, c)
+        ys.append(y)
+        ss.append(y.float().square().sum(-1, keepdim=True))
+        states.append(s1.reshape(B, n, hd, hd))
+    # ln_x: an rms_norm over all D channels of the heads' output
+    var = tp.mesh.psum(torch.stack(ss), tp.axis) / D          # (L, B, S, 1)
+    outs = []
+    for i in range(L):
+        y = ys[i]
+        if y is None:
+            outs.append(_link(_nothing(m[i, 0], None), var[i]))
+            continue
+        c, c0 = y.shape[-1], tp.h0[i] * hd
+        yn = (y.float() * torch.rsqrt(var[i] + 1e-5)).to(y.dtype) * \
+            p["ln_x"][i].narrow(0, c0, c)
+        outs.append((yn * gs[i]) @ p["w_o"][i].narrow(0, 0, c))
+    return tp.g(torch.stack(outs)), x[:, :, -1:], states
+
+
+def _channel_mix(x, p, cfg, tp, prev=None):
+    """rwkv6's channel mix (module docstring): the value row-parallel over
+    the d_ff columns, reduce-scattered to the gate's `_even` d_model
+    columns, gated there and all-gathered.  Returns (the output (L, B, S,
+    D), the new token-shift tail)."""
+    L, B, S, D = x.shape
+    m = _mixes(x, prev, p, ("cmu_k", "cmu_r"), tp)
+    width = tp.ch_width * tp.M
+    vals, gates = [], []
+    for i in range(L):
+        xk, xr = m[i].unbind(0)
+        k = torch.square(F.relu(xk @ p["cw_k"][i]))
+        vals.append(F.pad(k @ p["cw_v"][i], (0, width - D)))
+        gates.append(torch.sigmoid(xr @ p["cw_r"][i]))
+    part = tp.mesh.psum_scatter(torch.stack(vals), tp.axis, dim=2,
+                                tiled=True)                   # (L, B, S, b)
+    return _gather_own(tp, torch.stack(gates) * part).narrow(
+        -1, 0, D), x[:, :, -1:]
+
+
+def rwkv_block(h, p, cfg, tp, state=None):
+    """One rwkv6 block (`rwkv6.rwkv_block`) on each rank's heads and
+    channels: h (L, B, S, D); p the block's gathered leaves; state the
+    layer's rank cache entry (`tm_tok`, `wkv`, `cm_tok` in h's type) of a
+    decode step, or None (from zeros).  Returns (h, (tm_tok, [each rank's
+    WKV state or None], cm_tok))."""
+    st = state or {}
+    y, tm_tok, wkv = _time_mix(tp.norm(h, p["ln1"], 1e-5), p, cfg, tp,
+                               st.get("tm_tok"), st.get("wkv"))
+    h = h + y
+    y, cm_tok = _channel_mix(tp.norm(h, p["ln2"], 1e-5), p, cfg, tp,
+                             st.get("cm_tok"))
+    return h + y, (tm_tok, wkv, cm_tok)
+
+
+def ssm_ranks(x, p, cfg, tp, conv=None, state=None):
+    """hymba's SSM head (`ssm.ssm_head`) on each rank's d_model channels
+    (module docstring): x (L, B, S, D) past f.  The dt / B / C partial
+    products are all-reduced in float32 and rounded once to x's type.
+    Without `state`, a whole sequence from 0: (partial output (L, B, S,
+    D), [each rank's last state (B, C_l, N) float32]).  With `conv` (L, B,
+    4, C_pad) and `state` (L, B, C_pad, N), one token (`ssm.ssm_step`):
+    (partial output, [new states], [new conv tails (B, 4, C_l)])."""
+    N = cfg.ssm_state
+    xis, parts, tails = [], [], []
+    for i in range(tp.L):
+        c0, n = tp.ch[i]
+        xi = x[i] @ p["in_proj"][i].narrow(1, 0, n)
+        w = p["conv_w"][i].narrow(1, 0, n)
+        if state is None:
+            xi = F.silu(ssm_mod._causal_conv(xi, w) + xi)
+        else:
+            tail = torch.cat([conv[i][:, 1:, :n], xi.to(conv.dtype)], dim=1)
+            tails.append(tail)
+            xi = F.silu((tail.to(xi.dtype) * w[None]).sum(1, keepdim=True)
+                        + xi)
+        proj = torch.cat([p[k][i].narrow(0, c0, n) for k in
+                          ("dt_proj", "B_proj", "C_proj")], dim=1)
+        parts.append(xi.float() @ proj.float())
+        xis.append(xi)
+    red = tp.mesh.psum(torch.stack(parts), tp.axis)     # (L, B, S, 1 + 2N)
+    outs, hs = [], []
+    for i in range(tp.L):
+        c0, n = tp.ch[i]
+        xi = xis[i]
+        r = red[i].to(xi.dtype)
+        dt = F.softplus(r[..., :1])
+        Bm, Cm = r[..., 1:1 + N], r[..., 1 + N:]
+        A = -torch.exp(p["A_log"][i].narrow(0, 0, n).float())
+        a = torch.exp(dt[..., None] * A[None, None])
+        b = (dt[..., None] * Bm[:, :, None, :]) * xi[..., None]
+        D_skip = p["D_skip"][i].narrow(0, c0, n)
+        if state is None:
+            y_state, hl = ssm_mod.selective_scan(a.float(), b.float(),
+                                                 Cm.float())
+            y = y_state.to(x.dtype) + xi * D_skip
+        else:
+            hl = a[:, 0] * state[i][:, :n] + b[:, 0].float()
+            y = torch.einsum("bdn,bn->bd", hl.to(xi.dtype), Cm[:, 0])
+            y = (y + xi[:, 0] * D_skip)[:, None]
+        outs.append(y @ p["out_proj"][i].narrow(0, 0, n))
+        hs.append(hl)
+    out = torch.stack(outs)
+    return (out, hs) if state is None else (out, hs, tails)
+
+
+def hybrid_layer(h, pb, cfg, tp, *, positions, window, cache=None,
+                 pos=None):
+    """One hymba layer (`transformer.hybrid_block`) on each rank's heads
+    and SSM channels: the attention and the SSM read one normalised input
+    past one f, their partial outputs averaged and all-reduced once, then
+    the MLP.  pb the layer's gathered leaves; h (L, B, S, D).  Without
+    `cache` over a whole sequence; with `cache` (the layer's rank cache
+    entry) one token at `pos`, its keys and values written there.
+    Returns (h, entry): per rank its last SSM state (`ssm_h`, (B, C_l, N)
+    float32) and conv tail (`conv`, (B, 4, C_l): the input projection of
+    the last 4 rows, zeros before a short prompt), and over a whole
+    sequence its keys and values (`k`, `v`)."""
+    pa, ps = pb["attn0"], pb["ssm0"]
+    x = tp.f(tp.norm(h, pa["ln"], cfg.norm_eps))
+    if cache is None:
+        o_attn, ks, vs = _attn_heads(x, pa, cfg, tp, positions=positions,
+                                     window=window)
+        o_ssm, hs = ssm_ranks(x, ps, cfg, tp)
+        tails = [x[i][:, -4:] @ ps["in_proj"][i].narrow(1, 0, tp.ch[i][1])
+                 for i in range(tp.L)]
+        entry = {"k": ks, "v": vs, "ssm_h": hs, "conv": [
+            F.pad(t, (0, 0, 4 - t.shape[1], 0)) for t in tails]}
+    else:
+        o_attn, _, _ = _attn_heads(
+            x, pa, cfg, tp, positions=positions, window=window,
+            cache=(cache["k"], cache["v"], positions, pos + 1), q_offset=pos)
+        o_ssm, hs, tails = ssm_ranks(x, ps, cfg, tp, cache["conv"],
+                                     cache["ssm_h"])
+        entry = {"ssm_h": hs, "conv": tails}
+    h = h + tp.g(0.5 * (o_attn + o_ssm))
+    return mlp_sublayer(h, pb["mlp0"], cfg, tp), entry
 
 
 def embed(params, tokens, cfg, tp):

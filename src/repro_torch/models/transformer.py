@@ -26,18 +26,17 @@ final hidden states (sequence chunks of min(512, S), each chunk's logits
 recomputed in backward) plus 0.01 of the MoE aux loss.
 
 `par` (a `sharding.parallel.Parallelism`, `NONE` by default) is the
-reference's.  Under a mesh with a model axis of more than one rank the
-dense, moe, encdec and vlm families run on the blocks a rank holds
-(`models.tp`: heads, d_ff columns, vocabulary rows, experts; the weight
-tree is `tp.shard_model`'s), as one SPMD program over the ranks this
-process holds.  With more than one data rank the leaves with a 'data'
-entry are held cut over the data axes (FSDP, `models.tp`): each
-superblock gathers its tree at its entry (inside its checkpoint), and
-the embedding, `final_ln` and the head are gathered where they are read;
-rwkv6, hymba and the families without a model axis then run each rank's
-data shard through the whole-leaf functions below on its gathered
-leaves (`_whole_ranks`).  Otherwise rwkv6 and hymba read whole leaves
-and run the whole batch.  `par.constrain` returns its input (the port
+reference's.  Under a mesh with a model axis of more than one rank every
+family runs on the blocks a rank holds (`models.tp`: heads, d_ff
+columns, vocabulary rows, experts, rwkv6's time-mix heads and channel-mix
+columns, hymba's SSM channels; the weight tree is `tp.shard_model`'s), as
+one SPMD program over the ranks this process holds.  With more than one
+data rank the leaves with a 'data' entry are held cut over the data axes
+(FSDP, `models.tp`): each superblock gathers its tree at its entry
+(inside its checkpoint), and the embedding, `final_ln` and the head are
+gathered where they are read; a mesh without a model axis then runs each
+rank's data shard through the whole-leaf functions below on its gathered
+leaves (`_whole_ranks`).  `par.constrain` returns its input (the port
 has no GSPMD).
 With `par.remat` (the default) and grad enabled, each superblock (the
 rwkv6 block, the hymba layer, the encoder block) runs under
@@ -360,6 +359,16 @@ def memory_of(params, cfg, frames=None, vis=None, tp=None, remat=False):
     return None
 
 
+def _rank_layer(h, pb, cfg, tp, positions, i):
+    """Superblock i of rwkv6's or hymba's rank program: its tree gathered
+    (`tp.gather`), then `tp.rwkv_block` / `tp.hybrid_layer`."""
+    pb = tp.gather(pb, tp.block_sh)
+    if cfg.family == "ssm":
+        return tp_mod.rwkv_block(h, pb["rwkv"], cfg, tp)[0]
+    return tp_mod.hybrid_layer(h, pb, cfg, tp, positions=positions,
+                               window=_window(cfg, i))[0]
+
+
 def _forward_ranks(params, tokens, cfg, frames, vis, par, tp):
     """The rank program's forward: (final hidden states (L, B_l, S, D),
     aux (L,))."""
@@ -369,6 +378,11 @@ def _forward_ranks(params, tokens, cfg, frames, vis, par, tp):
     h = tp_mod.embed(params, tp.enter(tokens), cfg, tp)
     aux = torch.zeros(tp.L, dtype=torch.float32, device=h.device)
     positions = torch.arange(tokens.shape[1], device=h.device)
+    if cfg.family in ("ssm", "hybrid"):
+        for i, pb in enumerate(params["blocks"]):
+            h = _maybe_remat(remat, _rank_layer, h, pb, cfg, tp, positions,
+                             i)
+        return tp.norm(h, params["final_ln"], cfg.norm_eps), aux
     memory = memory_of(params, cfg, frames, vis, tp, remat)
     for pb in params["blocks"]:
         h, aux_b, _ = _maybe_remat(remat, superblock, h, pb, cfg,
@@ -408,7 +422,7 @@ def _whole_enc(m, pb, cfg, tp, positions):
 
 def _whole_ranks(params, tokens, cfg, frames, vis, par, tp):
     """`_forward_ranks` where each rank runs the whole-leaf model on its
-    data shard (`TP.covered` false)."""
+    data shard (`TP.covered` false: data ranks and no model axis)."""
     remat = _remat(par)
     h = tp_mod.embed(params, tp.enter(tokens), cfg, tp)
     positions = torch.arange(tokens.shape[1], device=h.device)

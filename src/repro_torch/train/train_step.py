@@ -9,8 +9,8 @@ gradients and losses are summed and divided by `n_micro`.  The
 reference's `chunked_attn` is dropped: K4 serves every length.
 
 Under a mesh (`par` with a mesh whose data axes hold more than one
-rank, or a model axis of more than one rank under a family
-`models.tp.COVERED` names) the step runs the rank program of
+rank, or a model axis of more than one rank; `models.tp.COVERED` names
+every family) the step runs the rank program of
 `models.tp` over every rank this process holds (all of a stacked mesh
 at once, or this process's one of a group mesh): the batch splits over
 the data ranks (row-major over the data axes, as the reference's batch

@@ -166,16 +166,20 @@ def test_rank_batch_and_local_parallelism():
     assert dryrun.rank_batch(SHAPES["decode_32k"], 32) == 4
     assert dryrun.rank_batch(SHAPES["long_500k"], 16) == 1
     # one data rank: the ranks of data coordinate 0 of the whole mesh, the
-    # model axis stacked on meta for the families models.tp covers
-    for arch in ("smollm-360m", "dbrx-132b"):
+    # model axis stacked on meta (every family models.tp covers)
+    for arch in ("smollm-360m", "dbrx-132b", "rwkv6-1.6b", "hymba-1.5b"):
         local = dryrun.local_parallelism(par, get_config(arch))
         mesh = local.mesh
         assert mesh.device.type == "meta" and mesh.n_ranks == 256
         assert mesh.axis_names == ("data", "model")
         assert mesh.axis_index("model") == list(range(16))
         assert set(mesh.axis_index("data")) == {0}
-    local = dryrun.local_parallelism(par, get_config("rwkv6-1.6b"))
-    assert local.mesh.local_ranks == (0,) and local.mesh.n_ranks == 256
+    # no model axis of more than one rank: the one rank, whose program is
+    # the whole-leaf one
+    flat = parallelism_for(make_mesh_compat((16, 1), ("data", "model"),
+                                            "meta"))
+    local = dryrun.local_parallelism(flat, get_config("rwkv6-1.6b"))
+    assert local.mesh.local_ranks == (0,) and local.mesh.n_ranks == 16
 
 
 _REF_PREFILL = textwrap.dedent("""

@@ -29,7 +29,8 @@ a superblock at a time, its gradient reduce-scattered, on the CPU.
   checkpoint  the step's cuts saved whole, loaded onto (data 4) and onto
               one rank, and read by the reference's `load_checkpoint`;
   serving     a prefill and 4 decode steps cut and whole over 'data'
-              (qwen3 on the Megatron program, rwkv6 on the gathered whole
+              (qwen3 and rwkv6 on their rank programs; rwkv6 and hymba
+              on (data 4), where the whole-leaf path reads the gathered
               leaves) within 1e-4 of the largest |logit|.
 
 Float32 smoke configs throughout.  About 30 s on the CPU.
@@ -75,19 +76,19 @@ STEP_ARCHS = ("qwen3-0.6b", "dbrx-132b", "rwkv6-1.6b")
 # The leaves whose cut shape differs from the reference's shard shape, and
 # why: the head rule gives every model rank whole key/value heads and one
 # group size, padded to the widest rank (`tp.head_placement`), where the
-# reference splits the head columns evenly; rwkv6 and hymba hold every
-# leaf whole over 'model' (ROADMAP.md queue item 1).  On the dim the
-# 'data' entry names every leaf equals the reference's.
+# reference splits the head columns evenly.  rwkv6's time mix splits on
+# head boundaries, 2 of its 32 heads a rank: the reference's even split.
+# On the dim the 'data' entry names every leaf equals the reference's.
 HEAD_RULE = {
     "phi4-mini-3.8b": ("wq", "wk", "wv", "wo"),    # 24 / 8 heads over 16
     "smollm-360m": ("wq", "wk", "wv", "wo"),       # 15 / 5
     "llama4-scout-17b-a16e": ("wq", "wk", "wv", "wo"),   # 40 / 8
+    "hymba-1.5b": ("wq", "wk", "wv", "wo"),        # 25 / 5
     "qwen3-0.6b": ("wk", "wv"),                    # 8 KV heads over 16
     "gemma3-12b": ("wk", "wv"),
     "llama-3.2-vision-90b": ("wk", "wv"),
     "dbrx-132b": ("wk", "wv"),
 }
-WHOLE_OVER_MODEL = ("rwkv6-1.6b", "hymba-1.5b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -167,14 +168,9 @@ def test_cut_shapes_match_the_reference(multi_pod):
                     assert got[:k] + got[k + 1:] == want[:k] + want[k + 1:]
                     apart.add(p[-1])
                 checked += 1
-            if cfg.family in WHOLE_OVER_MODEL or arch in WHOLE_OVER_MODEL:
-                whole = {p[-1] for p, d, _ in _port_leaves(pdefs, sh)
-                         if "model" in d.spec}
-                assert apart == whole, arch
-            else:
-                assert cfg.family in COVERED
-                assert apart == set(HEAD_RULE.get(arch, ())), arch
-                assert apart <= set(ATTN_KEYS)
+            assert cfg.family in COVERED
+            assert apart == set(HEAD_RULE.get(arch, ())), arch
+            assert apart <= set(ATTN_KEYS)
     assert checked > 400
 
 
@@ -431,10 +427,29 @@ def test_checkpoint_of_cuts_across_meshes(tmp_path):
     """One FSDP step's cuts on (data 2, model 2) saved whole, loaded onto
     (data 4) and onto one rank, and read by the reference's reader: every
     leaf equal."""
-    cfg = _cfg("qwen3-0.6b")
+    _checkpoint_across_meshes("qwen3-0.6b", tmp_path)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_checkpoint_of_rank_blocks_across_meshes(arch, tmp_path):
+    """rwkv6's and hymba's blocks and cuts, as qwen3's, and loaded onto
+    (model 4) too (rwkv6: a rank without a head)."""
+    whole = _checkpoint_across_meshes(arch, tmp_path)
+    cfg = _cfg(arch)
+    four = make_mesh_compat((4,), ("model",), "cpu")
+    got = load_checkpoint(str(tmp_path), 1, {"params": weight_structs(cfg)},
+                          shardings={"params": model_shardings(
+                              tf.model_defs(cfg), cfg, four)})[0]["params"]
+    for w, a in zip(tree_leaves(whole), tree_leaves(unshard_model(
+            got, cfg, four))):
+        assert torch.equal(w.detach(), a)
+
+
+def _checkpoint_across_meshes(arch, tmp_path):
+    cfg = _cfg(arch)
     mesh = make_mesh_compat((2, 2), ("data", "model"), "cpu")
     sh = model_shardings(tf.model_defs(cfg), cfg, mesh)
-    newp, _, _, _ = _step("qwen3-0.6b", mesh)
+    newp, _, _, _ = _step(arch, mesh)
     whole = unshard_model(newp, cfg, mesh)
     save_checkpoint(str(tmp_path), 1, {"params": newp},
                     shardings={"params": sh})
@@ -445,7 +460,7 @@ def test_checkpoint_of_cuts_across_meshes(tmp_path):
     assert got4["embed"].shape == (4, 256, 16)          # D 64 over 4
     one = load_checkpoint(str(tmp_path), 1, {"params": weight_structs(cfg)},
                           device="cpu")[0]["params"]
-    jcfg = replace(jget_config("qwen3-0.6b", smoke=True), dtype="float32")
+    jcfg = replace(jget_config(arch, smoke=True), dtype="float32")
     like = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, np.float32),
                         jbuild_model(jcfg).param_structs())
     jone = jckpt.load_checkpoint(str(tmp_path), 1, {"params": like})[0]
@@ -456,6 +471,7 @@ def test_checkpoint_of_cuts_across_meshes(tmp_path):
                           tree_leaves(one), tree_leaves(jone)):
         assert torch.equal(w.detach(), a) and torch.equal(w.detach(), b)
         assert torch.equal(w.detach(), j)
+    return whole
 
 
 # -------------------------------------------------------------- serving ----
@@ -481,10 +497,45 @@ def test_serving_under_fsdp(arch):
     for a, b in zip(*outs):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
-    # the caches: the Megatron program's one a rank (4 ranks, 2 rows of
-    # the batch each), the whole-leaf path's whole
+    # the caches: the rank program's one a rank (4 ranks, 2 rows of the
+    # batch each)
     cache = tdecode.init_cache(cfg, 4, 16, "cpu", par)
     if arch == "qwen3-0.6b":
         assert cache["blocks"][0]["k"].shape[:2] == (4, 2)
     else:
-        assert cache["blocks"][0]["tm_tok"].shape == (4, 1, cfg.d_model)
+        assert cache["blocks"][0]["tm_tok"].shape == (4, 2, 1, cfg.d_model)
+        assert cache["blocks"][0]["wkv"].shape[:3] == (4, 2, 1)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_whole_leaf_serving_under_fsdp(arch):
+    """(data 4), no model axis: the whole-leaf path on the gathered leaves
+    (`decode._whole_view`), cut and whole over 'data', against the
+    unsharded model; its caches whole."""
+    cfg = _cfg(arch)
+    mesh = make_mesh_compat((4,), ("data",), "cpu")
+    par = _par(mesh, remat=False)
+    whole = init_weights(cfg, seed=0, device="cpu")
+    toks = torch.as_tensor(_batch(B=4, S=8)["tokens"])
+    outs = []
+    for tree, pp in ((whole, Parallelism(remat=False)),
+                     (shard_model(whole, cfg, mesh), par),
+                     (shard_model(whole, cfg, mesh, fsdp=False), par)):
+        model = build_model(cfg, tree)
+        with torch.no_grad():
+            cache, lg = model.prefill(toks, 16, par=pp)
+            got = [lg]
+            nxt = lg.argmax(-1)
+            for i in range(4):
+                lg, cache = model.decode_step(cache, nxt, 8 + i, par=pp)
+                got.append(lg)
+                nxt = lg.argmax(-1)
+        outs.append(got)
+    for run in outs[1:]:
+        for a, b in zip(run, outs[0]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=1e-4 * float(b.abs().max()))
+    first = next(iter(tdecode.init_cache(cfg, 4, 16, "cpu", par)[
+        "blocks"][0].values()))
+    assert first.shape[0] == 4 and first.dim() == (3 if cfg.family == "ssm"
+                                                   else 4)

@@ -5,8 +5,10 @@ Smoke configs in float32, ranks stacked in this process on a (model 2) and
 a (model 4) mesh.  Each of the families `models.tp` covers (dense: qwen3,
 smollm with 3 query heads over 1 KV head, dealt 2 + 1 at tp 2 and 1 + 1 +
 1 + 0 at tp 4, phi4-mini, gemma3's rings; moe: dbrx, llama4-scout;
-encdec: seamless; vlm: llama-3.2-vision) runs from the blocks of one
-seeded weight tree (`tp.shard_model`) and from the tree itself:
+encdec: seamless; vlm: llama-3.2-vision; ssm: rwkv6, 2 heads, none on
+ranks 2 and 3 at tp 4; hybrid: hymba's attention and SSM channels) runs
+from the blocks of one seeded weight tree (`tp.shard_model`) and from
+the tree itself:
 
   forward logits within 2e-5 of the largest |logit|, the loss at rtol
   1e-6, and every leaf's gradient (the blocks reassembled by
@@ -18,14 +20,20 @@ seeded weight tree (`tp.shard_model`) and from the tree itself:
 
 Remat (`Parallelism.remat`, a superblock under `torch.utils.checkpoint`)
 gives the same loss and gradients bit for bit, and `moe.routing_log()`
-records each routing once.  One case runs the reference's forward and
-loss (qwen3-smoke at `Parallelism()`, weights from
+records each routing once.  qwen3-smoke, rwkv6-smoke and hymba-smoke run
+the reference's forward and loss (at `Parallelism()`, weights from
 tests/test_torch_train.py's `reference_weights`) against the port at tp 2,
 at the LM tests' limits: logits by tests/test_torch_lm.py's `close`, the
 loss at rtol 1e-4, gradients within 1e-3 of each leaf's largest |g|.
-The head-placement rule is checked at the production mesh's tp 16.  About
-20 s on the CPU.
+rwkv6's token-shift mixes need no psum (their raw gradients are whole on
+every rank), its w_bias / u_bonus / ln_x do.  Two gloo processes, one
+model rank each, train rwkv6 and hymba one step and serve a prefill and
+2 decode steps on a group (model 2) mesh: equal to the stacked ranks bit
+for bit.  The head-placement rule is checked at the production mesh's tp
+16.  About 40 s on the CPU.
 """
+import sys
+import textwrap
 from dataclasses import replace
 
 import numpy as np
@@ -44,7 +52,7 @@ from repro_torch.train.train_step import value_and_grad
 
 ARCHS = ("qwen3-0.6b", "smollm-360m", "phi4-mini-3.8b", "gemma3-12b",
          "dbrx-132b", "llama4-scout-17b-a16e", "seamless-m4t-medium",
-         "llama-3.2-vision-90b")
+         "llama-3.2-vision-90b", "rwkv6-1.6b", "hymba-1.5b")
 B, S = 2, 16
 LOGIT_TOL, LOSS_RTOL, GRAD_REL_L2, DECODE_TOL = 2e-5, 1e-6, 1e-5, 1e-4
 
@@ -139,10 +147,15 @@ def test_prefill_and_decode_match_unsharded(arch, tp):
     with torch.no_grad():
         c0, l0 = m0.prefill(batch["tokens"], 16, **kw)
         c1, l1 = m1.prefill(batch["tokens"], 16, par=par, **kw)
-        # the rank caches hold the ranks' own key/value heads
-        k = next(iter(c1["blocks"][0].values()))
-        assert k.shape[0] == tp and k.shape[-2] == max(
-            tpm.plan(cfg, par).hkv)
+        # the rank caches hold the ranks' own key/value heads (rwkv6:
+        # their WKV states)
+        plan = tpm.plan(cfg, par)
+        if cfg.family == "ssm":
+            k = c1["blocks"][0]["wkv"]
+            assert k.shape[:3] == (tp, B, max(plan.hq))
+        else:
+            k = next(iter(c1["blocks"][0].values()))
+            assert k.shape[0] == tp and k.shape[-2] == max(plan.hkv)
         worst = float((l1 - l0).abs().max() / l0.abs().max())
         nxt = l0[:, -1].argmax(-1)[:, None]
         for step in range(4):
@@ -155,7 +168,8 @@ def test_prefill_and_decode_match_unsharded(arch, tp):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "dbrx-132b",
-                                  "seamless-m4t-medium"])
+                                  "seamless-m4t-medium", "rwkv6-1.6b",
+                                  "hymba-1.5b"])
 def test_remat_is_bit_for_bit(arch):
     cfg, mesh, par, params, blocks = _setup(arch, 2)
     batch = _batch(cfg)
@@ -184,6 +198,17 @@ def test_matches_reference_package():
     """qwen3-smoke at tp 2 against the JAX package's forward, loss and
     gradients at `Parallelism()`, the weights carried into the blocks by
     `lm_params_from_numpy(par=)`."""
+    _against_reference("qwen3-0.6b")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_rwkv6_and_hymba_match_reference_package(arch):
+    """rwkv6 (its heads split 1 + 1, the channel mix's gate columns 32 +
+    32) and hymba (its attention and SSM channels) at tp 2, as qwen3."""
+    _against_reference(arch)
+
+
+def _against_reference(arch):
     import jax
     import jax.numpy as jnp
     from repro.models.transformer import logits_fn as jlogits_fn
@@ -191,13 +216,13 @@ def test_matches_reference_package():
     from repro_torch.convert import lm_params_from_numpy
     from test_torch_lm import close
     from test_torch_train import make_batch, reference_weights
-    jcfg, jmodel, params = reference_weights("qwen3-0.6b", "float32")
-    cfg = replace(get_config("qwen3-0.6b", smoke=True), dtype="float32")
+    jcfg, jmodel, params = reference_weights(arch, "float32")
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
     mesh = make_mesh_compat((2,), ("model",), "cpu")
     par = Parallelism(mesh=mesh, model_axis="model")
     tree = jax.tree.map(np.asarray, params)
     blocks = lm_params_from_numpy(cfg, tree, device="cpu", par=par)
-    assert blocks["blocks"][0]["attn0"]["wq"].shape[0] == 2
+    assert all(t.shape[0] == 2 for t in tree_leaves(blocks))
     batch = make_batch(jcfg)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     h, _ = jmodel.forward(params, jb, JPar())
@@ -205,7 +230,7 @@ def test_matches_reference_package():
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     model = build_model(cfg, blocks)
     got = model.logits(model(tb["tokens"], par=par), par)
-    close(got, want, "float32", "qwen3 tp 2 forward logits")
+    close(got, want, "float32", f"{arch} tp 2 forward logits")
     (loss_r, _), g_r = jax.value_and_grad(
         lambda p: jmodel.loss(p, jb, JPar()), has_aux=True)(params)
     loss_t, _, g_t = value_and_grad(_trainable(blocks), tb, cfg, par)
@@ -217,6 +242,157 @@ def test_matches_reference_package():
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
                                    atol=1e-3 * float(w.abs().max()),
                                    err_msg=path)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_bfloat16_ranks_keep_the_model_type(arch):
+    """bfloat16 at tp 4 (rwkv6: two ranks without a head): a prefill and 2
+    decode steps keep bfloat16 hidden states (the rank without a head adds
+    its float32 collective results as bfloat16 zeros) and stay within
+    tests/test_torch_lm.py's bfloat16 limit (5e-2 of the largest |logit|)
+    of the unsharded model."""
+    cfg = get_config(arch, smoke=True)
+    mesh = make_mesh_compat((4,), ("model",), "cpu")
+    par = Parallelism(mesh=mesh, model_axis="model", remat=False)
+    params = init_weights(cfg, seed=0, device="cpu")
+    m0 = build_model(cfg, params)
+    m1 = build_model(cfg, tpm.shard_model(params, cfg, mesh))
+    toks = _batch(cfg, seed=3, s=8)["tokens"]
+    with torch.no_grad():
+        assert m1(toks, par=par).dtype == torch.bfloat16
+        c0, l0 = m0.prefill(toks, 16)
+        c1, l1 = m1.prefill(toks, 16, par=par)
+        worst = float((l1 - l0).float().abs().max() / l0.float().abs().max())
+        nxt = l0[:, -1].argmax(-1)[:, None]
+        for step in range(2):
+            l0, c0 = m0.decode_step(c0, nxt, 8 + step)
+            l1, c1 = m1.decode_step(c1, nxt, 8 + step, par)
+            worst = max(worst, float((l1 - l0).float().abs().max()
+                                     / l0.float().abs().max()))
+    assert worst <= 5e-2, worst
+
+
+def test_rwkv6_mixes_need_no_psum():
+    """The token-shift mixes (mu_*, cmu_*) are taken before f, so their
+    raw gradients (no `sync_grads`) are the whole gradient on every rank;
+    w_bias, u_bonus and ln_x are read on each rank's heads only: their
+    raw gradients are partial, placed `reduce="model"`, and sum to the
+    whole one."""
+    cfg, mesh, par, params, blocks = _setup("rwkv6-1.6b", 2)
+    batch = _batch(cfg)
+    sh = tpm.model_shardings(tf.model_defs(cfg), cfg, mesh)
+    p0, p1 = _trainable(params), _trainable(blocks)
+    g0 = torch.autograd.grad(tf.loss_fn(p0, batch, cfg)[0],
+                             tree_leaves(p0))
+    g1 = torch.autograd.grad(tf.loss_fn(p1, batch, cfg, par)[0],
+                             tree_leaves(p1))
+    named = [path for path, _ in _named(p0)]
+    mixes = partial = 0
+    for path, a, b, s in zip(named, g0, g1, tree_leaves(sh)):
+        name = path.rsplit("/", 1)[-1]
+        if name.startswith(("mu_", "cmu_")):
+            assert s.reduce is None, path
+            for i in range(2):
+                assert _rel(b[i], a) <= GRAD_REL_L2, (path, i)
+            mixes += 1
+        elif name in ("w_bias", "u_bonus", "ln_x"):
+            assert s.reduce == "model", path
+            assert _rel(b[0], a) > 0.1 and _rel(b[0] + b[1], a) <= \
+                GRAD_REL_L2, path
+            partial += 1
+    assert (mixes, partial) == (7 * cfg.n_layers, 3 * cfg.n_layers)
+
+
+_GLOO_WORKER = textwrap.dedent("""
+    import sys
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_group_mesh
+    from repro_torch.models import build_model, init_weights
+    from repro_torch.models.params import map_tree, tree_leaves
+    from repro_torch.models.tp import shard_model
+    from repro_torch.sharding.parallel import Parallelism
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import make_train_step
+
+    rank, world, init, d = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                            sys.argv[4])
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank)
+    mesh = make_group_mesh((2,), ("model",), device="cpu")
+    par = Parallelism(mesh=mesh, model_axis="model")
+    batch = {k: torch.as_tensor(v) for k, v in
+             np.load(f"{d}/batch.npz").items()}
+    res = {}
+    for a in ("rwkv6-1.6b", "hymba-1.5b"):
+        cfg = replace(get_config(a, smoke=True), dtype="float32")
+        blocks = shard_model(init_weights(cfg, seed=0, device="cpu"), cfg,
+                             mesh)
+        with torch.no_grad():
+            model = build_model(cfg, blocks)
+            serve = replace(par, remat=False)
+            cache, lg = model.prefill(batch["tokens"][:, :8], 16, par=serve)
+            res[f"{a}/serve0"] = lg.numpy()
+            for i in range(2):
+                lg, cache = model.decode_step(cache, lg.argmax(-1), 8 + i,
+                                              par=serve)
+                res[f"{a}/serve{i + 1}"] = lg.numpy()
+        blocks = map_tree(lambda t: t.requires_grad_(), blocks)
+        step = make_train_step(cfg, topt.AdamWConfig(
+            lr=1e-3, warmup=2, total_steps=20), par=par)
+        newp, _, m = step(blocks, topt.init_opt_state(blocks), batch)
+        res[f"{a}/loss"] = m["loss"].numpy()
+        res[f"{a}/grad_norm"] = m["grad_norm"].numpy()
+        for i, t in enumerate(tree_leaves(newp)):
+            res[f"{a}/p{i}"] = t.detach().numpy()
+    np.savez(f"{d}/rank{rank}.npz", **res)
+    dist.destroy_process_group()
+""").strip()
+
+
+def test_gloo_ranks_equal_stacked_bit_for_bit(tmp_path):
+    """rwkv6 and hymba on a group (model 2) mesh, one rank a process: a
+    prefill and 2 decode steps and one train step, equal to the stacked
+    mesh's bit for bit."""
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import make_train_step
+    from test_torch_dist_gloo import run_side_by_side
+    batch = {k: v.numpy() for k, v in _batch(get_config(
+        "rwkv6-1.6b", smoke=True), seed=5).items()}
+    np.savez(tmp_path / "batch.npz", **batch)
+    run_side_by_side([[sys.executable, "-c", _GLOO_WORKER, str(r), "2",
+                       f"file://{tmp_path}/rendezvous", str(tmp_path)]
+                      for r in range(2)], timeout=300)
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    for arch in ("rwkv6-1.6b", "hymba-1.5b"):
+        cfg, mesh, par, params, blocks = _setup(arch, 2, remat=True)
+        with torch.no_grad():
+            model = build_model(cfg, blocks)
+            serve = replace(par, remat=False)
+            cache, lg = model.prefill(tb["tokens"][:, :8], 16, par=serve)
+            want = [lg]
+            for i in range(2):
+                lg, cache = model.decode_step(cache, lg.argmax(-1), 8 + i,
+                                              par=serve)
+                want.append(lg)
+        blocks = _trainable(blocks)
+        step = make_train_step(cfg, topt.AdamWConfig(
+            lr=1e-3, warmup=2, total_steps=20), par=par)
+        newp, _, m = step(blocks, topt.init_opt_state(blocks), tb)
+        for r, res in enumerate(ranks):
+            for i, w in enumerate(want):
+                np.testing.assert_array_equal(res[f"{arch}/serve{i}"],
+                                              w.numpy())
+            assert res[f"{arch}/loss"] == m["loss"].numpy(), arch
+            assert res[f"{arch}/grad_norm"] == m["grad_norm"].numpy()
+            for i, t in enumerate(tree_leaves(newp)):
+                np.testing.assert_array_equal(res[f"{arch}/p{i}"][0],
+                                              t.detach()[r].numpy())
 
 
 def test_head_placement_rule():
