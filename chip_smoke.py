@@ -26,14 +26,16 @@ K4) at full size and llama-3.2-vision-90b (cross-attention over 1,600 patch
 embeddings through K4) at full width, depth cut to LM_CUT layers; random
 bfloat16 weights from a seeded generator.  And the LM training path —
 `launch.train.run`, the reference's driver — on smollm-360m at full size
-(K4 in every forward, its gradient in every backward) and rwkv6-1.6b (K5).
+(K4 in every forward, its gradient in every backward) and rwkv6-1.6b (K5
+in every forward, its backward kernel in every backward).
 
 Phases, in order; any failed check raises and ends the run non-zero:
 
-  1. the card's name and power limit; build the five CUDA kernels from
-     `src/repro_torch/kernels/csrc` with nvcc (sm_90a, one process each),
-     printing ptxas's registers and spills per kernel (K4 by path and
-     head size, D = 256 included);
+  1. the card's name and power limit; build the six CUDA sources from
+     `src/repro_torch/kernels/csrc` with nvcc (sm_90a, one process each:
+     K1-K5 and K5's backward, wkv_bwd.cu), printing ptxas's registers and
+     spills per kernel (K4 by path and head size, D = 256 included; K5
+     and its backward by template arguments);
   2. plan the N-body geometry with the device traversal (K3's launch count
      set to 0 just before, read just after) and with the host traversal,
      and compare every receiver's pair lists: a difference is allowed only
@@ -226,18 +228,25 @@ Phases, in order; any failed check raises and ends the run non-zero:
      time;
  11. LM training, the reference's training tier on the card:
      (a) the gradients of K4's and K5's autograd Functions (the kernel
-     forward, the PyTorch backward `flash_attention_bwd` / `wkv_bwd`)
-     against autograd through their plain versions (`attention_rounded_ref`,
-     `wkv_ref`) on the same bfloat16 inputs, per tensor max |error| and
+     forward; K4's PyTorch backward `flash_attention_bwd`, K5's backward
+     kernel `csrc/wkv_bwd.cu`) against autograd through their plain
+     versions (`attention_rounded_ref`, `wkv_ref`) on the same bfloat16
+     inputs, per tensor max |error| and
      relative L2 (GRAD_MAX_REL, GRAD_REL_L2): K4 at smollm-360m's (4, 15 /
      5, 512, 64) and qwen3-0.6b's (4, 16 / 8, 512, 128) causal shapes,
      gemma3-12b's D = 256 with its window of 1,024 at S = 2,048, and
      unmasked over 1,600 keys (llama-3.2-vision-90b's cross); K5 at
      rwkv6-1.6b's (4 x 32, 512, 64) with a random initial state and
-     final-state gradient; each backward timed beside its forward, the
+     final-state gradient, and its backward kernel against its plain
+     version `wkv_bwd` on the same inputs at every BH the main path gives
+     it (K5_BWD_BHS: 128, 64, 32, 16, so both of its launch shapes at D =
+     64; bfloat16 r, k, v, and float32 at 128 and 16; K5_BWD_ATOL,
+     K5_BWD_BF16_RTOL), two launches bit for bit, each BH timed beside its
+     bound and `wkv_bwd`; each backward timed beside its forward, the
      plain forward + backward and (K4) SDPA's forward + backward (CUDA
-     events); (b) `launch.train.run` on smollm-360m at full width and depth
-     with the example's full-size settings (batch 4, seq 512, lr 3e-4) for
+     events); (b)
+     `launch.train.run` on smollm-360m at full width and depth with the
+     example's full-size settings (batch 4, seq 512, lr 3e-4) for
      30 of its 300 steps: every loss and grad norm finite, the mean of the
      last 5 losses at least 0.1 below that of the first 5, K4 launched 32
      times a step and its backward as often; warm step time, tokens/s,
@@ -250,9 +259,10 @@ Phases, in order; any failed check raises and ends the run non-zero:
      build/, deleted afterwards) and resumed from step 6: the last 3 losses
      at rtol 2e-4; (d) rwkv6-1.6b at full width and depth, batch 2, seq
      512, 3 steps: finite losses and grad norms, K5 launched 24 times a
-     step and its backward as often, the step time and the backward WKV's
-     share of it; K4's and K5's launches of (b)-(d) count in the kernels'
-     line;
+     step and its backward kernel as often (once a backward pass of the
+     Function), the step time and the backward kernel's share of it (its
+     wrapper's device time); K4's, K5's and K5.bwd's launches of (b)-(d)
+     count in the kernels' line;
  12. the LM sharding tier, ranks stacked on the card: (a) the seven
      collectives of `core.collectives` on (8,) and (pod 2, data 4)
      meshes, at tests/test_collectives.py's inputs and at COLL_WORDS
@@ -319,7 +329,7 @@ Phases, in order; any failed check raises and ends the run non-zero:
      HYMBA_LOGIT_TOL; (e) rwkv6-1.6b's RWKV_FSDP_STEPS steps of 2 x 512 on
      (model 4) against the single-card steps, its limits at least
      TP_NOISE_RATIO times the single card's distance from the same steps
-     in float32;
+     in float32, K5.bwd launched once a backward pass of K5's Function;
  15. FSDP over the data axes, ranks stacked on the card: (a) smollm-360m
      at full size, FSDP_STEPS steps of 4 x 512 on (data 4), on (pod 2,
      data 2) cut over 'data' (hierarchical) and over ('pod', 'data')
@@ -327,10 +337,12 @@ Phases, in order; any failed check raises and ends the run non-zero:
      limits on the first step, TP_LOSS_RTOL on every loss), with the held
      GiB a rank, the peak, each reduction stage's bytes and axes and what
      crosses the pod axis; (b) rwkv6-1.6b at full size on (data 2), 2 x
-     512, RWKV_FSDP_STEPS steps (K5 and its backward under the gathers);
+     512, RWKV_FSDP_STEPS steps (K5 and its backward kernel under the
+     gathers, K5.bwd once a backward pass);
      (c) the GiB a rank of dbrx-132b and llama4-scout holds in phases 12
      (c) and 14 (c) beside the 13.29 held with the 'data' entries whole;
- 16. one JSON line listing every ported kernel;
+ 16. one JSON line listing every ported kernel (K5's backward kernel as
+     "K5.bwd");
  17. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device it
@@ -435,9 +447,10 @@ HYMBA_LOGIT_TOL = 0.25
 # bfloat16 q, k grads: one rounding here, two in autograd's casts; K4's
 # bfloat16 output enters rowsum(dO O)), dv under 1e-4; K5's bfloat16 dr /
 # dk / dv up to 3.0e-5 and 3.2e-3 (half a bfloat16 unit at their largest
-# values), its float32 dw / du / dstate up to 4.4e-7.  Limits about 2.5x
-# the largest relative L2 and 2x the largest max, K5's max one bfloat16
-# unit (2^-7)
+# values), its float32 dw / du / dstate up to 4.4e-7, through the PyTorch
+# backward that preceded its kernel (through the kernel 2.2e-5, 1.8e-3 and
+# 5.8e-7).  Limits about 2.5x the largest relative L2 and 2x the largest
+# max, K5's max one bfloat16 unit (2^-7)
 GRAD_REL_L2 = {"K4": 1e-2, "K5": 1e-4}
 GRAD_MAX_REL = {"K4": 1.5e-2, "K5": 7.8e-3}
 # ... at training shapes: (label, (B, H, Hkv, Sq, Sk, D), causal, window)
@@ -447,6 +460,17 @@ K4_GRAD_CASES = (
     ("gemma3-12b local", (1, 16, 8, 2048, 2048, 256), True, 1024),
     ("llama-3.2-vision-90b cross", (1, 64, 8, 512, 1600, 128), False, None))
 K5_GRAD_SHAPE = (4 * 32, 512, 64)           # rwkv6-1.6b: (B H, S, D)
+K5_TRAIN_BH = 2 * 32                        # ... at its training batch 2
+# every BH the main path gives K5's backward kernel: phase 11 (a)'s, the
+# training batch 2 (11 (d), 15's single card), one of 2 data ranks (15)
+# and one of 4 model ranks (14 (e)); from BH 33 the (2, 4, 8) launch, below
+# it (1, 4, 16) (`wkv_bwd_launch_params`)
+K5_BWD_BHS = (K5_GRAD_SHAPE[0], K5_TRAIN_BH, 32 * 2 // 2, 32 * 2 // 4)
+# K5's backward kernel against `wkv_bwd` on the same inputs, as the card
+# tests hold it: each gradient within K5_BWD_ATOL of its largest |value|
+# (float32 sums in another order); bf16 dr, dk, dv may round to the
+# neighbouring bfloat16 value, one unit (2^-7 of the value) more
+K5_BWD_ATOL, K5_BWD_BF16_RTOL = 1e-4, 2.0 ** -7
 # phase 11 (b)-(d): the reference's training main path and its cuts
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_LR = (
     "smollm-360m", 30, 4, 512, 3e-4)
@@ -611,12 +635,17 @@ def check_close(name, got, want, absum):
 # JL, TC
 WKV_ENTRY = re.compile(r"wkv_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi"
                        r"(\d+)ELi(\d+)ELi(\d+)E")
+# K5's backward's: the kernel (prep, kernel, dv), type, D and (kernel) A,
+# NW, TB
+WKV_BWD_ENTRY = re.compile(r"wkv_bwd_(prep|kernel|dv)I(f|13__nv_bfloat16)Li"
+                           r"(\d+)E(?:Li(\d+)ELi(\d+)ELi(\d+)E)?")
 # K4's: the kernel (tc: bf16 wgmma; kernel: float32 CUDA cores) and D
 ATTN_ENTRY = re.compile(r"flash_attention_(tc|kernel)I(?:f)?Li(\d+)E")
 # the port's kernels as the profiler names them (their CUDA function names)
 KERNEL_NAMES = {"flash_attention_tc": "K4 (bf16, wgmma + TMA)",
                 "flash_attention_kernel": "K4 (float32, CUDA cores)",
-                "wkv_kernel": "K5", "p2p_gathered_kernel": "K1",
+                "wkv_kernel": "K5", "wkv_bwd": "K5.bwd",
+                "p2p_gathered_kernel": "K1",
                 "p2p_stream_kernel": "K2"}
 
 
@@ -2810,10 +2839,12 @@ def grad_errors(torch, kernel: str, names, got, want) -> None:
                                  f"{scale:.3e}")
 
 
-def kernel_gradients(torch, kattn, krwkv, dev, power) -> None:
+def kernel_gradients(torch, kattn, krwkv, dev, power) -> dict:
     """Phase 11 (a): K4's and K5's autograd Functions against autograd
     through their plain versions, on the card, at training shapes; each
-    backward timed beside its forward (CUDA events)."""
+    backward timed beside its forward (CUDA events); K5's backward kernel
+    against its plain version `wkv_bwd`.  Returns the backward kernel's
+    line of the kernels' JSON (its launches aside)."""
     import torch.nn.functional as F
     rng = np.random.default_rng(11)
     bf16 = torch.bfloat16
@@ -2884,31 +2915,90 @@ def kernel_gradients(torch, kattn, krwkv, dev, power) -> None:
     u, s0 = normal((BH, D), torch.float32, 0.1), normal(
         (BH, D, D), torch.float32, 0.1)
     dy, ds = normal((BH, C, D), bf16), normal((BH, D, D), torch.float32)
-    n0 = krwkv.backward_calls
+    n0, nb0 = krwkv.backward_calls, krwkv.backward_launches
     got = grads(krwkv.wkv_chunk, (r, k, v, w, u, s0), (dy, ds))
-    if krwkv.backward_calls != n0 + 1:
-        raise AssertionError("K5's backward did not run")
+    if (krwkv.backward_calls, krwkv.backward_launches) != (n0 + 1, nb0 + 1):
+        raise AssertionError("K5's backward did not run its kernel once")
     want = grads(krwkv.wkv_ref, (r, k, v, w, u, s0), (dy, ds))
     print(f"  K5 gradient at rwkv6-1.6b's ({BH}, {C}, {D}) bf16 (float32 w, "
-          f"u, state) against autograd through wkv_ref:", flush=True)
+          f"u, state), the backward kernel, against autograd through "
+          f"wkv_ref:", flush=True)
     grad_errors(torch, "K5", ("r", "k", "v", "w", "u", "state"), got, want)
     del got, want
     args = (r, k, v, w, u, s0)
     fwd = cuda_ms(torch, lambda: krwkv.wkv_chunk(*args))
-    bwd = cuda_ms(torch, lambda: krwkv.wkv_bwd(*args, dy, ds), reps=3)
+    # the kernel against its plain version `wkv_bwd` on the same inputs at
+    # every BH of the main path (so each launch shape it builds): bf16 r,
+    # k, v, and float32 at the largest and smallest BH (K5_BWD_ATOL; bf16
+    # dr, dk, dv also K5_BWD_BF16_RTOL), two launches bit for bit; each
+    # bf16 launch timed beside its bound and `wkv_bwd`
+    out = {}
+    for bh in K5_BWD_BHS:
+        a = tuple(t[:bh] for t in args)
+        dyb, dsb = dy[:bh], ds[:bh]
+        params = krwkv.wkv_bwd_launch_params(bh, C, D)
+        cases = [("bf16", a)]
+        if bh in (max(K5_BWD_BHS), min(K5_BWD_BHS)):
+            cases.insert(0, ("float32", [t.float() for t in a[:3]]
+                             + list(a[3:])))
+        err = 0.0
+        for label, ins in cases:
+            dyi = dyb.to(ins[0].dtype)
+            kern = krwkv._launch_bwd(*ins, dyi, dsb)
+            again = krwkv._launch_bwd(*ins, dyi, dsb)
+            if not all(torch.equal(x, y) for x, y in zip(kern, again)):
+                raise AssertionError(f"K5's backward kernel ({label}, BH "
+                                     f"{bh}): two launches differ")
+            plain = krwkv.wkv_bwd(*ins, dyi, dsb)
+            worst = []
+            for name, g, p in zip(("dr", "dk", "dv", "dw", "du", "dstate0"),
+                                  kern, plain):
+                g, p = g.float(), p.float()
+                e = float((g - p).abs().max())
+                rtol = (K5_BWD_BF16_RTOL if label == "bf16"
+                        and name in ("dr", "dk", "dv") else 0.0)
+                lim = (K5_BWD_ATOL * float(p.abs().max()) + rtol * p.abs())
+                over = int(((g - p).abs() > lim).sum())
+                scale = max(float(p.abs().max()), 1e-30)
+                worst.append(f"{name} {e:.3e} ({e / scale:.2e} of max, "
+                             f"{over} over)")
+                if over or not torch.isfinite(g).all():
+                    raise AssertionError(f"K5's backward kernel ({label}, BH"
+                                         f" {bh}) {name}: {over} values past "
+                                         f"the limit")
+                if label == "float32":
+                    err = max(err, e)
+            print(f"    backward kernel against wkv_bwd at ({bh}, {C}, {D}) "
+                  f"({label} r, k, v; launch {params} (A, NW, TB)): "
+                  f"{'; '.join(worst)}; two launches bit for bit",
+                  flush=True)
+            del kern, again, plain
+        ms = device_ms(torch, lambda: krwkv._launch_bwd(*a, dyb, dsb),
+                       reps=20)
+        pms = cuda_ms(torch, lambda: krwkv.wkv_bwd(*a, dyb, dsb), reps=3)
+        # the backward's least work per (token, head, i, j), float32: the
+        # state again (3), the adjoint update (3), dr, dk, dv (2 each), dw
+        # (2); r, k, v, dy, dr, dk, dv in bf16, w and dw in float32, once
+        # each, the state, its gradient and dstate0 once
+        bms, by = bound_ms(bh * C * D * (7 * 2 + 2 * 4) + 3 * 4.0 * bh * D * D,
+                           14.0 * bh * C * D * D)
+        print(f"    K5 backward at ({bh}, {C}, {D}) bf16: kernel {ms:.4f} ms "
+              f"(bound {bms:.4f} ms ({by}), {100 * bms / ms:.2f}% of it; "
+              f"launch {params} (A, NW, TB)), wkv_bwd {pms:.4f} ms "
+              f"({pms / ms:.1f}x the kernel); power limit {power}",
+              flush=True)
+        if bh == BH:
+            out = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                       max_abs_err=err, library_ms=None)
+        torch.cuda.empty_cache()
     plain = cuda_ms(torch, lambda: grads(krwkv.wkv_ref, args, (dy, ds)),
                     reps=1)
-    # the backward's least work per (token, head, i, j), float32: the
-    # state again (3), the adjoint update (3), dr, dk, dv (2 each), dw (2);
-    # r, k, v, dy, dr, dk, dv in bf16, w and dw in float32, once each
-    bms, by = bound_ms(BH * C * D * (7 * 2 + 2 * 4) + 3 * 4.0 * BH * D * D,
-                       14.0 * BH * C * D * D)
-    print(f"    K5 forward {fwd:.4f} ms, backward (wkv_bwd) {bwd:.4f} ms "
-          f"({bwd / fwd:.1f}x; bound {bms:.4f} ms ({by}), "
-          f"{100 * bms / bwd:.2f}% of it); plain forward + backward "
-          f"{plain:.4f} ms; power limit {power}", flush=True)
+    print(f"    K5 forward {fwd:.4f} ms, backward kernel {out['ms']:.4f} ms "
+          f"({out['ms'] / fwd:.1f}x); plain forward + backward {plain:.4f} "
+          f"ms; power limit {power}", flush=True)
     del r, k, v, w, u, s0, dy, ds, args
     torch.cuda.empty_cache()
+    return out
 
 
 def train_step_split(torch, kattn, cfg, dev, card) -> None:
@@ -2984,13 +3074,13 @@ def train_step_split(torch, kattn, cfg, dev, card) -> None:
 
 def lm_training(torch, kattn, krwkv, dev, card) -> dict:
     """Phase 11 (b)-(d): the reference's training main path,
-    `launch.train.run`, on the card.  Returns the K4 and K5 launches of
-    those runs."""
+    `launch.train.run`, on the card.  Returns the K4, K5 and K5.bwd
+    launches of those runs."""
     import tempfile
     from repro_torch.ckpt import latest_step
     from repro_torch.configs import get_config
     from repro_torch.launch import train as ltrain
-    launches = {"K4": 0, "K5": 0}
+    launches = {"K4": 0, "K5": 0, "K5.bwd": 0}
 
     # (b) smollm-360m at full width and depth, the example's full-size
     # settings, 30 of its 300 steps
@@ -3082,17 +3172,20 @@ def lm_training(torch, kattn, krwkv, dev, card) -> dict:
     # (d) rwkv6-1.6b at full width and depth: K5 forward and backward
     arch = "rwkv6-1.6b"
     rcfg = get_config(arch)
-    krwkv.launches, n_bwd = 0, krwkv.backward_calls
+    krwkv.launches, krwkv.backward_launches = 0, 0
+    n_bwd = krwkv.backward_calls
     wb = []
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with events_of(torch, krwkv, "wkv_bwd", wb):
+    with events_of(torch, krwkv, "_launch_bwd", wb):
         out = ltrain.run(arch, smoke=False, steps=RWKV_TRAIN_STEPS,
                          batch=RWKV_TRAIN_B, seq=TRAIN_S, ckpt_dir="",
                          lr=TRAIN_LR, device=dev)
         torch.cuda.synchronize()
     k5, bwd = krwkv.launches, krwkv.backward_calls - n_bwd
+    kb = krwkv.backward_launches
     launches["K5"] += k5
+    launches["K5.bwd"] += kb
     wkv_s = events_ms(wb[-rcfg.n_layers:]) / 1e3       # the last step's
     step_s = out["step_s"][-1]
     print(f"  {arch} ({rcfg.n_layers} layers, batch {RWKV_TRAIN_B}, seq "
@@ -3100,18 +3193,18 @@ def lm_training(torch, kattn, krwkv, dev, card) -> dict:
           f"{np.round(out['losses'], 4).tolist()}, grad norms "
           f"{np.round(out['grad_norms'], 3).tolist()}; steps "
           f"{np.round(out['step_s'], 3).tolist()} s; the last step's "
-          f"backward WKV (wkv_bwd, device time) {wkv_s:.4f} s, "
+          f"backward WKV (K5.bwd's wrapper, device time) {wkv_s:.4f} s, "
           f"{100 * wkv_s / step_s:.1f}% of it; peak memory "
           f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB over "
           f"the {base / 2**30:.2f} GiB allocated before; K5 launches "
           f"{k5} ({k5 / RWKV_TRAIN_STEPS:.0f} a step), its backward {bwd} "
-          f"times; card {card}", flush=True)
+          f"times, K5.bwd launched {kb} times; card {card}", flush=True)
     if not (np.isfinite(out["losses"]).all()
             and np.isfinite(out["grad_norms"]).all()):
         raise AssertionError(f"{arch}: non-finite loss or grad norm")
-    if k5 != rcfg.n_layers * RWKV_TRAIN_STEPS or bwd != k5:
+    if k5 != rcfg.n_layers * RWKV_TRAIN_STEPS or bwd != k5 or kb != bwd:
         raise AssertionError(f"{arch}: K5 launched {k5} times, its backward "
-                             f"{bwd}, expected "
+                             f"{bwd}, K5.bwd {kb}, expected "
                              f"{rcfg.n_layers * RWKV_TRAIN_STEPS}")
     torch.cuda.empty_cache()
     return launches
@@ -4130,9 +4223,9 @@ def tp_moe_model(torch, kattn, dev, card) -> int:
 
 
 def lm_tensor_parallel(torch, kattn, krwkv, dev, card) -> dict:
-    """Phase 14: the LM tier on the model ranks' blocks.  Returns K4's and
-    K5's launches on the meshes."""
-    out = {"K4": 0, "K5": 0}
+    """Phase 14: the LM tier on the model ranks' blocks.  Returns K4's, K5's
+    and K5.bwd's launches on the meshes."""
+    out = {"K4": 0, "K5": 0, "K5.bwd": 0}
     for arch in TP_SERVE_ARCHS:
         with phase(f"LM tensor parallel (a): serving {arch} on (data 1, "
                    f"model {TP_RANKS})"):
@@ -4153,11 +4246,12 @@ def lm_tensor_parallel(torch, kattn, krwkv, dev, card) -> dict:
                                         HYMBA_LOGIT_TOL)
     with phase(f"LM tensor parallel (e): rwkv6-1.6b training on (model "
                f"{TP_RANKS})"):
-        out["K5"] += fsdp_steps(torch, kattn, krwkv, "rwkv6-1.6b",
-                                ((f"model {TP_RANKS}", (TP_RANKS,),
-                                  ("model",), False),),
-                                RWKV_FSDP_STEPS, RWKV_TRAIN_B, dev, card,
-                                RWKV_DP_NORM_RTOL, anchor=True)
+        for name, n in fsdp_steps(torch, kattn, krwkv, "rwkv6-1.6b",
+                                  ((f"model {TP_RANKS}", (TP_RANKS,),
+                                    ("model",), False),),
+                                  RWKV_FSDP_STEPS, RWKV_TRAIN_B, dev, card,
+                                  RWKV_DP_NORM_RTOL, anchor=True).items():
+            out[name] += n
     return out
 
 
@@ -4207,7 +4301,9 @@ def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
     step's loss, the first grad norm and clipped gradient at least
     TP_NOISE_RATIO times the single card's own distance from the same
     steps in float32 from the same weights on the same batches,
-    `float32_steps`).  Returns the kernels' launches on the meshes."""
+    `float32_steps`).  Returns the kernels' launches on the meshes (K5's
+    backward kernel's under "K5.bwd", once a backward pass of K5's
+    Function, which is checked)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.mesh import make_mesh_compat
@@ -4227,7 +4323,9 @@ def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
     opt_cfg = AdamWConfig(lr=TRAIN_LR)
     kernel = kattn if cfg.family != "ssm" else krwkv
     name = "K4" if kernel is kattn else "K5"
-    one, launches = None, 0
+    one, launches = None, {name: 0}
+    if kernel is krwkv:
+        launches["K5.bwd"] = 0
     for label, shape, axes, pod in (("single card", None, None, False),)\
             + tuple(layouts):
         if shape is None:
@@ -4249,6 +4347,7 @@ def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
         base = torch.cuda.memory_allocated(dev)
         losses, times, first = [], [], None
         kernel.launches, bwd0 = 0, kernel.backward_calls
+        krwkv.backward_launches = 0
         for i, b in enumerate(batches):
             if shape is not None:
                 gathers.clear()
@@ -4264,9 +4363,12 @@ def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
                               for x in first)
         peak = torch.cuda.max_memory_allocated(dev) - base
         k, bwd = kernel.launches, kernel.backward_calls - bwd0
+        kb = krwkv.backward_launches
         ranks = 1 if shape is None else mesh.n_ranks
         if shape is not None:
-            launches += k
+            launches[name] += k
+            if kernel is krwkv:
+                launches["K5.bwd"] += kb
             held, _ = fsdp_held(tree, cfg, mesh, pod)
         else:
             held = _gib(tree)
@@ -4274,7 +4376,9 @@ def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
               f"{np.round(losses, 6).tolist()}, step s "
               f"{np.round(times, 4).tolist()} (stacked on one card), grad "
               f"norm {gn:.6f}; {name} launches {k} ({k // n_steps} a step),"
-              f" its backward {bwd} times; weights held a rank "
+              f" its backward {bwd} times"
+              f"{f' (K5.bwd {kb})' if kernel is krwkv else ''}; weights "
+              f"held a rank "
               f"{held:.4f} GiB, peak {peak / 2**30:.3f} GiB above the "
               f"weights, optimizer state and batch "
               f"({peak / ranks / 2**30:.3f} a rank); card {card}",
@@ -4282,6 +4386,9 @@ def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
         if k == 0 or bwd == 0 or not all(map(math.isfinite, losses)):
             raise AssertionError(f"{arch} {label}: {name} launches {k}, "
                                  f"backwards {bwd}, losses {losses}")
+        if kernel is krwkv and kb != bwd:
+            raise AssertionError(f"{arch} {label}: K5.bwd launched {kb} "
+                                 f"times for {bwd} backward passes")
         if shape is not None and "model" in axes:
             want = k_one * sum(1 for h in tpm.plan(cfg, par).hq if h)
             if (k, bwd) != (want, bwd_one * want // k_one):
@@ -4379,17 +4486,19 @@ def float32_steps(torch, cfg, params, batches, opt_cfg, one) -> tuple:
 
 
 def lm_fsdp(torch, kattn, krwkv, dev, card) -> dict:
-    """Phase 15: FSDP over the data axes.  Returns K4's and K5's
-    launches."""
-    out = {"K4": 0, "K5": 0}
+    """Phase 15: FSDP over the data axes.  Returns K4's, K5's and
+    K5.bwd's launches."""
+    out = {"K4": 0, "K5": 0, "K5.bwd": 0}
     with phase(f"LM FSDP (a): {TRAIN_ARCH} on (data 4) and (pod 2, data 2)"):
         out["K4"] += fsdp_steps(torch, kattn, krwkv, TRAIN_ARCH,
-                                FSDP_LAYOUTS, FSDP_STEPS, DP_B, dev, card)
+                                FSDP_LAYOUTS, FSDP_STEPS, DP_B, dev,
+                                card)["K4"]
     with phase("LM FSDP (b): rwkv6-1.6b on (data 2)"):
-        out["K5"] += fsdp_steps(torch, kattn, krwkv, "rwkv6-1.6b",
-                                (("data 2", (2,), ("data",), False),),
-                                RWKV_FSDP_STEPS, RWKV_TRAIN_B, dev, card,
-                                RWKV_DP_NORM_RTOL)
+        for name, n in fsdp_steps(torch, kattn, krwkv, "rwkv6-1.6b",
+                                  (("data 2", (2,), ("data",), False),),
+                                  RWKV_FSDP_STEPS, RWKV_TRAIN_B, dev, card,
+                                  RWKV_DP_NORM_RTOL).items():
+            out[name] += n
     with phase("LM FSDP (c): what a rank of the MoE models holds on (data "
                "2, model 2)"):
         for label, gib in HELD_GIB.items():
@@ -4636,6 +4745,12 @@ def main() -> int:
         for src, log in logs.items():
             entry = ""
             for line in log.splitlines():
+                m = WKV_BWD_ENTRY.search(line)
+                if m:           # K5's backward's, by kernel and argument
+                    ty = "f32" if m[2] == "f" else "bf16"
+                    entry = (f"wkv_bwd_{m[1]}<{ty}, D {m[3]}"
+                             + (f", A {m[4]}, NW {m[5]}, TB {m[6]}" if m[4]
+                                else "") + ">: ")
                 m = WKV_ENTRY.search(line)
                 if m:           # K5's instantiations, by template argument
                     entry = (f"wkv_kernel<{'f32' if m[1] == 'f' else 'bf16'}"
@@ -5121,7 +5236,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ 10 -----
-    launches.update(K4=0, K5=0)
+    launches.update({"K4": 0, "K5": 0, "K5.bwd": 0})
     for arch, counter, name in (("qwen3-0.6b", kattn, "K4"),
                                 ("rwkv6-1.6b", krwkv, "K5"),
                                 ("gemma3-12b", kattn, "K4"),
@@ -5143,7 +5258,8 @@ def main() -> int:
     with phase("LM training: K4's and K5's gradients against their plain "
                "versions"):
         print(f"  card {card}", flush=True)
-        kernel_gradients(torch, kattn, krwkv, dev, power)
+        results["K5.bwd"] = kernel_gradients(torch, kattn, krwkv, dev,
+                                             power)
     with phase(f"LM training: launch.train.run ({TRAIN_ARCH}, restart, "
                f"rwkv6-1.6b)"):
         for name, n in lm_training(torch, kattn, krwkv, dev, card).items():
@@ -5186,6 +5302,8 @@ def main() -> int:
         "K3": ("csrc/mac.cu", "src/repro/kernels/mac.py:53"),
         "K4": ("csrc/attention.cu", "src/repro/kernels/attention.py:73"),
         "K5": ("csrc/wkv.cu", "src/repro/kernels/rwkv.py:48"),
+        # no TPU kernel: the reference differentiates its chunkwise WKV
+        "K5.bwd": ("csrc/wkv_bwd.cu", "src/repro/models/rwkv6.py:53"),
     }
     kernels = []
     for name, (src, rep) in replaces.items():

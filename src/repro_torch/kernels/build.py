@@ -5,8 +5,10 @@ library with a plain C interface, loaded with `ctypes`.  Libraries are built
 at first use into `build/repro_torch/` at the repository root (listed in
 `.gitignore`), named by a digest of the source, the shared headers and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
-`build()` starts one `nvcc` per source, all at once.  A failed build raises;
-nothing falls back to the plain versions.
+`build()` starts one `nvcc` per source, all at once.  Macros given as
+`defines` (the variants tools' REPRO_*_VARIANTS) build a library of their
+own beside the shipped one.  A failed build raises; nothing falls back to
+the plain versions.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build", "digest", "library",
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("p2p.cu", "p2p_stream.cu", "mac.cu", "attention.cu", "wkv.cu")
+SOURCES = ("p2p.cu", "p2p_stream.cu", "mac.cu", "attention.cu", "wkv.cu",
+           "wkv_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,25 +50,30 @@ def nvcc_path() -> str:
                        "kernels are built from source at first use")
 
 
-def digest(source: str) -> str:
+def _flags(defines=()) -> tuple:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def digest(source: str, defines=()) -> str:
     """The 16 hex digits that name a source's library: a digest of the
-    source, the shared headers and the flags."""
+    source, the shared headers and the flags (with `defines`)."""
     h = hashlib.sha256()
     h.update((CSRC / source).read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.name.encode())
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return h.hexdigest()[:16]
 
 
-def _target(source: str) -> Path:
-    return BUILD_DIR / f"{Path(source).stem}-{digest(source)}.so"
+def _target(source: str, defines=()) -> Path:
+    return BUILD_DIR / f"{Path(source).stem}-{digest(source, defines)}.so"
 
 
-def build(sources=SOURCES) -> dict:
+def build(sources=SOURCES, defines=()) -> dict:
     """Compile every source whose library is missing, one `nvcc` process per
-    source, all started together.  Returns {source: compiler output} for the
+    source, all started together, each with the macros `defines` defined.
+    Returns {source: compiler output} for the
     sources built now (ptxas reports registers and shared memory per kernel);
     raises RuntimeError naming the source when a compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -73,12 +81,12 @@ def build(sources=SOURCES) -> dict:
     procs = {}
     try:
         for src in sources:
-            target = _target(src)
+            target = _target(src, defines)
             if target.exists():
                 continue
             nvcc = nvcc or nvcc_path()
             tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+            cmd = [nvcc, *_flags(defines), "-I", str(CSRC), "-o", str(tmp),
                    str(CSRC / src)]
             procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
@@ -101,14 +109,16 @@ def build(sources=SOURCES) -> dict:
                 tmp.unlink()
 
 
-def library(source: str) -> ctypes.CDLL:
-    """The loaded library of one source, built first if missing."""
-    lib = _LIBS.get(source)
+def library(source: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of one source (built with the macros `defines`),
+    built first if missing."""
+    key = (source, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
-        target = _target(source)
+        target = _target(source, defines)
         if not target.exists():
-            build((source,))
+            build((source,), defines)
         lib = ctypes.CDLL(str(target))
-        _LIBS[source] = lib
+        _LIBS[key] = lib
     return lib
 

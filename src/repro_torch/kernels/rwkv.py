@@ -20,30 +20,39 @@ note in the source).
 the CPU and launches the kernel for tensors on a CUDA device.
 
 The gradient.  The Pallas kernel has no backward kernel (the reference
-trains through plain XLA), so the port has none to port: on the card,
-`wkv_chunk` wraps K5 in a `torch.autograd.Function` whenever grad mode is
-on and an input requires grad, and its backward is the PyTorch function
-`wkv_bwd`, the adjoint recurrence in float32 over states recomputed
-token by token (never by dividing by w).  Without grad (serving, its CUDA
-graphs) the wrapper launches K5 exactly as before.  On the CPU, autograd
-differentiates `wkv_ref` itself.
+trains through XLA's autodiff of `wkv_chunked`), so the port's backward
+replaces no TPU kernel: on the card, `wkv_chunk` wraps K5 in a
+`torch.autograd.Function` whenever grad mode is on and an input requires
+grad, and its backward launches the hand-written kernel `csrc/wkv_bwd.cu`
+(`_launch_bwd`): the adjoint recurrence in float32 over states rebuilt
+from checkpoints every TB tokens (never by dividing by w), split by rows
+of the state over blocks (`wkv_bwd_launch_params`; see the note in the
+source).  `wkv_bwd` is its plain version, which the tests and
+`chip_smoke.py` hold it to; nothing on the card's path calls it.  Without
+grad (serving, its CUDA graphs) the wrapper launches K5 exactly as before.
+On the CPU, autograd differentiates `wkv_ref` itself.
 
 The dry run (`launch.dryrun`) runs the models on the `meta` device.  There
-the wrapper prepares its inputs as on the card and returns empty outputs of
-the launch's shapes and types, through the autograd Function as on the
-card (`wkv_bwd` runs on meta as it is), and computes nothing.  Each launch,
-and each meta stand-in for one, reports to the active walker
-(`obs.cost`) under "K5": 5 operations per (token, head, i, j),
-r, k, v, w read and y written once per (token, head, channel) and the
-state read and written once (`PERF.md` §6's bound), and the dot FLOPs of
-the reference's chunkwise `wkv_chunked` over chunks of c = min(64, C): per
-batch-head and token 4 D^2 + 4 c D + 2 D (the inter-chunk product, the
-intra-chunk scores and their product with v, the bonus term, the state
-update).
+the wrappers prepare their inputs as on the card and return empty outputs
+of the launch's shapes and types, through the autograd Function as on the
+card, and compute nothing: the backward allocates its outputs and scratch
+and runs no token loop.  Each launch, and each meta stand-in for one,
+reports to the active walker (`obs.cost`).  "K5": 5 operations per (token,
+head, i, j), r, k, v, w read and y written once per (token, head, channel)
+and the state read and written once (`PERF.md` §6's bound), and the dot
+FLOPs of the reference's chunkwise `wkv_chunked` over chunks of c = min(64,
+C): per batch-head and token 4 D^2 + 4 c D + 2 D (the inter-chunk product,
+the intra-chunk scores and their product with v, the bonus term, the state
+update).  "K5.bwd": the backward kernel's 17 operations per (token, head,
+i, j) (the 14 of its bound and the states rebuilt a second time), r, k, v,
+dy, w read and dr, dk, dv, dw written once per (token, head, channel), the
+state and its gradient read and dstate0 written once, and twice the
+forward's reference dot FLOPs (the adjoint of each of `wkv_chunked`'s
+products).
 
-`launches` counts kernel launches: the wrapper adds one where it launches
-the kernel, and nowhere else.  `backward_calls` counts the Function's
-backward passes (PyTorch work, no kernel of this module).
+`launches` counts K5's launches and `backward_launches` its backward's:
+each wrapper adds one where it launches its kernel, and nowhere else.
+`backward_calls` counts the Function's backward passes.
 """
 from __future__ import annotations
 
@@ -56,7 +65,7 @@ from repro_torch.kernels.build import library
 from repro_torch.obs import cost
 
 __all__ = ["wkv_chunk", "rwkv6_wkv", "wkv_ref", "wkv_bwd",
-           "wkv_launch_params", "HEAD_DIMS"]
+           "wkv_launch_params", "wkv_bwd_launch_params", "HEAD_DIMS"]
 
 HEAD_DIMS = (32, 64, 128)       # the head sizes the kernel is built for
 _SMS = 132                      # streaming multiprocessors of an H100
@@ -64,6 +73,7 @@ REF_CHUNK = 64                  # the reference's wkv_chunked chunk
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+backward_launches = 0
 backward_calls = 0
 
 
@@ -121,6 +131,30 @@ def wkv_launch_params(BH: int, C: int, D: int) -> tuple:
     return G, JC, JL, 1 if C <= 1 else TC
 
 
+def wkv_bwd_launch_params(BH: int, C: int, D: int) -> tuple:
+    """(A, NW, TB) of K5's backward for BH batch-heads, C tokens and head
+    dim D: a row's D columns lie on D / 4 adjacent lanes, 4 columns a lane;
+    a lane holds A rows, a block NW warps (NW 32 A / (D / 4) rows, so D
+    over that many blocks a head), and the states are checkpointed every
+    TB tokens (TB A states of 4 columns a lane in registers).  At D = 64
+    (rwkv6's heads) two rows a lane where their 4 blocks a head give every
+    SM one, else one row, which doubles the blocks: measured fastest at
+    BH 128 and 64, and at BH 16 respectively (`tools/wkv_bwd_variants.py`,
+    `PERF.md` §6).  The kernel is built for exactly these choices
+    (WKV_BWD_CONFIGS in csrc/wkv_bwd.cu)."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"wkv: head dim {D} not in {HEAD_DIMS}")
+    if D == 64:
+        return (2, 4, 8) if BH * 4 >= _SMS else (1, 4, 16)
+    return (1, 2, 16) if D == 32 else (2, 8, 8)
+
+
+def _bwd_blocks(C: int, D: int, A: int, NW: int, TB: int) -> tuple:
+    """(row blocks a head, checkpoints a head) of a backward launch."""
+    rows = NW * (32 // (D // 4)) * A
+    return D // rows, -(-C // TB)
+
+
 def _aligned(t):
     """t, or a copy of it if its data is not 16-byte aligned (the kernel
     reads r, k, v and w 16 bytes at a time; on meta the offset into its
@@ -130,15 +164,32 @@ def _aligned(t):
     return t if off % 16 == 0 else t.clone()
 
 
+def _ref_dots(BH: int, C: int, D: int) -> float:
+    """The dot FLOPs of the reference's `wkv_chunked` on (BH, C, D)."""
+    return BH * C * (4.0 * D * D + 4.0 * min(REF_CHUNK, C) * D + 2.0 * D)
+
+
 def _report(r) -> None:
     """One launch of K5 for the active walker (see the module docstring)."""
     BH, C, D = r.shape
-    nbyte, c = r.element_size(), min(REF_CHUNK, C)
+    nbyte = r.element_size()
     cost.report_kernel(
         "K5", operations=5.0 * BH * C * D * D,
         read_bytes=BH * C * D * (3.0 * nbyte + 4) + 4.0 * BH * D * D,
         write_bytes=BH * C * D * float(nbyte) + 4.0 * BH * D * D,
-        dot_flops=BH * C * (4.0 * D * D + 4.0 * c * D + 2.0 * D))
+        dot_flops=_ref_dots(BH, C, D))
+
+
+def _report_bwd(r) -> None:
+    """One launch of K5's backward for the active walker (see the module
+    docstring)."""
+    BH, C, D = r.shape
+    nbyte = r.element_size()
+    cost.report_kernel(
+        "K5.bwd", operations=17.0 * BH * C * D * D,
+        read_bytes=BH * C * D * (4.0 * nbyte + 4) + 8.0 * BH * D * D,
+        write_bytes=BH * C * D * (3.0 * nbyte + 4) + 4.0 * BH * D * D,
+        dot_flops=2.0 * _ref_dots(BH, C, D))
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,6 +200,18 @@ def _lib():
     lib.repro_wkv.restype = ctypes.c_int
     lib.repro_wkv_error_string.argtypes = [ctypes.c_int]
     lib.repro_wkv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_bwd(variants: bool = False):
+    lib = library("wkv_bwd.cu",
+                  ("REPRO_WKV_BWD_VARIANTS",) if variants else ())
+    lib.repro_wkv_bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    lib.repro_wkv_bwd.restype = ctypes.c_int
+    lib.repro_wkv_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.repro_wkv_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -197,7 +260,8 @@ def wkv_bwd(r, k, v, w, u, state, dy, dstate=None):
 
     The states S_0 .. S_{C-1} are recomputed forward, S_t = w_t S_{t-1} +
     k_t v_t^T, and kept with the G_t: two (C, BH, D, D) float32 buffers,
-    so only the two token loops are serial."""
+    so only the two token loops are serial.  The plain version of K5's
+    backward kernel (`_launch_bwd`), which the tests hold it to."""
     BH, C, D = r.shape
     rt, kt, vt, wt, dyt = (a.float().transpose(0, 1).contiguous()
                            for a in (r, k, v, w, dy))       # (C, BH, D)
@@ -230,8 +294,74 @@ def wkv_bwd(r, k, v, w, u, state, dy, dstate=None):
     return (*back, du.to(u.dtype), ds0.to(state.dtype))
 
 
+def _launch_bwd(r, k, v, w, u, state, dy, dstate=None, params=None):
+    """K5's backward: the inputs of `wkv_chunk`, dy (BH, C, D) and the new
+    state's gradient dstate (BH, D, D; None for 0) -> (dr, dk, dv in r's
+    type, dw, du, dstate0 float32).  CPU tensors run `wkv_bwd` (its
+    gradients in their inputs' types); CUDA tensors (D in `HEAD_DIMS`, C
+    >= 1) launch `csrc/wkv_bwd.cu` on the current stream, raising if the
+    launch fails; meta tensors allocate the outputs and the launch's
+    scratch, report the launch and compute nothing; any other device
+    raises.  `params` launches that (A, NW, TB) instead of
+    `wkv_bwd_launch_params`'s, from the library built with the shapes
+    tried (REPRO_WKV_BWD_VARIANTS, `tools/wkv_bwd_variants.py`)."""
+    global backward_launches
+    _check(r, k, v, w, u, state)
+    BH, C, D = r.shape
+    if tuple(dy.shape) != (BH, C, D) or (
+            dstate is not None and tuple(dstate.shape) != (BH, D, D)):
+        raise ValueError(f"wkv backward: dy must be {(BH, C, D)} and dstate "
+                         f"{(BH, D, D)}; got {tuple(dy.shape)}, "
+                         f"{None if dstate is None else tuple(dstate.shape)}")
+    dev = r.device
+    if dev.type == "cpu":
+        return wkv_bwd(r, k, v, w, u, state, dy, dstate)
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"wkv: unsupported device {dev}")
+    if {dy.device} | ({dstate.device} if dstate is not None else set()) \
+            != {dev}:
+        raise ValueError("wkv backward: dy and dstate must lie on r's device")
+    if C < 1:
+        raise ValueError("wkv backward: needs at least one token")
+    A, NW, TB = params or wkv_bwd_launch_params(BH, C, D)
+    nrb, nb = _bwd_blocks(C, D, A, NW, TB)
+    r, k, v, dy = (_aligned(t.contiguous()) for t in (r, k, v,
+                                                        dy.to(r.dtype)))
+    w, state = (_aligned(t.float().contiguous()) for t in (w, state))
+    u = u.float().contiguous()
+    if dstate is not None:
+        dstate = _aligned(dstate.float().contiguous())
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw, du, ds0 = (torch.empty_like(t) for t in (w, u, state))
+    f32 = dict(dtype=torch.float32, device=dev)
+    ck = torch.empty(BH, nb, D, D, **f32)          # states every TB tokens
+    part = torch.empty(nrb, BH, C, D, **f32)       # dv of each row block
+    dyv, ruk = torch.empty(2, BH, C, **f32)        # dy . v, sum r u k
+    if dev.type == "meta":
+        if cost.ACTIVE is not None:
+            _report_bwd(r)
+        return dr, dk, dv, dw, du, ds0
+    lib = _lib_bwd(params is not None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_wkv_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), state.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+            ds0.data_ptr(), ck.data_ptr(), part.data_ptr(), dyv.data_ptr(),
+            ruk.data_ptr(), _DTYPES[r.dtype], BH, C, D, A, NW, TB, stream)
+    if err != 0:
+        raise RuntimeError("wkv backward kernel launch failed: "
+                           + lib.repro_wkv_bwd_error_string(err).decode())
+    backward_launches += 1
+    if cost.ACTIVE is not None:
+        _report_bwd(r)
+    return dr, dk, dv, dw, du, ds0
+
+
 class _WKV(torch.autograd.Function):
-    """K5 forward, `wkv_bwd` backward."""
+    """K5 forward, its backward kernel backward."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state):
@@ -242,7 +372,7 @@ class _WKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dstate):
         global backward_calls
-        grads = wkv_bwd(*ctx.saved_tensors, dy, dstate)
+        grads = _launch_bwd(*ctx.saved_tensors, dy, dstate)
         backward_calls += 1
         return grads
 

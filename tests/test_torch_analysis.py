@@ -184,23 +184,89 @@ def test_k5_meta_report(grad):
     r, k, v = (meta(BH, C, D, dtype=bf, grad=grad) for _ in range(3))
     wd = meta(BH, C, D, grad=grad)
     u, s0 = meta(BH, D, grad=grad), meta(BH, D, D, grad=grad)
-    n0 = krwkv.launches
+    n0, nb0 = krwkv.launches, krwkv.backward_launches
     with hlo_walk.Walker() as w:
         y, s1 = krwkv.wkv_chunk(r, k, v, wd, u, s0)
         if grad:
-            torch.autograd.grad((y, s1), [r, k, v, wd, u, s0],
-                                (meta(BH, C, D, dtype=bf), meta(BH, D, D)))
-    assert krwkv.launches == n0
+            g = torch.autograd.grad((y, s1), [r, k, v, wd, u, s0],
+                                    (meta(BH, C, D, dtype=bf),
+                                     meta(BH, D, D)))
+    assert (krwkv.launches, krwkv.backward_launches) == (n0, nb0)
     assert (y.shape, y.dtype, s1.shape, s1.dtype) == (
         (BH, C, D), bf, (BH, D, D), torch.float32)
     kern = w.result()["port"]["kernels"]["K5"]
     assert kern == {"launches": 1, "operations": 5.0 * BH * C * D * D,
                     "bytes": BH * C * D * (3 * 2 + 4 + 2) + 8.0 * BH * D * D}
     c = min(64, C)
+    ref_dots = BH * C * (4.0 * D * D + 4.0 * c * D + 2 * D)
     if not grad:
-        assert w.result()["dot_flops"] == BH * C * (4.0 * D * D
-                                                    + 4.0 * c * D + 2 * D)
+        assert w.result()["dot_flops"] == ref_dots
         assert w.result()["port"]["dot_flops_card"] == kern["operations"]
+        assert "K5.bwd" not in w.result()["port"]["kernels"]
+    else:   # the backward kernel in closed form: 17 operations a (token,
+        # head, i, j), r k v dy dr dk dv in bf16 and w dw in float32 once
+        # each, the state, its gradient and dstate0 once; twice the
+        # reference's dots (the adjoint of each product)
+        bwd = w.result()["port"]["kernels"]["K5.bwd"]
+        assert bwd == {"launches": 1, "operations": 17.0 * BH * C * D * D,
+                       "bytes": BH * C * D * (7 * 2 + 2 * 4)
+                       + 3 * 4.0 * BH * D * D}
+        assert w.result()["dot_flops"] == 3 * ref_dots
+        assert w.result()["port"]["dot_flops_card"] == kern["operations"] \
+            + bwd["operations"]
+        assert [(t.shape, t.dtype) for t in g] == [
+            (x.shape, x.dtype) for x in (r, k, v, wd, u, s0)]
+
+
+def test_k5_meta_backward_runs_no_token_loop(monkeypatch):
+    """On meta the backward allocates its outputs and scratch and reports
+    its launch: the plain `wkv_bwd` (two token loops) is never reached,
+    here at rwkv6-1.6b's train_4k length, and the walker's peak holds the
+    backward's scratch: the states every TB tokens and the row blocks'
+    shares of dv."""
+    def refuse(*a, **kw):
+        raise AssertionError("wkv_bwd reached on meta")
+
+    monkeypatch.setattr(krwkv, "wkv_bwd", refuse)
+    BH, C, D = 8, 4096, 64
+    bf = torch.bfloat16
+    r, k, v = (meta(BH, C, D, dtype=bf, grad=True) for _ in range(3))
+    wd = meta(BH, C, D, grad=True)
+    u, s0 = meta(BH, D, grad=True), meta(BH, D, D, grad=True)
+    with hlo_walk.Walker() as w:
+        held = w.track([r, k, v, wd, u, s0])
+        y, s1 = krwkv.wkv_chunk(r, k, v, wd, u, s0)
+        torch.autograd.grad((y, s1), [r, k, v, wd, u, s0],
+                            (meta(BH, C, D, dtype=bf), meta(BH, D, D)))
+    assert w.result()["port"]["kernels"]["K5.bwd"]["launches"] == 1
+    A, NW, TB = krwkv.wkv_bwd_launch_params(BH, C, D)
+    rows = NW * (32 // (D // 4)) * A
+    scratch = 4 * BH * (C // TB * D * D + D // rows * C * D + 2 * C)
+    grads = BH * C * D * (3 * 2 + 4) + 4 * BH * (D + D * D)
+    assert w.peak_raw - held >= scratch + grads
+
+
+@pytest.mark.parametrize("D", krwkv.HEAD_DIMS)
+def test_k5_backward_launch_shapes(D):
+    """Every launch `wkv_bwd_launch_params` chooses: whole rows of 4
+    columns a lane within a warp, D rows cut into whole blocks, the folded
+    sums and the staged tokens powers of two, and the block's static
+    shared memory under 48 KB."""
+    for BH in (1, 16, 32, 33, 64, 128, 512):
+        A, NW, TB = krwkv.wkv_bwd_launch_params(BH, 300, D)
+        lanes = D // 4
+        assert lanes <= 32 and 32 % lanes == 0
+        rows = NW * (32 // lanes) * A
+        assert D % rows == 0
+        n = TB * A
+        assert n & (n - 1) == 0 and TB & (TB - 1) == 0
+        groups = NW * (32 // lanes)
+        smem = 4 * (3 * TB * rows + 2 * TB * D + groups * TB * D + TB + rows)
+        assert smem <= 48 * 1024
+        assert krwkv._bwd_blocks(300, D, A, NW, TB) == (D // rows,
+                                                        -(-300 // TB))
+    with pytest.raises(ValueError, match="head dim"):
+        krwkv.wkv_bwd_launch_params(4, 10, 48)
 
 
 def test_rms_norm_on_meta_is_counted_as_the_card_dispatches_it():

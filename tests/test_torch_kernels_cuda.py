@@ -26,9 +26,13 @@ tensor-core kernel also against `attention_tiled_ref`, in its own tile
 order (K4_TILED_ROW_REL, K4_TILED_ROW_MEDIAN below).  K5 at rtol/atol 1e-4 in float32; in
 bfloat16 both round one float32 sum (taken in another order) to the output
 type, so they may land on neighbouring values: rtol 1e-2 / atol 1e-4; two
-K5 launches on the same inputs are bitwise equal.  Training: K4's and K5's
-autograd Functions (the kernel forward, the PyTorch backward) against
-autograd through the plain versions at every head size and mask kind, a
+K5 launches on the same inputs are bitwise equal.  K5's backward kernel
+(csrc/wkv_bwd.cu) against its plain version `wkv_bwd`, every gradient
+within 1e-4 of its largest |value| (bfloat16 dr, dk, dv also one bfloat16
+unit), bitwise repeatable, launched once a backward pass and never the
+plain version.  Training: K4's and K5's autograd Functions (the kernel
+forward, K4's PyTorch backward, K5's backward kernel) against autograd
+through the plain versions at every head size and mask kind, a
 forward without grad building no graph, and one float32 train step of
 the qwen3 and rwkv6 smoke models on the card against the CPU (their
 limits beside the tests).  The launch autotune: a K1 sweep persists under
@@ -1363,6 +1367,97 @@ def test_k5_autograd_matches_plain_on_card(cuda_device, D, dtype):
     assert krwkv.backward_calls == calls + 1
     want = _grads(krwkv.wkv_ref, (r, k, v, w, u, s0), (dy, ds))
     _hold_grads(got, want, dtype, "K5")
+
+
+# K5's backward kernel (csrc/wkv_bwd.cu) against its plain version
+# `wkv_bwd` on the same inputs, every gradient in float32 within 1e-4 of its
+# largest |value| (`_hold_grads`' float32 rule: float32 sums in another
+# order); with bfloat16 r, k, v both round one float32 sum to dr, dk and dv,
+# so they may land on neighbouring bfloat16 values: those three also get
+# one bfloat16 unit of the value (2^-7 of it)
+def _k5_bwd_case(device, BH, C, D, dtype, with_ds, w_lo=0.8, seed=0):
+    rng = np.random.default_rng(seed + BH * C + D)
+    ins = _wkv_inputs(rng, BH, C, D, dtype, device, True, w_lo=w_lo)
+    dy = _normal(rng, (BH, C, D), dtype, device)
+    ds = (_normal(rng, (BH, D, D), torch.float32, device) if with_ds
+          else None)
+    return ins, dy, ds
+
+
+def _hold_k5_bwd(got, want, dtype):
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got,
+                          want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        g, w = g.float(), w.float()
+        atol = 1e-4 * float(w.abs().max())
+        rtol = 2.0 ** -7 if dtype == torch.bfloat16 and name in (
+            "dr", "dk", "dv") else 0.0
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("BH,C,D,dtype,with_ds,w_lo", [
+    (6, 1, 64, torch.float32, True, 0.8),
+    (6, 100, 32, torch.float32, True, 0.8),
+    (6, 100, 128, torch.bfloat16, False, 0.8),
+    (8, 300, 64, torch.bfloat16, True, 0.8),
+    (16, 512, 64, torch.float32, False, 0.8),
+    (64, 512, 64, torch.bfloat16, True, 0.8),      # rwkv6 at batch 2
+    (32, 300, 64, torch.float32, True, 0.8),       # one row a lane
+    (33, 300, 64, torch.float32, True, 0.8),       # two rows a lane
+    (128, 512, 64, torch.bfloat16, True, 0.8),
+    (12, 300, 32, torch.bfloat16, False, 0.8),
+    (20, 512, 128, torch.float32, True, 0.8),
+    (7, 1, 128, torch.bfloat16, True, 0.8),
+    (9, 1, 32, torch.bfloat16, False, 0.8),
+    (32, 512, 64, torch.float32, True, 1e-5),      # decays that underflow
+    (96, 512, 64, torch.bfloat16, False, 1e-5),
+])
+def test_k5_backward_kernel_matches_plain_on_card(cuda_device, BH, C, D,
+                                                  dtype, with_ds, w_lo):
+    (r, k, v, w, u, s0), dy, ds = _k5_bwd_case(cuda_device, BH, C, D, dtype,
+                                               with_ds, w_lo)
+    before = krwkv.backward_launches
+    got = krwkv._launch_bwd(r, k, v, w, u, s0, dy, ds)
+    torch.cuda.synchronize()
+    assert krwkv.backward_launches == before + 1
+    assert [t.dtype for t in got] == [dtype] * 3 + [torch.float32] * 3
+    _hold_k5_bwd(got, krwkv.wkv_bwd(r, k, v, w, u, s0, dy, ds), dtype)
+
+
+@pytest.mark.parametrize("BH,C,D", [(64, 512, 64), (128, 300, 64),
+                                    (6, 77, 128), (5, 33, 32)])
+def test_k5_backward_kernel_bitwise_repeatable_on_card(cuda_device, BH, C,
+                                                       D):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    (r, k, v, w, u, s0), dy, ds = _k5_bwd_case(
+        cuda_device, BH, C, D, torch.bfloat16, True, seed=1)
+    one = krwkv._launch_bwd(r, k, v, w, u, s0, dy, ds)
+    two = krwkv._launch_bwd(r, k, v, w, u, s0, dy, ds)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_k5_backward_launches_the_kernel_never_the_plain_on_card(
+        cuda_device, monkeypatch):
+    """Every backward pass of K5's Function launches the kernel once and
+    never reaches the plain `wkv_bwd` on the card; the kernel refuses a
+    head dim it was not built for and a dy of another shape."""
+    def refuse(*a, **kw):
+        raise AssertionError("wkv_bwd reached on the card")
+
+    monkeypatch.setattr(krwkv, "wkv_bwd", refuse)
+    (r, k, v, w, u, s0), dy, ds = _k5_bwd_case(cuda_device, 6, 50, 64,
+                                               torch.bfloat16, True)
+    for n in range(1, 4):
+        launches, calls = krwkv.backward_launches, krwkv.backward_calls
+        _grads(krwkv.wkv_chunk, (r, k, v, w, u, s0), (dy, ds))
+        torch.cuda.synchronize()
+        assert krwkv.backward_launches == launches + 1
+        assert krwkv.backward_calls == calls + 1
+    with pytest.raises(ValueError, match="head dim"):
+        krwkv._launch_bwd(*(t[..., :48] for t in (r, k, v, w)), u[:, :48],
+                          s0[:, :48, :48], dy[..., :48], None)
+    with pytest.raises(ValueError, match="dy must be"):
+        krwkv._launch_bwd(r, k, v, w, u, s0, dy[:, :10], None)
 
 
 def test_forward_without_grad_builds_no_graph_on_card(cuda_device):

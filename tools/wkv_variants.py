@@ -18,7 +18,6 @@ when a variant breaks a limit.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
@@ -38,23 +37,16 @@ SHAPES = ((128, 1024, 64), (32, 4096, 64))
 
 
 def build_variants(kbuild) -> ctypes.CDLL:
-    out = kbuild.BUILD_DIR / "wkv-variants.so"
-    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run(
-        [kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-DREPRO_WKV_VARIANTS",
-         "-I", str(kbuild.CSRC), "-o", str(out), str(kbuild.CSRC / "wkv.cu")],
-        capture_output=True, text=True, timeout=600)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+    logs = kbuild.build(("wkv.cu",), ("REPRO_WKV_VARIANTS",))
     name = ""
-    for line in (proc.stdout + proc.stderr).splitlines():
+    for line in logs.get("wkv.cu", "").splitlines():
         m = WKV_ENTRY.search(line)
         if m:
             name = (f"<{'f32' if m[1] == 'f' else 'bf16'}, D {m[2]}, G {m[3]}"
                     f", JC {m[4]}, JL {m[5]}, TC {m[6]}>")
         elif name and ("registers" in line or "spill" in line):
             print(f"  wkv_kernel{name}: {line.strip()}", flush=True)
-    lib = ctypes.CDLL(str(out))
+    lib = kbuild.library("wkv.cu", ("REPRO_WKV_VARIANTS",))
     lib.repro_wkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     lib.repro_wkv.restype = ctypes.c_int
