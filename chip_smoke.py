@@ -26,16 +26,17 @@ K4) at full size and llama-3.2-vision-90b (cross-attention over 1,600 patch
 embeddings through K4) at full width, depth cut to LM_CUT layers; random
 bfloat16 weights from a seeded generator.  And the LM training path —
 `launch.train.run`, the reference's driver — on smollm-360m at full size
-(K4 in every forward, its gradient in every backward) and rwkv6-1.6b (K5
-in every forward, its backward kernel in every backward).
+(K4 in every forward, its backward kernel in every backward) and
+rwkv6-1.6b (K5 in every forward, its backward kernel in every backward).
 
 Phases, in order; any failed check raises and ends the run non-zero:
 
-  1. the card's name and power limit; build the six CUDA sources from
+  1. the card's name and power limit; build the seven CUDA sources from
      `src/repro_torch/kernels/csrc` with nvcc (sm_90a, one process each:
-     K1-K5 and K5's backward, wkv_bwd.cu), printing ptxas's registers and
-     spills per kernel (K4 by path and head size, D = 256 included; K5
-     and its backward by template arguments);
+     K1-K5 and the backwards of K4 and K5, attention_bwd.cu and
+     wkv_bwd.cu), printing ptxas's registers and spills per kernel (K4 and
+     its backward by path, kernel and head size, D = 256 included; K5 and
+     its backward by template arguments);
   2. plan the N-body geometry with the device traversal (K3's launch count
      set to 0 just before, read just after) and with the host traversal,
      and compare every receiver's pair lists: a difference is allowed only
@@ -228,14 +229,21 @@ Phases, in order; any failed check raises and ends the run non-zero:
      time;
  11. LM training, the reference's training tier on the card:
      (a) the gradients of K4's and K5's autograd Functions (the kernel
-     forward; K4's PyTorch backward `flash_attention_bwd`, K5's backward
-     kernel `csrc/wkv_bwd.cu`) against autograd through their plain
-     versions (`attention_rounded_ref`, `wkv_ref`) on the same bfloat16
-     inputs, per tensor max |error| and
-     relative L2 (GRAD_MAX_REL, GRAD_REL_L2): K4 at smollm-360m's (4, 15 /
-     5, 512, 64) and qwen3-0.6b's (4, 16 / 8, 512, 128) causal shapes,
-     gemma3-12b's D = 256 with its window of 1,024 at S = 2,048, and
-     unmasked over 1,600 keys (llama-3.2-vision-90b's cross); K5 at
+     forward, the backward kernels `csrc/attention_bwd.cu` and
+     `csrc/wkv_bwd.cu`) against autograd through their plain versions
+     (`attention_rounded_ref`, `wkv_ref`) on the same bfloat16 inputs, per
+     tensor max |error| and relative L2 (GRAD_MAX_REL, GRAD_REL_L2): K4 at
+     every K4_GRAD_CASES shape: smollm-360m's (4, 15 / 5, 512, 64) and
+     qwen3-0.6b's (4, 16 / 8, 512, 128) causal shapes, gemma3-12b's D =
+     256 with its window of 1,024 at S = 2,048, unmasked over 1,600 keys
+     (llama-3.2-vision-90b's cross) and a rank of phase 13's smollm-360m
+     train_4k step (2, 3 / 1, 4,096, 64), float32 too at smollm's and the
+     cross's (K4_GRAD_F32); K4's backward kernel against its plain
+     version `flash_attention_bwd` on the same inputs (K4's own output
+     and row statistics, the statistics against `attention_stats_ref`;
+     K4_BWD_*, K4_STATS_*), two launches bit for bit, timed beside its
+     bound, `flash_attention_bwd`, SDPA's forward + backward and SDPA's
+     backward alone (the kernels line's library time); K5 at
      rwkv6-1.6b's (4 x 32, 512, 64) with a random initial state and
      final-state gradient, and its backward kernel against its plain
      version `wkv_bwd` on the same inputs at every BH the main path gives
@@ -249,10 +257,11 @@ Phases, in order; any failed check raises and ends the run non-zero:
      example's full-size settings (batch 4, seq 512, lr 3e-4) for
      30 of its 300 steps: every loss and grad norm finite, the mean of the
      last 5 losses at least 0.1 below that of the first 5, K4 launched 32
-     times a step and its backward as often; warm step time, tokens/s,
-     peak memory; 3 steps under the profiler (device busy and idle) and 3
-     split into forward, backward (K4's backward function on its own) and
-     optimizer; (c) restart exactness (the reference's
+     times a step and its backward kernel as often (once a backward pass
+     of the Function); warm step time, tokens/s, peak memory; 3 steps
+     under the profiler (device busy and idle) and 3 split into forward,
+     backward (K4's backward kernel on its own) and optimizer; (c)
+     restart exactness (the reference's
      `test_checkpoint_restart_exact`): smollm-360m cut to 2 layers at full
      width, 12 steps uninterrupted against a run failed at step 7 with a
      checkpoint every 3 steps (~1.1 GB each, in a temporary directory under
@@ -261,8 +270,8 @@ Phases, in order; any failed check raises and ends the run non-zero:
      512, 3 steps: finite losses and grad norms, K5 launched 24 times a
      step and its backward kernel as often (once a backward pass of the
      Function), the step time and the backward kernel's share of it (its
-     wrapper's device time); K4's, K5's and K5.bwd's launches of (b)-(d)
-     count in the kernels' line;
+     wrapper's device time); K4's, K4.bwd's, K5's and K5.bwd's launches
+     of (b)-(d) count in the kernels' line;
  12. the LM sharding tier, ranks stacked on the card: (a) the seven
      collectives of `core.collectives` on (8,) and (pod 2, data 4)
      meshes, at tests/test_collectives.py's inputs and at COLL_WORDS
@@ -292,8 +301,8 @@ Phases, in order; any failed check raises and ends the run non-zero:
      stacked (pod 2, data 2) mesh (batch 4, seq 512), its weights cut
      over 'data', hierarchical and flat, against the single-card step on
      the same batch (DP_LOSS_RTOL, DP_NORM_RTOL, DP_GRAD_REL_L2,
-     DP_STEP_LR), K4 once a layer a data rank, each reduction's time and
-     bytes on the pod axis;
+     DP_STEP_LR), K4 once a layer a data rank and K4.bwd once a backward
+     pass, each reduction's time and bytes on the pod axis;
  13. the dry run against one rank's steps on the card: for each of
      DRYRUN_CELLS (smollm-360m train_4k: 16 x 4,096 tokens in 2 micro-
      batches, K4 and its backward; rwkv6-1.6b prefill_32k: 2 x 32,768
@@ -302,9 +311,9 @@ Phases, in order; any failed check raises and ends the run non-zero:
      on meta (its seconds, the artifact's per-rank figures, the roofline's
      terms on the H100 SXM constants); then, since under FSDP a data row
      cannot gather without its peers, that rank batch (at most
-     DRYRUN_CARD_B sequences: smollm-360m's 8) split over the data ranks
-     of a mesh whose every rank the card holds (DRYRUN_CARD_MESH: (data
-     2, model 8) each; printed), walked on meta
+     DRYRUN_CARD_B sequences: all 16 of smollm-360m's) split over the
+     data ranks of a mesh whose every rank the card holds
+     (DRYRUN_CARD_MESH: (data 2, model 8) each; printed), walked on meta
      and run on the card (`launch.dryrun.rank_program`, seeded random
      weights and inputs) under the same walker (`analysis.hlo_walk`): dot
      FLOPs,
@@ -315,13 +324,15 @@ Phases, in order; any failed check raises and ends the run non-zero:
      less the bytes resident before a warm step; the step's time by CUDA
      events beside the roofline's bound.  A cell whose prediction exceeds
      the card's free memory has its rank batch halved until it fits, and
-     the cut is printed and held instead; K4's and K5's launches count in
-     the kernels' line;
+     the cut is printed and held instead; K4's, K4.bwd's, K5's and
+     K5.bwd's launches count in the kernels' line, each backward kernel's
+     once a backward pass of its Function;
  14. tensor parallel over the model axis, ranks stacked on the card: (a)
      qwen3-0.6b and phi4-mini served on (data 1, model 4) beside the
      unsharded engine; (b) smollm-360m's step on (model 4), remat off and
-     on, against the single-card step; (c) dbrx-132b (LM_CUT layers) on
-     (data 2, model 2) against the per-shard oracle; (d) rwkv6-1.6b (K5
+     on, against the single-card step, K4.bwd once a backward pass; (c)
+     dbrx-132b (LM_CUT layers) on (data 2, model 2) against the per-shard
+     oracle; (d) rwkv6-1.6b (K5
      on each rank's 8 heads) and hymba-1.5b (K4 on each rank's heads, the
      SSM on its 400 channels) served on (data 1, model 4) as (a), rwkv6
      held to the unsharded engine at TP_NOISE_RATIO times the unsharded
@@ -334,15 +345,16 @@ Phases, in order; any failed check raises and ends the run non-zero:
      at full size, FSDP_STEPS steps of 4 x 512 on (data 4), on (pod 2,
      data 2) cut over 'data' (hierarchical) and over ('pod', 'data')
      (`fsdp_pod`), each against the single-card steps (phase 12 (d)'s
-     limits on the first step, TP_LOSS_RTOL on every loss), with the held
+     limits on the first step, TP_LOSS_RTOL on every loss), K4.bwd once a
+     backward pass, with the held
      GiB a rank, the peak, each reduction stage's bytes and axes and what
      crosses the pod axis; (b) rwkv6-1.6b at full size on (data 2), 2 x
      512, RWKV_FSDP_STEPS steps (K5 and its backward kernel under the
      gathers, K5.bwd once a backward pass);
      (c) the GiB a rank of dbrx-132b and llama4-scout holds in phases 12
      (c) and 14 (c) beside the 13.29 held with the 'data' entries whole;
- 16. one JSON line listing every ported kernel (K5's backward kernel as
-     "K5.bwd");
+ 16. one JSON line listing every ported kernel (the backward kernels as
+     "K4.bwd" and "K5.bwd");
  17. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device it
@@ -453,12 +465,33 @@ HYMBA_LOGIT_TOL = 0.25
 # max, K5's max one bfloat16 unit (2^-7)
 GRAD_REL_L2 = {"K4": 1e-2, "K5": 1e-4}
 GRAD_MAX_REL = {"K4": 1.5e-2, "K5": 7.8e-3}
-# ... at training shapes: (label, (B, H, Hkv, Sq, Sk, D), causal, window)
+# ... at training shapes: (label, (B, H, Hkv, Sq, Sk, D), causal, window);
+# the last, a rank of phase 13's smollm-360m train_4k step (its 3 query
+# heads over one KV head, 2 sequences a micro-batch, S = 4,096)
 K4_GRAD_CASES = (
     ("smollm-360m", (4, 15, 5, 512, 512, 64), True, None),
     ("qwen3-0.6b", (4, 16, 8, 512, 512, 128), True, None),
     ("gemma3-12b local", (1, 16, 8, 2048, 2048, 256), True, 1024),
-    ("llama-3.2-vision-90b cross", (1, 64, 8, 512, 1600, 128), False, None))
+    ("llama-3.2-vision-90b cross", (1, 64, 8, 512, 1600, 128), False, None),
+    ("smollm-360m train_4k rank", (2, 3, 1, 4096, 4096, 64), True, None))
+# ... and in float32 at these (CUDA cores)
+K4_GRAD_F32 = ("smollm-360m", "llama-3.2-vision-90b cross")
+# K4's backward kernel (csrc/attention_bwd.cu) against its plain version
+# `flash_attention_bwd` on the same inputs (q, k, v, K4's own o and row
+# statistics, dO), per gradient.  float32: within K4_BWD_F32_ATOL of its
+# largest |value| (float32 sums in another order; l summed tile by tile in
+# the forward, at once in the plain version).  bfloat16: the kernel rounds
+# dS and the dV operand bf16(p) / l to bfloat16 to enter the tensor cores
+# where the plain version keeps them in float32, one rounding (2^-9 of a
+# term) in every term of each sum, so relative L2 up to K4_BWD_BF16_REL_L2
+# and a largest error up to K4_BWD_BF16_MAX of the largest |value| (as the
+# card tests hold it).  The statistics against `attention_stats_ref`: m
+# within K4_STATS_ATOL (scores summed in another order), l within
+# K4_STATS_RTOL relative (its exponentials on the special function unit in
+# bfloat16, rescaled tile by tile)
+K4_BWD_F32_ATOL = 1e-4
+K4_BWD_BF16_REL_L2, K4_BWD_BF16_MAX = 1e-2, 1.5e-2
+K4_STATS_ATOL, K4_STATS_RTOL = 1e-4, 1e-4
 K5_GRAD_SHAPE = (4 * 32, 512, 64)           # rwkv6-1.6b: (B H, S, D)
 K5_TRAIN_BH = 2 * 32                        # ... at its training batch 2
 # every BH the main path gives K5's backward kernel: phase 11 (a)'s, the
@@ -493,9 +526,11 @@ DRYRUN_CARD_MESH = {"smollm-360m": ((2, 8), ("data", "model")),
                     "rwkv6-1.6b": ((2, 8), ("data", "model")),
                     "qwen3-0.6b": ((2, 8), ("data", "model"))}
 # the most sequences of a cell's rank batch the card runs (its meta walk
-# the same): smollm-360m train_4k's 16 under the walker took 56.45 s of
-# the run's 1,112.7 (H100, 700 W); 8 keep both micro-batches
-DRYRUN_CARD_B = {"smollm-360m": 8}
+# the same), by arch: none cut.  smollm-360m train_4k's 16 under the
+# walker took 56.45 s (H100, 700 W) with K4's plain PyTorch backward, ~15
+# dispatched ops a call, and were cut to 8; K4's backward kernel is one,
+# and the whole phase takes ~62 s at 16
+DRYRUN_CARD_B: dict = {}
 
 
 def card_batch(arch: str, B: int, n_micro: int) -> tuple:
@@ -563,16 +598,17 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int = 50) -> float:
+def device_ms(torch, fn, reps: int = 50, sleep: int = 10_000_000) -> float:
     """Device time of one fn() in ms: `reps` calls enqueued behind a sleep
-    kernel, so the card runs them back to back and the host's time to
-    enqueue each call (the wrapper's checks, the ctypes call) is hidden.
+    kernel of `sleep` cycles (~5 ms by default), so the card runs them back
+    to back and the host's time to enqueue each call (the wrapper's checks,
+    the ctypes call) is hidden, as long as the sleep outlasts the enqueue.
     For kernels of a few microseconds, where `cuda_ms` times the host."""
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10_000_000)         # ~5 ms: longer than the enqueue
+    torch.cuda._sleep(sleep)
     a.record()
     for _ in range(reps):
         fn()
@@ -641,6 +677,10 @@ WKV_BWD_ENTRY = re.compile(r"wkv_bwd_(prep|kernel|dv)I(f|13__nv_bfloat16)Li"
                            r"(\d+)E(?:Li(\d+)ELi(\d+)ELi(\d+)E)?")
 # K4's: the kernel (tc: bf16 wgmma; kernel: float32 CUDA cores) and D
 ATTN_ENTRY = re.compile(r"flash_attention_(tc|kernel)I(?:f)?Li(\d+)E")
+# K4's backward's: the path (its namespace, or the prep kernel's type), the
+# kernel (prep, dq, dkdv) and D
+ATTN_BWD_ENTRY = re.compile(r"(?:\d(tc|simt))?\d+attn_bwd_(prep|dq|dkdv)I"
+                            r"(f|13__nv_bfloat16)?Li(\d+)E")
 # the port's kernels as the profiler names them (their CUDA function names)
 KERNEL_NAMES = {"flash_attention_tc": "K4 (bf16, wgmma + TMA)",
                 "flash_attention_kernel": "K4 (float32, CUDA cores)",
@@ -2817,6 +2857,16 @@ def events_ms(acc: list) -> float:
     return sum(a.elapsed_time(b) for a, b in acc)
 
 
+def k4_bwd_launches(kattn, n_bwd: int, label: str) -> int:
+    """K4.bwd's launches since its count was set to 0, held to exactly one
+    a backward pass of K4's Function (n_bwd of them)."""
+    kb = kattn.backward_launches
+    if kb != n_bwd:
+        raise AssertionError(f"{label}: K4.bwd launched {kb} times for "
+                             f"{n_bwd} backward passes of K4's Function")
+    return kb
+
+
 def grad_errors(torch, kernel: str, names, got, want) -> None:
     """Each gradient against its plain counterpart: max |error| and the
     relative L2 error, held to GRAD_MAX_REL / GRAD_REL_L2."""
@@ -2839,12 +2889,140 @@ def grad_errors(torch, kernel: str, names, got, want) -> None:
                                  f"{scale:.3e}")
 
 
+def k4_bwd_errors(torch, label, names, got, want, dtype) -> float:
+    """K4's backward kernel against `flash_attention_bwd`, per gradient
+    (K4_BWD_*); returns the largest |error|."""
+    worst, err = [], 0.0
+    for name, g, w in zip(names, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or \
+                not torch.isfinite(g).all():
+            raise AssertionError(f"K4.bwd {label} {name}: shape, type or "
+                                 f"non-finite values")
+        g, w = g.float(), w.float()
+        e = float((g - w).abs().max())
+        scale = max(float(w.abs().max()), 1e-30)
+        rel = float(torch.linalg.vector_norm(g - w)
+                    / torch.linalg.vector_norm(w).clamp_min(1e-30))
+        worst.append(f"{name} {e:.3e} ({e / scale:.2e} of max, relative L2 "
+                     f"{rel:.2e})")
+        err = max(err, e)
+        if dtype == torch.float32:
+            bad = e > K4_BWD_F32_ATOL * scale
+        else:
+            bad = rel > K4_BWD_BF16_REL_L2 or e > K4_BWD_BF16_MAX * scale
+        if bad:
+            raise AssertionError(f"K4.bwd {label} {name}: max {e:.3e} of "
+                                 f"max {scale:.3e}, relative L2 {rel:.3e}")
+    print(f"    backward kernel against flash_attention_bwd: "
+          f"{'; '.join(worst)}", flush=True)
+    return err
+
+
+def k4_backward_case(torch, F, kattn, normal, grads, label, dims, causal,
+                     window, dtype, shape, kind, power) -> dict:
+    """Phase 11 (a), one K4 case: K4's Function (the kernel forward, its
+    backward kernel) against autograd through `attention_rounded_ref`; the
+    backward kernel against `flash_attention_bwd` on the same inputs, its
+    row statistics against `attention_stats_ref`, two launches bit for bit;
+    timed beside the plain backward and SDPA.  Returns the K4.bwd line of
+    the kernels' JSON (its launches aside)."""
+    b, h, hk, sq, sk, d = dims
+    tname = "bf16" if dtype == torch.bfloat16 else "float32"
+    q = normal((b, h, sq, d), dtype)
+    k, v = normal((b, hk, sk, d), dtype), normal((b, hk, sk, d), dtype)
+    do = normal((b, h, sq, d), dtype)
+    n0, nb0 = kattn.backward_calls, kattn.backward_launches
+    got = grads(lambda *t: kattn.flash_attention(
+        *t, causal=causal, window=window), (q, k, v), do)
+    if (kattn.backward_calls, kattn.backward_launches) != (n0 + 1, nb0 + 1):
+        raise AssertionError("K4's backward did not run its kernel once")
+    want = grads(lambda *t: kattn.attention_rounded_ref(
+        *t, causal=causal, window=window), (q, k, v), do)
+    print(f"  K4 gradient at {label} ({shape}, {tname}, {kind}), the "
+          f"backward kernel, against autograd through "
+          f"attention_rounded_ref:", flush=True)
+    grad_errors(torch, "K4", "qkv", got, want)
+    del got, want
+    stats = torch.empty(2, b, h, sq, dtype=torch.float32, device=q.device)
+    o = kattn._launch(q, k, v, causal, window, stats)
+    ref = kattn.attention_stats_ref(q, k, causal=causal, window=window)
+    em = float((stats[0] - ref[0]).abs().max())
+    el = float(((stats[1] - ref[1]).abs() / ref[1]).max())
+    print(f"    row statistics against attention_stats_ref: m {em:.3e} "
+          f"(limit {K4_STATS_ATOL}), l {el:.3e} relative (limit "
+          f"{K4_STATS_RTOL})", flush=True)
+    if not (em <= K4_STATS_ATOL and el <= K4_STATS_RTOL):
+        raise AssertionError(f"K4 {label}: row statistics off")
+    del ref
+    args = (q, k, v, o, do, stats, causal, window)
+    kern = kattn._launch_bwd(*args)
+    again = kattn._launch_bwd(*args)
+    if not all(torch.equal(x, y) for x, y in zip(kern, again)):
+        raise AssertionError(f"K4.bwd {label}: two launches differ")
+    plain = kattn.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                      window=window)
+    err = k4_bwd_errors(torch, label, ("dq", "dk", "dv"), kern, plain,
+                        dtype)
+    print("    two launches bit for bit", flush=True)
+    del kern, again, plain
+    fwd = device_ms(torch, lambda: kattn._launch(q, k, v, causal, window,
+                                                 stats), reps=20)
+    bwd = device_ms(torch, lambda: kattn._launch_bwd(*args), reps=20)
+    pms = cuda_ms(torch, lambda: kattn.flash_attention_bwd(
+        q, k, v, o, do, causal=causal, window=window), reps=3)
+    mask = (None if window is None
+            else kattn._mask(sq, sk, causal, window, q.device))
+
+    def sdpa(*t):
+        return F.scaled_dot_product_attention(
+            *t, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+    # forward + backward through autograd, K4's Function and SDPA alike
+    # (the inputs' clones included), and SDPA's backward alone over its
+    # saved graph: device time, ten calls behind a ~30 ms sleep that
+    # outlasts their enqueue
+    both = device_ms(torch, lambda: grads(lambda *t: kattn.flash_attention(
+        *t, causal=causal, window=window), (q, k, v), do), reps=10,
+        sleep=60_000_000)
+    lib = device_ms(torch, lambda: grads(sdpa, (q, k, v), do), reps=10,
+                    sleep=60_000_000)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    so = sdpa(*leaves)
+    lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        so, leaves, do, retain_graph=True), reps=10, sleep=60_000_000)
+    del so, leaves
+    # the backward's least work: 5 products of 2 D ops a pair (QK^T
+    # again, dO V^T, P^T dO, dS K, dS^T Q) at the tensor-core peak (the
+    # kernel takes 7, 9 at D = 256: QK^T and dO V^T in both of its
+    # kernels, so that no sum needs atomics); q, k, v, o, dO read and dq,
+    # dk, dv written once
+    nbyte = q.element_size()
+    ops = 10.0 * d * attn_pairs(sq, sk, causal, window) * b * h
+    nbytes = nbyte * (4.0 * b * h * sq * d + 4.0 * b * hk * sk * d)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
+    bms, by = (tb, "bytes") if tb >= to else (to, "operations")
+    print(f"    K4 {tname} at {label}: forward (with its statistics) "
+          f"{fwd:.4f} ms, backward kernel {bwd:.4f} ms (bound {bms:.4f} ms, "
+          f"{by}, {ops / 1e9:.2f} GFLOP in 5 products; {100 * bms / bwd:.2f}%"
+          f" of it), flash_attention_bwd {pms:.4f} ms ({pms / bwd:.1f}x the "
+          f"kernel); forward + backward kernels {fwd + bwd:.4f} ms, through "
+          f"the Function {both:.4f} ms of device time; "
+          f"scaled_dot_product_attention forward + backward {lib:.4f} ms, "
+          f"its backward alone {lib_bwd:.4f} ms (device time); power limit "
+          f"{power}", flush=True)
+    del q, k, v, do, o, stats, mask, args
+    return dict(ms=bwd, plain_ms=pms, bound_ms=bms, bound_by=by,
+                max_abs_err=err, library_ms=lib_bwd)
+
+
 def kernel_gradients(torch, kattn, krwkv, dev, power) -> dict:
     """Phase 11 (a): K4's and K5's autograd Functions against autograd
     through their plain versions, on the card, at training shapes; each
-    backward timed beside its forward (CUDA events); K5's backward kernel
-    against its plain version `wkv_bwd`.  Returns the backward kernel's
-    line of the kernels' JSON (its launches aside)."""
+    backward timed beside its forward (CUDA events); K4's and K5's backward
+    kernels against their plain versions `flash_attention_bwd` and
+    `wkv_bwd`.  Returns the backward kernels' lines of the kernels' JSON
+    (their launches aside), {"K4.bwd": ..., "K5.bwd": ...}."""
     import torch.nn.functional as F
     rng = np.random.default_rng(11)
     bf16 = torch.bfloat16
@@ -2859,54 +3037,19 @@ def kernel_gradients(torch, kattn, krwkv, dev, power) -> dict:
         outs = outs if isinstance(outs, tuple) else (outs,)
         return torch.autograd.grad(outs, leaves, outs_grad)
 
+    out = {}
     for label, (b, h, hk, sq, sk, d), causal, window in K4_GRAD_CASES:
-        q = normal((b, h, sq, d))
-        k, v = normal((b, hk, sk, d)), normal((b, hk, sk, d))
-        do = normal((b, h, sq, d))
-        n0 = kattn.backward_calls
-        got = grads(lambda *t: kattn.flash_attention(
-            *t, causal=causal, window=window), (q, k, v), do)
-        if kattn.backward_calls != n0 + 1:
-            raise AssertionError("K4's backward did not run")
-        want = grads(lambda *t: kattn.attention_rounded_ref(
-            *t, causal=causal, window=window), (q, k, v), do)
         shape = f"q {(b, h, sq, d)}, k/v {(b, hk, sk, d)}"
-        print(f"  K4 gradient at {label} ({shape}, bf16, "
-              f"{'causal' if causal else 'no mask'}"
-              f"{f', window {window}' if window else ''}) against autograd "
-              f"through attention_rounded_ref:", flush=True)
-        grad_errors(torch, "K4", "qkv", got, want)
-        del got, want
-        o = kattn.flash_attention(q, k, v, causal=causal, window=window)
-        fwd = cuda_ms(torch, lambda: kattn.flash_attention(
-            q, k, v, causal=causal, window=window))
-        bwd = cuda_ms(torch, lambda: kattn.flash_attention_bwd(
-            q, k, v, o, do, causal=causal, window=window), reps=3)
-        plain = cuda_ms(torch, lambda: grads(lambda *t: kattn.
-                                             attention_rounded_ref(
-                                                 *t, causal=causal,
-                                                 window=window),
-                                             (q, k, v), do), reps=3)
-        mask = (None if window is None
-                else kattn._mask(sq, sk, causal, window, dev))
-        lib = cuda_ms(torch, lambda: grads(
-            lambda *t: F.scaled_dot_product_attention(
-                *t, attn_mask=mask, is_causal=causal and mask is None,
-                enable_gqa=True), (q, k, v), do), reps=3)
-        # the backward's least work: 5 products of 2 D ops a pair (QK^T
-        # again, dO V^T, P^T dO, dS K, dS^T Q) at the bf16 tensor-core
-        # peak; q, k, v, o, dO read and dq, dk, dv written once, bf16
-        ops = 10.0 * d * attn_pairs(sq, sk, causal, window) * b * h
-        nbytes = 2.0 * (4 * b * h * sq * d + 4 * b * hk * sk * d)
-        bms = max(nbytes / PEAK_BYTES, ops / PEAK_BF16_FLOPS) * 1e3
-        print(f"    K4 forward {fwd:.4f} ms, backward (flash_attention_bwd) "
-              f"{bwd:.4f} ms ({bwd / fwd:.1f}x; bound {bms:.4f} ms, "
-              f"{ops / 1e9:.2f} GFLOP, {100 * bms / bwd:.2f}% of it); plain "
-              f"forward + backward {plain:.4f} ms; "
-              f"scaled_dot_product_attention forward + backward {lib:.4f} "
-              f"ms; power limit {power}", flush=True)
-        del q, k, v, do, o, mask
-        torch.cuda.empty_cache()
+        kind = (f"{'causal' if causal else 'no mask'}"
+                f"{f', window {window}' if window else ''}")
+        for dtype in ((bf16, torch.float32) if label in K4_GRAD_F32
+                      else (bf16,)):
+            out_k4 = k4_backward_case(torch, F, kattn, normal, grads, label,
+                                      (b, h, hk, sq, sk, d), causal, window,
+                                      dtype, shape, kind, power)
+            if label == K4_GRAD_CASES[0][0] and dtype == bf16:
+                out = out_k4
+            torch.cuda.empty_cache()
 
     BH, C, D = K5_GRAD_SHAPE
     r, k, v = (normal((BH, C, D), bf16, 0.5) for _ in range(3))
@@ -2932,7 +3075,7 @@ def kernel_gradients(torch, kattn, krwkv, dev, power) -> dict:
     # k, v, and float32 at the largest and smallest BH (K5_BWD_ATOL; bf16
     # dr, dk, dv also K5_BWD_BF16_RTOL), two launches bit for bit; each
     # bf16 launch timed beside its bound and `wkv_bwd`
-    out = {}
+    out = {"K4.bwd": out}
     for bh in K5_BWD_BHS:
         a = tuple(t[:bh] for t in args)
         dyb, dsb = dy[:bh], ds[:bh]
@@ -2988,13 +3131,15 @@ def kernel_gradients(torch, kattn, krwkv, dev, power) -> dict:
               f"({pms / ms:.1f}x the kernel); power limit {power}",
               flush=True)
         if bh == BH:
-            out = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                       max_abs_err=err, library_ms=None)
+            out["K5.bwd"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                 bound_by=by, max_abs_err=err,
+                                 library_ms=None)
         torch.cuda.empty_cache()
     plain = cuda_ms(torch, lambda: grads(krwkv.wkv_ref, args, (dy, ds)),
                     reps=1)
-    print(f"    K5 forward {fwd:.4f} ms, backward kernel {out['ms']:.4f} ms "
-          f"({out['ms'] / fwd:.1f}x); plain forward + backward {plain:.4f} "
+    kb = out["K5.bwd"]["ms"]
+    print(f"    K5 forward {fwd:.4f} ms, backward kernel {kb:.4f} ms "
+          f"({kb / fwd:.1f}x); plain forward + backward {plain:.4f} "
           f"ms; power limit {power}", flush=True)
     del r, k, v, w, u, s0, dy, ds, args
     torch.cuda.empty_cache()
@@ -3005,7 +3150,8 @@ def train_step_split(torch, kattn, cfg, dev, card) -> None:
     """Where one smollm-360m step's time goes: 3 steps under
     torch.profiler (device busy and idle shares), then 3 steps with a
     synchronisation after each part: forward (the loss), backward (K4's
-    backward function timed on its own with CUDA events), optimizer."""
+    backward kernel timed on its own with CUDA events around its wrapper),
+    optimizer."""
     from repro_torch.models import init_weights
     from repro_torch.models import transformer as ttf
     from repro_torch.train import train_step as tstep
@@ -3038,7 +3184,7 @@ def train_step_split(torch, kattn, cfg, dev, card) -> None:
                                 lambda: steps(3), top=10)
     parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
     k4b = []
-    with events_of(torch, kattn, "flash_attention_bwd", k4b):
+    with events_of(torch, kattn, "_launch_bwd", k4b):
         for _ in range(3):
             b = batch()
             params, opt = state
@@ -3060,7 +3206,7 @@ def train_step_split(torch, kattn, cfg, dev, card) -> None:
     total = sum(parts.values())
     print(f"  smollm-360m step split (3 steps, a synchronisation after each "
           f"part; card {card}): forward {parts['forward'] / 3:.4f} s, "
-          f"backward {parts['backward'] / 3:.4f} s (K4's backward function "
+          f"backward {parts['backward'] / 3:.4f} s (K4's backward kernel "
           f"{k4_bwd / 3:.4f} s of device time, {len(k4b) // 3} calls a step),"
           f" optimizer {parts['optimizer'] / 3:.4f} s; a step "
           f"{total / 3:.4f} s" + (
@@ -3080,7 +3226,7 @@ def lm_training(torch, kattn, krwkv, dev, card) -> dict:
     from repro_torch.ckpt import latest_step
     from repro_torch.configs import get_config
     from repro_torch.launch import train as ltrain
-    launches = {"K4": 0, "K5": 0, "K5.bwd": 0}
+    launches = {"K4": 0, "K4.bwd": 0, "K5": 0, "K5.bwd": 0}
 
     # (b) smollm-360m at full width and depth, the example's full-size
     # settings, 30 of its 300 steps
@@ -3088,6 +3234,7 @@ def lm_training(torch, kattn, krwkv, dev, card) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     kattn.launches, n_bwd = 0, kattn.backward_calls
+    kattn.backward_launches = 0
     t0 = time.perf_counter()
     out = ltrain.run(TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS,
                      batch=TRAIN_B, seq=TRAIN_S, ckpt_dir="", lr=TRAIN_LR,
@@ -3096,6 +3243,7 @@ def lm_training(torch, kattn, krwkv, dev, card) -> dict:
     wall = time.perf_counter() - t0
     k4, bwd = kattn.launches, kattn.backward_calls - n_bwd
     launches["K4"] += k4
+    launches["K4.bwd"] += k4_bwd_launches(kattn, bwd, TRAIN_ARCH)
     losses = np.array(out["losses"])
     first, last = losses[:5].mean(), losses[-5:].mean()
     warm = statistics.median(out["step_s"][5:])
@@ -3110,7 +3258,8 @@ def lm_training(torch, kattn, krwkv, dev, card) -> dict:
           f"peak memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f}"
           f" GiB over the {base / 2**30:.2f} GiB allocated before; K4 launches "
           f"{k4} ({k4 / TRAIN_STEPS:.0f} a step), its backward"
-          f" {bwd} times; card {card}", flush=True)
+          f" {bwd} times, K4.bwd launched {kattn.backward_launches} times; "
+          f"card {card}", flush=True)
     if not (np.isfinite(losses).all()
             and np.isfinite(out["grad_norms"]).all()):
         raise AssertionError(f"{TRAIN_ARCH}: non-finite loss or grad norm")
@@ -3122,9 +3271,12 @@ def lm_training(torch, kattn, krwkv, dev, card) -> dict:
                              f"backward {bwd}, expected "
                              f"{cfg.n_layers * TRAIN_STEPS}")
     torch.cuda.empty_cache()
-    kattn.launches = 0
+    kattn.launches = kattn.backward_launches = 0
+    n_bwd = kattn.backward_calls
     train_step_split(torch, kattn, cfg, dev, card)
     launches["K4"] += kattn.launches
+    launches["K4.bwd"] += k4_bwd_launches(
+        kattn, kattn.backward_calls - n_bwd, "the step split")
 
     # (c) restart exactness: full width cut to 2 layers (a checkpoint of
     # ~1.1 GB), 12 steps uninterrupted against 7 + a resume from step 6
@@ -3134,7 +3286,8 @@ def lm_training(torch, kattn, krwkv, dev, card) -> dict:
     kw = dict(smoke=False, steps=RESTART_STEPS, batch=TRAIN_B, seq=TRAIN_S,
               lr=1e-3, seed=7, device=dev)
     (ROOT / "build").mkdir(exist_ok=True)
-    kattn.launches = 0
+    kattn.launches = kattn.backward_launches = 0
+    n_bwd = kattn.backward_calls
     with patched(ltrain, "get_config", lambda arch, smoke=False: cut), \
             tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         ref = ltrain.run(TRAIN_ARCH, ckpt_dir="", **kw)
@@ -3155,6 +3308,8 @@ def lm_training(torch, kattn, krwkv, dev, card) -> dict:
                          **kw)
         t_res = time.perf_counter() - t0
     launches["K4"] += kattn.launches
+    launches["K4.bwd"] += k4_bwd_launches(
+        kattn, kattn.backward_calls - n_bwd, "restart")
     a, b = np.array(res["losses"][-3:]), np.array(ref["losses"][-3:])
     rel = float(np.max(np.abs(a - b) / np.abs(b)))
     print(f"  restart: failed at step {RESTART_FAIL} after checkpoints every "
@@ -3162,7 +3317,8 @@ def lm_training(torch, kattn, krwkv, dev, card) -> dict:
           f"with saves), resumed from step {last_step} ({t_res:.2f} s); last "
           f"3 losses {np.round(a, 6).tolist()} against the uninterrupted "
           f"{np.round(b, 6).tolist()}, max relative difference {rel:.3e} "
-          f"(limit 2e-4); K4 launches {kattn.launches}; card {card}",
+          f"(limit 2e-4); K4 launches {kattn.launches}, K4.bwd "
+          f"{kattn.backward_launches}; card {card}",
           flush=True)
     if last_step != RESTART_FAIL - 1 or not rel <= 2e-4:
         raise AssertionError(f"restart: resumed from {last_step}, losses "
@@ -3717,10 +3873,10 @@ def serve_under_mesh(torch, arch: str, kattn, dev, card) -> int:
     return k4["mesh"] + k4["mesh graphed"]
 
 
-def dp_training_on_card(torch, kattn, dev, card) -> int:
+def dp_training_on_card(torch, kattn, dev, card) -> dict:
     """Phase 12 (d): smollm-360m's data-parallel step on a stacked (pod 2,
     data 2) mesh, hierarchical and flat, against the single-card step.
-    Returns K4's launches in the mesh steps."""
+    Returns K4's and K4.bwd's launches in the mesh steps."""
     from repro_torch.configs import get_config
     from repro_torch.core import collectives as tcoll
     from repro_torch.data import SyntheticLM
@@ -3741,7 +3897,7 @@ def dp_training_on_card(torch, kattn, dev, card) -> int:
     # the weights cut over 'data' (FSDP): each rank holds half its leaves
     cut = map_tree(lambda t: t.detach().requires_grad_(),
                    tpm.shard_model(params, cfg, mesh))
-    runs, launches = {}, 0
+    runs, launches = {}, {"K4": 0, "K4.bwd": 0}
     for label, par in (("single card", Parallelism()),
                        ("hierarchical", Parallelism(
                            mesh=mesh, data_axes=("pod", "data"),
@@ -3761,12 +3917,14 @@ def dp_training_on_card(torch, kattn, dev, card) -> int:
         tstep.hierarchical_all_reduce = timed_reduce
         tree = params if par.mesh is None else cut
         try:
-            kattn.launches = 0
+            kattn.launches = kattn.backward_launches = 0
+            n_bwd = kattn.backward_calls
             opt = init_opt_state(tree)
             torch.cuda.reset_peak_memory_stats(dev)
             (newp, opt, m), t = timed_sync(torch, lambda: step(
                 tree, opt, batch))
             k4 = kattn.launches
+            kb = k4_bwd_launches(kattn, kattn.backward_calls - n_bwd, label)
         finally:
             tstep.hierarchical_all_reduce = real
         peak = torch.cuda.max_memory_allocated(dev)
@@ -3776,7 +3934,8 @@ def dp_training_on_card(torch, kattn, dev, card) -> int:
                                                         mesh))
         runs[label] = (opt, m)
         if par.mesh is not None:
-            launches += k4
+            launches["K4"] += k4
+            launches["K4.bwd"] += kb
             pod = sum(s["bytes_per_rank"] for s in step.comm
                       if "pod" in s["axes"])
             print(f"  {label} reduction: "
@@ -3792,7 +3951,8 @@ def dp_training_on_card(torch, kattn, dev, card) -> int:
                 raise AssertionError(f"{label}: K4 launches {k4}")
         print(f"  {label}: step {t:.4f} s, loss {float(m['loss']):.6f}, "
               f"grad norm {float(m['grad_norm']):.6f}, K4 launches {k4}, "
-              f"peak {peak / 2**30:.3f} GiB; card {card}", flush=True)
+              f"K4.bwd {kb}, peak {peak / 2**30:.3f} GiB; card {card}",
+              flush=True)
         del newp
     one = runs["single card"]
     for label in ("hierarchical", "flat"):
@@ -3824,9 +3984,9 @@ def dp_training_on_card(torch, kattn, dev, card) -> int:
     return launches
 
 
-def lm_sharding(torch, kattn, dev, card) -> int:
+def lm_sharding(torch, kattn, dev, card) -> dict:
     """Phase 12: the LM sharding tier on ranks stacked on the card.
-    Returns K4's launches."""
+    Returns K4's and K4.bwd's launches."""
     with phase("LM sharding (a): the collectives on stacked meshes"):
         collectives_on_card(torch, dev, card)
     with phase("LM sharding (b): dbrx-132b's MoE layer, expert-parallel"):
@@ -3837,8 +3997,9 @@ def lm_sharding(torch, kattn, dev, card) -> int:
             k4 += serve_under_mesh(torch, arch, kattn, dev, card)
     with phase(f"LM sharding (d): {TRAIN_ARCH} data-parallel on (pod 2, "
                f"data 2)"):
-        k4 += dp_training_on_card(torch, kattn, dev, card)
-    return k4
+        out = dp_training_on_card(torch, kattn, dev, card)
+    out["K4"] += k4
+    return out
 
 
 # ------------------------------------------------------------ phase 14 -----
@@ -4066,13 +4227,13 @@ def float32_distance(torch, model, cfg, served) -> float:
     return worst
 
 
-def tp_training(torch, kattn, dev, card) -> int:
+def tp_training(torch, kattn, dev, card) -> dict:
     """Phase 14 (b): smollm-360m's training step at full size (batch 4 x
     512) on a stacked (model 4) mesh (15 query heads over 5 KV heads: the
     KV groups dealt 2 + 1 + 1 + 1), remat off and on, against the
     single-card step with phase 12 (d)'s limits (the loss at TP_LOSS_RTOL),
-    and remat on against off at the same limits.  Returns K4's launches on
-    the mesh."""
+    and remat on against off at the same limits.  Returns K4's and K4.bwd's
+    launches on the mesh."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.models import init_weights, tp as tpm
@@ -4089,7 +4250,7 @@ def tp_training(torch, kattn, dev, card) -> int:
     plan = tpm.plan(cfg, par)
     print(f"  {TRAIN_ARCH}: (query, KV) heads a rank "
           f"{list(zip(plan.hq, plan.hkv))}, batch {DP_B} x {DP_S}", flush=True)
-    runs, launches = {}, 0
+    runs, launches = {}, {"K4": 0, "K4.bwd": 0}
     for label, pp in (("single card", Parallelism(remat=False)),
                       ("model 4, remat off", par),
                       ("model 4, remat on", dc_replace(par, remat=True))):
@@ -4099,7 +4260,8 @@ def tp_training(torch, kattn, dev, card) -> int:
         step = tstep.make_train_step(cfg, opt_cfg, par=pp)
         for warm in (True, False):
             opt = init_opt_state(tree)
-            kattn.launches = 0
+            kattn.launches = kattn.backward_launches = 0
+            n_bwd = kattn.backward_calls
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             base = torch.cuda.memory_allocated(dev)
@@ -4108,9 +4270,11 @@ def tp_training(torch, kattn, dev, card) -> int:
             peak = torch.cuda.max_memory_allocated(dev) - base
             del newp
         k4 = kattn.launches
+        kb = k4_bwd_launches(kattn, kattn.backward_calls - n_bwd, label)
         ranks = 1 if pp.mesh is None else TP_RANKS
         if pp.mesh is not None:
-            launches += k4
+            launches["K4"] += k4
+            launches["K4.bwd"] += kb
             want = cfg.n_layers * sum(1 for h in plan.hq if h) * (
                 1 + pp.remat)
             if k4 != want:
@@ -4121,6 +4285,7 @@ def tp_training(torch, kattn, dev, card) -> int:
         runs[label] = (opt, m)
         print(f"  {label}: warm step {t:.4f} s, loss {float(m['loss']):.6f},"
               f" grad norm {float(m['grad_norm']):.6f}, K4 launches {k4}, "
+              f"K4.bwd {kb}, "
               f"peak {peak / 2**30:.3f} GiB above the weights and batch "
               f"({peak / ranks / 2**30:.3f} GiB a rank), weights "
               f"{_gib(tree) / ranks:.3f} GiB a rank; card {card}", flush=True)
@@ -4223,16 +4388,17 @@ def tp_moe_model(torch, kattn, dev, card) -> int:
 
 
 def lm_tensor_parallel(torch, kattn, krwkv, dev, card) -> dict:
-    """Phase 14: the LM tier on the model ranks' blocks.  Returns K4's, K5's
-    and K5.bwd's launches on the meshes."""
-    out = {"K4": 0, "K5": 0, "K5.bwd": 0}
+    """Phase 14: the LM tier on the model ranks' blocks.  Returns K4's,
+    K4.bwd's, K5's and K5.bwd's launches on the meshes."""
+    out = {"K4": 0, "K4.bwd": 0, "K5": 0, "K5.bwd": 0}
     for arch in TP_SERVE_ARCHS:
         with phase(f"LM tensor parallel (a): serving {arch} on (data 1, "
                    f"model {TP_RANKS})"):
             out["K4"] += tp_serving(torch, arch, kattn, dev, card)
     with phase(f"LM tensor parallel (b): {TRAIN_ARCH} training on (model "
                f"{TP_RANKS})"):
-        out["K4"] += tp_training(torch, kattn, dev, card)
+        for name, n in tp_training(torch, kattn, dev, card).items():
+            out[name] += n
     with phase("LM tensor parallel (c): dbrx-132b on (data 2, model 2)"):
         out["K4"] += tp_moe_model(torch, kattn, dev, card)
     for arch in TP_RECURRENT_ARCHS:
@@ -4301,9 +4467,9 @@ def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
     step's loss, the first grad norm and clipped gradient at least
     TP_NOISE_RATIO times the single card's own distance from the same
     steps in float32 from the same weights on the same batches,
-    `float32_steps`).  Returns the kernels' launches on the meshes (K5's
-    backward kernel's under "K5.bwd", once a backward pass of K5's
-    Function, which is checked)."""
+    `float32_steps`).  Returns the kernels' launches on the meshes (the
+    backward kernel's under "K4.bwd" or "K5.bwd", once a backward pass of
+    the Function, which is checked)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.mesh import make_mesh_compat
@@ -4323,9 +4489,8 @@ def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
     opt_cfg = AdamWConfig(lr=TRAIN_LR)
     kernel = kattn if cfg.family != "ssm" else krwkv
     name = "K4" if kernel is kattn else "K5"
-    one, launches = None, {name: 0}
-    if kernel is krwkv:
-        launches["K5.bwd"] = 0
+    bname = name + ".bwd"
+    one, launches = None, {name: 0, bname: 0}
     for label, shape, axes, pod in (("single card", None, None, False),)\
             + tuple(layouts):
         if shape is None:
@@ -4347,7 +4512,7 @@ def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
         base = torch.cuda.memory_allocated(dev)
         losses, times, first = [], [], None
         kernel.launches, bwd0 = 0, kernel.backward_calls
-        krwkv.backward_launches = 0
+        kernel.backward_launches = 0
         for i, b in enumerate(batches):
             if shape is not None:
                 gathers.clear()
@@ -4363,12 +4528,11 @@ def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
                               for x in first)
         peak = torch.cuda.max_memory_allocated(dev) - base
         k, bwd = kernel.launches, kernel.backward_calls - bwd0
-        kb = krwkv.backward_launches
+        kb = kernel.backward_launches
         ranks = 1 if shape is None else mesh.n_ranks
         if shape is not None:
             launches[name] += k
-            if kernel is krwkv:
-                launches["K5.bwd"] += kb
+            launches[bname] += kb
             held, _ = fsdp_held(tree, cfg, mesh, pod)
         else:
             held = _gib(tree)
@@ -4376,8 +4540,7 @@ def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
               f"{np.round(losses, 6).tolist()}, step s "
               f"{np.round(times, 4).tolist()} (stacked on one card), grad "
               f"norm {gn:.6f}; {name} launches {k} ({k // n_steps} a step),"
-              f" its backward {bwd} times"
-              f"{f' (K5.bwd {kb})' if kernel is krwkv else ''}; weights "
+              f" its backward {bwd} times ({bname} {kb}); weights "
               f"held a rank "
               f"{held:.4f} GiB, peak {peak / 2**30:.3f} GiB above the "
               f"weights, optimizer state and batch "
@@ -4386,8 +4549,8 @@ def fsdp_steps(torch, kattn, krwkv, arch, layouts, n_steps, B, dev, card,
         if k == 0 or bwd == 0 or not all(map(math.isfinite, losses)):
             raise AssertionError(f"{arch} {label}: {name} launches {k}, "
                                  f"backwards {bwd}, losses {losses}")
-        if kernel is krwkv and kb != bwd:
-            raise AssertionError(f"{arch} {label}: K5.bwd launched {kb} "
+        if kb != bwd:
+            raise AssertionError(f"{arch} {label}: {bname} launched {kb} "
                                  f"times for {bwd} backward passes")
         if shape is not None and "model" in axes:
             want = k_one * sum(1 for h in tpm.plan(cfg, par).hq if h)
@@ -4486,13 +4649,14 @@ def float32_steps(torch, cfg, params, batches, opt_cfg, one) -> tuple:
 
 
 def lm_fsdp(torch, kattn, krwkv, dev, card) -> dict:
-    """Phase 15: FSDP over the data axes.  Returns K4's, K5's and
+    """Phase 15: FSDP over the data axes.  Returns K4's, K4.bwd's, K5's and
     K5.bwd's launches."""
-    out = {"K4": 0, "K5": 0, "K5.bwd": 0}
+    out = {"K4": 0, "K4.bwd": 0, "K5": 0, "K5.bwd": 0}
     with phase(f"LM FSDP (a): {TRAIN_ARCH} on (data 4) and (pod 2, data 2)"):
-        out["K4"] += fsdp_steps(torch, kattn, krwkv, TRAIN_ARCH,
-                                FSDP_LAYOUTS, FSDP_STEPS, DP_B, dev,
-                                card)["K4"]
+        for name, n in fsdp_steps(torch, kattn, krwkv, TRAIN_ARCH,
+                                  FSDP_LAYOUTS, FSDP_STEPS, DP_B, dev,
+                                  card).items():
+            out[name] += n
     with phase("LM FSDP (b): rwkv6-1.6b on (data 2)"):
         for name, n in fsdp_steps(torch, kattn, krwkv, "rwkv6-1.6b",
                                   (("data 2", (2,), ("data",), False),),
@@ -4549,14 +4713,34 @@ def card_program(arch: str, shape_name: str, dev, B: int, n_micro: int,
 def dryrun_on_card(torch, kattn, krwkv, dev, card, meta=None) -> dict:
     """Phase 13: each of DRYRUN_CELLS dry-run on meta (read from `meta`,
     `dryrun_meta`'s process and file, when given), then the same rank's
-    step on the card under the same walker; returns the K4 / K5 launches
-    of the card's steps."""
+    step on the card under the same walker; returns the K4 / K4.bwd / K5 /
+    K5.bwd launches of the card's steps (K4.bwd's and K5.bwd's held to one
+    a backward pass of their Functions)."""
     from repro_torch.analysis.hlo_walk import Walker
     from repro_torch.analysis.roofline import H100_SXM, roofline_from_artifact
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import dryrun
 
-    launches = {"K4": 0, "K5": 0}
+    launches = {"K4": 0, "K4.bwd": 0, "K5": 0, "K5.bwd": 0}
+    counters = (("K4", kattn, "launches"), ("K4.bwd", kattn,
+                                            "backward_launches"),
+                ("K5", krwkv, "launches"), ("K5.bwd", krwkv,
+                                            "backward_launches"))
+
+    def counts():
+        return ({n: getattr(m, a) for n, m, a in counters},
+                kattn.backward_calls, krwkv.backward_calls)
+
+    def add(before, label):
+        (c0, a0, r0), (c1, a1, r1) = before, counts()
+        for n in c1:
+            launches[n] += c1[n] - c0[n]
+        if (c1["K4.bwd"] - c0["K4.bwd"], c1["K5.bwd"] - c0["K5.bwd"]) != (
+                a1 - a0, r1 - r0):
+            raise AssertionError(f"{label}: backward kernels launched "
+                                 f"{c1['K4.bwd'] - c0['K4.bwd']} / "
+                                 f"{c1['K5.bwd'] - c0['K5.bwd']} times for "
+                                 f"{a1 - a0} / {r1 - r0} backward passes")
     recs = {}
     if meta is not None:
         proc, path = meta
@@ -4622,25 +4806,23 @@ def dryrun_on_card(torch, kattn, krwkv, dev, card, meta=None) -> dict:
               f"ranks, n_micro {n_micro}; held against the same mesh on "
               f"meta", flush=True)
         args, run = card_program(arch, shape_name, dev, B, n_micro)
-        k0 = (kattn.launches, krwkv.launches)
+        k0 = counts()
         w_c, t_walk, held_c = dryrun.walk_program(args, run, dev.type)
         got = w_c.result()
-        launches["K4"] += kattn.launches - k0[0]
-        launches["K5"] += krwkv.launches - k0[1]
+        add(k0, f"{arch} {shape_name} walked")
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
-        k0 = (kattn.launches, krwkv.launches)
+        k0 = counts()
         ev0.record()
         out = run()
         ev1.record()
         torch.cuda.synchronize(dev)
         measured = torch.cuda.max_memory_allocated(dev) - base
-        launches["K4"] += kattn.launches - k0[0]
-        launches["K5"] += krwkv.launches - k0[1]
+        add(k0, f"{arch} {shape_name}")
         del out
         step_ms = ev0.elapsed_time(ev1)
         predicted = pred["port"]["stacked"]["peak_bytes"] - \
@@ -4761,6 +4943,11 @@ def main() -> int:
                     entry = (f"flash_attention "
                              f"{'bf16 wgmma' if m[1] == 'tc' else 'f32 simt'}"
                              f" D {m[2]}: ")
+                m = ATTN_BWD_ENTRY.search(line)
+                if m:           # K4's backward's, by path, kernel and D
+                    path = ("bf16 mma.sync" if m[1] == "tc"
+                            or m[3] == "13__nv_bfloat16" else "f32 simt")
+                    entry = f"attn_bwd_{m[2]} {path} D {m[4]}: "
                 if ("registers" in line or "smem" in line
                         or "spill" in line or "C75" in line):
                     print(f"  {src}: {entry}{line.strip()}")
@@ -5236,7 +5423,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ 10 -----
-    launches.update({"K4": 0, "K5": 0, "K5.bwd": 0})
+    launches.update({"K4": 0, "K4.bwd": 0, "K5": 0, "K5.bwd": 0})
     for arch, counter, name in (("qwen3-0.6b", kattn, "K4"),
                                 ("rwkv6-1.6b", krwkv, "K5"),
                                 ("gemma3-12b", kattn, "K4"),
@@ -5258,8 +5445,7 @@ def main() -> int:
     with phase("LM training: K4's and K5's gradients against their plain "
                "versions"):
         print(f"  card {card}", flush=True)
-        results["K5.bwd"] = kernel_gradients(torch, kattn, krwkv, dev,
-                                             power)
+        results.update(kernel_gradients(torch, kattn, krwkv, dev, power))
     with phase(f"LM training: launch.train.run ({TRAIN_ARCH}, restart, "
                f"rwkv6-1.6b)"):
         for name, n in lm_training(torch, kattn, krwkv, dev, card).items():
@@ -5267,7 +5453,8 @@ def main() -> int:
 
     # ------------------------------------------------------------ 12 -----
     print(f"  card {card}", flush=True)
-    launches["K4"] += lm_sharding(torch, kattn, dev, card)
+    for name, n in lm_sharding(torch, kattn, dev, card).items():
+        launches[name] += n
 
     # ------------------------------------------------------------ 13 -----
     torch.cuda.empty_cache()
@@ -5301,6 +5488,8 @@ def main() -> int:
         "K2": ("csrc/p2p_stream.cu", "src/repro/kernels/p2p_stream.py:111"),
         "K3": ("csrc/mac.cu", "src/repro/kernels/mac.py:53"),
         "K4": ("csrc/attention.cu", "src/repro/kernels/attention.py:73"),
+        # no TPU kernel: the reference differentiates its plain attention
+        "K4.bwd": ("csrc/attention_bwd.cu", "src/repro/models/layers.py:49"),
         "K5": ("csrc/wkv.cu", "src/repro/kernels/rwkv.py:48"),
         # no TPU kernel: the reference differentiates its chunkwise WKV
         "K5.bwd": ("csrc/wkv_bwd.cu", "src/repro/models/rwkv6.py:53"),

@@ -31,30 +31,39 @@ against the running max), so it differs from the bfloat16 kernel only by
 the order of float32 sums.
 
 The gradient.  The Pallas kernel has no backward kernel (the reference
-trains through plain XLA), so the port has none to port: on the card,
-`flash_attention` wraps K4 in a `torch.autograd.Function` whenever grad
-mode is on and an input requires grad, and its backward is the PyTorch
-function `flash_attention_bwd`, which recomputes P with K4's roundings
-and takes the standard flash-attention adjoint (dV = P^T dO, dS = P (dO
-V^T - rowsum(dO O)), dQ and dK from dS and the scale), summed over each
-GQA group's query heads.  Without grad (serving, its CUDA graphs) the
-wrapper launches K4 exactly as before.  On the CPU, autograd
+trains through XLA's autodiff of its plain attention), so the port has
+none to port: on the card, `flash_attention` wraps K4 in a
+`torch.autograd.Function` whenever grad mode is on and an input requires
+grad.  Its forward asks K4 for each query row's float32 softmax statistics
+as well (the final max m and the sum l, (2, B, H, Sq); `attention_stats_ref`
+is their plain version), and its backward launches the hand-written kernel
+`csrc/attention_bwd.cu` (`_launch_bwd`), which recomputes P from them with
+K4's roundings and takes the flash-attention adjoint (dV = P^T dO, dS = P
+(dO V^T - rowsum(dO O)), dQ and dK from dS and the scale), summed over each
+GQA group's query heads, with no atomics.  `flash_attention_bwd` is its
+plain version in PyTorch, which the tests hold it to; it runs for no tensor
+of the main path.  Without grad (serving, its CUDA graphs) the wrapper
+launches K4 exactly as before, with no statistics.  On the CPU, autograd
 differentiates `attention_ref` itself.
 
 The dry run (`launch.dryrun`) runs the models on the `meta` device.  There
-the wrapper computes nothing: it makes the launch's checks and returns an
-empty output of its shape and type, through the autograd Function as on
-the card, so `flash_attention_bwd` runs on meta as it is.  Each launch,
-and each meta stand-in for one, reports to the active walker
-(`obs.cost`) under "K4": the operations of the (query, key) pairs
-the mask admits (`admitted_pairs`; 4 D a pair, QK^T and PV, an fma counted
-as 2), q, k and v read once and the output written once (`PERF.md` §6's
-bound), and the reference's dot FLOPs, 4 B H Sq Sk D: its attention is
-plain XLA dots over every pair.
+the wrapper computes nothing: it makes the launch's checks and returns
+empty outputs of their shapes and types, through the autograd Function as
+on the card; the backward allocates what the kernel's launch allocates and
+runs nothing.  Each launch, and each meta stand-in for one, reports to the
+active walker (`obs.cost`).  "K4": the operations of the (query, key)
+pairs the mask admits (`admitted_pairs`; 4 D a pair, QK^T and PV, an fma
+counted as 2), q, k and v read once and the output written once (`PERF.md`
+§6's bound), and the reference's dot FLOPs, 4 B H Sq Sk D: its attention
+is plain XLA dots over every pair.  "K4.bwd": the kernel's 7 products of 2
+D operations an admitted pair (9 at head size 256, where dK and dV are
+taken in two halves), q, k, v, o, dO and the statistics read once, dq, dk,
+dv and delta written once, and the reference's backward dot FLOPs, 8 B H
+Sq Sk D (the adjoints of its two products).
 
-`launches` counts kernel launches: the wrapper adds one where it launches
-the kernel, and nowhere else.  `backward_calls` counts the Function's
-backward passes (PyTorch work, no kernel of this module).
+`launches` counts K4's launches and `backward_launches` its backward's:
+each wrapper adds one where it launches its kernel, and nowhere else.
+`backward_calls` counts the Function's backward passes.
 """
 from __future__ import annotations
 
@@ -67,8 +76,9 @@ from repro_torch.kernels.build import library
 from repro_torch.obs import cost
 
 __all__ = ["flash_attention", "flash_attention_bwd", "attention_ref",
-           "attention_rounded_ref", "attention_tiled_ref", "admitted_pairs",
-           "HEAD_DIMS", "BLOCK_K", "NEG_INF"]
+           "attention_rounded_ref", "attention_tiled_ref",
+           "attention_stats_ref", "admitted_pairs", "HEAD_DIMS", "BLOCK_K",
+           "NEG_INF"]
 
 HEAD_DIMS = (32, 64, 128, 256)  # the head sizes the kernel is built for
 # keys per tile of the bfloat16 kernel, by head size (csrc: Layout<D>::kBK)
@@ -80,6 +90,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_BLOCK_BYTES = 1 << 28
 
 launches = 0
+backward_launches = 0
 backward_calls = 0
 
 
@@ -168,6 +179,24 @@ def attention_tiled_ref(q, k, v, *, causal: bool = True,
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
+def attention_stats_ref(q, k, *, causal: bool = True,
+                        window: int | None = None):
+    """Plain version of the row statistics K4 leaves for its backward:
+    q (B, H, Sq, D), k (B, Hkv, Sk, D) -> (2, B, H, Sq) float32, the max m
+    of each query row's masked scores (float32, of q * scale rounded to the
+    input type, as `attention_rounded_ref` takes them) and the sum l of p =
+    exp(s - m) over its keys, so that P = p / max(l, 1e-30)."""
+    B, H, Sq, D = q.shape
+    group = H // k.shape[1]
+    scale = float(torch.tensor(D ** -0.5, dtype=q.dtype))
+    s = torch.einsum("bhqd,bhkd->bhqk", (q * scale).float(),
+                     k.float().repeat_interleave(group, dim=1))
+    s = s.masked_fill(~_mask(Sq, k.shape[2], causal, window, q.device),
+                      NEG_INF)
+    m = s.amax(-1)
+    return torch.stack((m, torch.exp(s - m[..., None]).sum(-1)))
+
+
 def _check(q, k, v, causal, window):
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention: expected q (B, H, Sq, D) and k/v "
@@ -214,6 +243,23 @@ def _report(q, k, causal, window) -> None:
         dot_flops=4.0 * B * H * Sq * Sk * D)
 
 
+def _report_bwd(q, k, causal, window) -> None:
+    """One launch of K4's backward for the active walker (see the module
+    docstring)."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    nbyte = q.element_size()
+    products = 7 if D <= 128 else 9
+    rows = B * H * Sq
+    cost.report_kernel(
+        "K4.bwd", operations=2.0 * products * D
+        * admitted_pairs(Sq, Sk, causal, window) * B * H,
+        read_bytes=nbyte * (3.0 * rows * D + 2.0 * B * Hkv * Sk * D)
+        + 8.0 * rows,
+        write_bytes=nbyte * (1.0 * rows * D + 2.0 * B * Hkv * Sk * D)
+        + 4.0 * rows, dot_flops=8.0 * B * H * Sq * Sk * D)
+
+
 def _misaligned(t) -> int:
     """Bytes past a 16-byte boundary where t's data starts (on meta, from
     its storage offset: the allocator's blocks are 512-byte aligned)."""
@@ -225,20 +271,31 @@ def _misaligned(t) -> int:
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = library("attention.cu")
-    lib.repro_flash_attention.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+    lib.repro_flash_attention.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p]
     lib.repro_flash_attention.restype = ctypes.c_int
     lib.repro_attention_error_string.argtypes = [ctypes.c_int]
     lib.repro_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k, v, causal, window):
-    """K4 on the current stream: checked CUDA tensors -> o (meta tensors:
-    an empty o, the launch reported; nothing runs)."""
+@functools.lru_cache(maxsize=None)
+def _lib_bwd():
+    lib = library("attention_bwd.cu")
+    lib.repro_flash_attention_bwd.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p]
+    lib.repro_flash_attention_bwd.restype = ctypes.c_int
+    lib.repro_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.repro_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(q, k, v, causal, window, stats=None):
+    """K4 on the current stream: checked CUDA tensors -> o; `stats`, a
+    float32 (2, B, H, Sq) tensor on q's device, also receives each row's m
+    and l (meta tensors: an empty o, the launch reported; nothing runs)."""
     global launches
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
@@ -264,6 +321,7 @@ def _launch(q, k, v, causal, window):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if stats is None else stats.data_ptr(),
             _DTYPES[q.dtype], B, H, k.shape[1], Sq, k.shape[2], D,
             float(D ** -0.5),
             int(causal), 0 if window is None else int(window), stream)
@@ -278,9 +336,10 @@ def _launch(q, k, v, causal, window):
 
 def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
                         window: int | None = None):
-    """The gradient of K4: q (B, H, Sq, D), k/v (B, Hkv, Sk, D), the
-    forward's output o and its gradient do (B, H, Sq, D) -> (dq, dk, dv) in
-    the inputs' types.  P is recomputed with `attention_rounded_ref`'s
+    """The gradient of K4, the plain version of its backward kernel
+    (`_launch_bwd`): q (B, H, Sq, D), k/v (B, Hkv, Sk, D), the forward's
+    output o and its gradient do (B, H, Sq, D) -> (dq, dk, dv) in the
+    inputs' types.  P is recomputed with `attention_rounded_ref`'s
     roundings (q * scale in the input type, float32 scores, p = exp(s -
     max) over l = sum p; dV takes p rounded to v's type, as the PV product
     did); dS = P (dO V^T - rowsum(dO O)), dQ = scale dS K, dK = dS^T (q *
@@ -321,22 +380,93 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
     return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
 
 
+def _launch_bwd(q, k, v, o, do, stats, causal, window):
+    """K4's backward on the current stream: K4's inputs, its output o, o's
+    gradient do (B, H, Sq, D) and the statistics its launch wrote (float32
+    (2, B, H, Sq)) -> (dq, dk, dv) in the inputs' type.  CUDA tensors
+    (contiguous, D in `HEAD_DIMS`, bfloat16 ones 16-byte aligned) launch
+    `csrc/attention_bwd.cu`, raising if the launch fails; meta tensors
+    allocate what the launch allocates, report it and compute nothing; any
+    other device raises.  Allocates dq, dk, dv and the launch's scratch
+    (delta, (B, H, Sq) float32; q * scale, q's shape) with torch.empty."""
+    global backward_launches
+    _check(q, k, v, causal, window)
+    B, H, Sq, D = q.shape
+    dev = q.device
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention backward: unsupported device "
+                         f"{dev}")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != dev:
+            raise ValueError(f"flash_attention backward: {name} must match "
+                             f"q {tuple(q.shape)} {q.dtype} on {dev}; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if (tuple(stats.shape) != (2, B, H, Sq) or stats.dtype != torch.float32
+            or stats.device != dev):
+        raise ValueError(f"flash_attention backward: stats must be float32 "
+                         f"{(2, B, H, Sq)} on {dev}; got "
+                         f"{tuple(stats.shape)} {stats.dtype}")
+    named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
+    for name, t in named + (("stats", stats),):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention backward: {name} must be "
+                             f"contiguous")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention backward: head dim {D} not in "
+                         f"{HEAD_DIMS}")
+    if q.dtype == torch.bfloat16:
+        for name, t in named:
+            if _misaligned(t):
+                raise ValueError(f"flash_attention backward: {name} must be "
+                                 f"16-byte aligned in bfloat16 (cp.async)")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
+    qs = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    if dev.type == "meta":
+        if cost.ACTIVE is not None:
+            _report_bwd(q, k, causal, window)
+        return dq, dk, dv
+    lib = _lib_bwd()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), qs.data_ptr(), _DTYPES[q.dtype],
+            B, H, k.shape[1], Sq, k.shape[2], D, float(D ** -0.5),
+            int(causal), 0 if window is None else int(window), stream)
+    if err != 0:
+        raise RuntimeError("attention backward kernel launch failed: "
+                           + lib.repro_attention_bwd_error_string(err)
+                           .decode())
+    backward_launches += 1
+    if cost.ACTIVE is not None:
+        _report_bwd(q, k, causal, window)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
-    """K4 forward, `flash_attention_bwd` backward."""
+    """K4 forward (with its row statistics), its backward kernel
+    backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        o = _launch(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, o)
+        B, H, Sq, _ = q.shape
+        stats = torch.empty(2, B, H, Sq, dtype=torch.float32,
+                            device=q.device)
+        o = _launch(q, k, v, causal, window, stats)
+        ctx.save_for_backward(q, k, v, o, stats)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
         global backward_calls
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal,
-                                         window=ctx.window)
+        q, k, v, o, stats = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, o, do.contiguous(), stats,
+                                 ctx.causal, ctx.window)
         backward_calls += 1
         return dq, dk, dv, None, None
 

@@ -24,8 +24,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build", "digest", "library",
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("p2p.cu", "p2p_stream.cu", "mac.cu", "attention.cu", "wkv.cu",
-           "wkv_bwd.cu")
+SOURCES = ("p2p.cu", "p2p_stream.cu", "mac.cu", "attention.cu",
+           "attention_bwd.cu", "wkv.cu", "wkv_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

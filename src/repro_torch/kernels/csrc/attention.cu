@@ -72,6 +72,12 @@
 // with shuffles.  Rows of Q and K are padded by one float, so the 16 keys a
 // half-warp reads at one d fall in 16 different banks.
 //
+// For the gradient (csrc/attention_bwd.cu) both kernels can also write each
+// query row's float32 softmax statistics where they finish the row: the
+// final max m and the sum l of its p = exp(s - m) (the l the output is
+// divided by), stats[0] and stats[1] of a (2, B, H, Sq) buffer.  Serving
+// passes no buffer and writes nothing more.
+//
 // The shared-memory limit of each kernel is raised once per device, not per
 // launch.  The TMA encoder, cuTensorMapEncodeTiled, lives in libcuda and is
 // looked up at run time through cudart, so the library links nothing else.
@@ -83,22 +89,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace {
+#include "attention_common.cuh"
 
-// Raises the dynamic shared-memory limit of `kern` on the current device the
-// first time it is launched there; `ready` holds one bit per device.
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int bytes, std::atomic<uint32_t>& ready) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint32_t bit = dev < 32 ? 1u << dev : 0u;
-  if (bit && (ready.load(std::memory_order_acquire) & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) ready.fetch_or(bit, std::memory_order_release);
-  return err;
-}
+namespace {
 
 // ------------------------------------------------ float32: CUDA cores -----
 namespace simt {
@@ -109,22 +102,6 @@ constexpr int kThreads = 256;    // 16 x 16: ty = row group, tx = key / column
 constexpr int kPS = kBK + 1;     // padded row stride of the P tile
 constexpr float kNegInf = -1e30f;
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// x rounded to T and back
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f<T>(from_f<T>(x));
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * kBQ * (D + 1) + kBK * D + kBQ * kPS);
@@ -133,9 +110,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int Hkv, int Sq, int Sk, float scale, int causal,
-                       int window) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ stats, int H, int Hkv, int Sq,
+                       int Sk, float scale, int causal, int window) {
   constexpr int QS = D + 1;      // padded row stride of the Q and K tiles
   constexpr int NC = D / 16;     // output columns per thread
   extern __shared__ float smem[];
@@ -261,13 +238,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       op[static_cast<size_t>(qi) * D + tx + 16 * c] = from_f<T>(acc[i][c] / den);
+    if (stats != nullptr && tx == 0) {
+      const size_t at = static_cast<size_t>(b * H + h) * Sq + qi;
+      stats[at] = m[i];
+      stats[static_cast<size_t>(gridDim.z) * H * Sq + at] = l[i];
+    }
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int Sq, int Sk, float scale, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* stats,
+           int B, int H, int Hkv, int Sq, int Sk, float scale, int causal,
+           int window, cudaStream_t stream) {
   auto kern = flash_attention_kernel<float, D>;
   constexpr size_t smem = smem_bytes<D>();
   static std::atomic<uint32_t> ready{0};
@@ -276,27 +258,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Sk,
-      scale, causal, window);
+      static_cast<const float*>(v), static_cast<float*>(o), stats, H, Hkv, Sq,
+      Sk, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
-             int window, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, void* o,
+             float* stats, int B, int H, int Hkv, int Sq, int Sk, int D,
+             float scale, int causal, int window, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
-                        stream);
+      return launch<32>(q, k, v, o, stats, B, H, Hkv, Sq, Sk, scale, causal,
+                        window, stream);
     case 64:
-      return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
-                        stream);
+      return launch<64>(q, k, v, o, stats, B, H, Hkv, Sq, Sk, scale, causal,
+                        window, stream);
     case 128:
-      return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
-                         stream);
+      return launch<128>(q, k, v, o, stats, B, H, Hkv, Sq, Sk, scale, causal,
+                         window, stream);
     case 256:
-      return launch<256>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
-                         stream);
+      return launch<256>(q, k, v, o, stats, B, H, Hkv, Sq, Sk, scale, causal,
+                         window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -336,10 +318,6 @@ struct Layout {
   static constexpr int kCnt = kBar + 8 * (1 + kStages);    // release counts
   static constexpr int kSmem = kCnt + 4 * kStages + 1024;  // + align
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
 // byte offsets (16-byte units), swizzle layout in bits 62-63.
@@ -548,18 +526,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// 2^x on the special-function unit (relative error about 2^-22)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 // S = (q * scale) K^T for one warpgroup, 64 x kBK from the Q rows at q and
 // the K tile at k (both K-major), D / 16 k-steps, issued and committed; a
 // k-step inside a swizzle atom advances the start address by 32 bytes
@@ -701,8 +667,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_tc(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int H, int Hkv, int Sq,
-                   int Sk, float scale, int causal, int window) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ stats,
+                   int H, int Hkv, int Sq, int Sk, float scale, int causal,
+                   int window) {
   using L = Layout<D>;
   constexpr int NO = D / 2;                // output accumulators per thread
   constexpr int kBK = L::kBK, kStages = L::kStages;
@@ -836,6 +803,12 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
+    // the four lanes of a row hold the same m and l
+    if (stats != nullptr && lane % 4 == 0) {
+      const size_t at = static_cast<size_t>(bh) * Sq + qi;
+      stats[at] = m[r];
+      stats[static_cast<size_t>(gridDim.x) * Sq + at] = l[r];
+    }
   }
 }
 
@@ -890,9 +863,9 @@ bool encode(CUtensorMap* map, const void* ptr, int S, int n, int rows) {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int Sq, int Sk, float scale, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* stats,
+           int B, int H, int Hkv, int Sq, int Sk, float scale, int causal,
+           int window, cudaStream_t stream) {
   using L = Layout<D>;
   auto kern = flash_attention_tc<D>;
   static std::atomic<uint32_t> ready{0};
@@ -905,27 +878,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, L::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Hkv, Sq, Sk, scale,
-      causal, window);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), stats, H, Hkv, Sq, Sk,
+      scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
-             int window, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, void* o,
+             float* stats, int B, int H, int Hkv, int Sq, int Sk, int D,
+             float scale, int causal, int window, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
-                        stream);
+      return launch<32>(q, k, v, o, stats, B, H, Hkv, Sq, Sk, scale, causal,
+                        window, stream);
     case 64:
-      return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
-                        stream);
+      return launch<64>(q, k, v, o, stats, B, H, Hkv, Sq, Sk, scale, causal,
+                        window, stream);
     case 128:
-      return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
-                         stream);
+      return launch<128>(q, k, v, o, stats, B, H, Hkv, Sq, Sk, scale, causal,
+                         window, stream);
     case 256:
-      return launch<256>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, window,
-                         stream);
+      return launch<256>(q, k, v, o, stats, B, H, Hkv, Sq, Sk, scale, causal,
+                         window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -940,24 +913,25 @@ extern "C" {
 // Launches K4 on `stream` (a cudaStream_t).  dtype 0 = float32 (the CUDA-core
 // kernel), 1 = bfloat16 (the tensor-core kernel; q, k, v 16-byte aligned);
 // D in {32, 64, 128, 256}; window <= 0 means no window; Sq != Sk only with
-// neither the causal mask nor a window.  Returns a cudaError_t: the attribute
-// call's, cudaErrorInvalidValue for arguments it does not take or when a
-// tensor map cannot be encoded, or cudaGetLastError() after the launch.
+// neither the causal mask nor a window.  stats, when not null, is a float32
+// (2, B, H, Sq) buffer for each row's m and l.  Returns a cudaError_t: the
+// attribute call's, cudaErrorInvalidValue for arguments it does not take or
+// when a tensor map cannot be encoded, or cudaGetLastError() after the launch.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                          int dtype, int B, int H, int Hkv, int Sq, int Sk,
-                          int D, float scale, int causal, int window,
-                          void* stream) {
+                          float* stats, int dtype, int B, int H, int Hkv,
+                          int Sq, int Sk, int D, float scale, int causal,
+                          int window, void* stream) {
   if (B <= 0 || Sq <= 0) return static_cast<int>(cudaSuccess);
   if (Hkv <= 0 || H % Hkv != 0 || Sk <= 0 ||
       (Sq != Sk && (causal || window > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return simt::launch_d(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal,
-                          window, st);
+    return simt::launch_d(q, k, v, o, stats, B, H, Hkv, Sq, Sk, D, scale,
+                          causal, window, st);
   if (dtype == 1)
-    return tc::launch_d(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal,
-                        window, st);
+    return tc::launch_d(q, k, v, o, stats, B, H, Hkv, Sq, Sk, D, scale,
+                        causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

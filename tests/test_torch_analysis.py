@@ -164,11 +164,15 @@ def test_k4_meta_report(case):
     if not grad:
         assert res["dot_flops"] == ref_dots
         assert res["port"]["dot_flops_card"] == kern["operations"]
-    else:   # the PyTorch backward's products over all pairs: S = QK^T
-        # again, dV, dP = dO V^T, dQ, dK, each half the forward's two
-        assert res["dot_flops"] == ref_dots + 2.5 * ref_dots
+    else:   # the backward kernel in closed form: 7 products of 2 D
+        # operations an admitted pair; the reference's backward dots, the
+        # adjoints of its two products, twice the forward's
+        bwd = res["port"]["kernels"]["K4.bwd"]
+        assert bwd["launches"] == 1
+        assert bwd["operations"] == 14.0 * D * pairs * B * H
+        assert res["dot_flops"] == ref_dots + 2 * ref_dots
         assert res["port"]["dot_flops_card"] == kern["operations"] \
-            + 2.5 * ref_dots
+            + bwd["operations"]
     if causal:      # the card computes only the admitted pairs
         assert res["port"]["dot_flops_card"] < res["dot_flops"]
     with pytest.raises(ValueError, match="head dim"):

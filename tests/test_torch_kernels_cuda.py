@@ -1,5 +1,6 @@
 """The port's CUDA kernels K1 (csrc/p2p.cu), K2 (csrc/p2p_stream.cu), K3
-(csrc/mac.cu), K4 (csrc/attention.cu) and K5 (csrc/wkv.cu) against their
+(csrc/mac.cu), K4 (csrc/attention.cu, its backward csrc/attention_bwd.cu)
+and K5 (csrc/wkv.cu, its backward csrc/wkv_bwd.cu) against their
 plain PyTorch versions, on the card, and the paths that run them: the
 engine, the per-partition reference executor, `run_distributed_fmm`, the
 device traversal, a step, and the language models.
@@ -30,8 +31,13 @@ K5 launches on the same inputs are bitwise equal.  K5's backward kernel
 (csrc/wkv_bwd.cu) against its plain version `wkv_bwd`, every gradient
 within 1e-4 of its largest |value| (bfloat16 dr, dk, dv also one bfloat16
 unit), bitwise repeatable, launched once a backward pass and never the
-plain version.  Training: K4's and K5's autograd Functions (the kernel
-forward, K4's PyTorch backward, K5's backward kernel) against autograd
+plain version.  K4's backward kernel against `flash_attention_bwd` on
+K4's own output and row statistics (the statistics against
+`attention_stats_ref`) at every head size, mask kind, both types and GQA
+groups of 1 to 3 (limits beside `K4_BWD_F32_ATOL`), bitwise repeatable,
+launched once a backward pass and never the plain version, refusing what
+it does not take.  Training: K4's and K5's autograd Functions (the kernel
+forwards, their backward kernels) against autograd
 through the plain versions at every head size and mask kind, a
 forward without grad building no graph, and one float32 train step of
 the qwen3 and rwkv6 smoke models on the card against the CPU (their
@@ -42,8 +48,9 @@ sweep, and a graphed session replaying the warps its cache file names
 (the file under pytest's tmp directory for every test here).  The sharding tier: dbrx-smoke's expert-parallel
 MoE on a mesh stacked on the card against the same mesh on the CPU, and a
 graphed decode step under that mesh against the eager one.  The dry run:
-K4's (forward, backward, D = 256, windowed, unmasked) and K5's (with and
-without its backward) meta stand-ins report what the walker
+K4's (forward, backward, D = 256, windowed, unmasked, each with its
+backward kernel too) and K5's (with and without its backward) meta
+stand-ins report what the walker
 (`analysis.hlo_walk`) counts of the same calls on the card, exactly.
 """
 import json
@@ -1369,6 +1376,152 @@ def test_k5_autograd_matches_plain_on_card(cuda_device, D, dtype):
     _hold_grads(got, want, dtype, "K5")
 
 
+# K4's backward kernel (csrc/attention_bwd.cu) against its plain version
+# `flash_attention_bwd` on the same inputs (q, k, v, K4's own output o and
+# row statistics, dO).  float32: every gradient within K4_BWD_F32_ATOL of its
+# largest |value| (float32 sums in another order; the forward's l summed
+# tile by tile against the plain version's one sum).  bfloat16: the kernel
+# rounds dS and the dV operand bf16(p) / l to bfloat16 to enter the tensor
+# cores where the plain version keeps them in float32, so each gradient is
+# held in relative L2 (K4_BWD_BF16_REL_L2) and by its largest error against
+# its largest |value| (K4_BWD_BF16_MAX), the limits chip_smoke.py phase 11
+# (a) holds it to at the training shapes.  The statistics against
+# `attention_stats_ref`: m within K4_STATS_ATOL (float32 scores summed in
+# another order), l within K4_STATS_RTOL (its exponentials on the special
+# function unit in bfloat16, the tile-by-tile rescaling).
+K4_BWD_F32_ATOL = 1e-4
+K4_BWD_BF16_REL_L2, K4_BWD_BF16_MAX = 1e-2, 1.5e-2
+K4_STATS_ATOL, K4_STATS_RTOL = 1e-4, 1e-4
+
+
+def _k4_bwd_case(device, D, mask, dtype, group, seed=0):
+    """Inputs of K4's backward from a numpy seed: (q, k, v, o, do, stats,
+    causal, window), o and stats from K4's own launch; Sq 200, Sk 333
+    unmasked, two kv heads of `group` query heads each."""
+    rng = np.random.default_rng(seed + D + group)
+    B, Hkv, Sq = 2, 2, 200
+    H = Hkv * group
+    Sk = 333 if mask == "unmasked" else Sq
+    causal, window = mask != "unmasked", 64 if mask == "window" else None
+    q = _normal(rng, (B, H, Sq, D), dtype, device)
+    k, v = (_normal(rng, (B, Hkv, Sk, D), dtype, device) for _ in range(2))
+    do = _normal(rng, (B, H, Sq, D), dtype, device)
+    stats = torch.empty(2, B, H, Sq, dtype=torch.float32, device=device)
+    o = kattn._launch(q, k, v, causal, window, stats)
+    return q, k, v, o, do, stats, causal, window
+
+
+def _hold_k4_bwd(got, want, dtype):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        g, w = g.float(), w.float()
+        scale = float(w.abs().max())
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=K4_BWD_F32_ATOL * scale, msg=name)
+        else:
+            rel = float((g - w).norm() / w.norm())
+            err = float((g - w).abs().max())
+            assert rel <= K4_BWD_BF16_REL_L2, (name, rel)
+            assert err <= K4_BWD_BF16_MAX * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("group", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mask", ["causal", "window", "unmasked"])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_k4_backward_kernel_matches_plain_on_card(cuda_device, D, mask,
+                                                  dtype, group):
+    q, k, v, o, do, stats, causal, window = _k4_bwd_case(
+        cuda_device, D, mask, dtype, group)
+    want_stats = kattn.attention_stats_ref(q, k, causal=causal,
+                                           window=window)
+    torch.testing.assert_close(stats[0], want_stats[0], rtol=0,
+                               atol=K4_STATS_ATOL)
+    torch.testing.assert_close(stats[1], want_stats[1], rtol=K4_STATS_RTOL,
+                               atol=0)
+    before = kattn.backward_launches
+    got = kattn._launch_bwd(q, k, v, o, do, stats, causal, window)
+    torch.cuda.synchronize()
+    assert kattn.backward_launches == before + 1
+    want = kattn.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                     window=window)
+    _hold_k4_bwd(got, want, dtype)
+
+
+@pytest.mark.parametrize("D,mask,group", [(64, "causal", 3),
+                                          (128, "window", 2),
+                                          (256, "unmasked", 1),
+                                          (32, "causal", 8)])
+def test_k4_backward_kernel_bitwise_repeatable_on_card(cuda_device, D, mask,
+                                                       group):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    q, k, v, o, do, stats, causal, window = _k4_bwd_case(
+        cuda_device, D, mask, torch.bfloat16, group, seed=1)
+    one = kattn._launch_bwd(q, k, v, o, do, stats, causal, window)
+    two = kattn._launch_bwd(q, k, v, o, do, stats, causal, window)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_k4_backward_launches_the_kernel_never_the_plain_on_card(
+        cuda_device, monkeypatch):
+    """Every backward pass of K4's Function launches the kernel once and
+    never reaches the plain `flash_attention_bwd` on the card."""
+    def refuse(*a, **kw):
+        raise AssertionError("flash_attention_bwd reached on the card")
+
+    monkeypatch.setattr(kattn, "flash_attention_bwd", refuse)
+    q, k, v, _, do, _, causal, window = _k4_bwd_case(
+        cuda_device, 64, "causal", torch.bfloat16, 3)
+    for n in range(1, 4):
+        launches, calls = kattn.backward_launches, kattn.backward_calls
+        got = _grads(lambda *t: kattn.flash_attention(
+            *t, causal=causal, window=window), (q, k, v), do)
+        torch.cuda.synchronize()
+        assert kattn.backward_launches == launches + 1
+        assert kattn.backward_calls == calls + 1
+        assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
+def test_k4_backward_kernel_refuses_what_it_does_not_take_on_card(
+        cuda_device):
+    """The backward's wrapper raises, naming the fault, on a head size the
+    kernel is not built for, statistics of another shape or type, a
+    non-contiguous or misaligned bfloat16 tensor, a do of another shape,
+    and tensors off the card; nothing is launched."""
+    q, k, v, o, do, stats, causal, window = _k4_bwd_case(
+        cuda_device, 64, "causal", torch.bfloat16, 2)
+    before = kattn.backward_launches
+    args = dict(causal=causal, window=window)
+
+    def bwd(*t, **kw):
+        return kattn._launch_bwd(*t, **{**args, **kw})
+
+    cut = [t[..., :48].contiguous() for t in (q, k, v, o, do)]
+    with pytest.raises(ValueError, match="head dim"):
+        bwd(*cut, stats)
+    with pytest.raises(ValueError, match="stats"):
+        bwd(q, k, v, o, do, stats[:, :, :, :100])
+    with pytest.raises(ValueError, match="stats"):
+        bwd(q, k, v, o, do, stats.double())
+    with pytest.raises(ValueError, match="do must match"):
+        bwd(q, k, v, o, do[:, :, :100], stats)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(q, k, v, o, do.transpose(2, 3).contiguous().transpose(2, 3),
+            stats)
+    flat = torch.empty(do.numel() + 1, dtype=do.dtype, device=cuda_device)
+    shifted = flat[1:].view(do.shape)
+    shifted.copy_(do)
+    with pytest.raises(ValueError, match="aligned"):
+        bwd(q, k, v, o, shifted, stats)
+    cpu = [t.cpu() for t in (q, k, v, o, do, stats)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        bwd(*cpu)
+    assert kattn.backward_launches == before
+
+
 # K5's backward kernel (csrc/wkv_bwd.cu) against its plain version
 # `wkv_bwd` on the same inputs, every gradient in float32 within 1e-4 of its
 # largest |value| (`_hold_grads`' float32 rule: float32 sums in another
@@ -1655,20 +1808,21 @@ def _meta_like(ts):
 
 
 @pytest.mark.parametrize("case", ["forward", "backward", "d256", "window",
-                                  "unmasked"])
+                                  "unmasked", "backward d256",
+                                  "backward window", "backward unmasked"])
 def test_k4_meta_report_matches_card_walk(cuda_device, case):
     """K4's meta stand-in reports what the walker counts of the same call
-    on the card (its launch, forward and backward): dot FLOPs, bytes
-    written and read, the kernel's launches, operations and bytes, and
-    the peak of live bytes."""
+    on the card (its launch, forward and backward, K4.bwd's too): dot
+    FLOPs, bytes written and read, the kernels' launches, operations and
+    bytes, and the peak of live bytes."""
     rng = np.random.default_rng(7)
     B, H, Hkv, S, D = 2, 8, 2, 384, 128
     Sk, causal, window = S, True, None
-    D = 256 if case == "d256" else D
-    window = 128 if case == "window" else None
-    if case == "unmasked":
+    D = 256 if case.endswith("d256") else D
+    window = 128 if case.endswith("window") else None
+    if case.endswith("unmasked"):
         Sk, causal = 640, False
-    grad = case == "backward"
+    grad = case.startswith("backward")
     bf = torch.bfloat16
     q = _normal(rng, (B, H, S, D), bf, cuda_device).requires_grad_(grad)
     k, v = (_normal(rng, (B, Hkv, Sk, D), bf, cuda_device)
@@ -1689,6 +1843,8 @@ def test_k4_meta_report_matches_card_walk(cuda_device, case):
                               _meta_like((q, k, v)))
     assert kattn.launches == launches + 1
     assert card["port"]["kernels"]["K4"]["launches"] == 1
+    if grad:
+        assert card["port"]["kernels"]["K4.bwd"]["launches"] == 1
     for key in ("dot_flops", "result_bytes"):
         assert meta[key] == card[key], key
     assert meta["port"]["kernels"] == card["port"]["kernels"]
