@@ -36,7 +36,9 @@ Phases, in order; any failed check raises and ends the run non-zero:
      K1-K5 and the backwards of K4 and K5, attention_bwd.cu and
      wkv_bwd.cu), printing ptxas's registers and spills per kernel (K4 and
      its backward by path, kernel and head size, D = 256 included; K5 and
-     its backward by template arguments);
+     its backward by template arguments), and the wgmma's (SASS HGMMA) of
+     each of K4.bwd's bfloat16 dq and dkdv kernels, none of which may
+     have none;
   2. plan the N-body geometry with the device traversal (K3's launch count
      set to 0 just before, read just after) and with the host traversal,
      and compare every receiver's pair lists: a difference is allowed only
@@ -243,7 +245,9 @@ Phases, in order; any failed check raises and ends the run non-zero:
      and row statistics, the statistics against `attention_stats_ref`;
      K4_BWD_*, K4_STATS_*), two launches bit for bit, timed beside its
      bound, `flash_attention_bwd`, SDPA's forward + backward and SDPA's
-     backward alone (the kernels line's library time); K5 at
+     backward alone (the kernels line's library time), with its launch
+     parameters (`attention_bwd_launch_params`) and its time over SDPA's
+     backward; K5 at
      rwkv6-1.6b's (4 x 32, 512, 64) with a random initial state and
      final-state gradient, and its backward kernel against its plain
      version `wkv_bwd` on the same inputs at every BH the main path gives
@@ -643,6 +647,39 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def k4_bwd_sass(kbuild) -> None:
+    """Phase 1: the wgmma's (SASS HGMMA) of each of K4.bwd's bfloat16
+    kernels in the built library, by `cuobjdump -sass` beside nvcc; raises
+    if a dq or dkdv kernel has none.  A toolkit without cuobjdump is
+    reported, not held."""
+    tool = Path(kbuild.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        print(f"  attention_bwd.cu SASS: no {tool}, wgmma's not counted",
+              flush=True)
+        return
+    sass = subprocess.run([str(tool), "-sass",
+                           str(kbuild.library_path("attention_bwd.cu"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            m = ATTN_BWD_ENTRY.search(line)
+            name = (f"attn_bwd_{m[2]} D {m[4]}"
+                    + (f" BK {m[5]}" if m[5] else "") if m and m[1] == "tc"
+                    and m[2] in ("dq", "dkdv") else None)
+            if name:
+                counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    print("  attention_bwd.cu SASS, bf16 wgmma (HGMMA) a kernel: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()), flush=True)
+    built = {" ".join(k.split()[:3]) for k in counts}
+    if built != {f"attn_bwd_{k} D {d}" for k in ("dq", "dkdv")
+                 for d in (32, 64, 128, 256)} or not all(counts.values()):
+        raise AssertionError(f"K4.bwd's bf16 dq / dkdv kernels without "
+                             f"wgmma: {counts}")
+
+
 def print_ptxas(logs: dict, src: str) -> None:
     """The ptxas lines (registers, spills) of one source from phase 1."""
     lines = [ln.strip() for ln in logs.get(src, "").splitlines()
@@ -678,13 +715,16 @@ WKV_BWD_ENTRY = re.compile(r"wkv_bwd_(prep|kernel|dv)I(f|13__nv_bfloat16)Li"
 # K4's: the kernel (tc: bf16 wgmma; kernel: float32 CUDA cores) and D
 ATTN_ENTRY = re.compile(r"flash_attention_(tc|kernel)I(?:f)?Li(\d+)E")
 # K4's backward's: the path (its namespace, or the prep kernel's type), the
-# kernel (prep, dq, dkdv) and D
-ATTN_BWD_ENTRY = re.compile(r"(?:\d(tc|simt))?\d+attn_bwd_(prep|dq|dkdv)I"
-                            r"(f|13__nv_bfloat16)?Li(\d+)E")
+# kernel (prep, dq, dkdv, reduce), D (the reduction has none) and the bf16
+# dq kernel's keys a step
+ATTN_BWD_ENTRY = re.compile(r"(?:\d(tc|simt))?\d+attn_bwd_(prep|dq|dkdv|"
+                            r"reduce)(?:I(f|13__nv_bfloat16)?Li(\d+)E"
+                            r"(?:Li(\d+)E)?)?")
 # the port's kernels as the profiler names them (their CUDA function names)
 KERNEL_NAMES = {"flash_attention_tc": "K4 (bf16, wgmma + TMA)",
                 "flash_attention_kernel": "K4 (float32, CUDA cores)",
                 "wkv_kernel": "K5", "wkv_bwd": "K5.bwd",
+                "attn_bwd_": "K4.bwd",
                 "p2p_gathered_kernel": "K1",
                 "p2p_stream_kernel": "K2"}
 
@@ -3002,15 +3042,18 @@ def k4_backward_case(torch, F, kattn, normal, grads, label, dims, causal,
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     bms, by = (tb, "bytes") if tb >= to else (to, "operations")
+    launch = ("launch (parts, bq, bkd) "
+              f"{kattn.attention_bwd_launch_params(*dims, causal, window)}; "
+              if dtype == torch.bfloat16 else "")
     print(f"    K4 {tname} at {label}: forward (with its statistics) "
-          f"{fwd:.4f} ms, backward kernel {bwd:.4f} ms (bound {bms:.4f} ms, "
-          f"{by}, {ops / 1e9:.2f} GFLOP in 5 products; {100 * bms / bwd:.2f}%"
-          f" of it), flash_attention_bwd {pms:.4f} ms ({pms / bwd:.1f}x the "
-          f"kernel); forward + backward kernels {fwd + bwd:.4f} ms, through "
-          f"the Function {both:.4f} ms of device time; "
-          f"scaled_dot_product_attention forward + backward {lib:.4f} ms, "
-          f"its backward alone {lib_bwd:.4f} ms (device time); power limit "
-          f"{power}", flush=True)
+          f"{fwd:.4f} ms, backward kernel {bwd:.4f} ms ({launch}bound "
+          f"{bms:.4f} ms, {by}, {ops / 1e9:.2f} GFLOP in 5 products; "
+          f"{100 * bms / bwd:.2f}% of it), flash_attention_bwd {pms:.4f} ms "
+          f"({pms / bwd:.1f}x the kernel); forward + backward kernels "
+          f"{fwd + bwd:.4f} ms, through the Function {both:.4f} ms of device "
+          f"time; scaled_dot_product_attention forward + backward {lib:.4f} "
+          f"ms, its backward alone {lib_bwd:.4f} ms (device time; K4.bwd "
+          f"{bwd / lib_bwd:.2f}x it); power limit {power}", flush=True)
     del q, k, v, do, o, stats, mask, args
     return dict(ms=bwd, plain_ms=pms, bound_ms=bms, bound_by=by,
                 max_abs_err=err, library_ms=lib_bwd)
@@ -4945,12 +4988,14 @@ def main() -> int:
                              f" D {m[2]}: ")
                 m = ATTN_BWD_ENTRY.search(line)
                 if m:           # K4's backward's, by path, kernel and D
-                    path = ("bf16 mma.sync" if m[1] == "tc"
-                            or m[3] == "13__nv_bfloat16" else "f32 simt")
-                    entry = f"attn_bwd_{m[2]} {path} D {m[4]}: "
+                    path = ("bf16 wgmma" if m[1] == "tc" else "f32 simt")
+                    entry = (f"attn_bwd_{m[2]} {path}"
+                             + (f" D {m[4]}" if m[4] else "")
+                             + (f" BK {m[5]}" if m[5] else "") + ": ")
                 if ("registers" in line or "smem" in line
                         or "spill" in line or "C75" in line):
                     print(f"  {src}: {entry}{line.strip()}")
+        k4_bwd_sass(kbuild)
 
     # ------------------------------------------------------------- 2 -----
     n = args.n

@@ -46,6 +46,15 @@ of the main path.  Without grad (serving, its CUDA graphs) the wrapper
 launches K4 exactly as before, with no statistics.  On the CPU, autograd
 differentiates `attention_ref` itself.
 
+The backward's launch.  In bfloat16 it runs on the tensor cores (`wgmma`,
+TMA): a dQ kernel a 64-row query tile, a dK / dV kernel a 64-key tile and a
+run of a GQA group's query heads.  `attention_bwd_launch_params` chooses how
+many runs (`parts`) a group is cut into, just as many as the dK / dV grid
+needs to fill the card, since each part above one writes float32 dK and dV
+to a scratch that a last kernel adds up in head order, and the tiles
+(`BWD_TILES`: dQ takes 128 keys a step up to head size 64 at long
+sequences).
+
 The dry run (`launch.dryrun`) runs the models on the `meta` device.  There
 the wrapper computes nothing: it makes the launch's checks and returns
 empty outputs of their shapes and types, through the autograd Function as
@@ -58,8 +67,10 @@ counted as 2), q, k and v read once and the output written once (`PERF.md`
 is plain XLA dots over every pair.  "K4.bwd": the kernel's 7 products of 2
 D operations an admitted pair (9 at head size 256, where dK and dV are
 taken in two halves), q, k, v, o, dO and the statistics read once, dq, dk,
-dv and delta written once, and the reference's backward dot FLOPs, 8 B H
-Sq Sk D (the adjoints of its two products).
+dv and the row scratch written once (float32 delta a row; in bfloat16 a
+float4 a row of Sq padded to a multiple of 64), the group scratch's float32
+dK and dV written and read once when `parts` > 1, and the reference's
+backward dot FLOPs, 8 B H Sq Sk D (the adjoints of its two products).
 
 `launches` counts K4's launches and `backward_launches` its backward's:
 each wrapper adds one where it launches its kernel, and nowhere else.
@@ -77,8 +88,9 @@ from repro_torch.obs import cost
 
 __all__ = ["flash_attention", "flash_attention_bwd", "attention_ref",
            "attention_rounded_ref", "attention_tiled_ref",
-           "attention_stats_ref", "admitted_pairs", "HEAD_DIMS", "BLOCK_K",
-           "NEG_INF"]
+           "attention_stats_ref", "admitted_pairs",
+           "attention_bwd_launch_params", "group_parts", "HEAD_DIMS", "BLOCK_K",
+           "BWD_TILES", "NEG_INF"]
 
 HEAD_DIMS = (32, 64, 128, 256)  # the head sizes the kernel is built for
 # keys per tile of the bfloat16 kernel, by head size (csrc: Layout<D>::kBK)
@@ -88,6 +100,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # float32 bytes of one (query, key) block that the backward may hold at a
 # time; it takes as many (batch, kv-head) groups together as fit
 BWD_BLOCK_BYTES = 1 << 28
+# the bfloat16 backward's tiles by head size, (query rows a dK / dV step,
+# the keys a dQ step may take): what csrc/attention_bwd.cu is built for
+# (tc::Tiles<D>: kBQ; kBKd, and kBKdLong from _BWD_LONG keys)
+BWD_TILES = {32: (64, (64, 128)), 64: (64, (64, 128)), 128: (64, (64,)),
+             256: (64, (64,))}
+_BWD_LONG = 2048
+# the keys of a dK / dV block and the rows its row scratch pads Sq to
+_BWD_KEYS = _BWD_ROW_PAD = 64
+# dK / dV blocks an SM holds at once by head size (shared memory: 99 KB a
+# block at D = 128, 195 KB at D = 256), and the H100's SMs
+_BWD_RESIDENT = {32: 2, 64: 2, 128: 2, 256: 1}
+_SMS = 132
 
 launches = 0
 backward_launches = 0
@@ -231,6 +255,59 @@ def admitted_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
     return w * (w + 1) // 2 + (Sq - w) * w
 
 
+def attention_bwd_launch_params(B: int, H: int, Hkv: int, Sq: int, Sk: int,
+                                D: int, causal: bool, window) -> tuple:
+    """(parts, bq, bkd) of K4's bfloat16 backward at q (B, H, Sq, D), k/v
+    (B, Hkv, Sk, D): each GQA group's H / Hkv query heads are cut into
+    `parts` runs of consecutive heads (`group_parts`), one dK / dV block a
+    run and 64-key tile; bq, the query rows of a dK / dV step, and bkd, the
+    keys of a dQ step, are `BWD_TILES[D]`'s, bkd its longer choice from
+    2,048 keys on (128 up to head size 64: twice the products a step, where a
+    block walks enough key tiles that its half-masked diagonal one costs
+    little; at 512 keys it measured slower, `PERF.md` §6).  A part beyond one
+    costs its float32 dK and dV written to a scratch and read back (8 B Hkv
+    Sk D bytes each way), so `parts` is 1 where the blocks of whole groups
+    fill the card (`_BWD_RESIDENT` blocks on each of its 132 SMs), and
+    otherwise the least count whose heaviest block walks no more query
+    steps (`_bwd_query_steps`) than the card's mean load, the grid's steps
+    over 132 SMs: beyond that the heaviest block alone sets the kernel's
+    time, as a causal grid's first key tiles do.  At most the group."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention backward: head dim {D} not in "
+                         f"{HEAD_DIMS}")
+    bq, bkds = BWD_TILES[D]
+    bkd = bkds[-1] if Sk >= _BWD_LONG else bkds[0]
+    G = H // Hkv
+    steps = _bwd_query_steps(Sq, Sk, bq, causal, window)
+    if B * Hkv * len(steps) >= _SMS * _BWD_RESIDENT[D]:
+        return 1, bq, bkd
+    load = B * H * sum(steps) / _SMS
+    parts = next((p for p in range(1, G) if -(-G // p) * max(steps) <= load),
+                 G)
+    return parts, bq, bkd
+
+
+def _bwd_query_steps(Sq: int, Sk: int, bq: int, causal: bool,
+                     window) -> list:
+    """The query tiles of bq rows that see a key of each 64-key tile (one
+    head's steps of each dK / dV block; csrc's query_tiles)."""
+    out = []
+    for k0 in range(0, Sk, _BWD_KEYS):
+        last = Sq - 1
+        if window is not None:
+            last = min(last, k0 + _BWD_KEYS - 1 + window - 1)
+        out.append(max(0, last // bq + 1 - (k0 // bq if causal else 0)))
+    return out
+
+
+def group_parts(G: int, parts: int) -> list:
+    """The query heads (0 .. G - 1 of a GQA group) of each of `parts` runs,
+    as the dK / dV kernel cuts them: run i holds heads i G // parts .. (i +
+    1) G // parts - 1."""
+    return [list(range(i * G // parts, (i + 1) * G // parts))
+            for i in range(parts)]
+
+
 def _report(q, k, causal, window) -> None:
     """One launch of K4 for the active walker (see the module docstring)."""
     B, H, Sq, D = q.shape
@@ -243,7 +320,7 @@ def _report(q, k, causal, window) -> None:
         dot_flops=4.0 * B * H * Sq * Sk * D)
 
 
-def _report_bwd(q, k, causal, window) -> None:
+def _report_bwd(q, k, causal, window, parts) -> None:
     """One launch of K4's backward for the active walker (see the module
     docstring)."""
     B, H, Sq, D = q.shape
@@ -251,13 +328,16 @@ def _report_bwd(q, k, causal, window) -> None:
     nbyte = q.element_size()
     products = 7 if D <= 128 else 9
     rows = B * H * Sq
+    scratch = (16.0 * B * H * -(-Sq // _BWD_ROW_PAD) * _BWD_ROW_PAD
+               if q.dtype == torch.bfloat16 else 4.0 * rows)
+    group = 8.0 * parts * B * Hkv * Sk * D if parts > 1 else 0.0
     cost.report_kernel(
         "K4.bwd", operations=2.0 * products * D
         * admitted_pairs(Sq, Sk, causal, window) * B * H,
         read_bytes=nbyte * (3.0 * rows * D + 2.0 * B * Hkv * Sk * D)
-        + 8.0 * rows,
+        + 8.0 * rows + group,
         write_bytes=nbyte * (1.0 * rows * D + 2.0 * B * Hkv * Sk * D)
-        + 4.0 * rows, dot_flops=8.0 * B * H * Sq * Sk * D)
+        + scratch + group, dot_flops=8.0 * B * H * Sq * Sk * D)
 
 
 def _misaligned(t) -> int:
@@ -285,7 +365,8 @@ def _lib_bwd():
     lib = library("attention_bwd.cu")
     lib.repro_flash_attention_bwd.argtypes = [ctypes.c_void_p] * 11 + [
         ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_void_p]
+                             ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     lib.repro_flash_attention_bwd.restype = ctypes.c_int
     lib.repro_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.repro_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -380,18 +461,23 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
     return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
 
 
-def _launch_bwd(q, k, v, o, do, stats, causal, window):
+def _launch_bwd(q, k, v, o, do, stats, causal, window, params=None):
     """K4's backward on the current stream: K4's inputs, its output o, o's
     gradient do (B, H, Sq, D) and the statistics its launch wrote (float32
     (2, B, H, Sq)) -> (dq, dk, dv) in the inputs' type.  CUDA tensors
     (contiguous, D in `HEAD_DIMS`, bfloat16 ones 16-byte aligned) launch
     `csrc/attention_bwd.cu`, raising if the launch fails; meta tensors
     allocate what the launch allocates, report it and compute nothing; any
-    other device raises.  Allocates dq, dk, dv and the launch's scratch
-    (delta, (B, H, Sq) float32; q * scale, q's shape) with torch.empty."""
+    other device raises.  In bfloat16 the launch takes `params`, (parts, bq,
+    bkd), or `attention_bwd_launch_params`'s (float32 takes none).
+    Allocates dq, dk, dv and the launch's scratch with torch.empty: q *
+    scale (q's shape), the row scratch (float32 delta (B, H, Sq); in
+    bfloat16 (B H Sqp, 4) float32, Sq padded to a multiple of 64) and, for
+    parts > 1, the group scratch (parts, 2, B, Hkv, Sk, D) float32."""
     global backward_launches
     _check(q, k, v, causal, window)
     B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     dev = q.device
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention backward: unsupported device "
@@ -414,19 +500,35 @@ def _launch_bwd(q, k, v, o, do, stats, causal, window):
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention backward: head dim {D} not in "
                          f"{HEAD_DIMS}")
-    if q.dtype == torch.bfloat16:
+    tc = q.dtype == torch.bfloat16
+    parts, bq, bkd = 1, 0, 0
+    if tc:
         for name, t in named:
             if _misaligned(t):
                 raise ValueError(f"flash_attention backward: {name} must be "
-                                 f"16-byte aligned in bfloat16 (cp.async)")
+                                 f"16-byte aligned in bfloat16 (TMA)")
+        parts, bq, bkd = params or attention_bwd_launch_params(
+            B, H, Hkv, Sq, Sk, D, causal, window)
+        if (bq != BWD_TILES[D][0] or bkd not in BWD_TILES[D][1]
+                or not 1 <= parts <= H // Hkv):
+            raise ValueError(f"flash_attention backward: launch "
+                             f"{(parts, bq, bkd)} not built: tiles "
+                             f"{BWD_TILES[D]} at head dim {D}, 1 to "
+                             f"{H // Hkv} parts")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
     qs = torch.empty_like(q)
+    if tc:
+        sqp = -(-Sq // _BWD_ROW_PAD) * _BWD_ROW_PAD
+        rows = torch.empty(B * H * sqp, 4, dtype=torch.float32, device=dev)
+    else:
+        rows = torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
+    part = (torch.empty(parts, 2, B, Hkv, Sk, D, dtype=torch.float32,
+                        device=dev) if parts > 1 else None)
     if dq.numel() == 0:
         return dq, dk, dv
     if dev.type == "meta":
         if cost.ACTIVE is not None:
-            _report_bwd(q, k, causal, window)
+            _report_bwd(q, k, causal, window, parts)
         return dq, dk, dv
     lib = _lib_bwd()
     with torch.cuda.device(dev):
@@ -434,16 +536,18 @@ def _launch_bwd(q, k, v, o, do, stats, causal, window):
         err = lib.repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), qs.data_ptr(), _DTYPES[q.dtype],
-            B, H, k.shape[1], Sq, k.shape[2], D, float(D ** -0.5),
-            int(causal), 0 if window is None else int(window), stream)
+            dv.data_ptr(), rows.data_ptr(), qs.data_ptr(), _DTYPES[q.dtype],
+            B, H, Hkv, Sq, Sk, D, float(D ** -0.5),
+            int(causal), 0 if window is None else int(window),
+            None if part is None else part.data_ptr(), parts, bq, bkd,
+            stream)
     if err != 0:
         raise RuntimeError("attention backward kernel launch failed: "
                            + lib.repro_attention_bwd_error_string(err)
                            .decode())
     backward_launches += 1
     if cost.ACTIVE is not None:
-        _report_bwd(q, k, causal, window)
+        _report_bwd(q, k, causal, window, parts)
     return dq, dk, dv
 
 

@@ -20,7 +20,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "digest", "library",
-           "nvcc_path"]
+           "library_path", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -66,7 +66,8 @@ def digest(source: str, defines=()) -> str:
     return h.hexdigest()[:16]
 
 
-def _target(source: str, defines=()) -> Path:
+def library_path(source: str, defines=()) -> Path:
+    """Where the library of one source (built with `defines`) lives."""
     return BUILD_DIR / f"{Path(source).stem}-{digest(source, defines)}.so"
 
 
@@ -81,7 +82,7 @@ def build(sources=SOURCES, defines=()) -> dict:
     procs = {}
     try:
         for src in sources:
-            target = _target(src, defines)
+            target = library_path(src, defines)
             if target.exists():
                 continue
             nvcc = nvcc or nvcc_path()
@@ -115,7 +116,7 @@ def library(source: str, defines=()) -> ctypes.CDLL:
     key = (source, tuple(defines))
     lib = _LIBS.get(key)
     if lib is None:
-        target = _target(source, defines)
+        target = library_path(source, defines)
         if not target.exists():
             build((source,), defines)
         lib = ctypes.CDLL(str(target))

@@ -7,8 +7,9 @@ The dry run's stand-in on the `meta` device: at several shapes, masks
 window) and GQA groups (1 to 8, smollm-360m's 3), the backward of K4's
 Function reports "K4.bwd" in closed form (7 products of 2 D operations an
 admitted pair, 9 at head size 256; q, k, v, o, dO and the statistics read
-once, dq, dk, dv and delta written once; the reference's backward dots, 8
-B H Sq Sk D), returns gradients of the inputs' shapes and types, never
+once, dq, dk, dv and the bfloat16 row scratch written once, the group
+scratch of `attention_bwd_launch_params`' parts written and read once; the
+reference's backward dots, 8 B H Sq Sk D), returns gradients of the inputs' shapes and types, never
 reaches the plain `flash_attention_bwd`, and allocates no (G, Sq, Sk)
 float32 block, where the plain version, walked the same way, does.  The
 wrapper refuses, naming the fault, what the kernel does not take.
@@ -78,19 +79,27 @@ def test_k4_backward_meta_report_in_closed_form(case, monkeypatch):
     pairs = kattn.admitted_pairs(Sq, Sk, causal, window) * B * H
     products = 7 if D <= 128 else 9
     rows = B * H * Sq
+    # the bfloat16 launch's scratch: a float4 a row of Sq padded to 64, and
+    # the group's parts' float32 dK and dV, written and read once
+    parts = kattn.attention_bwd_launch_params(B, H, Hkv, Sq, Sk, D, causal,
+                                              window)[0]
+    row_scratch = 16.0 * B * H * (-(-Sq // 64) * 64)
+    group = 8.0 * parts * B * Hkv * Sk * D if parts > 1 else 0.0
     assert res["port"]["kernels"]["K4.bwd"] == {
         "launches": 1, "operations": 2.0 * products * D * pairs,
-        "bytes": 2.0 * (4 * rows * D + 4 * B * Hkv * Sk * D) + 12.0 * rows}
+        "bytes": 2.0 * (4 * rows * D + 4 * B * Hkv * Sk * D) + 8.0 * rows
+        + row_scratch + 2 * group}
     fwd = res["port"]["kernels"]["K4"]
     assert res["dot_flops"] == 12.0 * B * H * Sq * Sk * D
     assert res["port"]["dot_flops_card"] == fwd["operations"] + \
         2.0 * products * D * pairs
     # no (G, Sq, Sk) float32 block: the plain version walked the same way
     # peaks at least one such block higher, less the kernel's scratch (q *
-    # scale and delta), which the plain version does not allocate
+    # scale, the row scratch and the group scratch), which the plain version
+    # does not allocate
     monkeypatch.setattr(kattn, "_launch_bwd", _plain_bwd)
     _, _, plain_peak, _ = _walk_backward(*CASES[case])
-    scratch = 2 * B * H * Sq * D + 4 * B * H * Sq
+    scratch = 2 * B * H * Sq * D + row_scratch + group
     assert plain_peak - peak >= 4 * (H // Hkv) * Sq * Sk - scratch
 
 

@@ -1465,6 +1465,30 @@ def test_k4_backward_kernel_bitwise_repeatable_on_card(cuda_device, D, mask,
     assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
+@pytest.mark.parametrize("parts", [1, 2, 3])
+@pytest.mark.parametrize("D,mask", [(64, "causal"), (128, "unmasked"),
+                                    (256, "window"), (32, "window")])
+def test_k4_backward_group_split_on_card(cuda_device, D, mask, parts):
+    """A GQA group of 3 query heads summed in one dK / dV block (parts 1),
+    cut unevenly into runs of 1 and 2 heads (2), and a run a head (3), Sq
+    200 ragged against the 64-row tiles, dQ in its longest key steps (128
+    up to head size 64): each launch held to `flash_attention_bwd` and bit
+    for bit over two launches."""
+    q, k, v, o, do, stats, causal, window = _k4_bwd_case(
+        cuda_device, D, mask, torch.bfloat16, 3, seed=2)
+    bq, bkds = kattn.BWD_TILES[D]
+    params = (parts, bq, bkds[-1])
+    one = kattn._launch_bwd(q, k, v, o, do, stats, causal, window,
+                            params=params)
+    two = kattn._launch_bwd(q, k, v, o, do, stats, causal, window,
+                            params=params)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    want = kattn.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                     window=window)
+    _hold_k4_bwd(one, want, torch.bfloat16)
+
+
 def test_k4_backward_launches_the_kernel_never_the_plain_on_card(
         cuda_device, monkeypatch):
     """Every backward pass of K4's Function launches the kernel once and
