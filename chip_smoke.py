@@ -500,8 +500,8 @@ K5_GRAD_SHAPE = (4 * 32, 512, 64)           # rwkv6-1.6b: (B H, S, D)
 K5_TRAIN_BH = 2 * 32                        # ... at its training batch 2
 # every BH the main path gives K5's backward kernel: phase 11 (a)'s, the
 # training batch 2 (11 (d), 15's single card), one of 2 data ranks (15)
-# and one of 4 model ranks (14 (e)); from BH 33 the (2, 4, 8) launch, below
-# it (1, 4, 16) (`wkv_bwd_launch_params`)
+# and one of 4 model ranks (14 (e)), each with its own launch (JL, A, NW,
+# TB) (`wkv_bwd_launch_params`)
 K5_BWD_BHS = (K5_GRAD_SHAPE[0], K5_TRAIN_BH, 32 * 2 // 2, 32 * 2 // 4)
 # K5's backward kernel against `wkv_bwd` on the same inputs, as the card
 # tests hold it: each gradient within K5_BWD_ATOL of its largest |value|
@@ -708,10 +708,20 @@ def check_close(name, got, want, absum):
 # JL, TC
 WKV_ENTRY = re.compile(r"wkv_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi"
                        r"(\d+)ELi(\d+)ELi(\d+)E")
-# K5's backward's: the kernel (prep, kernel, dv), type, D and (kernel) A,
-# NW, TB
+# K5's backward's: the kernel (prep, kernel, dv), type, D and (kernel) JL,
+# A, NW, TB
 WKV_BWD_ENTRY = re.compile(r"wkv_bwd_(prep|kernel|dv)I(f|13__nv_bfloat16)Li"
-                           r"(\d+)E(?:Li(\d+)ELi(\d+)ELi(\d+)E)?")
+                           r"(\d+)E(?:Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E)?")
+
+
+def wkv_bwd_entry(m) -> str:
+    """A WKV_BWD_ENTRY match as `wkv_bwd_kernel<bf16, D 64, JL 4, A 2, NW 4,
+    TB 8>`."""
+    return (f"wkv_bwd_{m[1]}<{'f32' if m[2] == 'f' else 'bf16'}, D {m[3]}"
+            + (f", JL {m[4]}, A {m[5]}, NW {m[6]}, TB {m[7]}" if m[4] else "")
+            + ">")
+
+
 # K4's: the kernel (tc: bf16 wgmma; kernel: float32 CUDA cores) and D
 ATTN_ENTRY = re.compile(r"flash_attention_(tc|kernel)I(?:f)?Li(\d+)E")
 # K4's backward's: the path (its namespace, or the prep kernel's type), the
@@ -3119,10 +3129,20 @@ def kernel_gradients(torch, kattn, krwkv, dev, power) -> dict:
     # dr, dk, dv also K5_BWD_BF16_RTOL), two launches bit for bit; each
     # bf16 launch timed beside its bound and `wkv_bwd`
     out = {"K4.bwd": out}
+    at_bh = {}
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else krwkv._SMS)
     for bh in K5_BWD_BHS:
         a = tuple(t[:bh] for t in args)
         dyb, dsb = dy[:bh], ds[:bh]
         params = krwkv.wkv_bwd_launch_params(bh, C, D)
+        nrb = krwkv._bwd_blocks(C, D, params)[0]
+        fit = krwkv.bwd_fit(bf16, D, params)
+        launch = (f"launch {params} (JL, A, NW, TB): {bh * nrb} blocks, "
+                  f"{nrb} a head, {fit['blocks_per_sm']} resident an SM "
+                  f"({bh * nrb / (fit['blocks_per_sm'] * sms):.2f} waves), "
+                  f"{fit['registers']} registers, {fit['spill_bytes']} B "
+                  f"spilled, {fit['smem_bytes']} B shared a block")
         cases = [("bf16", a)]
         if bh in (max(K5_BWD_BHS), min(K5_BWD_BHS)):
             cases.insert(0, ("float32", [t.float() for t in a[:3]]
@@ -3155,7 +3175,7 @@ def kernel_gradients(torch, kattn, krwkv, dev, power) -> dict:
                 if label == "float32":
                     err = max(err, e)
             print(f"    backward kernel against wkv_bwd at ({bh}, {C}, {D}) "
-                  f"({label} r, k, v; launch {params} (A, NW, TB)): "
+                  f"({label} r, k, v; {launch}): "
                   f"{'; '.join(worst)}; two launches bit for bit",
                   flush=True)
             del kern, again, plain
@@ -3170,13 +3190,13 @@ def kernel_gradients(torch, kattn, krwkv, dev, power) -> dict:
                            14.0 * bh * C * D * D)
         print(f"    K5 backward at ({bh}, {C}, {D}) bf16: kernel {ms:.4f} ms "
               f"(bound {bms:.4f} ms ({by}), {100 * bms / ms:.2f}% of it; "
-              f"launch {params} (A, NW, TB)), wkv_bwd {pms:.4f} ms "
-              f"({pms / ms:.1f}x the kernel); power limit {power}",
-              flush=True)
+              f"{launch}), wkv_bwd {pms:.4f} ms ({pms / ms:.1f}x the "
+              f"kernel); power limit {power}", flush=True)
+        at_bh[bh] = ms
         if bh == BH:
             out["K5.bwd"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
                                  bound_by=by, max_abs_err=err,
-                                 library_ms=None)
+                                 library_ms=None, ms_at=at_bh)
         torch.cuda.empty_cache()
     plain = cuda_ms(torch, lambda: grads(krwkv.wkv_ref, args, (dy, ds)),
                     reps=1)
@@ -3261,10 +3281,11 @@ def train_step_split(torch, kattn, cfg, dev, card) -> None:
     torch.cuda.empty_cache()
 
 
-def lm_training(torch, kattn, krwkv, dev, card) -> dict:
+def lm_training(torch, kattn, krwkv, dev, card, k5_bwd_ms=None) -> dict:
     """Phase 11 (b)-(d): the reference's training main path,
-    `launch.train.run`, on the card.  Returns the K4, K5 and K5.bwd
-    launches of those runs."""
+    `launch.train.run`, on the card.  `k5_bwd_ms` is phase 11 (a)'s K5.bwd
+    device time by BH, which (d) sets beside the stream time it reads.
+    Returns the K4, K5 and K5.bwd launches of those runs."""
     import tempfile
     from repro_torch.ckpt import latest_step
     from repro_torch.configs import get_config
@@ -3385,15 +3406,24 @@ def lm_training(torch, kattn, krwkv, dev, card) -> dict:
     kb = krwkv.backward_launches
     launches["K5"] += k5
     launches["K5.bwd"] += kb
+    # CUDA events around the wrapper: the stream's time over it, its
+    # copies, the two kernels and the host's gaps between them included
     wkv_s = events_ms(wb[-rcfg.n_layers:]) / 1e3       # the last step's
     step_s = out["step_s"][-1]
+    bh = RWKV_TRAIN_B * rcfg.n_heads
+    dev_ms = (k5_bwd_ms or {}).get(bh)
+    kernel = ("not measured" if dev_ms is None else
+              f"{rcfg.n_layers} x {dev_ms:.4f} ms = "
+              f"{rcfg.n_layers * dev_ms / 1e3:.4f} s (phase 11 (a)'s device "
+              f"time at BH {bh})")
     print(f"  {arch} ({rcfg.n_layers} layers, batch {RWKV_TRAIN_B}, seq "
           f"{TRAIN_S}, {RWKV_TRAIN_STEPS} steps): losses "
           f"{np.round(out['losses'], 4).tolist()}, grad norms "
           f"{np.round(out['grad_norms'], 3).tolist()}; steps "
           f"{np.round(out['step_s'], 3).tolist()} s; the last step's "
-          f"backward WKV (K5.bwd's wrapper, device time) {wkv_s:.4f} s, "
-          f"{100 * wkv_s / step_s:.1f}% of it; peak memory "
+          f"backward WKV (K5.bwd's wrapper, stream time with host gaps) "
+          f"{wkv_s:.4f} s, {100 * wkv_s / step_s:.1f}% of it, the kernel's "
+          f"device time {kernel}; peak memory "
           f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB over "
           f"the {base / 2**30:.2f} GiB allocated before; K5 launches "
           f"{k5} ({k5 / RWKV_TRAIN_STEPS:.0f} a step), its backward {bwd} "
@@ -4972,10 +5002,7 @@ def main() -> int:
             for line in log.splitlines():
                 m = WKV_BWD_ENTRY.search(line)
                 if m:           # K5's backward's, by kernel and argument
-                    ty = "f32" if m[2] == "f" else "bf16"
-                    entry = (f"wkv_bwd_{m[1]}<{ty}, D {m[3]}"
-                             + (f", A {m[4]}, NW {m[5]}, TB {m[6]}" if m[4]
-                                else "") + ">: ")
+                    entry = wkv_bwd_entry(m) + ": "
                 m = WKV_ENTRY.search(line)
                 if m:           # K5's instantiations, by template argument
                     entry = (f"wkv_kernel<{'f32' if m[1] == 'f' else 'bf16'}"
@@ -5493,7 +5520,9 @@ def main() -> int:
         results.update(kernel_gradients(torch, kattn, krwkv, dev, power))
     with phase(f"LM training: launch.train.run ({TRAIN_ARCH}, restart, "
                f"rwkv6-1.6b)"):
-        for name, n in lm_training(torch, kattn, krwkv, dev, card).items():
+        for name, n in lm_training(
+                torch, kattn, krwkv, dev, card,
+                results["K5.bwd"].get("ms_at")).items():
             launches[name] += n
 
     # ------------------------------------------------------------ 12 -----

@@ -25,12 +25,13 @@ replaces no TPU kernel: on the card, `wkv_chunk` wraps K5 in a
 `torch.autograd.Function` whenever grad mode is on and an input requires
 grad, and its backward launches the hand-written kernel `csrc/wkv_bwd.cu`
 (`_launch_bwd`): the adjoint recurrence in float32 over states rebuilt
-from checkpoints every TB tokens (never by dividing by w), split by rows
-of the state over blocks (`wkv_bwd_launch_params`; see the note in the
-source).  `wkv_bwd` is its plain version, which the tests and
-`chip_smoke.py` hold it to; nothing on the card's path calls it.  Without
-grad (serving, its CUDA graphs) the wrapper launches K5 exactly as before.
-On the CPU, autograd differentiates `wkv_ref` itself.
+from checkpoints (never by dividing by w), split by rows of the state over
+blocks, its inputs staged by asynchronous copies two stages ahead
+(`wkv_bwd_launch_params`; see the note in the source).  `wkv_bwd` is its
+plain version, which the tests and `chip_smoke.py` hold it to; nothing on
+the card's path calls it.  Without grad (serving, its CUDA graphs) the
+wrapper launches K5 exactly as before.  On the CPU, autograd
+differentiates `wkv_ref` itself.
 
 The dry run (`launch.dryrun`) runs the models on the `meta` device.  There
 the wrappers prepare their inputs as on the card and return empty outputs
@@ -43,12 +44,12 @@ and the state read and written once (`PERF.md` §6's bound), and the dot
 FLOPs of the reference's chunkwise `wkv_chunked` over chunks of c = min(64,
 C): per batch-head and token 4 D^2 + 4 c D + 2 D (the inter-chunk product,
 the intra-chunk scores and their product with v, the bonus term, the state
-update).  "K5.bwd": the backward kernel's 17 operations per (token, head,
-i, j) (the 14 of its bound and the states rebuilt a second time), r, k, v,
-dy, w read and dr, dk, dv, dw written once per (token, head, channel), the
-state and its gradient read and dstate0 written once, and twice the
-forward's reference dot FLOPs (the adjoint of each of `wkv_chunked`'s
-products).
+update).  "K5.bwd": the backward kernel's 17 operations per (token, head, i,
+j) (the 14 of its bound and the states rebuilt a second time), r, k, v,
+dy, w read and dr, dk, dv, dw written once per (token,
+head, channel), the state and its gradient read and dstate0 written once,
+and twice the forward's reference dot FLOPs (the adjoint of each of
+`wkv_chunked`'s products).
 
 `launches` counts K5's launches and `backward_launches` its backward's:
 each wrapper adds one where it launches its kernel, and nowhere else.
@@ -65,7 +66,8 @@ from repro_torch.kernels.build import library
 from repro_torch.obs import cost
 
 __all__ = ["wkv_chunk", "rwkv6_wkv", "wkv_ref", "wkv_bwd",
-           "wkv_launch_params", "wkv_bwd_launch_params", "HEAD_DIMS"]
+           "wkv_launch_params", "wkv_bwd_launch_params", "bwd_fit",
+           "HEAD_DIMS"]
 
 HEAD_DIMS = (32, 64, 128)       # the head sizes the kernel is built for
 _SMS = 132                      # streaming multiprocessors of an H100
@@ -132,27 +134,64 @@ def wkv_launch_params(BH: int, C: int, D: int) -> tuple:
 
 
 def wkv_bwd_launch_params(BH: int, C: int, D: int) -> tuple:
-    """(A, NW, TB) of K5's backward for BH batch-heads, C tokens and head
-    dim D: a row's D columns lie on D / 4 adjacent lanes, 4 columns a lane;
-    a lane holds A rows, a block NW warps (NW 32 A / (D / 4) rows, so D
-    over that many blocks a head), and the states are checkpointed every
-    TB tokens (TB A states of 4 columns a lane in registers).  At D = 64
-    (rwkv6's heads) two rows a lane where their 4 blocks a head give every
-    SM one, else one row, which doubles the blocks: measured fastest at
-    BH 128 and 64, and at BH 16 respectively (`tools/wkv_bwd_variants.py`,
-    `PERF.md` §6).  The kernel is built for exactly these choices
+    """(JL, A, NW, TB) of K5's backward for BH batch-heads, C tokens and
+    head dim D: a row's D columns lie on D / JL adjacent lanes, JL columns
+    a lane; a lane holds A rows, a block NW warps (NW 32 A / (D / JL) rows,
+    so D over that many blocks a head), and stages are TB tokens, the
+    states checkpointed in device memory at each.  At D = 64 (rwkv6's
+    heads), measured fastest at each BH of the main path
+    (`tools/wkv_bwd_variants.py`, `PERF.md` §6): 4 rows a lane in 4-token
+    stages where 2 rows would take two waves (BH 128: 256 blocks, one
+    wave), 2 rows in 8-token stages from BH 33, 1 row in 16-token stages
+    from BH 17, and 2 columns a lane over 8 warps below, which doubles the
+    warps an SM.  The kernel is built for exactly these choices
     (WKV_BWD_CONFIGS in csrc/wkv_bwd.cu)."""
     if D not in HEAD_DIMS:
         raise ValueError(f"wkv: head dim {D} not in {HEAD_DIMS}")
     if D == 64:
-        return (2, 4, 8) if BH * 4 >= _SMS else (1, 4, 16)
-    return (1, 2, 16) if D == 32 else (2, 8, 8)
+        if BH * 4 > 2 * _SMS:
+            return 4, 4, 4, 4
+        if BH > 32:
+            return 4, 2, 4, 8
+        return (4, 1, 4, 16) if BH > 16 else (2, 1, 8, 16)
+    return (4, 1, 2, 4) if D == 32 else (4, 2, 8, 4)
 
 
-def _bwd_blocks(C: int, D: int, A: int, NW: int, TB: int) -> tuple:
-    """(row blocks a head, checkpoints a head) of a backward launch."""
-    rows = NW * (32 // (D // 4)) * A
-    return D // rows, -(-C // TB)
+def _bwd_shape(D: int, params) -> tuple:
+    """(rows a block, row blocks a head, threads a block) of a backward
+    launch (JL, A, NW, TB)."""
+    JL, A, NW = params[:3]
+    rows = NW * (32 // (D // JL)) * A
+    return rows, D // rows, 32 * NW
+
+
+def _bwd_blocks(C: int, D: int, params) -> tuple:
+    """(row blocks a head, stages a head (a checkpoint each), tokens padded
+    to whole stages) of a backward launch (JL, A, NW, TB)."""
+    nb = -(-C // params[3])
+    return _bwd_shape(D, params)[1], nb, nb * params[3]
+
+
+def _bwd_smem(D: int, params, nbyte: int) -> int:
+    """Dynamic shared memory bytes of a backward block, r, k, v, dy of
+    `nbyte` bytes: a ring of 3 stages and a checkpoint for each, two stages
+    of the warps' dv shares, two of dr or dk and dw on their way out, u's
+    rows.  A copy of `Shape::kBytes` in csrc/wkv_bwd.cu, which is what the
+    card allocates, for the CPU tests; the card tests hold the two equal
+    (`bwd_fit`)."""
+    JL, A, NW, TB = params
+    rows, _, threads = _bwd_shape(D, params)
+    stage = TB * rows * (2 * nbyte + 4) + TB * D * 2 * nbyte + 4 * TB
+    return (3 * stage + 3 * A * JL * threads * 4 + 2 * NW * TB * D * 4
+            + 4 * TB * rows * 4 + rows * 4)
+
+
+def _bwd_min_blocks(D: int, params) -> int:
+    """The blocks an SM the kernel is compiled to fit (its launch bounds,
+    a copy of `Shape::kMinBlocks` in csrc/wkv_bwd.cu for the CPU tests): at
+    most 128 registers a thread where a lane's TB states fit in 32."""
+    JL, A, _, TB = params
+    return 512 // _bwd_shape(D, params)[2] if TB * A * JL <= 32 else 1
 
 
 def _aligned(t):
@@ -207,12 +246,29 @@ def _lib():
 def _lib_bwd(variants: bool = False):
     lib = library("wkv_bwd.cu",
                   ("REPRO_WKV_BWD_VARIANTS",) if variants else ())
-    lib.repro_wkv_bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
+    lib.repro_wkv_bwd.argtypes = [ctypes.c_void_p] * 17 \
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.repro_wkv_bwd.restype = ctypes.c_int
+    lib.repro_wkv_bwd_fit.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.repro_wkv_bwd_fit.restype = ctypes.c_int
     lib.repro_wkv_bwd_error_string.argtypes = [ctypes.c_int]
     lib.repro_wkv_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bwd_fit(dtype, D: int, params, variants: bool = False) -> dict:
+    """What the card makes of a backward launch (JL, A, NW, TB) for r of
+    `dtype` (`variants`: from the library built with the launches tried):
+    resident blocks an SM, registers and spilled bytes a thread, shared
+    memory bytes a block."""
+    lib = _lib_bwd(variants)
+    out = (ctypes.c_int * 4)()
+    err = lib.repro_wkv_bwd_fit(_DTYPES[dtype], D, *params, out)
+    if err != 0:
+        raise RuntimeError("wkv backward kernel: "
+                           + lib.repro_wkv_bwd_error_string(err).decode())
+    return dict(zip(("blocks_per_sm", "registers", "spill_bytes",
+                     "smem_bytes"), out))
 
 
 def _launch(r, k, v, w, u, state):
@@ -302,8 +358,8 @@ def _launch_bwd(r, k, v, w, u, state, dy, dstate=None, params=None):
     >= 1) launch `csrc/wkv_bwd.cu` on the current stream, raising if the
     launch fails; meta tensors allocate the outputs and the launch's
     scratch, report the launch and compute nothing; any other device
-    raises.  `params` launches that (A, NW, TB) instead of
-    `wkv_bwd_launch_params`'s, from the library built with the shapes
+    raises.  `params` launches that (JL, A, NW, TB) instead of
+    `wkv_bwd_launch_params`'s, from the library built with the launches
     tried (REPRO_WKV_BWD_VARIANTS, `tools/wkv_bwd_variants.py`)."""
     global backward_launches
     _check(r, k, v, w, u, state)
@@ -323,8 +379,8 @@ def _launch_bwd(r, k, v, w, u, state, dy, dstate=None, params=None):
         raise ValueError("wkv backward: dy and dstate must lie on r's device")
     if C < 1:
         raise ValueError("wkv backward: needs at least one token")
-    A, NW, TB = params or wkv_bwd_launch_params(BH, C, D)
-    nrb, nb = _bwd_blocks(C, D, A, NW, TB)
+    launch = tuple(params or wkv_bwd_launch_params(BH, C, D))
+    nrb, nb, cp = _bwd_blocks(C, D, launch)
     r, k, v, dy = (_aligned(t.contiguous()) for t in (r, k, v,
                                                         dy.to(r.dtype)))
     w, state = (_aligned(t.float().contiguous()) for t in (w, state))
@@ -334,9 +390,9 @@ def _launch_bwd(r, k, v, w, u, state, dy, dstate=None, params=None):
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw, du, ds0 = (torch.empty_like(t) for t in (w, u, state))
     f32 = dict(dtype=torch.float32, device=dev)
-    ck = torch.empty(BH, nb, D, D, **f32)          # states every TB tokens
-    part = torch.empty(nrb, BH, C, D, **f32)       # dv of each row block
-    dyv, ruk = torch.empty(2, BH, C, **f32)        # dy . v, sum r u k
+    ck = torch.empty(BH, nb, D, D, **f32)          # states every stage
+    dyv = torch.empty(2, BH, cp, **f32)            # dy . v, sum r u k
+    part = torch.empty(nrb, BH, C, D, **f32)       # row blocks' dv shares
     if dev.type == "meta":
         if cost.ACTIVE is not None:
             _report_bwd(r)
@@ -350,7 +406,7 @@ def _launch_bwd(r, k, v, w, u, state, dy, dstate=None, params=None):
             None if dstate is None else dstate.data_ptr(), dr.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
             ds0.data_ptr(), ck.data_ptr(), part.data_ptr(), dyv.data_ptr(),
-            ruk.data_ptr(), _DTYPES[r.dtype], BH, C, D, A, NW, TB, stream)
+            _DTYPES[r.dtype], BH, C, D, *launch, stream)
     if err != 0:
         raise RuntimeError("wkv backward kernel launch failed: "
                            + lib.repro_wkv_bwd_error_string(err).decode())

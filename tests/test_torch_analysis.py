@@ -226,8 +226,9 @@ def test_k5_meta_backward_runs_no_token_loop(monkeypatch):
     """On meta the backward allocates its outputs and scratch and reports
     its launch: the plain `wkv_bwd` (two token loops) is never reached,
     here at rwkv6-1.6b's train_4k length, and the walker's peak holds the
-    backward's scratch: the states every TB tokens and the row blocks'
-    shares of dv."""
+    backward's scratch: the states every stage of TB tokens, dy . v and
+    sum r u k a token padded to whole stages, and the row blocks' shares of
+    dv."""
     def refuse(*a, **kw):
         raise AssertionError("wkv_bwd reached on meta")
 
@@ -243,34 +244,62 @@ def test_k5_meta_backward_runs_no_token_loop(monkeypatch):
         torch.autograd.grad((y, s1), [r, k, v, wd, u, s0],
                             (meta(BH, C, D, dtype=bf), meta(BH, D, D)))
     assert w.result()["port"]["kernels"]["K5.bwd"]["launches"] == 1
-    A, NW, TB = krwkv.wkv_bwd_launch_params(BH, C, D)
-    rows = NW * (32 // (D // 4)) * A
-    scratch = 4 * BH * (C // TB * D * D + D // rows * C * D + 2 * C)
+    params = krwkv.wkv_bwd_launch_params(BH, C, D)
+    nrb, nb, cp = krwkv._bwd_blocks(C, D, params)
+    assert (nb, cp) == (C // params[3], C)
+    scratch = 4 * BH * (nb * D * D + 2 * cp + nrb * C * D)
     grads = BH * C * D * (3 * 2 + 4) + 4 * BH * (D + D * D)
     assert w.peak_raw - held >= scratch + grads
 
 
 @pytest.mark.parametrize("D", krwkv.HEAD_DIMS)
 def test_k5_backward_launch_shapes(D):
-    """Every launch `wkv_bwd_launch_params` chooses: whole rows of 4
-    columns a lane within a warp, D rows cut into whole blocks, the folded
-    sums and the staged tokens powers of two, and the block's static
-    shared memory under 48 KB."""
+    """Every launch `wkv_bwd_launch_params` chooses: whole rows of JL
+    columns a lane within a warp, D rows cut into whole blocks (at most 8 a
+    head), the folded sums and the staged tokens powers of two, the block's
+    shared memory within the card's 227 KB, and the stages and padded
+    tokens the launch's scratch takes."""
     for BH in (1, 16, 32, 33, 64, 128, 512):
-        A, NW, TB = krwkv.wkv_bwd_launch_params(BH, 300, D)
-        lanes = D // 4
-        assert lanes <= 32 and 32 % lanes == 0
-        rows = NW * (32 // lanes) * A
-        assert D % rows == 0
-        n = TB * A
-        assert n & (n - 1) == 0 and TB & (TB - 1) == 0
-        groups = NW * (32 // lanes)
-        smem = 4 * (3 * TB * rows + 2 * TB * D + groups * TB * D + TB + rows)
-        assert smem <= 48 * 1024
-        assert krwkv._bwd_blocks(300, D, A, NW, TB) == (D // rows,
-                                                        -(-300 // TB))
+        for C in (1, 77, 300, 513):
+            JL, A, NW, TB = params = krwkv.wkv_bwd_launch_params(BH, C, D)
+            lanes = D // JL
+            assert JL in (2, 4) and lanes <= 32 and 32 % lanes == 0
+            rows, nrb, threads = krwkv._bwd_shape(D, params)
+            assert rows == NW * (32 // lanes) * A and D % rows == 0
+            assert nrb == D // rows <= 8 and threads == 32 * NW
+            n = TB * A
+            assert n & (n - 1) == 0 and TB & (TB - 1) == 0 and TB >= 4
+            for nbyte in (2, 4):
+                assert rows * nbyte % 16 == 0
+                assert krwkv._bwd_smem(D, params, nbyte) <= 227 * 1024
+            nb = -(-C // TB)
+            assert krwkv._bwd_blocks(C, D, params) == (nrb, nb, nb * TB)
     with pytest.raises(ValueError, match="head dim"):
         krwkv.wkv_bwd_launch_params(4, 10, 48)
+
+
+def test_k5_backward_launch_params_fill_the_card():
+    """At rwkv6's head dim, each BH the main path gives the backward (128 at
+    batch 4, 64 at batch 2, 32 on one of 2 data ranks, 16 on one of 4 model
+    ranks) puts at least 4 warps an SM of the H100's 132 to work, and its
+    blocks fit one wave at 2 an SM: the registers its launch bounds allow a
+    thread (255, or 128 for 256 threads) fit two blocks in an SM's 65,536
+    and its shared memory fits twice in 228 KB (1 KB a block reserved).  BH
+    128 takes 4 rows a lane, 256 blocks, where 2 rows would take 512
+    blocks, two waves."""
+    sms, D = 132, 64
+    for BH in (128, 64, 32, 16):
+        params = krwkv.wkv_bwd_launch_params(BH, 512, D)
+        _, nrb, threads = krwkv._bwd_shape(D, params)
+        assert BH * nrb * threads / 32 / sms >= 4, (BH, params)
+        regs = min(255, 65536 // (threads * krwkv._bwd_min_blocks(D, params)))
+        assert 2 * threads * regs <= 65536, (BH, params)
+        smem = max(krwkv._bwd_smem(D, params, n) for n in (2, 4))
+        assert 2 * (smem + 1024) <= 228 * 1024
+        assert BH * nrb <= 2 * sms, (BH, params)
+    two_rows = krwkv.wkv_bwd_launch_params(64, 512, D)
+    assert two_rows[1] == 2
+    assert 128 * krwkv._bwd_shape(D, two_rows)[1] > 2 * sms
 
 
 def test_rms_norm_on_meta_is_counted_as_the_card_dispatches_it():

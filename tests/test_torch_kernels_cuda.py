@@ -1588,6 +1588,22 @@ def _hold_k5_bwd(got, want, dtype):
     (9, 1, 32, torch.bfloat16, False, 0.8),
     (32, 512, 64, torch.float32, True, 1e-5),      # decays that underflow
     (96, 512, 64, torch.bfloat16, False, 1e-5),
+    # each launch `wkv_bwd_launch_params` returns (4 and 2 columns a lane,
+    # 1, 2 and 4 rows, stages of 4, 8 and 16 tokens) at C = 1 and C past a
+    # whole stage, decays at 1e-5, no dstate
+    (16, 512, 64, torch.bfloat16, True, 0.8),      # one of 4 model ranks
+    (16, 513, 64, torch.bfloat16, False, 1e-5),
+    (32, 77, 64, torch.float32, False, 0.8),
+    (32, 1, 64, torch.bfloat16, True, 1e-5),
+    (64, 300, 64, torch.float32, False, 1e-5),
+    (64, 513, 64, torch.bfloat16, True, 0.8),
+    (128, 77, 64, torch.float32, True, 1e-5),
+    (128, 513, 64, torch.bfloat16, False, 0.8),
+    (128, 1, 64, torch.float32, False, 0.8),
+    (5, 513, 32, torch.float32, True, 1e-5),
+    (5, 77, 32, torch.bfloat16, False, 0.8),
+    (6, 513, 128, torch.bfloat16, True, 1e-5),
+    (6, 77, 128, torch.float32, False, 0.8),
 ])
 def test_k5_backward_kernel_matches_plain_on_card(cuda_device, BH, C, D,
                                                   dtype, with_ds, w_lo):
@@ -1602,15 +1618,39 @@ def test_k5_backward_kernel_matches_plain_on_card(cuda_device, BH, C, D,
 
 
 @pytest.mark.parametrize("BH,C,D", [(64, 512, 64), (128, 300, 64),
-                                    (6, 77, 128), (5, 33, 32)])
+                                    (6, 77, 128), (5, 33, 32),
+                                    (128, 513, 64), (16, 512, 64),
+                                    (32, 77, 64), (16, 1, 64),
+                                    (6, 513, 128), (5, 1, 32)])
 def test_k5_backward_kernel_bitwise_repeatable_on_card(cuda_device, BH, C,
                                                        D):
-    """No atomics: two launches on the same inputs agree bit for bit."""
+    """No atomics (dv's row-block shares added in a fixed order by a third
+    kernel): two launches on the same inputs agree bit for bit."""
     (r, k, v, w, u, s0), dy, ds = _k5_bwd_case(
         cuda_device, BH, C, D, torch.bfloat16, True, seed=1)
     one = krwkv._launch_bwd(r, k, v, w, u, s0, dy, ds)
     two = krwkv._launch_bwd(r, k, v, w, u, s0, dy, ds)
     assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("D,BH", [(32, 6), (64, 16), (64, 32), (64, 64),
+                                  (64, 128), (128, 6)])
+def test_k5_backward_kernel_fits_on_card(cuda_device, D, BH):
+    """Each launch `wkv_bwd_launch_params` returns, as the card reports
+    it: no spilled registers, the shared memory `_bwd_smem` counts, at
+    least the blocks an SM its launch bounds promise, and at D = 64 every
+    block of each BH the main path gives resident at once: one wave."""
+    params = krwkv.wkv_bwd_launch_params(BH, 512, D)
+    nrb = krwkv._bwd_blocks(512, D, params)[0]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for dtype in (torch.bfloat16, torch.float32):
+        fit = krwkv.bwd_fit(dtype, D, params)
+        assert fit["spill_bytes"] == 0, fit
+        assert fit["smem_bytes"] == krwkv._bwd_smem(
+            D, params, torch.tensor([], dtype=dtype).element_size())
+        assert fit["blocks_per_sm"] >= krwkv._bwd_min_blocks(D, params), fit
+        if D == 64:
+            assert fit["blocks_per_sm"] * sms >= BH * nrb, fit
 
 
 def test_k5_backward_launches_the_kernel_never_the_plain_on_card(
